@@ -1,0 +1,317 @@
+"""DINOv2-style Vision Transformer trunk in PyTorch.
+
+Counterpart of ovmono3d_tpu/models/vit.py for the DINOv2 path: f32
+parameters, activations and products in the compute dtype (bf16 by default),
+LayerNorm statistics in f32, the learned position table bicubically resized
+to the runtime grid with DINOv2's +0.1 offset, and the depth-fusion 1x1 conv
+after the last block. Attention goes through `dot_product_attention`: the
+CUDA kernel on the card, the plain version on the CPU.
+
+Submodules carry the JAX package's parameter names (`block0.attn.qkv`, ...)
+so utils/flax_bridge.py maps the two trees mechanically. The options of the
+other trunks (CLIP, MAE, SAM, MiDaS) and of training raise
+NotImplementedError naming the ROADMAP slice that ports them.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ovmono3d_tpu_torch.ops.attention import dot_product_attention
+
+_TRUNC = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
+# DINOv2 interpolate_pos_encoding's scale-factor offset (the JAX package's
+# "dinov2" preset, pos_interp_offset=0.1).
+DINOV2_POS_OFFSET = 0.1
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> None:
+    """flax lecun_normal: truncated normal, variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+class Dense(nn.Linear):
+    """Linear with f32 parameters, computed in `dtype` (flax Dense/QDense
+    with quant="none")."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=torch.bfloat16,
+                 bias: bool = True, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+    def init_lecun(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.in_features, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+
+class PatchEmbed(nn.Module):
+    """Non-overlapping patch embedding as space-to-depth + matmul.
+
+    The weight is the conv's OIHW [E, C, p, p]; the patches are flattened in
+    (p_h, p_w, c) order, so this equals a stride-p Conv2d. Returns
+    [B, h*w, E] tokens.
+    """
+
+    def __init__(self, patch_size: int, embed_dim: int, in_chans: int = 3,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        p = patch_size
+        self.patch_size = p
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.empty(embed_dim, in_chans, p, p, device=device))
+        self.bias = nn.Parameter(torch.empty(embed_dim, device=device))
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = images.shape
+        p = self.patch_size
+        h, w = H // p, W // p
+        x = images.to(self.dtype).reshape(B, h, p, w, p, C)
+        x = x.permute(0, 1, 3, 2, 4, 5).reshape(B, h * w, p * p * C)
+        w2d = self.weight.permute(0, 2, 3, 1).reshape(self.weight.shape[0], -1)
+        return F.linear(x, w2d.to(self.dtype), self.bias.to(self.dtype))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        nn.init.zeros_(self.bias)
+
+
+class LayerNormBf16Out(nn.Module):
+    """LayerNorm with f32 statistics and output in the compute dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.bfloat16,
+                 device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(dim, device=device))
+        self.bias = nn.Parameter(torch.empty(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias,
+                         self.eps)
+        return y.to(self.dtype)
+
+    def init_weights(self) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+
+class LayerScale(nn.Module):
+    def __init__(self, dim: int, init_value: float = 1e-5,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.init_value = init_value
+        self.dtype = dtype
+        self.gamma = nn.Parameter(torch.empty(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma.to(self.dtype)
+
+    def init_weights(self) -> None:
+        nn.init.constant_(self.gamma, self.init_value)
+
+
+class Mlp(nn.Module):
+    """fc1 -> exact (erf) GELU -> fc2."""
+
+    def __init__(self, dim: int, hidden_dim: int, dtype=torch.bfloat16,
+                 device=None):
+        super().__init__()
+        self.fc1 = Dense(dim, hidden_dim, dtype, device=device)
+        self.fc2 = Dense(hidden_dim, dim, dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class Attention(nn.Module):
+    """Global multi-head self-attention (no rel-pos).
+
+    `attn_fn` is the attention on [B, N, H, D] views of the qkv output;
+    it defaults to `dot_product_attention`.
+    """
+
+    def __init__(self, dim: int, num_heads: int, dtype=torch.bfloat16,
+                 device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = Dense(dim, 3 * dim, dtype, device=device)
+        self.proj = Dense(dim, dim, dtype, device=device)
+        self.attn_fn = dot_product_attention
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, C = x.shape
+        H = self.num_heads
+        qkv = self.qkv(x).view(B, N, 3, H, C // H)
+        q, k, v = qkv.unbind(2)              # strided [B, N, H, D] views
+        out = self.attn_fn(q, k, v)          # [B, N, H, D]
+        return self.proj(out.reshape(B, N, C))
+
+
+class Block(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 layerscale: bool = True, dtype=torch.bfloat16,
+                 norm_eps: float = 1e-6, device=None):
+        super().__init__()
+        self.norm1 = LayerNormBf16Out(dim, norm_eps, dtype, device)
+        self.attn = Attention(dim, num_heads, dtype, device)
+        self.norm2 = LayerNormBf16Out(dim, norm_eps, dtype, device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, device)
+        if layerscale:
+            self.ls1 = LayerScale(dim, dtype=dtype, device=device)
+            self.ls2 = LayerScale(dim, dtype=dtype, device=device)
+        else:
+            self.ls1 = self.ls2 = nn.Identity()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.ls1(self.attn(self.norm1(x)))
+        return x + self.ls2(self.mlp(self.norm2(x)))
+
+
+def _bicubic_matrix(src: int, dst: int, device) -> torch.Tensor:
+    """[dst, src] matrix of torch's 1-D bicubic resize (align_corners=False,
+    border taps clamped) with DINOv2's mapping, scale_factor =
+    (dst + DINOV2_POS_OFFSET) / src: F.interpolate applied to the src basis
+    vectors, so the weights are torch's own."""
+    basis = torch.eye(src, device=device).reshape(1, src, src, 1)
+    out = F.interpolate(basis,
+                        scale_factor=((dst + DINOV2_POS_OFFSET) / src, 1.0),
+                        mode="bicubic", align_corners=False)
+    if out.shape[2] != dst:
+        raise ValueError(f"bicubic resize gave {out.shape[2]} rows, not {dst}")
+    return out[0, :, :, 0].T
+
+
+def resize_pos_embed(pos_embed: torch.Tensor,
+                     grid_hw: tuple[int, int]) -> torch.Tensor:
+    """Bicubic-resize a [1, 1 + G*G, C] table (cls first) to the (h, w) grid
+    as DINOv2's interpolate_pos_encoding does: F.interpolate(mode="bicubic",
+    align_corners=False, scale_factor=((h + 0.1) / G, (w + 0.1) / G)).
+
+    Bicubic resizing is separable, so it runs as two f32 products with the
+    per-axis matrices: on an H100, F.interpolate on the 768-channel table
+    itself took 4.6 ms per call, more than the attention of all 12 ViT-B
+    blocks at 896^2. The size-based mapping of the CLIP/MAE trunks is not
+    ported (ROADMAP slice 7). Returns [1, 1 + h*w, C].
+    """
+    cls_pe, patch_pe = pos_embed[:, :1], pos_embed[:, 1:]
+    g = int(round(math.sqrt(patch_pe.shape[1])))
+    c = patch_pe.shape[-1]
+    h, w = grid_hw
+    if (g, g) != (h, w):
+        wy = _bicubic_matrix(g, h, pos_embed.device)
+        wx = _bicubic_matrix(g, w, pos_embed.device)
+        x = torch.einsum("hg,gkc->hkc", wy, patch_pe.reshape(g, g, c))
+        x = torch.einsum("wk,hkc->hwc", wx, x)
+        patch_pe = x.reshape(1, h * w, c)
+    return torch.cat([cls_pe, patch_pe], dim=1)
+
+
+class VisionTransformer(nn.Module):
+    """ViT trunk: NHWC image -> {'last_feat': [B, h, w, C] f32,
+    'cls': [B, C] f32}. Defaults are DINOv2 ViT-B/14."""
+
+    def __init__(self, patch_size: int = 14, embed_dim: int = 768,
+                 depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
+                 pretrain_grid: int = 37, layerscale: bool = True,
+                 use_depth_fusion: bool = True, norm_eps: float = 1e-6, dtype=torch.bfloat16, device=None,
+                 *, pre_ln: bool = False, pos_sincos: bool = False,
+                 window_size: int = 0, use_rel_pos: bool = False,
+                 neck_channels: int = 0, remat: bool = False,
+                 quant: str = "none"):
+        super().__init__()
+        unported = [
+            (pre_ln, "pre_ln (CLIP trunk): ROADMAP slice 7"),
+            (pos_sincos, "pos_sincos (MAE trunk): ROADMAP slice 7"),
+            (window_size > 0, "window_size (SAM trunk): ROADMAP slice 6"),
+            (use_rel_pos, "use_rel_pos (SAM trunk): ROADMAP slice 6"),
+            (neck_channels > 0, "neck_channels (SAM trunk): ROADMAP slice 6"),
+            (remat, "remat (training): ROADMAP slice 3"),
+            (quant != "none", f"quant={quant!r} (W8A8): ROADMAP slice 7"),
+        ]
+        for asked, what in unported:
+            if asked:
+                raise NotImplementedError(what)
+        self.patch_size = patch_size
+        self.embed_dim = embed_dim
+        self.dtype = dtype
+        self.patch_embed = PatchEmbed(patch_size, embed_dim, 3, dtype, device)
+        self.pos_embed = nn.Parameter(
+            torch.empty(1, 1 + pretrain_grid**2, embed_dim, device=device))
+        self.cls_token = nn.Parameter(
+            torch.empty(1, 1, embed_dim, device=device))
+        self.depth = depth
+        for i in range(depth):
+            self.add_module(f"block{i}", Block(
+                embed_dim, num_heads, mlp_ratio, layerscale, dtype, norm_eps,
+                device))
+        self.depth_fusion = (
+            nn.Conv2d(embed_dim + 1, embed_dim, 1, device=device)
+            if use_depth_fusion else None)
+
+    def blocks(self) -> list[Block]:
+        return [getattr(self, f"block{i}") for i in range(self.depth)]
+
+    def forward(self, images: torch.Tensor,
+                prompt_depth: torch.Tensor | None = None) -> dict:
+        """images: [B, H, W, 3] normalized; prompt_depth: [B, H', W', 1]."""
+        B, H, W, _ = images.shape
+        h, w = H // self.patch_size, W // self.patch_size
+        x = self.patch_embed(images)
+        cls = self.cls_token.expand(B, 1, self.embed_dim).to(x.dtype)
+        x = torch.cat([cls, x], dim=1)
+        pe = resize_pos_embed(self.pos_embed, (h, w))
+        x = x + pe.to(x.dtype)
+        for blk in self.blocks():
+            x = blk(x)
+        if self.depth_fusion is not None:
+            x = self._fuse_depth(x, prompt_depth, B, h, w)
+        feat = x[:, 1:].reshape(B, h, w, self.embed_dim)
+        return {"last_feat": feat.float(), "cls": x[:, 0].float()}
+
+    def _fuse_depth(self, x, prompt_depth, B, h, w):
+        """Depth-prompt fusion after the last block (reference
+        dino.py:91-105): a 1x1 conv over [patch tokens, depth]. Without a
+        depth map the depth channel is zero and contributes nothing, so only
+        the first C input channels are applied."""
+        C = self.embed_dim
+        wt = self.depth_fusion.weight[:, :, 0, 0].to(self.dtype)   # [C, C+1]
+        patch = x[:, 1:]
+        fused = F.linear(patch, wt[:, :C], self.depth_fusion.bias.to(self.dtype))
+        if prompt_depth is not None:
+            # F.interpolate bilinear, half-pixel, no antialiasing (dino.py:85).
+            d = F.interpolate(prompt_depth.permute(0, 3, 1, 2).to(self.dtype),
+                              size=(h, w), mode="bilinear",
+                              align_corners=False)
+            fused = fused + d.reshape(B, h * w, 1) * wt[:, C]
+        return torch.cat([x[:, :1], fused], dim=1)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """flax's initializers: lecun-normal kernels, zero biases, normal(0.02)
+        position table, zero cls token, LayerScale 1e-5."""
+        self.patch_embed.init_weights(generator)
+        nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=generator)
+        nn.init.zeros_(self.cls_token)
+        for blk in self.blocks():
+            blk.norm1.init_weights()
+            blk.norm2.init_weights()
+            for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
+                lin.init_lecun(generator)
+            for ls in (blk.ls1, blk.ls2):
+                if isinstance(ls, LayerScale):
+                    ls.init_weights()
+        if self.depth_fusion is not None:
+            lecun_normal_(self.depth_fusion.weight, self.embed_dim + 1,
+                          generator)
+            nn.init.zeros_(self.depth_fusion.bias)

@@ -1,0 +1,112 @@
+"""Load the JAX package's parameters into the port (the inverse of
+ovmono3d_tpu/utils/checkpoint_convert.py:28-43).
+
+The port names its submodules after the flax module names, so a flax leaf
+`a/b/c/kernel` belongs to the torch module `a.b.c`; the module's type decides
+the layout:
+
+  Dense kernel [in, out]                 -> Linear weight [out, in]
+  Conv / PatchEmbed kernel HWIO          -> weight OIHW
+  ConvTranspose kernel HWIO              -> weight IOHW, spatially flipped
+                                            (flax applies it mirrored)
+  LayerNorm scale                        -> weight
+  bias, pos_embed, cls_token, gamma      -> unchanged
+
+The mapping is strict: a flax leaf with no torch parameter, a torch parameter
+no leaf fills, or a shape that disagrees raises.
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from ovmono3d_tpu_torch.models.vit import PatchEmbed
+
+_HWIO_TO_OIHW = (3, 2, 0, 1)
+_HWIO_TO_IOHW = (2, 3, 0, 1)
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _rule(mod: nn.Module, leaf: str) -> tuple[str, tuple | None, bool]:
+    """(torch parameter name, axes permutation or None, flip H/W first)."""
+    if leaf == "kernel":
+        if isinstance(mod, nn.ConvTranspose2d):
+            return "weight", _HWIO_TO_IOHW, True
+        if isinstance(mod, (nn.Conv2d, PatchEmbed)):
+            return "weight", _HWIO_TO_OIHW, False
+        if isinstance(mod, nn.Linear):
+            return "weight", (1, 0), False
+        raise KeyError(f"no kernel layout for {type(mod).__name__}")
+    if leaf == "scale":
+        return "weight", None, False
+    return leaf, None, False
+
+
+def plan(model: nn.Module, tree: Mapping) -> dict[str, tuple]:
+    """Map every flax leaf onto one torch parameter, checking shapes.
+
+    `tree` is the params dict (or the variables dict holding 'params') with
+    array-like leaves: numpy arrays, or anything with `.shape`, such as the
+    output of jax.eval_shape. Returns {flax_path: (torch_name, perm, flip)}.
+    """
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    modules = dict(model.named_modules())
+    params = dict(model.named_parameters())
+    out: dict[str, tuple] = {}
+    taken: dict[str, str] = {}
+    for path, leaf_val in _flatten(tree).items():
+        *mod_path, leaf = path.split("/")
+        mod_name = ".".join(mod_path)
+        mod = modules.get(mod_name)
+        if mod is None:
+            raise KeyError(f"flax leaf {path}: no torch module {mod_name!r}")
+        tname, perm, flip = _rule(mod, leaf)
+        full = f"{mod_name}.{tname}" if mod_name else tname
+        if full not in params:
+            raise KeyError(f"flax leaf {path}: no torch parameter {full!r}")
+        if full in taken:
+            raise KeyError(f"{path} and {taken[full]} both map to {full}")
+        shape = tuple(leaf_val.shape)
+        if perm is not None:
+            shape = tuple(shape[i] for i in perm)
+        if shape != tuple(params[full].shape):
+            raise ValueError(f"{path} -> {full}: shape {shape} != "
+                             f"{tuple(params[full].shape)}")
+        taken[full] = path
+        out[path] = (full, perm, flip)
+    unset = sorted(set(params) - set(taken))
+    if unset:
+        raise KeyError(f"torch parameters with no flax leaf: {unset}")
+    return out
+
+
+def load_flax_params(model: nn.Module, tree: Mapping) -> None:
+    """Copy the JAX package's params (nested dict of numpy arrays) into
+    `model`, in place."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    leaves = _flatten(tree)
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for path, (full, perm, flip) in plan(model, tree).items():
+            arr = np.asarray(leaves[path], dtype=np.float32)
+            if flip:
+                arr = arr[::-1, ::-1]
+            if perm is not None:
+                arr = np.transpose(arr, perm)
+            params[full].copy_(torch.from_numpy(arr.copy()))

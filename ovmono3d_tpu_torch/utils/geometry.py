@@ -1,0 +1,95 @@
+"""3D cuboid geometry on the decode path, in f32 PyTorch.
+
+Counterpart of ovmono3d_tpu/utils/geometry.py (reference
+cubercnn/util/math_util.py). The JAX code pins Precision.HIGHEST for its
+small products; here they are written out as elementwise multiply-adds, which
+are full f32 on any device. The model's other f32 products (the cube head,
+exact ROI pooling) need `torch.backends.cuda.matmul.allow_tf32 = False` and
+`torch.backends.cudnn.allow_tf32 = False` on the card; the callers that
+build the model on CUDA set both first.
+
+Cuboid convention: box3d = [X, Y, Z, W, H, L]; the local corner template
+places L along x, H along y and W along z.
+"""
+from __future__ import annotations
+
+import torch
+
+from ovmono3d_tpu_torch.ops.rotation import axis_angle_to_matrix, matmul3
+
+_EPS = 1e-8
+
+# Local unit-cuboid corners, [8, 3] (math_util.py:151-167).
+CORNER_SIGNS = torch.tensor(
+    [
+        [-1.0, -1.0, -1.0],
+        [+1.0, -1.0, -1.0],
+        [+1.0, +1.0, -1.0],
+        [-1.0, +1.0, -1.0],
+        [-1.0, -1.0, +1.0],
+        [+1.0, -1.0, +1.0],
+        [+1.0, +1.0, +1.0],
+        [-1.0, +1.0, +1.0],
+    ]
+) * 0.5
+
+
+def cuboid_corners(box3d: torch.Tensor,
+                   R: torch.Tensor | None = None) -> torch.Tensor:
+    """[..., 6] boxes ([X, Y, Z, W, H, L]) and optional [..., 3, 3]
+    rotations -> [..., 8, 3] camera-space corners."""
+    center = box3d[..., :3]
+    whl = box3d[..., 3:6]
+    scale = torch.stack([whl[..., 2], whl[..., 1], whl[..., 0]], dim=-1)
+    signs = CORNER_SIGNS.to(device=box3d.device, dtype=box3d.dtype)
+    local = signs * scale[..., None, :]                       # [..., 8, 3]
+    if R is not None:
+        # local_k' = R @ local_k for every corner k.
+        local = (R[..., None, :, :] * local[..., :, None, :]).sum(dim=-1)
+    return local + center[..., None, :]
+
+
+def virtual_to_real_scale(focal, height, virtual_focal, virtual_height):
+    """Depth factor from the virtual focal space to the real one:
+    H0 * f / (f0 * H) (math_util.py:581-592)."""
+    return (virtual_height * focal) / (virtual_focal * height)
+
+
+def _viewing_ray_correction(K: torch.Tensor, u: torch.Tensor,
+                            v: torch.Tensor) -> torch.Tensor:
+    """Rotation aligning the optical axis with the viewing ray of (u, v)."""
+    fx, fy = K[..., 0, 0], K[..., 1, 1]
+    sx, sy = K[..., 0, 2], K[..., 1, 2]
+    ray = torch.stack([(u - sx) / fx, (v - sy) / fy, torch.ones_like(u)],
+                      dim=-1)
+    ray = ray / torch.linalg.vector_norm(ray, dim=-1,
+                                         keepdim=True).clamp(min=_EPS)
+    xy_norm = torch.sqrt(ray[..., 0] ** 2 + ray[..., 1] ** 2)
+    angle = torch.atan2(xy_norm, ray[..., 2])
+    axis = torch.stack([-ray[..., 1], ray[..., 0], torch.zeros_like(u)],
+                       dim=-1)
+    norm = torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+    M = axis_angle_to_matrix(angle[..., None] * axis / norm.clamp(min=_EPS))
+    eye = torch.eye(3, dtype=M.dtype, device=M.device).expand_as(M)
+    return torch.where((angle > _EPS)[..., None, None], M, eye)
+
+
+def R_from_allocentric(K: torch.Tensor, R_view: torch.Tensor, u: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    """Allocentric -> egocentric rotation at pixel (u, v): M @ R_view."""
+    return matmul3(_viewing_ray_correction(K, u, v), R_view)
+
+
+def scaled_sigmoid(vals, lo=0.0, hi=1.0):
+    """Sigmoid rescaled to (lo, hi) (math_util.py:969-978)."""
+    return lo + torch.sigmoid(vals) * (hi - lo)
+
+
+def backproject(K: torch.Tensor, uv: torch.Tensor,
+                z: torch.Tensor) -> torch.Tensor:
+    """Pixel coords [..., 2] and depth [...] -> camera space [..., 3]."""
+    fx, fy = K[..., 0, 0], K[..., 1, 1]
+    cx, cy = K[..., 0, 2], K[..., 1, 2]
+    x = z * (uv[..., 0] - cx) / fx
+    y = z * (uv[..., 1] - cy) / fy
+    return torch.stack([x, y, z], dim=-1)
