@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (ovmono3d_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's main path -- OVMono3D-LIFT inference on oracle 2D boxes
-with the flagship DINOv2 ViT-B/14 + SFP + cube head model at 896^2, weights
-drawn from a seed -- and holds every CUDA kernel on that path against its
-plain PyTorch version.
+Drives the port's two paths with the flagship DINOv2 ViT-B/14 + SFP model at
+896^2, weights drawn from a seed -- OVMono3D-LIFT inference on oracle 2D
+boxes, and a few training steps with the trunk unfrozen (RPN, box head and
+cube head losses, SGD) -- and holds every CUDA kernel on those paths against
+its plain PyTorch version.
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
 
+Kernels: 1 = the inference flash-attention forward, 3 = the training
+forward that also writes the row log-sum-exp, 4 = the attention backward.
+
 Phases, one line each (more for the build's resource report and the
-profile's table):
+profiles' tables):
   device  the card, its power limit, TF32 off for matmuls and cuDNN
-  build   nvcc build (or load) of the kernel library, and its time
-  kernel  flash-attention kernel vs attention_ref at the trunk, Depth-Pro
-          and a small ragged shape (max / mean abs error, absolute and
-          relative to the output), and both times
+  build   nvcc builds (or loads) of the kernel libraries, in parallel
+  kernel  kernel 1 vs attention_ref, kernel 3 vs attention_lse_ref and
+          kernel 4 vs attention_bwd_ref at the trunk, Depth-Pro and a small
+          ragged shape (max / mean abs error, absolute and relative to the
+          output); then at the trunk shape each kernel's time, its plain
+          version's, F.scaled_dot_product_attention's forward or backward
+          on the same views (a yardstick the port never calls) and the
+          card's bound for the work
   slice   3 warm-up + 10 timed requests (B=1, 64 oracle boxes, as bench.py
           builds them): launches per forward, finite [1, 64, ...]
           detections, img/s, p50, peak memory; then the same model with
@@ -26,13 +34,31 @@ profile's table):
           with the pose bias at its zero init and at the identity: kernel
           vs attention_ref, and attention_ref vs the same math with f32
           probabilities
+  train   the flagship with the trunk unfrozen, default SGD solver, on a
+          synthetic batch of 8 images (16 GT slots each, 3D boxes in front
+          of the camera, 2D boxes their projected cuboids): 2 warm-up + 5
+          timed steps (ms/step, img/s, peak memory, kernel 3 and 4
+          launches per step, finite losses, no skip, every trunk
+          parameter moved); a profile of 2 steps (device time by op, idle
+          share); then one B=1 loss and gradient from the same state with
+          the kernels and with attention_ref, all on the kernel run's
+          proposals (how many the plain run's own would change is
+          printed): total loss within 1e-2; every trunk gradient, the
+          plain run's fed the kernel run's gradient at the trunk output,
+          within 5e-2 of the plain one's norm, each with its margin; the
+          gradients from each run's own heads, and attention_ref in f32
+          against bf16, printed beside
 Then a JSON line of the kernels, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failure raises before that line and the
 exit code is not 0.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -40,22 +66,36 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from ovmono3d_tpu_torch.config import flagship_config  # noqa: E402
+from ovmono3d_tpu_torch.config import SolverConfig, flagship_config  # noqa: E402
+from ovmono3d_tpu_torch.models import rcnn3d  # noqa: E402
 from ovmono3d_tpu_torch.models.rcnn3d import build_model  # noqa: E402
+from ovmono3d_tpu_torch.ops.boxes import uniform_draws  # noqa: E402
 from ovmono3d_tpu_torch.ops import attention  # noqa: E402
+from ovmono3d_tpu_torch.parallel.train_step import (  # noqa: E402
+    create_train_state,
+    make_train_step,
+)
+from ovmono3d_tpu_torch.structures import GroundTruth  # noqa: E402
+from ovmono3d_tpu_torch.train.optim import Optimizer  # noqa: E402
 from ovmono3d_tpu_torch.utils import cuda_build  # noqa: E402
+from ovmono3d_tpu_torch.utils import geometry as geom  # noqa: E402
 
 KERNEL_SHAPES = {"trunk": (1, 4097, 12, 64), "depth_pro": (1, 577, 16, 64),
                  "ragged": (2, 77, 12, 64)}
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate and HBM3.
+PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 MAX_ERR, MEAN_ERR = 2e-2, 2e-3
 # Relative limits beside the absolute ones: at N=4097 the outputs are ~0.02,
 # where 2e-2 absolute would pass an error of several percent.
 MAX_REL, MEAN_REL = 5e-2, 1e-2
 WARMUP, TIMED, PLAIN_TIMED = 3, 10, 3
 S, N_BOXES = 896, 64
+TRAIN_B, TRAIN_GT, TRAIN_WARMUP, TRAIN_TIMED = 8, 16, 2, 5
+TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-2, 5e-2
 
 
 def say(phase: str, msg: str) -> None:
@@ -88,13 +128,20 @@ def device_phase() -> str:
 def build_phase() -> None:
     t0 = time.perf_counter()
     attention.build_kernels()
-    lib = cuda_build.library_path("ovmono3d_attn", attention._KERNEL_SOURCES)
-    say("build", f"{lib.name} ready in {time.perf_counter() - t0:.1f} s")
-    log = lib.with_name(lib.name + ".log")
-    if log.is_file():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                say("build", line.strip())
+    libs = [cuda_build.library_path(src) for src in attention.KERNEL_SOURCES]
+    say("build", f"{', '.join(lib.name for lib in libs)} ready in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        log = lib.with_name(lib.name + ".log")
+        if log.is_file():
+            for line in log.read_text().splitlines():
+                m = re.search(r"(flash_[a-z_]+_kernel)(ILb([01])E)?", line)
+                if "Compiling entry" in line and m:
+                    flag = {"0": "<false>", "1": "<true>", None: ""}[m[3]]
+                    say("build", f"{lib.stem.rsplit('_', 1)[0][3:]}: "
+                                 f"{m[1]}{flag}")
+                elif "registers" in line or "spill" in line:
+                    say("build", "  " + line.strip())
 
 
 def qkv_views(b, n, h, d, seed):
@@ -120,33 +167,113 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_phase() -> dict:
-    worst = 0.0
-    for i, (name, shape) in enumerate(KERNEL_SHAPES.items()):
-        q, k, v = qkv_views(*shape, seed=i)
-        got = attention.flash_attention_packed(q, k, v).float()
-        want = attention.attention_ref(q, k, v).float()
-        torch.cuda.synchronize()
-        err, ref = (got - want).abs(), want.abs()
-        mx, mean = err.max().item(), err.mean().item()
-        ref_mx, ref_mean = ref.max().item(), ref.mean().item()
-        say("kernel", f"{name} B,N,H,D={shape}: max_abs_err {mx:.3e} "
-                      f"mean_abs_err {mean:.3e}; max/mean |ref| "
-                      f"{ref_mx:.3e} / {ref_mean:.3e}")
-        check(bool(torch.isfinite(got).all()), f"{name}: finite output")
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                absolute: bool = False) -> float:
+    """Hold `got` to `want` under the relative limits (and, for kernel 1's
+    bf16 outputs, the absolute ones too); returns the max abs error."""
+    got, want = got.float(), want.float()
+    err, ref = (got - want).abs(), want.abs()
+    mx, mean = err.max().item(), err.mean().item()
+    ref_mx, ref_mean = ref.max().item(), ref.mean().item()
+    say("kernel", f"{name}: max_abs_err {mx:.3e} mean_abs_err {mean:.3e}; "
+                  f"max/mean |ref| {ref_mx:.3e} / {ref_mean:.3e}")
+    check(bool(torch.isfinite(got).all()), f"{name}: finite output")
+    if absolute:
         check(mx <= MAX_ERR and mean <= MEAN_ERR,
               f"{name}: error within {MAX_ERR} max / {MEAN_ERR} mean")
-        check(mx <= MAX_REL * ref_mx and mean <= MEAN_REL * ref_mean,
-              f"{name}: error within {MAX_REL} of max |ref| and {MEAN_REL} "
-              f"of mean |ref|")
-        worst = max(worst, mx)
-    q, k, v = qkv_views(*KERNEL_SHAPES["trunk"], seed=0)
-    with torch.inference_mode():
-        ms = time_ms(lambda: attention.flash_attention_packed(q, k, v))
-        plain_ms = time_ms(lambda: attention.attention_ref(q, k, v))
-    say("kernel", f"trunk shape, median of 20: kernel {ms:.4f} ms, "
-                  f"attention_ref {plain_ms:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    check(mx <= MAX_REL * ref_mx and mean <= MEAN_REL * ref_mean,
+          f"{name}: error within {MAX_REL} of max |ref| and {MEAN_REL} "
+          f"of mean |ref|")
+    return mx
+
+
+def bound_ms(b: int, n: int, h: int, d: int, kind: str) -> tuple[float, str]:
+    """The least time the card could take for attention's work at [B, N, H,
+    D]: the larger of the tensor-core time (4 B H N^2 D flops forward, 10
+    B H N^2 D backward: the JAX kernels' cost estimates) and the memory
+    time (each input read once, each output written once)."""
+    elems = b * n * h * d
+    if kind == "bwd":
+        flops = 10 * b * h * n * n * d
+        nbytes = 8 * elems * 2 + 2 * b * h * n * 4   # q k v o do dq dk dv; lse, delta
+    else:
+        flops = 4 * b * h * n * n * d
+        nbytes = 4 * elems * 2 + (b * h * n * 4 if kind == "lse" else 0)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa_views(q, k, v):
+    """The same strided views in SDPA's [B, H, N, D] layout (no copy)."""
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def kernel_phase() -> dict:
+    """Kernels 1, 3 and 4 against their plain versions at the three shapes,
+    then their times at the trunk shape. Launches made here are not the
+    main path's: the paths reset the counts before they run."""
+    worst = {"fwd": 0.0, "lse": 0.0, "bwd": 0.0}
+    for i, (name, shape) in enumerate(KERNEL_SHAPES.items()):
+        q, k, v = qkv_views(*shape, seed=i)
+        do = qkv_views(*shape, seed=100 + i)[0]
+        with torch.no_grad():
+            got = attention.flash_attention_packed(q, k, v)
+            worst["fwd"] = max(worst["fwd"], check_close(
+                f"k1 {name} {shape} out", got,
+                attention.attention_ref(q, k, v), absolute=True))
+            o, lse = attention.flash_attention_packed_lse(q, k, v)
+            want_o, want_lse = attention.attention_lse_ref(q, k, v)
+            worst["lse"] = max(worst["lse"],
+                               check_close(f"k3 {name} out", o, want_o),
+                               check_close(f"k3 {name} lse", lse, want_lse))
+            grad = attention.flash_attention_packed_bwd(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+            want = attention.attention_bwd_ref(q, k, v, o, lse, do)
+            for g, w, gname in zip(grad.unbind(2), want, ("dq", "dk", "dv")):
+                worst["bwd"] = max(worst["bwd"], check_close(
+                    f"k4 {name} {gname}", g, w))
+            del grad, want, want_o, want_lse
+    b, n, h, d = KERNEL_SHAPES["trunk"]
+    q, k, v = qkv_views(b, n, h, d, seed=0)
+    do = qkv_views(b, n, h, d, seed=100)[0]
+    out = {}
+    with torch.no_grad():
+        o, lse = attention.flash_attention_packed_lse(q, k, v)
+        qs, ks, vs = sdpa_views(q, k, v)
+        out["fwd"] = {
+            "ms": time_ms(lambda: attention.flash_attention_packed(q, k, v)),
+            "plain_ms": time_ms(lambda: attention.attention_ref(q, k, v)),
+            "library_ms": time_ms(
+                lambda: F.scaled_dot_product_attention(qs, ks, vs))}
+        out["lse"] = {
+            "ms": time_ms(lambda: attention.flash_attention_packed_lse(q, k, v)),
+            "plain_ms": time_ms(lambda: attention.attention_lse_ref(q, k, v)),
+            "library_ms": out["fwd"]["library_ms"]}
+        bwd_ms = time_ms(
+            lambda: attention.flash_attention_packed_bwd(q, k, v, o, lse, do))
+        bwd_plain = time_ms(
+            lambda: attention.attention_bwd_ref(q, k, v, o, lse, do), reps=5)
+    # SDPA's backward alone: one forward with autograd, then the timed
+    # gradient calls reuse its graph.
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(*sdpa_views(qg, kg, vg))
+    do_t = do.transpose(1, 2)
+    out["bwd"] = {"ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": time_ms(
+        lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do_t,
+                                    retain_graph=True))}
+    del sdpa_out
+    for kind in ("fwd", "lse", "bwd"):
+        out[kind]["max_abs_err"] = worst[kind]
+        out[kind]["bound_ms"], out[kind]["bound_by"] = bound_ms(b, n, h, d,
+                                                                kind)
+        say("kernel", f"trunk {KERNEL_SHAPES['trunk']} {kind}, median of "
+                      f"timed calls: kernel {out[kind]['ms']:.4f} ms, plain "
+                      f"{out[kind]['plain_ms']:.4f} ms, SDPA "
+                      f"{out[kind]['library_ms']:.4f} ms, bound "
+                      f"{out[kind]['bound_ms']:.4f} ms "
+                      f"({out[kind]['bound_by']})")
+    return out
 
 
 def bench_inputs():
@@ -263,24 +390,36 @@ def slice_phase():
 
 
 def set_attention(model, fn) -> None:
+    """Route every trunk block's attention through `fn(q, k, v)`, or the
+    port's dispatcher when fn is attention.dot_product_attention."""
+    packed = (fn if fn is attention.dot_product_attention
+              else lambda qkv: fn(*qkv.unbind(2)))
     for blk in model.backbone.vit.blocks():
-        blk.attn.attn_fn = fn
+        blk.attn.attn_fn = packed
 
 
 def profile_phase(model, images, inputs, p50_ms: float) -> None:
-    """torch.profiler over the kernel path. Device time is summed over the
+    """torch.profiler over serving requests of the kernel path."""
+    with torch.inference_mode():
+        serve(model, images[:1], inputs)
+        device_profile("profile", lambda: serve(model, images, inputs),
+                       len(images), p50_ms, per="image", repeat=1)
+
+
+def device_profile(phase: str, run, n: int, p50_ms: float,
+                   per: str = "step", repeat: int | None = None) -> None:
+    """torch.profiler over `run` (one call covers n items, or n calls of
+    one item each when repeat is None). Device time is summed over the
     device's own events; each is put under the aten op that launched it, or
-    under its own name when no aten op did (the ctypes-launched attention
-    kernel)."""
+    under its own name when no aten op did (the ctypes-launched kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    n = len(images)
-    with torch.inference_mode():
-        serve(model, images[:1], inputs)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            serve(model, images, inputs)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n if repeat is None else repeat):
+            run()
+        torch.cuda.synchronize()
     events = prof.events()
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     by_name = {}
@@ -302,13 +441,13 @@ def profile_phase(model, images, inputs, p50_ms: float) -> None:
             by_op[name] = by_op.get(name, 0.0) + us
     busy = sum(e.time_range.elapsed_us() for e in device) / 1e3 / n
     check(busy > 0, "the profiler saw device time")
-    say("profile", f"{n} requests: device busy {busy:.3f} ms per image, "
-                   f"{len(device) / n:.0f} device ops per image; against the "
-                   f"slice's p50 {p50_ms:.3f} ms the device idles "
-                   f"{max(0.0, 1 - busy / p50_ms):.1%}")
+    say(phase, f"{n} {per}s profiled: device busy {busy:.3f} ms per {per}, "
+               f"{len(device) / n:.0f} device ops per {per}; against the "
+               f"p50 of {p50_ms:.3f} ms the device idles "
+               f"{max(0.0, 1 - busy / p50_ms):.1%}")
     for key, us in sorted(by_op.items(), key=lambda kv: -kv[1])[:12]:
         ms = us / 1e3 / n
-        say("profile", f"  {ms:8.3f} ms/image {ms / busy:6.1%}  {key[:90]}")
+        say(phase, f"  {ms:8.3f} ms/{per} {ms / busy:6.1%}  {key[:90]}")
 
 
 def attention_f32_probs(q, k, v):
@@ -340,6 +479,298 @@ def sensitivity_phase(model, image, inputs) -> None:
     set_attention(model, attention.dot_product_attention)
 
 
+def synthetic_batch(b: int, m: int, seed: int, size: int = S,
+                    dev: str = "cuda") -> dict:
+    """A self-consistent training batch from a seeded generator on `dev`:
+    3D boxes in front of the camera (f = 1000 px at 896^2), random yaw,
+    their 2D boxes the projected cuboids, 8..m valid GT slots of m per
+    image."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def uni(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, generator=g, device=dev)
+
+    f = 1000.0 * size / S
+    K = torch.tensor([[f, 0, size / 2], [0, f, size / 2], [0, 0, 1]],
+                     device=dev).expand(b, 3, 3).contiguous()
+    center = torch.stack([uni(-2, 2, b, m), uni(-1, 1, b, m),
+                          uni(5, 20, b, m)], -1)
+    dims = uni(0.4, 2.5, b, m, 3)                        # w, h, l
+    yaw = uni(-math.pi, math.pi, b, m)
+    c, s_ = torch.cos(yaw), torch.sin(yaw)
+    zero, one = torch.zeros_like(yaw), torch.ones_like(yaw)
+    poses = torch.stack([c, zero, s_, zero, one, zero, -s_, zero, c],
+                        -1).reshape(b, m, 3, 3)
+    corners = geom.cuboid_corners(torch.cat([center, dims], -1), poses)
+    uvz = geom.project_points(K[:, None], corners)          # [b, m, 8, 3]
+    uv = uvz[..., :2].clamp(0.0, size - 1.0)
+    boxes = torch.cat([uv.amin(-2), uv.amax(-2)], -1)
+    ctr = geom.project_points(K[:, None], center[..., None, :])[..., 0, :2]
+    n_valid = torch.randint(min(8, m), m + 1, (b, 1), generator=g, device=dev)
+    return {
+        "image": uni(0, 255, b, size, size, 3), "K": K,
+        "im_hw": torch.full((b, 2), size, dtype=torch.int32, device=dev),
+        "im_scale_ratio": torch.ones(b, device=dev),
+        "gt_boxes": boxes,
+        "gt_classes": torch.randint(0, 50, (b, m), generator=g, device=dev),
+        "gt_boxes3d": torch.cat([ctr, center[..., 2:], dims, center], -1),
+        "gt_poses": poses,
+        "gt_valid": torch.arange(m, device=dev)[None] < n_valid,
+    }
+
+
+def check_losses(metrics: dict, what: str) -> None:
+    for name, v in metrics.items():
+        check(bool(torch.isfinite(v).all()), f"{what}: {name} finite")
+
+
+def reset_train_counts() -> None:
+    for fn in (attention.flash_attention_packed,
+               attention.flash_attention_packed_lse,
+               attention.flash_attention_packed_bwd):
+        fn.launches = 0
+
+
+def train_phase() -> dict:
+    """Train steps of the flagship with the trunk unfrozen; returns the
+    launches of kernels 3 and 4 in the timed steps."""
+    t0 = time.perf_counter()
+    cfg = flagship_config(S)
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, freeze=False))
+    model = build_model(cfg, device="cuda", seed=0)
+    blocks = model.backbone.vit.blocks()
+    # LayerScales as in the slice phase, so attention shows in the loss and
+    # in every trunk gradient the comparison below reads.
+    with torch.no_grad():
+        for blk in blocks:
+            blk.ls1.gamma.fill_(0.1)
+            blk.ls2.gamma.fill_(0.1)
+    opt = Optimizer(SolverConfig(), model)
+    state = create_train_state(model, opt, seed=0)
+    step = make_train_step(model, opt, cfg.stabilize)
+    batch = synthetic_batch(TRAIN_B, TRAIN_GT, seed=1)
+    trunk0 = {n: p.detach().clone()
+              for n, p in model.backbone.vit.named_parameters()}
+    say("train", f"flagship unfrozen (896^2, B={TRAIN_B}, {TRAIN_GT} GT "
+                 f"slots, SGD lr {opt.lr('default').item():.3e} "
+                 f"at step 0) built in {time.perf_counter() - t0:.1f} s; "
+                 f"{sum(p.numel() for p in opt.params)} trainable parameters")
+    for _ in range(TRAIN_WARMUP):
+        state, metrics = step(state, batch)
+        check_losses(metrics, "warm-up step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counts()
+    lats = []
+    for _ in range(TRAIN_TIMED):
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        lats.append(time.perf_counter() - t1)
+        check_losses(metrics, "timed step")
+    launches = {"lse": attention.flash_attention_packed_lse.launches,
+                "bwd": attention.flash_attention_packed_bwd.launches,
+                "fwd": attention.flash_attention_packed.launches}
+    peak = torch.cuda.max_memory_allocated()
+    n_blocks = len(blocks)
+    check(launches["lse"] == launches["bwd"] == n_blocks * TRAIN_TIMED,
+          f"kernel 3/4 launches {launches} for {TRAIN_TIMED} steps of "
+          f"{n_blocks} blocks")
+    check(launches["fwd"] == 0, "the train steps launched no inference "
+                                "kernel")
+    check(int(state.skipped) == 0, f"{int(state.skipped)} steps skipped")
+    moved = [n for n, p in model.backbone.vit.named_parameters()
+             if not torch.equal(p.detach(), trunk0[n])]
+    check(len(moved) == len(trunk0),
+          f"{len(trunk0) - len(moved)} trunk parameters did not move")
+    p50 = statistics.median(lats)
+    say("train", f"{TRAIN_TIMED} timed steps: "
+                 f"{sum(lats) / len(lats) * 1e3:.3f} ms/step mean, p50 "
+                 f"{p50 * 1e3:.3f} ms, {TRAIN_B * len(lats) / sum(lats):.3f} "
+                 f"img/s (all images over all the steps' time); peak memory "
+                 f"{peak} bytes; per step {launches['lse'] // TRAIN_TIMED} "
+                 f"kernel-3 and {launches['bwd'] // TRAIN_TIMED} kernel-4 "
+                 f"launches; total loss {float(metrics['total_loss']):.4f}; "
+                 + ", ".join(f"{k} {float(v):.4f}" for k, v in metrics.items()
+                             if k not in ("total_loss", "skipped")))
+    device_profile("train", lambda: step(state, batch), 2, p50 * 1e3)
+    compare_train_step(model, batch)
+    return launches
+
+
+def _unmatched(a: torch.Tensor, valid_a: torch.Tensor, b: torch.Tensor,
+               valid_b: torch.Tensor) -> int:
+    """How many valid boxes of a [1, n, 4] have no valid box of b within
+    1 px in every coordinate: proposals that one run picked and the other
+    did not (the same anchor moved by rounding stays well within 1 px)."""
+    d = (a[0, :, None] - b[0, None]).abs().amax(-1)
+    d = torch.where(valid_b[0][None], d, torch.full_like(d, math.inf))
+    return int(((d.amin(-1) > 1.0) & valid_a[0]).sum())
+
+
+def compare_train_step(model, batch) -> None:
+    """One B=1 loss and gradient from the same state, with the kernels and
+    with attention_ref in every block, and the same sampling draws.
+
+    Attention's bf16 rounding differs between the two paths, and the RPN's
+    proposals are discrete decisions (top-k, NMS at IoU 0.7) that a small
+    change of its outputs flips; a different proposal changes the sampled
+    boxes and with them the ROI losses. So every run is given the kernel
+    run's proposals: the plain run also makes its own, and the line reports
+    how far its RPN outputs moved and how many of its proposals and sampled
+    boxes differ.
+
+    The heads after the trunk run no kernel, but their losses (corner L1,
+    chamfer minima, ReLUs) turn tiny differences of the trunk's output into
+    different gradients at that output: attention_ref in f32 moves the
+    trunk's gradients as far from attention_ref in bf16 as the kernels do,
+    and by how much changes with the state the steps before left, which
+    differs slightly between runs (some backward ops accumulate in a
+    nondeterministic order on the card). So the checked trunk gradients
+    start from one upstream gradient: the plain run's trunk backward is fed
+    the kernel run's gradient at the trunk's output, and what differs is the
+    trunk's own forward and backward, where the kernels are. The gradients
+    from each run's own heads are printed beside, unchecked, with
+    attention_ref in f32 against bf16 as their yardstick."""
+    one = {k: v[:1] for k, v in batch.items()}
+    gt = GroundTruth(boxes=one["gt_boxes"], classes=one["gt_classes"],
+                     boxes3d=one["gt_boxes3d"], poses=one["gt_poses"],
+                     valid=one["gt_valid"])
+    dev = one["image"].device
+    g = torch.Generator(device=dev).manual_seed(2)
+    feats_hw = [one["image"].shape[1] // st for st in model.feature_strides]
+    n_anchors = sum(len(model.cfg.anchors.aspect_ratios) * hw * hw
+                    for hw in feats_hw)
+    n_props = model.cfg.rpn.post_nms_topk_train + one["gt_boxes"].shape[1]
+    draws = {"anchor": uniform_draws((1, 2, n_anchors), g, dev),
+             "proposal": uniform_draws((1, 2, n_props), g, dev)}
+
+    rpn_proposals, sample_proposals = (rcnn3d.rpn_proposals,
+                                       rcnn3d.sample_proposals)
+    seen: dict = {}
+
+    def replay_proposals(logits, deltas, *args):
+        own = rpn_proposals(logits, deltas, *args)
+        if "kernel" not in seen:
+            seen["kernel"] = (logits, deltas, own)
+            return own
+        k_logits, k_deltas, kept = seen["kernel"]
+        if "own" not in seen:                 # the first plain run's
+            seen["own"] = own
+            seen["rpn"] = ((logits - k_logits).abs().max().item(),
+                           (deltas - k_deltas).abs().max().item(),
+                           _unmatched(own[0], own[2], kept[0], kept[2]),
+                           int(own[2].sum()))
+        return kept
+
+    def sample_both(prop_boxes, prop_valid, *args, **kw):
+        out = sample_proposals(prop_boxes, prop_valid, *args, **kw)
+        if "own" in seen and "sampled" not in seen:
+            own_boxes, _, own_valid = seen["own"]
+            p = own_boxes.shape[1]
+            mine = sample_proposals(
+                torch.cat([own_boxes, prop_boxes[:, p:]], 1),
+                torch.cat([own_valid, prop_valid[:, p:]], 1), *args, **kw)
+            seen["sampled"] = (
+                _unmatched(mine["boxes"], mine["valid"], out["boxes"],
+                           out["valid"]),
+                int(out["valid"].sum()), int(mine["fg"].sum()),
+                int(out["fg"].sum()))
+        return out
+
+    upstream: dict = {}
+
+    def at_trunk_output(module, args, out):
+        feat = out["last_feat"]
+        if "grad" not in upstream:            # the kernel run's
+            feat.register_hook(
+                lambda grad: upstream.__setitem__("grad", grad.clone()))
+        elif upstream["share"]:
+            feat.register_hook(lambda grad: upstream["grad"])
+
+    vit = model.backbone.vit
+    trunk = dict(vit.named_parameters())
+    n_blocks = len(vit.blocks())
+    runs = (("kernel", attention.dot_product_attention, False),
+            ("plain", attention.attention_ref, False),
+            ("plain_f32", attention_f32_probs, False),
+            ("plain_shared", attention.attention_ref, True),
+            ("plain_f32_shared", attention_f32_probs, True))
+    out = {}
+    rcnn3d.rpn_proposals, rcnn3d.sample_proposals = (replay_proposals,
+                                                     sample_both)
+    hook = vit.register_forward_hook(at_trunk_output)
+    try:
+        for name, fn, share in runs:
+            set_attention(model, fn)
+            upstream["share"] = share
+            reset_train_counts()
+            torch.cuda.reset_peak_memory_stats()
+            losses = model.compute_losses(one["image"], one["K"],
+                                          one["im_hw"], one["im_scale_ratio"],
+                                          gt, draws=draws)
+            total = sum(losses.values())
+            grads = torch.autograd.grad(total, list(trunk.values()))
+            total = total.detach()
+            torch.cuda.synchronize()
+            launched = attention.flash_attention_packed_bwd.launches
+            check(launched == (n_blocks if name == "kernel" else 0),
+                  f"{name} run: {launched} kernel-4 launches")
+            out[name] = (total.item(), dict(zip(trunk, grads)),
+                         torch.cuda.max_memory_allocated(),
+                         {k: v.item() for k, v in losses.items()})
+            del losses, total, grads
+    finally:
+        hook.remove()
+        rcnn3d.rpn_proposals, rcnn3d.sample_proposals = (rpn_proposals,
+                                                         sample_proposals)
+        set_attention(model, attention.dot_product_attention)
+    (lk, gk, mem_k, parts_k), (lp, gp, mem_p, parts_p) = (out["kernel"],
+                                                          out["plain"])
+    d_logit, d_delta, props_diff, props_n = seen["rpn"]
+    samp_diff, samp_n, fg_own, fg_kept = seen["sampled"]
+    say("train", f"B=1 plain run vs kernel run, before the replay: RPN "
+                 f"logits max |diff| {d_logit:.3e}, deltas {d_delta:.3e}; "
+                 f"{props_diff} of its {props_n} valid proposals and "
+                 f"{samp_diff} of its {samp_n} sampled boxes have no match "
+                 f"within 1 px in the kernel run's (foreground {fg_own} vs "
+                 f"{fg_kept}); every run uses the kernel run's proposals")
+    loss_rel = abs(lk - lp) / abs(lp)
+    say("train", f"B=1 kernel vs plain: total loss {lk:.6f} vs {lp:.6f} "
+                 f"(rel {loss_rel:.3e}, limit {TRAIN_LOSS_REL}, margin "
+                 f"{TRAIN_LOSS_REL / max(loss_rel, 1e-30):.1f}x); "
+                 + ", ".join(f"{k} {parts_k[k]:.5f}/{parts_p[k]:.5f}"
+                             for k in parts_k)
+                 + f"; peak memory kernel {mem_k} B, plain {mem_p} B, plain "
+                 f"in f32 {out['plain_f32'][2]} B")
+
+    def rel(a: str, b: str) -> dict:
+        ga, gb = out[a][1], out[b][1]
+        return {n: ((ga[n] - gb[n]).norm() / gb[n].norm()).item() for n in gb}
+
+    def summary(r: dict) -> str:
+        worst = sorted(r.items(), key=lambda kv: -kv[1])[:3]
+        return (f"median {statistics.median(r.values()):.3e}, worst "
+                + ", ".join(f"{n} {v:.3e}" for n, v in worst))
+
+    say("train", "B=1 trunk gradient ||g_a - g_b|| / ||g_b||, each run's own "
+                 "heads (not checked): kernel vs plain "
+                 + summary(rel("kernel", "plain")) + "; plain vs plain in "
+                 "f32 " + summary(rel("plain", "plain_f32")))
+    checked = rel("kernel", "plain_shared")
+    worst = max(checked.values())
+    say("train", "B=1 trunk gradient from the kernel run's gradient at the "
+                 "trunk output: kernel vs plain " + summary(checked)
+                 + f" (limit {TRAIN_GRAD_REL}, margin "
+                 f"{TRAIN_GRAD_REL / max(worst, 1e-30):.2f}x); plain vs plain "
+                 "in f32 " + summary(rel("plain_shared", "plain_f32_shared")))
+    check(loss_rel <= TRAIN_LOSS_REL,
+          f"total loss within {TRAIN_LOSS_REL} relative")
+    check(worst <= TRAIN_GRAD_REL,
+          f"every trunk gradient within {TRAIN_GRAD_REL} relative")
+
+
 def main() -> None:
     card = device_phase()
     build_phase()
@@ -347,16 +778,29 @@ def main() -> None:
     model, images, inputs, launches, p50_ms = slice_phase()
     profile_phase(model, images[WARMUP:WARMUP + 5], inputs, p50_ms)
     sensitivity_phase(model, images[WARMUP], inputs)
-    print(json.dumps({"kernels": [{
-        "name": "flash_attn_fwd_bf16",
-        "route": "cuda",
-        "source": "ovmono3d_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "ovmono3d_tpu/ops/attention.py:238",
-        "launches": launches,
-        "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"],
-        "plain_ms": k["plain_ms"],
-    }]}), flush=True)
+    del model, images, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = train_phase()
+    launches = {"fwd": launches, "lse": train_launches["lse"],
+                "bwd": train_launches["bwd"]}
+    src = "ovmono3d_tpu_torch/csrc/"
+    meta = {
+        "fwd": ("flash_attn_fwd_bf16", src + "flash_attn_fwd.cu",
+                "ovmono3d_tpu/ops/attention.py:238"),
+        "lse": ("flash_attn_fwd_bf16+lse", src + "flash_attn_fwd.cu",
+                "ovmono3d_tpu/ops/attention.py:559"),
+        "bwd": ("flash_attn_bwd_bf16", src + "flash_attn_bwd.cu",
+                "ovmono3d_tpu/ops/attention.py:691"),
+    }
+    kernels = []
+    for kind, (name, source, replaces) in meta.items():
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[kind],
+                        **{key: k[kind][key] for key in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

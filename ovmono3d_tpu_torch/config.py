@@ -1,8 +1,9 @@
-"""Model configuration for the port: the fields the oracle-2D LIFT path reads.
+"""Configuration for the port: the fields the oracle-2D LIFT path and the
+training step read.
 
 Same names and defaults as ovmono3d_tpu/config.py (a test holds them field
-by field against the JAX dataclasses). YAML loading and the solver, input,
-dataset and test sections arrive with the slices that read them.
+by field against the JAX dataclasses). YAML loading and the input, dataset
+and evaluation sections arrive with the slices that read them.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ class BackboneConfig:
     pretrain_grid: int = 37
     use_depth_fusion: bool = True
     layerscale: bool = True
-    remat: bool = False             # training: ROADMAP slice 3
+    freeze: bool = True             # requires_grad=False on the ViT trunk
+    remat: bool = False             # activation checkpointing: queued
     out_channels: int = 256         # SFP channels
     scale_factors: tuple[float, ...] = (2.0, 1.0, 0.5)
     square_pad: int = 896           # fixed input side
@@ -28,9 +30,46 @@ class BackboneConfig:
 
 
 @dataclass(frozen=True)
+class AnchorConfig:
+    sizes: tuple[tuple[float, ...], ...] = ((64.0,), (256.0,), (512.0,))
+    aspect_ratios: tuple[float, ...] = (0.5, 1.0, 2.0)
+    offset: float = 0.0
+
+
+@dataclass(frozen=True)
 class RPNConfig:
-    # The pooled levels; the rest of the RPN is ROADMAP slice 2.
     in_features: tuple[str, ...] = ("p2", "p3", "p4")
+    pre_nms_topk_train: int = 2000  # per level
+    pre_nms_topk_test: int = 1000
+    post_nms_topk_train: int = 1000
+    post_nms_topk_test: int = 1000
+    nms_thresh: float = 0.7
+    iou_thresholds: tuple[float, float] = (0.05, 0.05)
+    positive_fraction: float = 1.0
+    batch_size_per_image: int = 256
+    ignore_threshold: float = 0.5
+    objectness: str = "IoUness"
+    boundary_thresh: float = -1.0
+    loss_weight: float = 1.0
+    min_box_size: float = 0.0
+
+
+@dataclass(frozen=True)
+class ROIBoxConfig:
+    in_features: tuple[str, ...] = ("p2", "p3", "p4")
+    pooler_resolution: int = 7
+    pooler_sampling_ratio: int = 2
+    num_fc: int = 2
+    fc_dim: int = 1024
+    batch_size_per_image: int = 512
+    positive_fraction: float = 0.25
+    iou_thresholds: tuple[float, ...] = (0.5,)
+    score_thresh_test: float = 0.01
+    nms_thresh_test: float = 0.5
+    detections_per_image: int = 100
+    smooth_l1_beta: float = 0.0
+    cls_agnostic_bbox_reg: bool = False
+    bbox_reg_weights: tuple[float, float, float, float] = (10.0, 10.0, 5.0, 5.0)
 
 
 @dataclass(frozen=True)
@@ -48,10 +87,19 @@ class CubeHeadConfig:
     virtual_depth: bool = True
     virtual_focal: float = 512.0
     allocentric_pose: bool = True
+    disentangled_loss: bool = True
+    chamfer_pose: bool = True
     dims_priors_enabled: bool = False
     dims_priors_func: str = "exp"   # exp | sigmoid
     use_confidence: float = 1.0
+    inverse_z_weight: bool = False
     scale_roi_boxes: float = 0.0
+    loss_w_3d: float = 1.0
+    loss_w_xy: float = 1.0
+    loss_w_z: float = 1.0
+    loss_w_dims: float = 1.0
+    loss_w_pose: float = 1.0
+    loss_w_joint: float = 1.0
 
 
 @dataclass(frozen=True)
@@ -60,14 +108,52 @@ class ModelConfig:
     pixel_mean: tuple[float, float, float] = (123.675, 116.280, 103.530)
     pixel_std: tuple[float, float, float] = (58.395, 57.120, 57.375)
     backbone: BackboneConfig = field(default_factory=BackboneConfig)
+    anchors: AnchorConfig = field(default_factory=AnchorConfig)
     rpn: RPNConfig = field(default_factory=RPNConfig)
+    roi_box: ROIBoxConfig = field(default_factory=ROIBoxConfig)
     cube: CubeHeadConfig = field(default_factory=CubeHeadConfig)
     # False: pool in bf16 (the heads read bf16 features); True: f32 pooling.
     exact_roi_pool: bool = False
+    stabilize: float = 0.01         # skip fraction that triggers a restart
+    max_proposals: int = 512        # padded proposals per image (train)
+
+
+@dataclass(frozen=True)
+class SolverConfig:
+    type: str = "sgd"               # sgd | adam | adamw (+amsgrad variants)
+    ims_per_batch: int = 32
+    base_lr: float = 0.12
+    momentum: float = 0.9
+    weight_decay: float = 0.0001
+    weight_decay_norm: float = 0.0
+    # None = biases follow weight_decay (detectron2 WEIGHT_DECAY_BIAS).
+    weight_decay_bias: float | None = None
+    adam_eps: float = 1e-2          # all reference adam variants
+    bias_lr_factor: float = 1.0
+    steps: tuple[int, ...] = (69600, 92800)
+    gamma: float = 0.1
+    max_iter: int = 41000
+    warmup_iters: int = 3625
+    warmup_factor: float = 1.0 / 1000
+    clip_gradients: float = 0.0
+    checkpoint_period: int = 9999
+    max_training_attempts: int = 10
+
+
+@dataclass(frozen=True)
+class TestConfig:
+    eval_period: int = 29000        # in-train evaluation period (0 = off)
+
+
+@dataclass(frozen=True)
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    solver: SolverConfig = field(default_factory=SolverConfig)
+    test: TestConfig = field(default_factory=TestConfig)
 
 
 def flagship_config(square_pad: int = 896) -> ModelConfig:
     """The flagship OVMono3D-LIFT model: DINOv2 ViT-B/14 + SFP (2, 1, 0.5) +
-    cube head, 50 classes, at `square_pad`^2 input."""
+    RPN + box head + cube head, 50 classes, at `square_pad`^2 input."""
     bb = dataclasses.replace(BackboneConfig(), square_pad=square_pad)
     return ModelConfig(num_classes=50, backbone=bb)

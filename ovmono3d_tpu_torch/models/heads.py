@@ -1,10 +1,17 @@
-"""Cube head in PyTorch (counterpart of ovmono3d_tpu/models/heads.py CubeHead;
-reference cubercnn/modeling/roi_heads/cube_head.py:20-204).
+"""Detection heads in PyTorch (counterpart of ovmono3d_tpu/models/heads.py):
 
-Runs in f32 over pooled [N, R, R, C] features: an optional 3x3 conv stack,
-shared (or per-output) FC stacks, and linear outputs for the 2D center
-deltas, log dims, pose (6d / quaternion / euler), depth and uncertainty.
-The RPN and Fast R-CNN box heads are ROADMAP slice 2.
+- RPNHead: detectron2 StandardRPNHead, a shared 3x3 conv and 1x1
+  objectness / delta predictors applied to every pyramid level;
+- FastRCNNHead: the box head, an FC stack and linear class / box-delta
+  predictors (reference fast_rcnn.py);
+- CubeHead: the 3D attribute regressor (reference
+  cubercnn/modeling/roi_heads/cube_head.py:20-204), an optional 3x3 conv
+  stack, shared (or per-output) FC stacks, and linear outputs for the 2D
+  center deltas, log dims, pose (6d / quaternion / euler), depth and
+  uncertainty.
+
+All run in f32 over NHWC maps or pooled [N, R, R, C] features, with the
+flax submodule names so utils/flax_bridge.py maps the parameters.
 """
 from __future__ import annotations
 
@@ -23,6 +30,74 @@ from ovmono3d_tpu_torch.ops.rotation import (
 )
 
 _POSE_DIMS = {"6d": 6, "quaternion": 4, "euler": 3}
+
+
+def _c2_xavier_(linear: nn.Linear, generator: torch.Generator) -> None:
+    """fvcore c2_xavier_fill: uniform(+-sqrt(3 / fan_in)), zero bias."""
+    bound = math.sqrt(3.0 / linear.in_features)
+    nn.init.uniform_(linear.weight, -bound, bound, generator=generator)
+    nn.init.zeros_(linear.bias)
+
+
+class RPNHead(nn.Module):
+    """Shared conv + objectness / delta predictors, applied per level.
+    Returns, per level, logits [B, H*W*A] and deltas [B, H*W*A, 4] in
+    (h, w, anchor) order."""
+
+    def __init__(self, num_anchors: int, conv_dim: int = 256, device=None):
+        super().__init__()
+        self.conv = nn.Conv2d(conv_dim, conv_dim, 3, padding=1, device=device)
+        self.objectness = nn.Conv2d(conv_dim, num_anchors, 1, device=device)
+        self.deltas = nn.Conv2d(conv_dim, num_anchors * 4, 1, device=device)
+
+    def forward(self, feats: list[torch.Tensor]):
+        logits, regs = [], []
+        for f in feats:                       # [B, H, W, C] f32
+            t = F.relu(self.conv(f.permute(0, 3, 1, 2)))
+            b = f.shape[0]
+            logits.append(self.objectness(t).permute(0, 2, 3, 1).reshape(b, -1))
+            regs.append(self.deltas(t).permute(0, 2, 3, 1).reshape(b, -1, 4))
+        return logits, regs
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """detectron2 StandardRPNHead: normal(0.01) weights, zero biases."""
+        for conv in (self.conv, self.objectness, self.deltas):
+            nn.init.normal_(conv.weight, 0.0, 0.01, generator=generator)
+            nn.init.zeros_(conv.bias)
+
+
+class FastRCNNHead(nn.Module):
+    """Box feature MLP + classification / regression predictors over pooled
+    [N, R, R, C] features. Returns (scores [N, C+1] logits, deltas
+    [N, Creg*4])."""
+
+    def __init__(self, in_dim: int, num_classes: int, num_fc: int = 2,
+                 fc_dim: int = 1024, cls_agnostic_bbox_reg: bool = False,
+                 device=None):
+        super().__init__()
+        self.num_fc = num_fc
+        d = in_dim
+        for i in range(num_fc):
+            self.add_module(f"fc{i + 1}", nn.Linear(d, fc_dim, device=device))
+            d = fc_dim
+        self.cls_score = nn.Linear(d, num_classes + 1, device=device)
+        num_reg = 1 if cls_agnostic_bbox_reg else num_classes
+        self.bbox_pred = nn.Linear(d, num_reg * 4, device=device)
+
+    def forward(self, pooled: torch.Tensor):
+        x = pooled.float().reshape(pooled.shape[0], -1)     # (i, j, c) order
+        for i in range(self.num_fc):
+            x = F.relu(getattr(self, f"fc{i + 1}")(x))
+        return self.cls_score(x), self.bbox_pred(x)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """c2-xavier FC stack, normal(0.01) / normal(0.001) predictors, zero
+        biases."""
+        for i in range(self.num_fc):
+            _c2_xavier_(getattr(self, f"fc{i + 1}"), generator)
+        for lin, std in ((self.cls_score, 0.01), (self.bbox_pred, 0.001)):
+            nn.init.normal_(lin.weight, 0.0, std, generator=generator)
+            nn.init.zeros_(lin.bias)
 _OUTPUTS = ("xy", "dims", "pose", "z", "conf")
 
 

@@ -1,33 +1,198 @@
-"""RCNN3D, oracle-2D path, in PyTorch (counterpart of
-ovmono3d_tpu/models/rcnn3d.py).
+"""RCNN3D in PyTorch (counterpart of ovmono3d_tpu/models/rcnn3d.py).
 
-OVMono3D-LIFT inference on given 2D boxes, the reference's evaluation
+Inference: OVMono3D-LIFT on given 2D boxes, the reference's evaluation
 protocol (reference rcnn3d.py:100-102, roi_heads.py:232-243):
 
   pixel normalization -> DINOv2 trunk + SFP -> multilevel ROIAlignV2 ->
   cube head -> decode_cube (virtual depth, allocentric pose, 3D lift) ->
   Detections scored sqrt(score * conf).
 
+Training (`RCNN3D.compute_losses`): trunk + SFP -> RPN head -> anchor
+labeling with IoU-weighted sampling -> IoUness RPN losses; proposals (per
+level top-k, decode, clip, per-level NMS, global top-k) + GT boxes ->
+proposal sampling -> box head losses; cube head on the sampled boxes ->
+disentangled corner / chamfer cube losses. Where the JAX package vmaps a
+per-image function, the port writes the batched form: one set of tensor ops
+over [B, ...] with no host synchronisation.
+
 Batch contract, as in the JAX package (static shapes):
   image           [B, S, S, 3] f32 RGB 0..255 (padded square)
   K               [B, 3, 3]   original-image intrinsics
   im_hw           [B, 2]      valid network-input height/width
   im_scale_ratio  [B]         original / network-input scale
-  oracle_boxes/classes/scores/valid: [B, N, ...] given 2D boxes
+  oracle_boxes/classes/scores/valid: [B, N, ...] given 2D boxes (inference)
+  gt              GroundTruth padded to M slots per image (training)
 
-Learned 2D detection (RPN + box head) is ROADMAP slice 2.
+Learned 2D inference (`_detect_2d`) is queued (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ovmono3d_tpu_torch.config import ModelConfig
 from ovmono3d_tpu_torch.models.backbones import build_backbone
-from ovmono3d_tpu_torch.models.heads import CubeHead
+from ovmono3d_tpu_torch.models.heads import CubeHead, FastRCNNHead, RPNHead
+from ovmono3d_tpu_torch.ops import boxes as box_ops
+from ovmono3d_tpu_torch.ops.iou2d import pairwise_ioa, pairwise_iou
+from ovmono3d_tpu_torch.ops.nms import nms_mask_parallel, stable_topk
 from ovmono3d_tpu_torch.ops.roi_align import multilevel_roi_align
-from ovmono3d_tpu_torch.structures import Detections
+from ovmono3d_tpu_torch.ops.rotation import so3_relative_angle
+from ovmono3d_tpu_torch.structures import Detections, GroundTruth
 from ovmono3d_tpu_torch.utils import geometry as geom
+from ovmono3d_tpu_torch.utils.device import resolve_device
+
+SQRT_2 = 1.4142135623730951
+
+
+def smooth_l1(pred, target, beta: float = 0.0):
+    diff = (pred - target).abs()
+    if beta <= 0:
+        return diff
+    return torch.where(diff < beta, 0.5 * diff**2 / beta, diff - 0.5 * beta)
+
+
+def rpn_proposals(logits: torch.Tensor, deltas: torch.Tensor,
+                  anchors: torch.Tensor, level_sizes: tuple[int, ...],
+                  im_hw: torch.Tensor, pre_nms_topk: int, post_nms_topk: int,
+                  nms_thresh: float, min_box_size: float):
+    """detectron2 find_top_rpn_proposals, fixed-shape and batched (the JAX
+    package's rpn_proposals_single over images): per-level top-k -> decode
+    -> clip -> per-level NMS -> global top-k by score.
+
+    logits [B, R] and deltas [B, R, 4] concatenated over levels, anchors
+    [R, 4], im_hw [B, 2] float. NMS runs independently per level (boxes of
+    different levels never suppress each other, as in the reference's
+    level-offset batched_nms); the levels run as one batched fixpoint, each
+    padded to the largest k with invalid slots, which are never kept and
+    suppress nothing. Returns boxes [B, P, 4], scores [B, P], valid [B, P].
+    """
+    b = logits.shape[0]
+    h, w = im_hw[:, 0:1], im_hw[:, 1:2]
+    zero = torch.zeros((), dtype=logits.dtype, device=logits.device)
+    ks = [min(pre_nms_topk, size) for size in level_sizes]
+    k_max = max(ks)
+    sel_boxes, sel_scores, sel_valid = [], [], []
+    start = 0
+    for size, k in zip(level_sizes, ks):
+        s, idx = stable_topk(logits[:, start:start + size], k)       # [B, k]
+        ld = torch.gather(deltas[:, start:start + size], 1,
+                          idx[..., None].expand(b, k, 4))
+        bx = box_ops.apply_deltas(ld, anchors[start:start + size][idx])
+        bx = torch.stack([
+            torch.minimum(torch.maximum(bx[..., 0], zero), w),
+            torch.minimum(torch.maximum(bx[..., 1], zero), h),
+            torch.minimum(torch.maximum(bx[..., 2], zero), w),
+            torch.minimum(torch.maximum(bx[..., 3], zero), h),
+        ], dim=-1)
+        v = ((bx[..., 2] - bx[..., 0] > min_box_size)
+             & (bx[..., 3] - bx[..., 1] > min_box_size)
+             & torch.isfinite(bx).all(dim=-1) & torch.isfinite(s))
+        pad = k_max - k
+        sel_boxes.append(F.pad(bx, (0, 0, 0, pad)))
+        sel_scores.append(F.pad(s, (0, pad)))
+        sel_valid.append(F.pad(v, (0, pad)))
+        start += size
+    boxes = torch.stack(sel_boxes, 1)                          # [B, L, k, 4]
+    scores = torch.stack(sel_scores, 1)
+    keep = nms_mask_parallel(boxes, scores, nms_thresh,
+                             torch.stack(sel_valid, 1))
+    boxes = torch.cat([boxes[:, i, :k] for i, k in enumerate(ks)], 1)
+    scores = torch.cat([scores[:, i, :k] for i, k in enumerate(ks)], 1)
+    keep = torch.cat([keep[:, i, :k] for i, k in enumerate(ks)], 1)
+
+    neg_inf = torch.finfo(scores.dtype).min
+    masked = torch.where(keep, scores, torch.full_like(scores, neg_inf))
+    top_scores, idx = stable_topk(masked, post_nms_topk)
+    top_boxes = torch.gather(boxes, 1, idx[..., None].expand(b, -1, 4))
+    return top_boxes, top_scores, top_scores > neg_inf
+
+
+def label_anchors(anchors: torch.Tensor, gt: GroundTruth,
+                  iou_thresholds: tuple[float, float], batch_size: int,
+                  positive_fraction: float, ignore_threshold: float,
+                  draws: torch.Tensor):
+    """RPNWithIgnore.label_and_sample_anchors (rpn.py:40-110), batched (the
+    JAX package's label_anchors_single over images). anchors [R, 4], gt
+    [B, M]; `draws` [B, 2, R] are the sampling uniforms.
+
+    Returns (fg_mask [B, R] sampled positives, matched_gt_boxes [B, R, 4],
+    iou_targets [B, R]). The negative sample is not computed: the IoUness
+    losses are foreground-only (rpn.py:206-273), and ignore regions only
+    affect negatives, so `ignore_threshold` is unused as in the JAX package.
+    """
+    del ignore_threshold
+    fg_gt = gt.valid & (gt.classes >= 0)
+    matched_idx, labels, matched_iou, iou_full = box_ops.match_anchors(
+        anchors, gt.boxes, fg_gt, iou_thresholds, allow_low_quality=True)
+    pos_sampled, _ = box_ops.subsample_labels(
+        labels, batch_size, positive_fraction, matched_iou, draws=draws)
+    # The single best anchor per GT survives sampling (rpn.py:71-84: the
+    # first index on exact ties), if the matcher labeled it positive.
+    best_idx = iou_full.argmax(dim=-1)                          # [B, M]
+    gt_has_best = fg_gt & (iou_full.amax(dim=-1) > 0)
+    force_anchor = torch.zeros_like(labels).scatter_reduce_(
+        -1, best_idx, gt_has_best.to(labels.dtype), reduce="amax")
+    fg_mask = pos_sampled | ((force_anchor > 0) & (labels == 1))
+    matched_boxes = torch.gather(
+        gt.boxes, 1, matched_idx[..., None].expand(*matched_idx.shape, 4))
+    return fg_mask, matched_boxes, matched_iou
+
+
+def sample_proposals(prop_boxes: torch.Tensor, prop_valid: torch.Tensor,
+                     gt: GroundTruth, num_samples: int,
+                     positive_fraction: float, iou_threshold: float,
+                     ignore_threshold: float, num_classes: int,
+                     draws: torch.Tensor) -> dict:
+    """ROIHeads3D.label_and_sample_proposals (roi_heads.py:850-953),
+    fixed-shape and batched (the JAX package's sample_proposals_single over
+    images). prop_boxes [B, P, 4] (GT boxes already appended), prop_valid
+    [B, P]; `draws` [B, 2, P] are the sampling uniforms.
+
+    Returns a dict of sampled slots [B, S]: boxes, classes (background =
+    num_classes), fg, valid and gt_idx (the matched GT slot). Sampled slots
+    come first, positives before negatives, each in proposal order.
+    """
+    fg_gt = gt.valid & (gt.classes >= 0)
+    ign_gt = gt.valid & (gt.classes < 0)
+    iou = pairwise_iou(gt.boxes, prop_boxes)                    # [B, M, P]
+    iou = torch.where(fg_gt[..., None], iou, torch.full_like(iou, -1.0))
+    matched_iou = iou.amax(dim=-2).clamp(min=0.0)
+    matched_idx = iou.argmax(dim=-2)
+
+    one = torch.ones_like(matched_idx)
+    labels = torch.where(matched_iou >= iou_threshold, one, 0 * one)
+    # Only background proposals inside ignore regions are excluded
+    # (roi_heads.py:909-917).
+    ioa = pairwise_ioa(gt.boxes, prop_boxes)
+    ioa = torch.where(ign_gt[..., None], ioa, torch.zeros_like(ioa))
+    in_ignore = ioa.amax(dim=-2) >= ignore_threshold
+    labels = torch.where((in_ignore & (labels == 0)) | ~prop_valid, -one,
+                         labels)
+
+    pos_sampled, neg_sampled = box_ops.subsample_labels(
+        labels, num_samples, positive_fraction, matched_iou, draws=draws)
+    rank = pos_sampled.long() * 2 + neg_sampled.long()
+    p = prop_boxes.shape[1]
+    order_score = rank * (p + 1) - torch.arange(p, device=rank.device)
+    _, sel = stable_topk(order_score, num_samples)
+    sel_rank = torch.gather(rank, 1, sel)
+    valid = sel_rank > 0
+    fg = sel_rank == 2
+    gt_idx = torch.gather(matched_idx, 1, sel)
+    bg = torch.full_like(gt_idx, num_classes)
+    classes = torch.where(fg, torch.gather(gt.classes.long(), 1, gt_idx), bg)
+    return {
+        "boxes": torch.gather(prop_boxes, 1,
+                              sel[..., None].expand(*sel.shape, 4)),
+        "classes": torch.where(valid, classes, bg),
+        "fg": fg,
+        "valid": valid,
+        "gt_idx": gt_idx,
+    }
 
 
 def decode_cube(cfg, outputs: dict, src_boxes: torch.Tensor,
@@ -143,8 +308,156 @@ def decode_cube(cfg, outputs: dict, src_boxes: torch.Tensor,
     }
 
 
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean over slots where mask > 0 and the value is finite
+    (safely_reduce_losses, roi_heads.py:956-964)."""
+    finite = torch.isfinite(x)
+    w = mask.to(x.dtype) * finite.to(x.dtype)
+    x = torch.where(finite, x, torch.zeros_like(x))
+    return (x * w).sum() / w.sum().clamp(min=1.0)
+
+
+def box_head_losses(box_cfg, num_classes: int, scores_logits: torch.Tensor,
+                    box_deltas: torch.Tensor, flat_classes: torch.Tensor,
+                    flat_valid: torch.Tensor, flat_fg: torch.Tensor,
+                    flat_boxes: torch.Tensor,
+                    matched_gt_boxes: torch.Tensor):
+    """Fast R-CNN box-head losses (reference fast_rcnn.py:145-260).
+
+    loss_cls: softmax cross-entropy over the valid sampled proposals, mean.
+    loss_reg: smooth-L1 of the (per-class or agnostic) deltas of foreground
+    proposals against the encoded GT deltas, summed and divided by the number
+    of valid proposals, not the foreground count (fast_rcnn.py:179-243).
+    """
+    log_probs = F.log_softmax(scores_logits, dim=-1)
+    ce = -log_probs.gather(-1, flat_classes[:, None].long())[:, 0]
+    loss_cls = masked_mean(ce, flat_valid)
+    reg_targets = box_ops.get_deltas(flat_boxes, matched_gt_boxes,
+                                     box_cfg.bbox_reg_weights)
+    n = flat_classes.shape[0]
+    if box_cfg.cls_agnostic_bbox_reg:
+        pred_reg = box_deltas
+    else:
+        cls_for_reg = flat_classes.long().clamp(max=num_classes - 1)
+        pred_reg = box_deltas.reshape(n, num_classes, 4).gather(
+            1, cls_for_reg[:, None, None].expand(n, 1, 4))[:, 0]
+    reg_loss = smooth_l1(pred_reg, reg_targets, box_cfg.smooth_l1_beta).sum(-1)
+    loss_reg = ((reg_loss * flat_fg.float()).sum()
+                / flat_valid.sum().float().clamp(min=1.0))
+    return loss_cls, loss_reg
+
+
+def cube_losses(cfg, dec: dict, gt_boxes3d: torch.Tensor,
+                gt_poses: torch.Tensor, K_scaled: torch.Tensor,
+                fg_mask: torch.Tensor,
+                src_boxes: torch.Tensor | None = None) -> dict:
+    """Cube losses, fixed-shape, masked-mean reduced over foreground slots.
+
+    Disentangled corner losses (roi_heads.py:551-627) by default, with the
+    chamfer pose loss when cfg.chamfer_pose; with cfg.disentangled_loss
+    False the delta / log-space l1 losses and the `1 - cos` pose loss
+    (roi_heads.py:630-673). gt_boxes3d [N, 9] (u, v, z, w, h, l, X, Y, Z),
+    gt_poses / K_scaled [N, 3, 3], fg_mask [N] 1.0 = supervised slot.
+    """
+    gt_2d = gt_boxes3d[:, :2]
+    gt_z = gt_boxes3d[:, 2]
+    gt_dims = gt_boxes3d[:, 3:6]
+    gt_center = geom.backproject(K_scaled, gt_2d, gt_z)
+    gt_box3d = torch.cat([gt_center, gt_dims], dim=-1)
+    gt_corners = geom.cuboid_corners(gt_box3d, gt_poses)
+
+    def corner_l1(pred_corners):
+        d = (pred_corners - gt_corners).abs()
+        return d.reshape(d.shape[0], -1).mean(dim=1)
+
+    def corners(center, dims, pose):
+        return geom.cuboid_corners(torch.cat([center, dims], -1), pose)
+
+    xy = torch.stack([dec["x"], dec["y"]], -1)
+    if cfg.disentangled_loss:
+        loss_z = corner_l1(corners(geom.backproject(K_scaled, gt_2d, dec["z"]),
+                                   gt_dims, gt_poses))
+        loss_xy = corner_l1(corners(geom.backproject(K_scaled, xy, gt_z),
+                                    gt_dims, gt_poses))
+        loss_dims = corner_l1(corners(gt_center, dec["dims"], gt_poses))
+        pose_corners = geom.cuboid_corners(gt_box3d, dec["pose"])
+        if cfg.chamfer_pose:
+            loss_pose = geom.chamfer_corner_distance(pose_corners, gt_corners)
+        else:
+            loss_pose = corner_l1(pose_corners)
+    else:
+        if src_boxes is None:
+            raise ValueError("the non-disentangled xy loss needs src_boxes")
+        src_w = (src_boxes[:, 2] - src_boxes[:, 0]).clamp(min=1e-4)
+        src_h = (src_boxes[:, 3] - src_boxes[:, 1]).clamp(min=1e-4)
+        src_cx = src_boxes[:, 0] + 0.5 * src_w
+        src_cy = src_boxes[:, 1] + 0.5 * src_h
+        gt_deltas = torch.stack([(gt_2d[:, 0] - src_cx) / src_w,
+                                 (gt_2d[:, 1] - src_cy) / src_h], dim=-1)
+        loss_xy = (dec["deltas_2d"] - gt_deltas).abs().mean(-1)
+        # Dims: log-space l1; with priors the target is prior-normalised,
+        # log(gt / prior) (roi_heads.py:644-649).
+        gt_dims_safe = gt_dims.clamp(min=1e-4)
+        if cfg.dims_priors_enabled and dec.get("dims_prior_mean") is not None:
+            dims_target = torch.log(
+                gt_dims_safe / dec["dims_prior_mean"].clamp(min=1e-4))
+        else:
+            dims_target = torch.log(gt_dims_safe)
+        loss_dims = (dec["dims_norm"] - dims_target).abs().mean(-1)
+        # Pose: 1 - cos(relative angle), allocentric (roi_heads.py:652-657).
+        if cfg.allocentric_pose:
+            gt_allo = geom.R_to_allocentric(K_scaled, gt_poses,
+                                            dec["x"].detach(),
+                                            dec["y"].detach())
+            loss_pose = 1.0 - so3_relative_angle(
+                dec["pose_allocentric"], gt_allo, eps=0.1, cos_angle=True)
+        else:
+            loss_pose = 1.0 - so3_relative_angle(dec["pose"], gt_poses,
+                                                 eps=0.1, cos_angle=True)
+        # Z per z_type (roi_heads.py:663-673).
+        r2v = 1.0 / dec["virtual_to_real"].clamp(min=1e-8)
+        if cfg.z_type == "sigmoid":
+            loss_z = (dec["z_norm"] - (gt_z * r2v / 100.0).clamp(0, 1)).abs()
+        elif cfg.z_type == "log":
+            loss_z = (dec["z_norm"]
+                      - torch.log((gt_z * r2v).clamp(min=0.01))).abs()
+        elif cfg.z_type == "clusters":
+            loss_z = (dec["z_norm"] - (gt_z * r2v - dec["z_mean"])
+                      / dec["z_std"].clamp(min=1e-8)).abs()
+        else:  # direct
+            loss_z = (dec["z"] - gt_z).abs()
+
+    losses = {"loss_xy": loss_xy, "loss_z": loss_z, "loss_dims": loss_dims,
+              "loss_pose": loss_pose}
+    if cfg.loss_w_joint > 0:
+        joint = corners(geom.backproject(K_scaled, xy, dec["z"]), dec["dims"],
+                        dec["pose"])
+        if cfg.chamfer_pose and cfg.disentangled_loss:
+            losses["loss_joint"] = geom.chamfer_corner_distance(joint,
+                                                                gt_corners)
+        else:
+            losses["loss_joint"] = corner_l1(joint)
+
+    if cfg.inverse_z_weight:
+        inv_w = 1.0 / torch.log(gt_z.clamp(min=math.e))
+        losses = {k: v * inv_w for k, v in losses.items()}
+
+    weights = {"loss_xy": cfg.loss_w_xy, "loss_z": cfg.loss_w_z,
+               "loss_dims": cfg.loss_w_dims, "loss_pose": cfg.loss_w_pose,
+               "loss_joint": cfg.loss_w_joint}
+    out = {}
+    uncert_sf = 1.0
+    if cfg.use_confidence > 0 and dec["uncert"] is not None:
+        uncert_sf = SQRT_2 * torch.exp(-dec["uncert"])
+        out["loss_uncert"] = cfg.use_confidence * masked_mean(dec["uncert"],
+                                                              fg_mask)
+    for k, v in losses.items():
+        out[k] = masked_mean(v * uncert_sf, fg_mask) * weights[k] * cfg.loss_w_3d
+    return out
+
+
 class RCNN3D(nn.Module):
-    """Oracle-2D OVMono3D-LIFT model. `priors` (optional) holds tensors dims
+    """OVMono3D-LIFT model: oracle-2D inference and the training losses. `priors` (optional) holds tensors dims
     [C, 2, 3], z_scales [C, B], z_stats [C, B, 2] for the prior decodes."""
 
     def __init__(self, cfg: ModelConfig, priors: dict | None = None,
@@ -153,6 +466,14 @@ class RCNN3D(nn.Module):
         self.cfg = cfg
         self.priors = priors or {}
         self.backbone = build_backbone(cfg.backbone, device=device)
+        self.rpn_head = RPNHead(
+            num_anchors=len(cfg.anchors.aspect_ratios) * len(cfg.anchors.sizes[0]),
+            conv_dim=cfg.backbone.out_channels, device=device)
+        box = cfg.roi_box
+        self.box_head = FastRCNNHead(
+            in_dim=cfg.backbone.out_channels * box.pooler_resolution**2,
+            num_classes=cfg.num_classes, num_fc=box.num_fc, fc_dim=box.fc_dim,
+            cls_agnostic_bbox_reg=box.cls_agnostic_bbox_reg, device=device)
         cube = cfg.cube
         self.cube_head = CubeHead(
             in_channels=cfg.backbone.out_channels,
@@ -166,6 +487,8 @@ class RCNN3D(nn.Module):
 
     def init_weights(self, generator: torch.Generator) -> None:
         self.backbone.init_weights(generator)
+        self.rpn_head.init_weights(generator)
+        self.box_head.init_weights(generator)
         self.cube_head.init_weights(generator)
 
     def preprocess(self, image: torch.Tensor) -> torch.Tensor:
@@ -233,7 +556,8 @@ class RCNN3D(nn.Module):
                 oracle_valid=None) -> Detections:
         """Batched inference on oracle 2D boxes."""
         if oracle_boxes is None:
-            raise NotImplementedError("2D detection: ROADMAP slice 2")
+            raise NotImplementedError(
+                "learned 2D detection (_detect_2d): ROADMAP slice 2")
         feats = self.features(image, depth)
         classes = oracle_classes.to(torch.int32)
         dec, _ = self._run_cube(feats, oracle_boxes, classes, K, im_hw,
@@ -252,21 +576,132 @@ class RCNN3D(nn.Module):
             corners3d=dec["corners"],
         )
 
+    # -- training -----------------------------------------------------------
+
+    def _anchors(self, feats: dict) -> list[torch.Tensor]:
+        anchors = []
+        for i, (name, stride) in enumerate(zip(self.cfg.rpn.in_features,
+                                               self.feature_strides)):
+            h, w = feats[name].shape[1:3]
+            anchors.append(box_ops.generate_anchors(
+                (h, w), stride, self.cfg.anchors.sizes[i],
+                self.cfg.anchors.aspect_ratios, self.cfg.anchors.offset,
+                device=feats[name].device))
+        return anchors
+
+    def _rpn_forward(self, feats: dict):
+        logits, deltas = self.rpn_head(
+            [feats[n] for n in self.cfg.rpn.in_features])
+        anchors = self._anchors(feats)
+        level_sizes = tuple(a.shape[0] for a in anchors)
+        return (torch.cat(logits, 1), torch.cat(deltas, 1),
+                torch.cat(anchors), level_sizes)
+
+    def compute_losses(self, image, K, im_hw, im_scale_ratio,
+                       gt: GroundTruth, generator: torch.Generator | None = None,
+                       draws: dict | None = None, depth=None) -> dict:
+        """Full training forward -> loss dict (the JAX package's
+        RCNN3D.compute_losses). The sampling uniforms are `draws`
+        ({"anchor": [B, 2, R], "proposal": [B, 2, P]}: R anchors over all
+        levels, P = post_nms_topk_train + M proposals), or are drawn from
+        `generator` on the image's device."""
+        rpn_cfg = self.cfg.rpn
+        box_cfg = self.cfg.roi_box
+        b = image.shape[0]
+        feats = self.features(image, depth)
+        logits, deltas, anchors, level_sizes = self._rpn_forward(feats)
+        if draws is None:
+            p = rpn_cfg.post_nms_topk_train + gt.boxes.shape[1]
+            draws = {"anchor": (b, 2, anchors.shape[0]),
+                     "proposal": (b, 2, p)}
+            draws = {k: box_ops.uniform_draws(v, generator, image.device)
+                     for k, v in draws.items()}
+
+        # RPN labeling + IoUness losses (rpn.py:129-273).
+        fg_mask, matched_boxes, iou_targets = label_anchors(
+            anchors, gt, rpn_cfg.iou_thresholds, rpn_cfg.batch_size_per_image,
+            rpn_cfg.positive_fraction, rpn_cfg.ignore_threshold,
+            draws=draws["anchor"])
+        fg_f = fg_mask.float()
+        normalizer = rpn_cfg.batch_size_per_image * b
+        bce = F.binary_cross_entropy_with_logits(logits, iou_targets,
+                                                 reduction="none")
+        loss_rpn_cls = (bce * iou_targets * fg_f).sum() / normalizer
+        gt_deltas = box_ops.get_deltas(anchors.expand_as(matched_boxes),
+                                       matched_boxes)
+        reg = smooth_l1(deltas, gt_deltas).sum(-1)
+        loss_rpn_loc = (reg * iou_targets * fg_f).sum() / normalizer
+        losses = {"rpn/cls": loss_rpn_cls * rpn_cfg.loss_weight,
+                  "rpn/loc": loss_rpn_loc * rpn_cfg.loss_weight}
+
+        # Proposals (train top-k) + GT boxes.
+        prop_boxes, _, prop_valid = rpn_proposals(
+            logits.detach(), deltas.detach(), anchors, level_sizes,
+            im_hw.float(), rpn_cfg.pre_nms_topk_train,
+            rpn_cfg.post_nms_topk_train, rpn_cfg.nms_thresh,
+            rpn_cfg.min_box_size)
+        gt_is_fg = gt.valid & (gt.classes >= 0)
+        prop_boxes = torch.cat([prop_boxes, gt.boxes], 1)
+        prop_valid = torch.cat([prop_valid, gt_is_fg], 1)
+        sampled = sample_proposals(
+            prop_boxes, prop_valid, gt, box_cfg.batch_size_per_image,
+            box_cfg.positive_fraction, box_cfg.iou_thresholds[0],
+            rpn_cfg.ignore_threshold, self.cfg.num_classes,
+            draws=draws["proposal"])
+
+        # Box head losses (fast_rcnn.py:145-260).
+        s = box_cfg.batch_size_per_image
+        pooled = self._pool_flat(feats, sampled["boxes"],
+                                 box_cfg.pooler_resolution,
+                                 box_cfg.pooler_sampling_ratio)
+        scores_logits, box_deltas = self.box_head(pooled)
+        flat_fg = sampled["fg"].reshape(b * s)
+        gt_idx = sampled["gt_idx"]
+        matched_gt_boxes = torch.gather(
+            gt.boxes, 1, gt_idx[..., None].expand(b, s, 4)).reshape(b * s, 4)
+        flat_boxes = sampled["boxes"].reshape(b * s, 4)
+        losses["box/cls"], losses["box/reg"] = box_head_losses(
+            box_cfg, self.cfg.num_classes, scores_logits, box_deltas,
+            sampled["classes"].reshape(b * s), sampled["valid"].reshape(b * s),
+            flat_fg, flat_boxes, matched_gt_boxes)
+
+        # Cube head on the sampled foreground (roi_heads.py:329-793).
+        dec, Kb = self._run_cube(feats, sampled["boxes"],
+                                 sampled["classes"] * sampled["fg"].long(),
+                                 K, im_hw, im_scale_ratio)
+        dec_flat = {k: (v.reshape(b * s, *v.shape[2:]) if v is not None
+                        else None) for k, v in dec.items()}
+        gt_boxes3d = torch.gather(
+            gt.boxes3d, 1, gt_idx[..., None].expand(b, s, 9)).reshape(b * s, 9)
+        gt_poses = torch.gather(
+            gt.poses, 1, gt_idx[..., None, None].expand(b, s, 3, 3)
+        ).reshape(b * s, 3, 3)
+        cube = cube_losses(self.cfg.cube, dec_flat, gt_boxes3d, gt_poses, Kb,
+                           flat_fg.float(), src_boxes=flat_boxes)
+        losses.update({f"cube/{k}": v for k, v in cube.items()})
+        return losses
+
 
 def build_model(cfg: ModelConfig, priors: dict | None = None, device=None,
                 seed: int = 0) -> RCNN3D:
     """Build the model with weights drawn from torch.Generator(seed), on
-    `device`. On "meta" the model has shapes only (no weights).
+    `device`: CUDA unless the caller asks for another device ("cpu"), and
+    an error when there is no card. On "meta" the model has shapes only (no
+    weights). With cfg.backbone.freeze the ViT trunk's parameters get
+    requires_grad=False (the SFP and the heads stay trainable, as the
+    reference freezes backbone.net).
 
     Parameters are made on the CPU, filled by the flax-style initializers
     from one generator (so a seed gives the same weights on every device),
     then moved. On CUDA, set torch.backends.cuda.matmul.allow_tf32 and
-    torch.backends.cudnn.allow_tf32 to False first: the f32 head and decode
-    stand in for the JAX package's Precision.HIGHEST.
+    torch.backends.cudnn.allow_tf32 to False first: the f32 heads, losses
+    and decode stand in for the JAX package's Precision.HIGHEST.
     """
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     if device.type == "meta":
-        return RCNN3D(cfg, priors, device=device)
+        model = RCNN3D(cfg, priors, device=device)
+        model.backbone.vit.requires_grad_(not cfg.backbone.freeze)
+        return model
     model = RCNN3D(cfg, priors, device="meta").to_empty(device="cpu")
     with torch.no_grad():
         for p in model.parameters():
@@ -276,4 +711,5 @@ def build_model(cfg: ModelConfig, priors: dict | None = None, device=None,
                  if torch.isnan(p).any()]
     if unset:
         raise RuntimeError(f"parameters left uninitialized: {unset}")
+    model.backbone.vit.requires_grad_(not cfg.backbone.freeze)
     return model.to(device)

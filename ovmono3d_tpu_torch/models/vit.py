@@ -7,10 +7,16 @@ to the runtime grid with DINOv2's +0.1 offset, and the depth-fusion 1x1 conv
 after the last block. Attention goes through `dot_product_attention`: the
 CUDA kernel on the card, the plain version on the CPU.
 
+Training: when the trunk needs gradients, attention runs through the
+autograd Function of ops/attention.py (the lse forward kernel and the
+backward kernel); under no_grad / inference_mode it runs the inference
+kernel. Freezing the trunk (`BackboneConfig.freeze`) is done by
+`build_model`, which sets requires_grad=False on this module's parameters.
+
 Submodules carry the JAX package's parameter names (`block0.attn.qkv`, ...)
 so utils/flax_bridge.py maps the two trees mechanically. The options of the
-other trunks (CLIP, MAE, SAM, MiDaS) and of training raise
-NotImplementedError naming the ROADMAP slice that ports them.
+other trunks (CLIP, MAE, SAM, MiDaS) and remat raise NotImplementedError
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -138,8 +144,8 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     """Global multi-head self-attention (no rel-pos).
 
-    `attn_fn` is the attention on [B, N, H, D] views of the qkv output;
-    it defaults to `dot_product_attention`.
+    `attn_fn` is the attention on the qkv output viewed as [B, N, 3, H, D],
+    returning [B, N, H, D]; it defaults to `dot_product_attention`.
     """
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.bfloat16,
@@ -154,8 +160,7 @@ class Attention(nn.Module):
         B, N, C = x.shape
         H = self.num_heads
         qkv = self.qkv(x).view(B, N, 3, H, C // H)
-        q, k, v = qkv.unbind(2)              # strided [B, N, H, D] views
-        out = self.attn_fn(q, k, v)          # [B, N, H, D]
+        out = self.attn_fn(qkv)              # [B, N, H, D]
         return self.proj(out.reshape(B, N, C))
 
 
@@ -237,7 +242,7 @@ class VisionTransformer(nn.Module):
             (window_size > 0, "window_size (SAM trunk): ROADMAP slice 6"),
             (use_rel_pos, "use_rel_pos (SAM trunk): ROADMAP slice 6"),
             (neck_channels > 0, "neck_channels (SAM trunk): ROADMAP slice 6"),
-            (remat, "remat (training): ROADMAP slice 3"),
+            (remat, "remat (queued with training): ROADMAP slice 3"),
             (quant != "none", f"quant={quant!r} (W8A8): ROADMAP slice 7"),
         ]
         for asked, what in unported:

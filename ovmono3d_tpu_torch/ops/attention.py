@@ -1,18 +1,33 @@
-"""Multi-head attention: the plain PyTorch version and the Hopper kernel.
+"""Multi-head attention: the plain PyTorch versions and the Hopper kernels.
 
-Counterpart of ovmono3d_tpu/ops/attention.py on the inference path:
+Counterpart of ovmono3d_tpu/ops/attention.py for the ViT trunk:
 
-- `attention_ref`: the plain version, the same math as `attention_xla`
-  (f32 logits, f32 softmax, probabilities cast to v's dtype before PV). It
-  is what CPU tensors run and what the kernel is held against.
-- `flash_attention_packed`: the wrapper of the hand-written CUDA kernel
-  `csrc/flash_attn_fwd.cu` (sm_90a), which replaces the TPU kernel
-  `_flash_kernel_packed`. It takes q/k/v as strided views of the qkv
-  projection's output and launches the kernel, or raises.
+- `attention_ref`: the plain forward, the same math as `attention_xla`
+  (f32 logits, f32 softmax, probabilities cast to v's dtype before PV).
+  CPU tensors run it, with autograd through the plain math.
+- `attention_lse_ref` / `attention_bwd_ref`: the plain forward with its row
+  log-sum-exp and the explicit backward formula, in f32. Kernels 3 and 4
+  are held against them (tests and `chip_smoke.py`); no model path calls
+  them.
+- Kernel wrappers, each launching a hand-written CUDA kernel (sm_90a) or
+  raising, and counting its launches in `<wrapper>.launches`:
+  - `flash_attention_packed` (`csrc/flash_attn_fwd.cu`), replacing the TPU
+    kernel `_flash_kernel_packed`: the inference forward;
+  - `flash_attention_packed_lse` (the same source, lse instance), replacing
+    `_flash_kernel_packed_lse`: the training forward, which also writes the
+    row log-sum-exp;
+  - `flash_attention_packed_bwd` (`csrc/flash_attn_bwd.cu`), replacing
+    `_flash_bwd_packed_kernel`: dq, dk and dv into one packed gradient.
+- `FlashAttentionQKV`: the autograd Function over the packed qkv tensor,
+  kernel 3 forward and kernel 4 backward (the JAX package's
+  `_attn_fwd`/`_attn_bwd`).
 - `dot_product_attention`: the dispatcher. CPU tensors go to
-  `attention_ref`, CUDA tensors to the kernel; nothing falls back.
+  `attention_ref`; CUDA tensors to `FlashAttentionQKV` when a gradient is
+  needed and to the inference kernel otherwise. Nothing falls back.
 
-Layout: [B, N, H, D] in and out.
+Layout: q/k/v [B, N, H, D]; the dispatcher and the Function take the qkv
+projection's output viewed as [B, N, 3, H, D]. lse is [B, H, N] f32 in
+natural-log units.
 """
 from __future__ import annotations
 
@@ -22,7 +37,7 @@ import math
 
 import torch
 
-_KERNEL_SOURCES = ["flash_attn_fwd.cu"]
+KERNEL_SOURCES = ["flash_attn_fwd.cu", "flash_attn_bwd.cu"]
 _HEAD_DIM = 64
 
 
@@ -38,78 +53,138 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward with its row log-sum-exp, all in f32: out [B, N, H, D]
+    (f32) and lse = log(sum_j exp(q k_j / sqrt(D))) [B, H, N] (f32)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse[..., None])
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return out, lse
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The explicit attention backward in f32, from the forward's output o
+    and lse ([B, H, N]) and the output's gradient do:
+
+        p = exp(q k^T / sqrt(D) - lse),  dv = p^T do,  dp = do v^T,
+        ds = p * (dp - rowsum(do * o)),  dk = ds^T q / sqrt(D),
+        dq = ds k / sqrt(D).
+
+    Returns f32 (dq, dk, dv), each [B, N, H, D]."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(logits - lse.float()[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = torch.einsum("bqhd,bqhd->bhq", dof, of)
+    ds = p * (dp - delta[..., None])
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    return dq, dk, dv
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _kernels() -> tuple:
+    """(forward entry, backward entry) of the built libraries."""
     from ovmono3d_tpu_torch.utils import cuda_build
 
-    lib = cuda_build.load("ovmono3d_attn", _KERNEL_SOURCES)
-    fn = lib.flash_attn_fwd_bf16
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
+    libs = cuda_build.load(KERNEL_SOURCES)
+    fwd = libs["flash_attn_fwd.cu"].flash_attn_fwd_bf16
+    fwd.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
         + [ctypes.c_float, ctypes.c_void_p]
     )
-    fn.restype = ctypes.c_int
-    return lib
+    fwd.restype = ctypes.c_int
+    bwd = libs["flash_attn_bwd.cu"].flash_attn_bwd_bf16
+    bwd.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    )
+    bwd.restype = ctypes.c_int
+    return fwd, bwd
 
 
 def build_kernels() -> None:
-    """Compile (or load) the attention kernel library now rather than at the
-    first launch."""
-    _library()
+    """Compile (or load) the attention kernel libraries now rather than at
+    the first launch."""
+    _kernels()
 
 
-def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor) -> None:
-    """Raise ValueError unless the kernel takes q/k/v as they are. The
-    device is checked last, so the layout checks run on CPU tensors too."""
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"{name} is {x.dtype}; the kernel takes bfloat16")
-        if x.dim() != 4 or x.shape != q.shape:
-            raise ValueError(
-                f"{name} has shape {tuple(x.shape)}; want [B, N, H, D] equal "
-                f"to q's {tuple(q.shape)}")
-        if x.stride(-1) != 1:
-            raise ValueError(f"{name} needs a unit stride over D")
-        # 16-byte rows: cp.async moves 8 bf16 at a time.
-        if x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3]):
-            raise ValueError(
-                f"{name}: pointer and batch/token/head strides must be "
+def _layout_error(name: str, x: torch.Tensor, shape) -> str | None:
+    """Why the kernels cannot take `x` as it is, or None."""
+    if x.dtype != torch.bfloat16:
+        return f"{name} is {x.dtype}; the kernel takes bfloat16"
+    if x.dim() != 4 or tuple(x.shape) != tuple(shape):
+        return (f"{name} has shape {tuple(x.shape)}; want [B, N, H, D] equal "
+                f"to q's {tuple(shape)}")
+    if x.stride(-1) != 1:
+        return f"{name} needs a unit stride over D"
+    # 16-byte rows: cp.async moves 8 bf16 at a time.
+    if x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3]):
+        return (f"{name}: pointer and batch/token/head strides must be "
                 f"16-byte aligned (strides {x.stride()})")
-        if x.requires_grad and torch.is_grad_enabled():
+    return None
+
+
+def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *others: tuple[str, torch.Tensor],
+                        forward_only: bool = False) -> None:
+    """Raise ValueError unless the kernels take q/k/v (and the named
+    `others`) as they are. `forward_only` also refuses inputs that need a
+    gradient, for the inference kernel. The device is checked last, so the
+    layout checks run on CPU tensors too."""
+    named = [("q", q), ("k", k), ("v", v), *others]
+    for name, x in named:
+        err = _layout_error(name, x, q.shape)
+        if err:
+            raise ValueError(err)
+        if forward_only and x.requires_grad and torch.is_grad_enabled():
             raise ValueError(
-                "flash_attention_packed is forward-only; the backward "
-                "kernels are ROADMAP queue 2 items 3-4")
+                "flash_attention_packed is forward-only; dot_product_attention "
+                "runs the backward kernel through FlashAttentionQKV")
     if q.shape[-1] != _HEAD_DIM:
         raise ValueError(f"head dim {q.shape[-1]}; the kernel takes "
                          f"{_HEAD_DIM}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in named:
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"{name} is on {x.device}; the kernel needs "
-                             f"q, k and v on one CUDA device")
+                             f"all its tensors on one CUDA device")
+
+
+def _launch_fwd(q, k, v, lse: torch.Tensor | None) -> torch.Tensor:
+    b, n, h, d = q.shape
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    fwd, _ = _kernels()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
+                 b, n, h, d, *q.stride()[:3], *k.stride()[:3],
+                 *v.stride()[:3], 1.0 / math.sqrt(d), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attn_fwd_bf16 launch failed with CUDA error {rc} "
+            f"(B={b}, N={n}, H={h}, D={d}, lse={lse is not None})")
+    return out
 
 
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA flash-attention forward. [B, N, H, D] -> same.
+    """Launch the CUDA flash-attention forward (kernel 1, inference).
+    [B, N, H, D] -> same.
 
     q/k/v may be strided views (the qkv projection's [B, N, 3, H, D] output
     unbound along the 3); the result is contiguous, so its [B, N, H*D] view
     is free. Counts each launch in `flash_attention_packed.launches`.
     """
-    check_kernel_inputs(q, k, v)
-    b, n, h, d = q.shape
-    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    fn = _library().flash_attn_fwd_bf16
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, n, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                1.0 / math.sqrt(d), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_attn_fwd_bf16 launch failed with CUDA error {rc} "
-            f"(B={b}, N={n}, H={h}, D={d})")
+    check_kernel_inputs(q, k, v, forward_only=True)
+    out = _launch_fwd(q, k, v, None)
     flash_attention_packed.launches += 1
     return out
 
@@ -117,11 +192,95 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor,
 flash_attention_packed.launches = 0
 
 
-def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor) -> torch.Tensor:
-    """Attention for the ViT trunk; [B, N, H, D] in and out."""
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v)
-    if q.device.type == "cuda":
-        return flash_attention_packed(q, k, v)
-    raise ValueError(f"no attention path for device {q.device}")
+def flash_attention_packed_lse(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward that also writes the row log-sum-exp (kernel 3,
+    training). Returns out [B, N, H, D] bf16 (contiguous) and lse
+    [B, H, N] f32, natural log. Counts each launch in
+    `flash_attention_packed_lse.launches`."""
+    check_kernel_inputs(q, k, v)
+    b, n, h, _ = q.shape
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    out = _launch_fwd(q, k, v, lse)
+    flash_attention_packed_lse.launches += 1
+    return out, lse
+
+
+flash_attention_packed_lse.launches = 0
+
+
+def flash_attention_packed_bwd(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, o: torch.Tensor,
+                               lse: torch.Tensor, do: torch.Tensor
+                               ) -> torch.Tensor:
+    """Launch the CUDA flash-attention backward (kernel 4).
+
+    q/k/v/o/do: [B, N, H, D] bf16 (strided views welcome), lse: [B, H, N]
+    f32 from `flash_attention_packed_lse`. Returns the packed gradient
+    [B, N, 3, H, D] bf16, whose slots 0/1/2 are dq/dk/dv: the gradient of
+    the qkv projection's output. delta = rowsum(do * o) is a small torch
+    reduction here, as in the JAX package. Counts each launch in
+    `flash_attention_packed_bwd.launches`.
+    """
+    b, n, h, d = q.shape
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, n)
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous [B, H, N] = {(b, h, n)} "
+                         f"f32 tensor; got {lse.dtype} {tuple(lse.shape)}")
+    check_kernel_inputs(q, k, v, ("o", o), ("do", do))
+    if lse.device != q.device:
+        raise ValueError(f"lse is on {lse.device}, q on {q.device}")
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    grad = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
+    dq, dk, dv = grad.unbind(2)
+    strides = [s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3]]
+    _, bwd = _kernels()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), b, n, h, d,
+                 (ctypes.c_longlong * len(strides))(*strides),
+                 1.0 / math.sqrt(d), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attn_bwd_bf16 launch failed with CUDA error {rc} "
+            f"(B={b}, N={n}, H={h}, D={d})")
+    flash_attention_packed_bwd.launches += 1
+    return grad
+
+
+flash_attention_packed_bwd.launches = 0
+
+
+class FlashAttentionQKV(torch.autograd.Function):
+    """Attention over the packed qkv tensor [B, N, 3, H, D] -> [B, N, H, D]:
+    kernel 3 forward, saving (qkv, out, lse); kernel 4 backward, returning
+    the gradient of qkv in one buffer."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor) -> torch.Tensor:
+        out, lse = flash_attention_packed_lse(*qkv.unbind(2))
+        ctx.save_for_backward(qkv, out, lse)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout: torch.Tensor) -> torch.Tensor:
+        qkv, out, lse = ctx.saved_tensors
+        if _layout_error("do", dout, out.shape):
+            dout = dout.contiguous()
+        return flash_attention_packed_bwd(*qkv.unbind(2), out, lse, dout)
+
+
+def dot_product_attention(qkv: torch.Tensor) -> torch.Tensor:
+    """Attention for the ViT trunk: the qkv projection's output viewed as
+    [B, N, 3, H, D] -> [B, N, H, D]."""
+    if qkv.device.type == "cpu":
+        return attention_ref(*qkv.unbind(2))
+    if qkv.device.type == "cuda":
+        if torch.is_grad_enabled() and qkv.requires_grad:
+            return FlashAttentionQKV.apply(qkv)
+        return flash_attention_packed(*qkv.unbind(2))
+    raise ValueError(f"no attention path for device {qkv.device}")

@@ -89,3 +89,15 @@ def euler_angles_to_matrix(euler: torch.Tensor,
 
     mats = [axis_rot(a, euler[..., i]) for i, a in enumerate(convention)]
     return matmul3(matmul3(mats[0], mats[1]), mats[2])
+
+
+def so3_relative_angle(r1: torch.Tensor, r2: torch.Tensor, eps: float = 1e-4,
+                       cos_angle: bool = False) -> torch.Tensor:
+    """Angle of r1 @ r2^T by the trace formula (pytorch3d semantics). With
+    `cos_angle` the raw cosine, unclipped (the reference's `1 - cos` pose
+    loss); else acos of the cosine clipped to [-1 + eps, 1 - eps]."""
+    r12 = matmul3(r1, r2.transpose(-1, -2))
+    cos = (r12[..., 0, 0] + r12[..., 1, 1] + r12[..., 2, 2] - 1.0) * 0.5
+    if cos_angle:
+        return cos
+    return torch.acos(cos.clamp(-1.0 + eps, 1.0 - eps))

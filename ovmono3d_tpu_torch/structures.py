@@ -1,7 +1,9 @@
-"""Fixed-shape detection outputs (counterpart of ovmono3d_tpu/structures.py).
+"""Fixed-shape detection outputs and training targets (counterpart of
+ovmono3d_tpu/structures.py).
 
-Every field shares the leading dims [B, N]; invalid slots are masked by
-`valid`. Mirrors the reference's final Instances fields (roi_heads.py:820-843).
+Every field shares the leading dims [B, N] (or [B, M]); invalid slots are
+masked by `valid`. Detections mirror the reference's final Instances fields
+(roi_heads.py:820-843).
 """
 from __future__ import annotations
 
@@ -27,3 +29,17 @@ class Detections:
         """(name, tensor) for every field that is set."""
         return [(f.name, getattr(self, f.name)) for f in fields(self)
                 if getattr(self, f.name) is not None]
+
+
+@dataclass
+class GroundTruth:
+    """Padded per-image ground truth for training. boxes3d is
+    [u, v, z, w, h, l, X, Y, Z]: (u, v) the projected 3D center in
+    network-input pixels, z the metric depth, (w, h, l) the dimensions and
+    (X, Y, Z) the camera-space center."""
+
+    boxes: torch.Tensor                         # [B, M, 4] xyxy, input coords
+    classes: torch.Tensor                       # [B, M] int (-1 = ignore)
+    boxes3d: torch.Tensor                       # [B, M, 9]
+    poses: torch.Tensor                         # [B, M, 3, 3]
+    valid: torch.Tensor                         # [B, M] bool

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Each library is compiled at first use from the sources under
-`ovmono3d_tpu_torch/csrc/` into `build/kernels/` at the repository root, for
-`sm_90a` (Hopper). The file name carries a hash of the sources and flags, so
-a changed `.cu` builds anew and an unchanged one is loaded as it is. The
-sources use a plain C interface (no PyTorch headers), which keeps a build to
-seconds.
+Each source under `ovmono3d_tpu_torch/csrc/` becomes its own shared library,
+compiled at first use into `build/kernels/` at the repository root, for
+`sm_90a` (Hopper). The sources a call asks for are compiled in parallel, one
+nvcc process each, all started together. A library's file name carries a
+hash of its source, of every header in `csrc/` and of the flags, so a changed
+file builds anew and an unchanged one is loaded as it is. The sources use a
+plain C interface (no PyTorch headers), which keeps a build to seconds.
 
 The port therefore runs from a source checkout (or an editable install,
 `pip install -e .[torch]`): a wheel carries no `.cu` files and has no
@@ -44,43 +45,55 @@ def find_nvcc() -> str:
     return found
 
 
-def library_path(name: str, sources: list[str]) -> Path:
-    """Where the library built from `sources` (names under csrc/) lives."""
+def library_path(source: str) -> Path:
+    """Where the library built from `source` (a file name under csrc/)
+    lives."""
     if not CSRC.is_dir():
         raise RuntimeError(
             f"no kernel sources at {CSRC}: the port's CUDA kernels build from "
             "a source checkout (or an editable install)")
     h = hashlib.sha256()
-    for src in sorted(sources):
-        h.update(src.encode())
-        h.update((CSRC / src).read_bytes())
+    for path in [CSRC / source, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(name: str, sources: list[str]) -> Path:
-    """Compile `sources` into a shared library unless it is already built.
+def build(sources: list[str]) -> dict[str, Path]:
+    """Compile every source not built yet, one nvcc each, all in parallel.
 
     The compiler's resource report (-Xptxas -v: registers, shared memory,
-    spills) is kept beside the library as `<lib>.log`.
+    spills) is kept beside each library as `<lib>.log`. Returns
+    {source: library path}.
     """
-    out = library_path(name, sources)
-    if out.is_file():
+    out = {src: library_path(src) for src in sources}
+    todo = {src: lib for src, lib in out.items() if not lib.is_file()}
+    if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    out.with_name(out.name + ".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)   # atomic: a concurrent build never loads half a file
+    nvcc = find_nvcc()
+    procs = {}
+    for src, lib in todo.items():
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        procs[src] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for src, (cmd, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with code {proc.returncode}:\n"
+                          f"{' '.join(cmd)}\n{log}")
+            continue
+        lib = todo[src]
+        lib.with_name(lib.name + ".log").write_text(log)
+        os.replace(tmp, lib)   # atomic: a concurrent build never loads half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
 
 
-def load(name: str, sources: list[str]) -> ctypes.CDLL:
-    """Build if needed, then dlopen the library."""
-    return ctypes.CDLL(str(build(name, sources)))
+def load(sources: list[str]) -> dict[str, ctypes.CDLL]:
+    """Build what is missing, then dlopen each library: {source: CDLL}."""
+    return {src: ctypes.CDLL(str(lib)) for src, lib in build(sources).items()}

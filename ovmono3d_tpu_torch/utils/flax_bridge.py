@@ -13,7 +13,10 @@ the layout:
   bias, pos_embed, cls_token, gamma      -> unchanged
 
 The mapping is strict: a flax leaf with no torch parameter, a torch parameter
-no leaf fills, or a shape that disagrees raises.
+no leaf fills, or a shape that disagrees raises. A port RCNN3D holds the
+trunk, the pyramid, the RPN, box and cube heads, so it takes the tree JAX's
+init through `RCNN3D.compute_losses` makes (the training tree); a tree from
+the oracle-only init lacks the RPN and box heads and is refused.
 """
 from __future__ import annotations
 

@@ -49,6 +49,25 @@ def cuboid_corners(box3d: torch.Tensor,
     return local + center[..., None, :]
 
 
+def project_points(K: torch.Tensor, pts3d: torch.Tensor) -> torch.Tensor:
+    """Camera-space points [..., N, 3] through intrinsics [..., 3, 3] ->
+    [..., N, 3] = (u, v, z), u and v in pixels (math_util.py:251-253)."""
+    proj = (K[..., None, :, :] * pts3d[..., :, None, :]).sum(dim=-1)
+    z = proj[..., 2:3]
+    uv = proj[..., :2] / torch.where(z.abs() < _EPS, torch.full_like(z, _EPS),
+                                     z)
+    return torch.cat([uv, z], dim=-1)
+
+
+def chamfer_corner_distance(pred: torch.Tensor,
+                            gt: torch.Tensor) -> torch.Tensor:
+    """Symmetric chamfer distance between two 8-corner sets [..., 8, 3] ->
+    [...]: the two directed means of min-L1 matches, summed as the
+    reference's chamfer_loss does (roi_heads.py:299-309)."""
+    diff = (pred[..., :, None, :] - gt[..., None, :, :]).abs().sum(dim=-1)
+    return (diff.amin(dim=-1).mean(dim=-1) + diff.amin(dim=-2).mean(dim=-1))
+
+
 def virtual_to_real_scale(focal, height, virtual_focal, virtual_height):
     """Depth factor from the virtual focal space to the real one:
     H0 * f / (f0 * H) (math_util.py:581-592)."""
@@ -78,6 +97,12 @@ def R_from_allocentric(K: torch.Tensor, R_view: torch.Tensor, u: torch.Tensor,
                        v: torch.Tensor) -> torch.Tensor:
     """Allocentric -> egocentric rotation at pixel (u, v): M @ R_view."""
     return matmul3(_viewing_ray_correction(K, u, v), R_view)
+
+
+def R_to_allocentric(K: torch.Tensor, R: torch.Tensor, u: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Egocentric -> allocentric rotation at pixel (u, v): M^T @ R."""
+    return matmul3(_viewing_ray_correction(K, u, v).transpose(-1, -2), R)
 
 
 def scaled_sigmoid(vals, lo=0.0, hi=1.0):

@@ -71,8 +71,9 @@ def test_attention_ref_matches_tpu_kernel_interpret(jattn):
 
 def test_dispatcher_cpu_runs_plain_path():
     tattn.flash_attention_packed.launches = 0
-    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 33, 2, 64, seed=3))
-    out = tattn.dot_product_attention(q, k, v)
+    qkv = torch.from_numpy(np.stack(_qkv(1, 33, 2, 64, seed=3), axis=2))
+    q, k, v = qkv.unbind(2)
+    out = tattn.dot_product_attention(qkv)
     torch.testing.assert_close(out, tattn.attention_ref(q, k, v), rtol=0,
                                atol=0)
     assert tattn.flash_attention_packed.launches == 0

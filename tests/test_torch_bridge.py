@@ -8,7 +8,6 @@ import sys
 from pathlib import Path
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -20,6 +19,7 @@ from ovmono3d_tpu_torch import config as tcfg
 from ovmono3d_tpu_torch.models.rcnn3d import build_model
 from ovmono3d_tpu_torch.models.sfp import SimpleFeaturePyramid
 from ovmono3d_tpu_torch.utils import flax_bridge
+from test_torch_rcnn3d import training_tree
 
 torch.set_num_threads(2)
 
@@ -28,24 +28,11 @@ REPO = Path(__file__).resolve().parents[1]
 
 @pytest.fixture(scope="module")
 def flagship_trees():
-    """The flagship param tree as shapes only (no compute), and the port's
+    """The flagship training param tree (init through compute_losses: trunk,
+    pyramid, RPN, box and cube heads) as shapes only, and the port's
     flagship model on the meta device."""
     cfg = __graft_entry__._flagship_config(square_pad=896).model
-    model = jax_build_model(cfg)
-    S, N = 896, 4
-    sds = jax.ShapeDtypeStruct
-
-    def init(key, image, K, im_hw, ratio, boxes, classes, scores, valid):
-        return model.init(key, image, K, im_hw, ratio, oracle_boxes=boxes,
-                          oracle_classes=classes, oracle_scores=scores,
-                          oracle_valid=valid)
-
-    tree = jax.eval_shape(
-        init, jax.random.PRNGKey(0), sds((1, S, S, 3), jnp.float32),
-        sds((1, 3, 3), jnp.float32), sds((1, 2), jnp.int32),
-        sds((1,), jnp.float32), sds((1, N, 4), jnp.float32),
-        sds((1, N), jnp.int32), sds((1, N), jnp.float32),
-        sds((1, N), jnp.bool_))
+    tree = training_tree(jax_build_model(cfg), (1, 896, 896, 3), 4)
     port = build_model(tcfg.flagship_config(896), device="meta")
     return tree, port
 
@@ -67,6 +54,8 @@ def test_flagship_every_leaf_maps_to_one_parameter(flagship_trees):
     assert params["backbone.sfp.up2_0.weight"].shape == (768, 384, 2, 2)
     assert plan["backbone/sfp/up2_0/kernel"][2]           # flipped
     assert params["backbone.vit.depth_fusion.weight"].shape == (768, 769, 1, 1)
+    assert params["rpn_head.conv.weight"].shape == (256, 256, 3, 3)
+    assert params["box_head.fc1.weight"].shape == (1024, 7 * 7 * 256)
 
 
 def _flax_like(module):
@@ -118,9 +107,13 @@ def test_bridge_flips_conv_transpose():
 
 CONFIG_PAIRS = [
     (tcfg.BackboneConfig, jcfg.BackboneConfig),
+    (tcfg.AnchorConfig, jcfg.AnchorConfig),
     (tcfg.RPNConfig, jcfg.RPNConfig),
+    (tcfg.ROIBoxConfig, jcfg.ROIBoxConfig),
     (tcfg.CubeHeadConfig, jcfg.CubeHeadConfig),
     (tcfg.ModelConfig, jcfg.ModelConfig),
+    (tcfg.SolverConfig, jcfg.SolverConfig),
+    (tcfg.TestConfig, jcfg.TestConfig),
 ]
 
 
@@ -142,7 +135,7 @@ def test_flagship_config_matches_graft_entry():
     mine = tcfg.flagship_config(896)
     ref = __graft_entry__._flagship_config(square_pad=896).model
     assert mine.num_classes == ref.num_classes == 50
-    for section in ("backbone", "cube", "rpn"):
+    for section in ("backbone", "anchors", "rpn", "roi_box", "cube"):
         for f in dataclasses.fields(getattr(mine, section)):
             assert getattr(getattr(mine, section), f.name) == \
                 getattr(getattr(ref, section), f.name), f"{section}.{f.name}"
@@ -152,11 +145,23 @@ _JAX_IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|ovmono3d_tpu)(\.|\s|$)", re.M)
 
 
+_CUDA_JAX_INCLUDE = re.compile(r"^\s*#\s*include\s*[<\"][^>\"]*(jax|xla|pallas)",
+                               re.M | re.I)
+
+
 def test_port_sources_import_no_jax():
-    files = sorted((REPO / "ovmono3d_tpu_torch").rglob("*.py"))
+    port = REPO / "ovmono3d_tpu_torch"
+    files = sorted(port.rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    assert {"train", "parallel", "ops", "models", "utils"} <= {
+        f.parent.name for f in files}
     for f in files:
         assert not _JAX_IMPORT.search(f.read_text()), f
+    cuda = sorted(port.glob("csrc/*.cu")) + sorted(port.glob("csrc/*.cuh"))
+    assert {f.name for f in cuda} >= {"flash_attn_fwd.cu", "flash_attn_bwd.cu",
+                                      "flash_common.cuh"}
+    for f in cuda:
+        assert not _CUDA_JAX_INCLUDE.search(f.read_text()), f
 
 
 def test_port_runs_with_jax_unimportable():
@@ -173,7 +178,7 @@ from ovmono3d_tpu_torch.models.rcnn3d import build_model
 cfg = ModelConfig(num_classes=5, backbone=BackboneConfig(
     embed_dim=32, depth=1, num_heads=2, pretrain_grid=8, out_channels=32,
     square_pad=112), cube=CubeHeadConfig(fc_dim=32))
-model = build_model(cfg)
+model = build_model(cfg, device="cpu")
 with torch.inference_mode():
     det = model(torch.rand(1, 112, 112, 3) * 255, torch.eye(3)[None] * 100,
                 torch.full((1, 2), 112), torch.ones(1),

@@ -1,8 +1,10 @@
 """The port's oracle-2D LIFT slice against the JAX RCNN3D at matched weights.
 
-The JAX model is initialized at the tiny test config, its params go through
-utils/flax_bridge.py into the port, and both run the same numpy-seeded
-image, intrinsics and oracle boxes on the CPU.
+Both models hold the same parameters at the tiny test config -- the tree
+JAX's init through compute_losses makes (trunk, pyramid, RPN, box and cube
+heads), filled from the port's seeded init and loaded back through
+utils/flax_bridge.py -- and run the same numpy-seeded image, intrinsics and
+oracle boxes on the CPU.
 """
 import dataclasses
 
@@ -14,11 +16,14 @@ import torch
 from test_model import tiny_config
 
 from ovmono3d_tpu.models.heads import CubeHead as JaxCubeHead
+from ovmono3d_tpu.models.rcnn3d import RCNN3D as JaxRCNN3D
 from ovmono3d_tpu.models.rcnn3d import build_model as jax_build_model
 from ovmono3d_tpu.models.rcnn3d import decode_cube as jax_decode_cube
+from ovmono3d_tpu.structures import GroundTruth as JaxGroundTruth
 from ovmono3d_tpu_torch import config as tcfg
 from ovmono3d_tpu_torch.models.heads import CubeHead
 from ovmono3d_tpu_torch.models.rcnn3d import build_model, decode_cube
+from ovmono3d_tpu_torch.utils import flax_bridge
 from ovmono3d_tpu_torch.utils.flax_bridge import load_flax_params
 
 torch.set_num_threads(2)
@@ -59,6 +64,47 @@ def _inputs():
     return image, K, im_hw, ratio, boxes, classes, scores, valid
 
 
+def training_tree(model, image_shape, num_gt: int):
+    """The parameter tree JAX's init through compute_losses makes for
+    `model`, as shapes only (no compute)."""
+    sds = jax.ShapeDtypeStruct
+    b = image_shape[0]
+
+    def init(key, image, K, im_hw, ratio, gt):
+        return model.init(key, image, K, im_hw, ratio, gt, key,
+                          method=JaxRCNN3D.compute_losses)
+
+    gt = JaxGroundTruth(
+        boxes=sds((b, num_gt, 4), jnp.float32),
+        classes=sds((b, num_gt), jnp.int32),
+        boxes3d=sds((b, num_gt, 9), jnp.float32),
+        poses=sds((b, num_gt, 3, 3), jnp.float32),
+        valid=sds((b, num_gt), jnp.bool_))
+    return jax.eval_shape(
+        init, jax.random.PRNGKey(0), sds(image_shape, jnp.float32),
+        sds((b, 3, 3), jnp.float32), sds((b, 2), jnp.int32),
+        sds((b,), jnp.float32), gt)
+
+
+def to_flax(port, tree) -> dict:
+    """The port's parameters in the flax layout of `tree`: the inverse of
+    load_flax_params, through the bridge's own plan."""
+    params = dict(port.named_parameters())
+    out: dict = {}
+    for path, (full, perm, flip) in flax_bridge.plan(port, tree).items():
+        arr = params[full].detach().numpy()
+        if perm is not None:
+            arr = np.transpose(arr, np.argsort(perm))
+        if flip:
+            arr = arr[::-1, ::-1]
+        d = out
+        *mods, leaf = path.split("/")
+        for m in mods:
+            d = d.setdefault(m, {})
+        d[leaf] = np.array(arr)
+    return {"params": out}
+
+
 def _spread(params):
     """Move the init off its near-identity point so every stage shows in the
     outputs: LayerScale 1e-5 -> 0.5, cube output kernels x100. A 6D pose
@@ -90,12 +136,10 @@ def slice_pair():
                   oracle_valid=jnp.asarray(valid))
     args = (jnp.asarray(image), jnp.asarray(K), jnp.asarray(im_hw),
             jnp.asarray(ratio))
-    params = jax.jit(model.init)(jax.random.PRNGKey(0), *args, **oracle)
-    params = _spread(params)
+    port = build_model(port_config(jcfg), device="cpu")
+    params = _spread(to_flax(port, training_tree(model, image.shape, 3)))
+    load_flax_params(port, params)
     want = jax.jit(model.apply)(params, *args, **oracle)
-
-    port = build_model(port_config(jcfg))
-    load_flax_params(port, jax.tree.map(np.asarray, params))
     with torch.inference_mode():
         got = port(*(torch.from_numpy(a) for a in (image, K, im_hw, ratio)),
                    oracle_boxes=torch.from_numpy(boxes),
@@ -137,8 +181,9 @@ def test_forward_without_oracle_raises():
 
 def test_build_model_seeded():
     cfg = port_config(tiny_config().model)
-    a, b = build_model(cfg, seed=3), build_model(cfg, seed=3)
-    c = build_model(cfg, seed=4)
+    a = build_model(cfg, seed=3, device="cpu")
+    b = build_model(cfg, seed=3, device="cpu")
+    c = build_model(cfg, seed=4, device="cpu")
     for (name, pa), pb, pc in zip(a.named_parameters(), b.parameters(),
                                   c.parameters()):
         assert torch.equal(pa, pb), name
