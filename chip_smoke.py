@@ -1,28 +1,36 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (ovmono3d_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's two paths with the flagship DINOv2 ViT-B/14 + SFP model at
-896^2, weights drawn from a seed -- OVMono3D-LIFT inference on oracle 2D
-boxes, and a few training steps with the trunk unfrozen (RPN, box head and
-cube head losses, SGD) -- and holds every CUDA kernel on those paths against
-its plain PyTorch version.
+Drives the port's three paths, weights drawn from a seed: OVMono3D-LIFT
+inference on oracle 2D boxes and a few training steps with the trunk
+unfrozen (RPN, box head and cube head losses, SGD), both with the flagship
+DINOv2 ViT-B/14 + SFP model at 896^2, and OVMono3D-GEO inference on oracle
+2D boxes (SAM ViT-H at 1024^2, SAM's mask decoder, Depth-Pro at 1536^2 and
+the box fit). Holds every CUDA kernel on those paths against its plain
+PyTorch version.
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
 
 Kernels: 1 = the inference flash-attention forward, 3 = the training
-forward that also writes the row log-sum-exp, 4 = the attention backward.
+forward that also writes the row log-sum-exp, 4 = the attention backward,
+7 = the decomposed rel-pos attention forward of SAM's encoder.
 
 Phases, one line each (more for the build's resource report and the
 profiles' tables):
   device  the card, its power limit, TF32 off for matmuls and cuDNN
   build   nvcc builds (or loads) of the kernel libraries, in parallel
   kernel  kernel 1 vs attention_ref, kernel 3 vs attention_lse_ref and
-          kernel 4 vs attention_bwd_ref at the trunk, Depth-Pro and a small
-          ragged shape (max / mean abs error, absolute and relative to the
-          output); then at the trunk shape each kernel's time, its plain
+          kernel 4 vs attention_bwd_ref at the trunk, Depth-Pro's B=1 and
+          35-crop shapes and a small ragged shape (max / mean abs error,
+          absolute and relative to the output); then at the trunk shape each kernel's time, its plain
           version's, F.scaled_dot_product_attention's forward or backward
           on the same views (a yardstick the port never calls) and the
-          card's bound for the work
+          card's bound for the work; kernel 7 vs rel_pos_attention_ref at
+          SAM-H global and windowed, SAM-B global and a small ragged grid
+          (rel-pos tables ~N(0, 0.1^2)), then at SAM-H's global and
+          windowed shapes its time, the plain version's, SDPA's with the
+          [B, H, N, N] bias built from qrh/qrw inside the timed call (a
+          yardstick the port never calls) and the bound
   slice   3 warm-up + 10 timed requests (B=1, 64 oracle boxes, as bench.py
           builds them): launches per forward, finite [1, 64, ...]
           detections, img/s, p50, peak memory; then the same model with
@@ -48,6 +56,18 @@ profiles' tables):
           within 5e-2 of the plain one's norm, each with its margin; the
           gradients from each run's own heads, and attention_ref in f32
           against bf16, printed beside
+  geo     SAM ViT-H (bf16, rel-pos tables ~N(0, 0.1^2)), SAM's decoder
+          (f32) and Depth-Pro (bf16, LayerScales 0.1, depth-head bias 0.5)
+          from seed 0 serve 704x512 images with 8 oracle boxes each (2 under
+          the 0.30 threshold): 2 warm-up + 5 timed images (img/s, p50, ms
+          per image in each stage, peak memory, 32 kernel-7 and 72 kernel-1
+          launches per image); the same models with rel_pos_attention_ref
+          and attention_ref: SAM embedding, mask logits and canonical
+          inverse depth (as it is, and less the head bias) within
+          GEO_MAX_REL / GEO_MEAN_REL of the plain run, a guard of the model
+          (the kernel checks are the kernel phase's), fitted boxes printed
+          side by side unchecked; a profile of 3
+          images; the synthetic GEO self-check on the card (PASS)
 Then a JSON line of the kernels, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failure raises before that line and the
 exit code is not 0.
@@ -71,6 +91,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from ovmono3d_tpu_torch.config import SolverConfig, flagship_config  # noqa: E402
+from ovmono3d_tpu_torch.geo import cli as geo  # noqa: E402
 from ovmono3d_tpu_torch.models import rcnn3d  # noqa: E402
 from ovmono3d_tpu_torch.models.rcnn3d import build_model  # noqa: E402
 from ovmono3d_tpu_torch.ops.boxes import uniform_draws  # noqa: E402
@@ -84,8 +105,20 @@ from ovmono3d_tpu_torch.train.optim import Optimizer  # noqa: E402
 from ovmono3d_tpu_torch.utils import cuda_build  # noqa: E402
 from ovmono3d_tpu_torch.utils import geometry as geom  # noqa: E402
 
+# Kernels 1, 3 and 4: (B, N, H, D). The LIFT trunk; Depth-Pro's image and
+# FOV encoders (B=1) and its patch encoder (the 35 pyramid crops in one
+# batch); a small ragged case.
 KERNEL_SHAPES = {"trunk": (1, 4097, 12, 64), "depth_pro": (1, 577, 16, 64),
+                 "depth_pro_patches": (35, 577, 16, 64),
                  "ragged": (2, 77, 12, 64)}
+# Kernel 7: (B, grid, H, D). SAM ViT-H global and windowed blocks at 1024^2
+# (a 64x64 grid; 14x14 windows of the grid padded to 70, 25 per image), SAM
+# ViT-B's global blocks, a small ragged grid.
+RELPOS_SHAPES = {"sam_h_global": (1, (64, 64), 16, 80),
+                 "sam_h_window": (25, (14, 14), 16, 80),
+                 "sam_b_global": (1, (64, 64), 12, 64),
+                 "ragged": (2, (6, 10), 12, 64)}
+REL_POS_STD = 0.1     # about a trained SAM table's scale
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate and HBM3.
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 MAX_ERR, MEAN_ERR = 2e-2, 2e-3
@@ -96,6 +129,9 @@ WARMUP, TIMED, PLAIN_TIMED = 3, 10, 3
 S, N_BOXES = 896, 64
 TRAIN_B, TRAIN_GT, TRAIN_WARMUP, TRAIN_TIMED = 8, 16, 2, 5
 TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-2, 5e-2
+GEO_H, GEO_W, GEO_BOXES, GEO_WARMUP, GEO_TIMED = 512, 704, 8, 2, 5
+GEO_MAX_REL, GEO_MEAN_REL = 1e-1, 2e-2
+GEO_DEPTH_BIAS = 0.5   # the depth head's output bias in the geo phase
 
 
 def say(phase: str, msg: str) -> None:
@@ -135,9 +171,11 @@ def build_phase() -> None:
         log = lib.with_name(lib.name + ".log")
         if log.is_file():
             for line in log.read_text().splitlines():
-                m = re.search(r"(flash_[a-z_]+_kernel)(ILb([01])E)?", line)
+                m = re.search(r"((flash|relpos)_[a-z_]+_kernel)"
+                              r"(IL[bi](\d+)E)?", line)
                 if "Compiling entry" in line and m:
-                    flag = {"0": "<false>", "1": "<true>", None: ""}[m[3]]
+                    flag = {"0": "<false>", "1": "<true>", None: ""}.get(
+                        m[4], f"<{m[4]}>")
                     say("build", f"{lib.stem.rsplit('_', 1)[0][3:]}: "
                                  f"{m[1]}{flag}")
                 elif "registers" in line or "spill" in line:
@@ -210,7 +248,7 @@ def sdpa_views(q, k, v):
 
 
 def kernel_phase() -> dict:
-    """Kernels 1, 3 and 4 against their plain versions at the three shapes,
+    """Kernels 1, 3 and 4 against their plain versions at KERNEL_SHAPES,
     then their times at the trunk shape. Launches made here are not the
     main path's: the paths reset the counts before they run."""
     worst = {"fwd": 0.0, "lse": 0.0, "bwd": 0.0}
@@ -274,6 +312,75 @@ def kernel_phase() -> dict:
                       f"{out[kind]['bound_ms']:.4f} ms "
                       f"({out[kind]['bound_by']})")
     return out
+
+
+def relpos_inputs(b, grid, h, d, seed):
+    """Kernel 7's inputs as the encoder makes them: q/k/v views of one qkv
+    tensor, tables Rh/Rw gathered to the grid at REL_POS_STD, and the bias
+    factors."""
+    q, k, v = qkv_views(b, grid[0] * grid[1], h, d, seed)
+    g = torch.Generator(device="cuda").manual_seed(1000 + seed)
+    rh, rw = (torch.randn(n, n, d, device="cuda", generator=g) * REL_POS_STD
+              for n in grid)
+    return q, k, v, rh, rw, *attention.rel_pos_factors(q, rh, rw, grid)
+
+
+def relpos_bound_ms(b, grid, h, d) -> tuple[float, str]:
+    """Kernel 7's bound: 4 B H N^2 D flops; q, k, v, out in bf16 and qrh,
+    qrw in f32, each moved once."""
+    n = grid[0] * grid[1]
+    flops = 4 * b * h * n * n * d
+    nbytes = 4 * b * n * h * d * 2 + b * n * h * (grid[0] + grid[1]) * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa_with_bias(q, k, v, qrh, qrw):
+    """The same function as one PyTorch call: SDPA with the [B, H, N, N]
+    bias expanded from qrh/qrw (inside the call, as the kernel does)."""
+    b, n, h, _ = q.shape
+    bias = (qrh.permute(0, 2, 1, 3)[..., :, None]
+            + qrw.permute(0, 2, 1, 3)[..., None, :]).reshape(b, h, n, n)
+    return F.scaled_dot_product_attention(*sdpa_views(q, k, v),
+                                          attn_mask=bias.to(q.dtype))
+
+
+def relpos_kernel_phase() -> dict:
+    """Kernel 7 against rel_pos_attention_ref at the four shapes, then its
+    time at SAM-H's global and windowed shapes. Returns the global shape's
+    numbers (the JSON line's) with the worst error over all shapes."""
+    worst = 0.0
+    with torch.no_grad():
+        for i, (name, (b, grid, h, d)) in enumerate(RELPOS_SHAPES.items()):
+            q, k, v, rh, rw, qrh, qrw = relpos_inputs(b, grid, h, d, i)
+            got = attention.rel_pos_flash_attention(q, k, v, qrh, qrw, grid)
+            torch.cuda.synchronize()
+            bias = (qrh[..., :, None] + qrw[..., None, :]).float()
+            worst = max(worst, check_close(
+                f"k7 {name} {(b, grid, h, d)} out (bias std "
+                f"{bias.std().item():.3f})", got,
+                attention.rel_pos_attention_ref(q, k, v, rh, rw, grid),
+                absolute=True))
+            del got, bias
+        out = {}
+        for name in ("sam_h_global", "sam_h_window"):
+            b, grid, h, d = RELPOS_SHAPES[name]
+            q, k, v, rh, rw, qrh, qrw = relpos_inputs(b, grid, h, d, 0)
+            t = {"ms": time_ms(lambda: attention.rel_pos_flash_attention(
+                     q, k, v, qrh, qrw, grid)),
+                 "plain_ms": time_ms(lambda: attention.rel_pos_attention_ref(
+                     q, k, v, rh, rw, grid), reps=5),
+                 "library_ms": time_ms(
+                     lambda: sdpa_with_bias(q, k, v, qrh, qrw))}
+            t["bound_ms"], t["bound_by"] = relpos_bound_ms(b, grid, h, d)
+            say("kernel", f"k7 {name} {(b, grid, h, d)}, median of timed "
+                          f"calls: kernel {t['ms']:.4f} ms, plain "
+                          f"{t['plain_ms']:.4f} ms, SDPA with bias "
+                          f"{t['library_ms']:.4f} ms, bound "
+                          f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+            out[name] = t
+    return {**out["sam_h_global"], "max_abs_err": worst}
 
 
 def bench_inputs():
@@ -771,10 +878,201 @@ def compare_train_step(model, batch) -> None:
           f"every trunk gradient within {TRAIN_GRAD_REL} relative")
 
 
+def geo_requests(n: int, seed: int):
+    """n synthetic GEO requests: a 704x512 uint8 image, K (f = 600 px) and
+    GEO_BOXES oracle boxes, two of them under the 0.30 threshold."""
+    g = torch.Generator().manual_seed(seed)
+    K = [[600.0, 0.0, GEO_W / 2], [0.0, 600.0, GEO_H / 2], [0.0, 0.0, 1.0]]
+    out = []
+    for _ in range(n):
+        image = torch.randint(0, 256, (GEO_H, GEO_W, 3), generator=g,
+                              dtype=torch.uint8).numpy()
+        xy = torch.rand(GEO_BOXES, 2, generator=g) * torch.tensor(
+            [GEO_W * 0.7, GEO_H * 0.7])
+        wh = (0.1 + 0.2 * torch.rand(GEO_BOXES, 2, generator=g)
+              ) * torch.tensor([GEO_W, GEO_H])
+        scores = [0.9, 0.8, 0.7, 0.6, 0.5, 0.4, 0.2, 0.1]
+        dets = [{"bbox2d": torch.cat([xy[i], xy[i] + wh[i]]).tolist(),
+                 "score": scores[i], "category_id": i}
+                for i in range(GEO_BOXES)]
+        out.append((image, K, dets))
+    return out
+
+
+def _relpos_plain(qkv, rh, rw, grid):
+    return attention.rel_pos_attention_ref(*qkv.unbind(2), rh, rw, grid)
+
+
+def _relpos_f32(qkv, rh, rw, grid):
+    """rel_pos_attention_ref with q, k, v, the probabilities and PV in f32."""
+    return attention.rel_pos_attention_ref(*qkv.float().unbind(2), rh, rw,
+                                           grid).to(qkv.dtype)
+
+
+# (SAM blocks' attention, Depth-Pro blocks' attention) of each GEO run.
+GEO_ATTENTION = {
+    "kernel": (attention.rel_pos_attention, attention.dot_product_attention),
+    "plain": (_relpos_plain, lambda qkv: attention.attention_ref(
+        *qkv.unbind(2))),
+    "plain_f32": (_relpos_f32, lambda qkv: attention_f32_probs(
+        *qkv.unbind(2))),
+}
+
+
+def set_geo_attention(models, run: str) -> None:
+    relpos, attn = GEO_ATTENTION[run]
+    for blk in models.sam_encoder.blocks():
+        blk.attn.attn_fn = relpos
+    for vit in models.depth.trunks():
+        for blk in vit.blocks():
+            blk.attn.attn_fn = attn
+
+
+def serve_geo(models, requests):
+    preds, lats = [], []
+    for image, K, dets in requests:
+        t0 = time.perf_counter()
+        preds.append(geo.predict_image(models, image, K, dets))
+        lats.append(time.perf_counter() - t0)     # ends in a host copy
+    return preds, lats
+
+
+def geo_phase() -> dict:
+    """OVMono3D-GEO inference at the reference's sizes; returns the
+    launches of kernels 1 and 7 in the timed images."""
+    t0 = time.perf_counter()
+    models = geo.build_geo_models("vit_h", depth_bf16=True, device="cuda",
+                                  seed=0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    # Flax starts the rel-pos tables at zero, where kernel 7's bias path
+    # would go unchecked; Depth-Pro's LayerScales as in the slice phase;
+    # the depth head's bias so its final ReLU passes most pixels and the
+    # inverse-depth comparison reads values, not zeros.
+    with torch.no_grad():
+        for blk in models.sam_encoder.blocks():
+            blk.attn.rel_pos_h.normal_(0.0, REL_POS_STD, generator=g)
+            blk.attn.rel_pos_w.normal_(0.0, REL_POS_STD, generator=g)
+        for vit in models.depth.trunks():
+            for blk in vit.blocks():
+                blk.ls1.gamma.fill_(0.1)
+                blk.ls2.gamma.fill_(0.1)
+        models.depth.head_out.bias.fill_(GEO_DEPTH_BIAS)
+    n_params = sum(p.numel() for m in (models.sam_encoder, models.segmenter,
+                                       models.depth) for p in m.parameters())
+    say("geo", f"SAM ViT-H (1024^2), SAM decoder and Depth-Pro (1536^2, "
+               f"bf16), seed 0, {n_params} parameters, built in "
+               f"{time.perf_counter() - t0:.1f} s")
+    requests = geo_requests(GEO_WARMUP + GEO_TIMED, seed=2)
+    serve_geo(models, requests[:GEO_WARMUP])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.flash_attention_packed.launches = 0
+    attention.rel_pos_flash_attention.launches = 0
+    preds, lats = serve_geo(models, requests[GEO_WARMUP:])
+    launches = {"fwd": attention.flash_attention_packed.launches,
+                "relpos": attention.rel_pos_flash_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["relpos"] == 32 * GEO_TIMED,
+          f"{launches['relpos']} kernel-7 launches for {GEO_TIMED} images "
+          "(32 SAM blocks each)")
+    check(launches["fwd"] == 72 * GEO_TIMED,
+          f"{launches['fwd']} kernel-1 launches for {GEO_TIMED} images (24 "
+          "blocks of 3 Depth-Pro encoders each)")
+    check(0 < sum(map(len, preds)), "some box fitted")
+    for pred in preds:
+        check(len(pred) <= GEO_BOXES - 2, f"{len(pred)} boxes for "
+              f"{GEO_BOXES - 2} above the threshold")
+        for box in pred:
+            check(all(math.isfinite(x) for x in box["center_cam"]
+                      + box["dimensions"] + sum(box["pose"], [])),
+                  "finite boxes")
+    p50 = statistics.median(lats) * 1e3
+    stages: dict = {}
+    for image, K, dets in requests[GEO_WARMUP:]:
+        trace: dict = {}
+        geo.predict_image(models, image, K, dets, trace=trace)
+        for k, ms in trace["ms"].items():
+            stages[k] = stages.get(k, 0.0) + ms / GEO_TIMED
+    say("geo", f"{GEO_TIMED} images of {GEO_W}x{GEO_H}, {GEO_BOXES} oracle "
+               f"boxes: {rate(lats)}; per image "
+               f"{launches['relpos'] // GEO_TIMED} kernel-7 and "
+               f"{launches['fwd'] // GEO_TIMED} kernel-1 launches; "
+               f"{sum(map(len, preds)) / GEO_TIMED:.1f} boxes; peak memory "
+               f"{peak} bytes; ms per image by stage (synchronised): "
+               + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    compare_geo(models, requests[GEO_WARMUP])
+    with torch.inference_mode():
+        device_profile("geo", lambda: serve_geo(
+            models, requests[GEO_WARMUP:GEO_WARMUP + 3]), 3, p50,
+            per="image", repeat=1)
+    ok, err_c, err_d, _ = geo.synthetic_check("cuda")
+    say("geo", f"synthetic self-check on the card: max center err "
+               f"{err_c:.4f} m (< 0.1), max dims err {err_d:.4f} m (< 0.15): "
+               f"{'PASS' if ok else 'FAIL'}")
+    check(ok, "GEO synthetic self-check")
+    return launches
+
+
+def compare_geo(models, request) -> None:
+    """One image with the kernels and with the plain attention in every
+    block: the SAM embedding, the mask logits and the canonical inverse
+    depth held to the plain run; the inverse depth also less the head's
+    bias, so its limits read what the trunks and the decoder add.
+
+    These limits guard the model, not the kernels: bf16 attention alone
+    (the plain run against the same math with f32 probabilities, printed
+    beside, unchecked) moves a 32-block random-weight SAM about as far as
+    the kernel does, so a small kernel fault would hide under it. The
+    kernels are held to their plain versions at this path's shapes in the
+    kernel phase. The fitted boxes are printed unchecked too (a
+    random-weight mask's extremes flip with single pixels)."""
+    runs = {}
+    for name in GEO_ATTENTION:
+        set_geo_attention(models, name)
+        trace: dict = {}
+        preds = geo.predict_image(models, *request, trace=trace)
+        runs[name] = (preds, trace)
+    set_geo_attention(models, "kernel")
+
+    def deviation(a: str, b: str, key: str,
+                  offset: float) -> tuple[float, float]:
+        x, y = runs[a][1][key].float(), runs[b][1][key].float()
+        d, ref = (x - y).abs(), (y - offset).abs()
+        return (d.max().item() / ref.max().item(),
+                d.mean().item() / ref.mean().item())
+
+    failed = []
+    for key, offset in (("embed", 0.0), ("mask_logits", 0.0),
+                        ("canonical_inverse_depth", 0.0),
+                        ("canonical_inverse_depth", GEO_DEPTH_BIAS)):
+        mx, mean = deviation("kernel", "plain", key, offset)
+        f32_mx, f32_mean = deviation("plain", "plain_f32", key, offset)
+        ref = runs["plain"][1][key]
+        name = f"{key} less {offset}" if offset else key
+        say("geo", f"kernel vs plain {name} {tuple(ref.shape)}: max |diff| / "
+                   f"max |ref| {mx:.3e} (limit {GEO_MAX_REL}), mean |diff| / "
+                   f"mean |ref| {mean:.3e} (limit {GEO_MEAN_REL}); plain vs "
+                   f"f32 probabilities {f32_mx:.3e} / {f32_mean:.3e}; > "
+                   f"{offset} in {(ref > offset).float().mean().item():.1%}")
+        if not (mx <= GEO_MAX_REL and mean <= GEO_MEAN_REL):
+            failed.append(name)
+    say("geo", "plain run stages (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in runs["plain"][1]["ms"].items()))
+    for a, b in zip(runs["kernel"][0], runs["plain"][0]):
+        say("geo", f"  box {a['category_id']}: center kernel "
+                   f"{[round(x, 3) for x in a['center_cam']]} plain "
+                   f"{[round(x, 3) for x in b['center_cam']]}; dims kernel "
+                   f"{[round(x, 3) for x in a['dimensions']]} plain "
+                   f"{[round(x, 3) for x in b['dimensions']]}")
+    check(not failed, f"GEO kernel vs plain within limits: {failed} not")
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     card = device_phase()
     build_phase()
     k = kernel_phase()
+    k["relpos"] = relpos_kernel_phase()
     model, images, inputs, launches, p50_ms = slice_phase()
     profile_phase(model, images[WARMUP:WARMUP + 5], inputs, p50_ms)
     sensitivity_phase(model, images[WARMUP], inputs)
@@ -782,8 +1080,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = train_phase()
-    launches = {"fwd": launches, "lse": train_launches["lse"],
-                "bwd": train_launches["bwd"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    geo_launches = geo_phase()
+    launches = {"fwd": launches + geo_launches["fwd"],
+                "lse": train_launches["lse"], "bwd": train_launches["bwd"],
+                "relpos": geo_launches["relpos"]}
     src = "ovmono3d_tpu_torch/csrc/"
     meta = {
         "fwd": ("flash_attn_fwd_bf16", src + "flash_attn_fwd.cu",
@@ -792,6 +1094,8 @@ def main() -> None:
                 "ovmono3d_tpu/ops/attention.py:559"),
         "bwd": ("flash_attn_bwd_bf16", src + "flash_attn_bwd.cu",
                 "ovmono3d_tpu/ops/attention.py:691"),
+        "relpos": ("relpos_flash_fwd_bf16", src + "relpos_flash_fwd.cu",
+                   "ovmono3d_tpu/ops/attention.py:277"),
     }
     kernels = []
     for kind, (name, source, replaces) in meta.items():
@@ -801,6 +1105,7 @@ def main() -> None:
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms")}})
     print(json.dumps({"kernels": kernels}), flush=True)
+    say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,13 @@
 """Backbone factory (counterpart of ovmono3d_tpu/models/backbones.py).
 
-Only the DINOv2 ViT + Simple Feature Pyramid family is ported; the other
-families raise NotImplementedError naming their ROADMAP slice.
+Only the DINOv2 ViT + Simple Feature Pyramid family is ported as a detector
+backbone; the other families raise NotImplementedError naming their ROADMAP
+slice. `VIT_PRESETS["sam"]` and `SAM_ARCHS` describe SAM's image encoder,
+which the GEO pipeline builds on its own (geo/cli.py).
 """
 from __future__ import annotations
+
+from typing import Any
 
 import torch
 from torch import nn
@@ -11,6 +15,28 @@ from torch import nn
 from ovmono3d_tpu_torch.config import BackboneConfig
 from ovmono3d_tpu_torch.models.sfp import SimpleFeaturePyramid
 from ovmono3d_tpu_torch.models.vit import VisionTransformer
+
+# The JAX package's preset for segment_anything's image encoder, vit_b at
+# 1024^2: windowed, no cls token, global attention every third block, rel-pos
+# attention and the 256-channel neck.
+VIT_PRESETS: dict[str, dict[str, Any]] = {
+    "sam": dict(patch_size=16, pretrain_grid=64, layerscale=False,
+                use_cls_token=False, window_size=14,
+                global_blocks=(2, 5, 8, 11), neck_channels=256,
+                use_rel_pos=True),
+}
+
+# Per-arch widths and global-attention blocks of the SAM encoders
+# (segment_anything build_sam.py encoder_global_attn_indexes), as the JAX
+# package's GEO tool lays them over the preset.
+SAM_ARCHS: dict[str, dict[str, Any]] = {
+    "vit_b": dict(embed_dim=768, depth=12, num_heads=12,
+                  global_blocks=(2, 5, 8, 11)),
+    "vit_l": dict(embed_dim=1024, depth=24, num_heads=16,
+                  global_blocks=(5, 11, 17, 23)),
+    "vit_h": dict(embed_dim=1280, depth=32, num_heads=16,
+                  global_blocks=(7, 15, 23, 31)),
+}
 
 
 class ViTSFPBackbone(nn.Module):

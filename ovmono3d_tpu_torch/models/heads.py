@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ovmono3d_tpu_torch.models.vit import lecun_normal_
+from ovmono3d_tpu_torch.models.layers import lecun_normal_
 from ovmono3d_tpu_torch.ops.rotation import (
     copysign,
     euler_angles_to_matrix,

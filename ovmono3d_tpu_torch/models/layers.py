@@ -1,0 +1,93 @@
+"""flax-style convolutions on channels-last (NHWC) maps and flax's default
+initializers, shared by the port's models.
+
+`Conv` and `ConvTranspose` keep f32 parameters in PyTorch's layouts (OIHW,
+IOHW) and compute in their `dtype`, as flax's `nn.Conv(dtype=...)` does. A
+conv sees the NCHW view of an NHWC tensor, which is PyTorch's channels_last
+layout, so no copies are made. `ConvTranspose` is the kernel-2, stride-2
+upsampling of the feature pyramid, SAM's mask decoder and Depth-Pro; the
+bridge flips the flax kernel into it (utils/flax_bridge.py). `conv_norm_pair`
+is the 1x1 conv -> LayerNorm -> 3x3 conv -> LayerNorm of SAM's neck and of
+every pyramid level.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_TRUNC = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> None:
+    """flax lecun_normal: truncated normal, variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+class Conv(nn.Conv2d):
+    """flax nn.Conv over [B, H, W, C] with explicit symmetric padding."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 stride: int = 1, padding: int = 0, bias: bool = True,
+                 dtype=torch.float32, device=None):
+        super().__init__(in_channels, out_channels, kernel, stride=stride,
+                         padding=padding, bias=bias, device=device)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2),
+                     self.weight.to(self.dtype), b, self.stride, self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """flax nn.ConvTranspose with a 2x2 kernel and stride 2 over
+    [B, H, W, C] -> [B, 2H, 2W, C']."""
+
+    def __init__(self, in_channels: int, out_channels: int, bias: bool = True,
+                 dtype=torch.float32, device=None):
+        super().__init__(in_channels, out_channels, 2, stride=2, bias=bias,
+                         device=device)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2),
+                               self.weight.to(self.dtype), b, stride=2)
+        return y.permute(0, 2, 3, 1)
+
+
+def conv_norm_pair(x: torch.Tensor, conv1: nn.Conv2d, norm1: nn.LayerNorm,
+                   conv2: nn.Conv2d, norm2: nn.LayerNorm,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """[B, H, W, C] -> 1x1 conv -> LayerNorm -> 3x3 conv (padding 1) ->
+    LayerNorm: the convs without bias in `dtype`, the norms in f32 (output
+    f32)."""
+    w1 = conv1.weight[:, :, 0, 0].to(dtype)
+    x = norm1(F.linear(x.to(dtype), w1).float())
+    x = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), conv2.weight.to(dtype),
+                 padding=1)
+    return norm2(x.permute(0, 2, 3, 1).float())
+
+
+def init_flax_defaults(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's default initializers over every Linear, conv and LayerNorm
+    of `module`: lecun-normal kernels (fan-in over kh * kw * in), zero
+    biases, unit LayerNorms."""
+    for mod in module.modules():
+        if isinstance(mod, nn.Linear):
+            lecun_normal_(mod.weight, mod.in_features, generator)
+        elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            kh, kw = mod.kernel_size
+            lecun_normal_(mod.weight, mod.in_channels * kh * kw, generator)
+        elif isinstance(mod, nn.LayerNorm):
+            nn.init.ones_(mod.weight)
+        else:
+            continue
+        if mod.bias is not None:
+            nn.init.zeros_(mod.bias)

@@ -11,8 +11,7 @@ factor builds one level:
 
 each followed by [conv 1x1 -> LN -> conv 3x3 -> LN] into `out_channels`.
 Convs run in the compute dtype, LayerNorms in f32, outputs are f32. Maps stay
-channels-last (NHWC); a conv sees the NCHW view of an NHWC tensor, which is
-PyTorch's channels_last layout, so no copies are made.
+channels-last (NHWC), through the convs of models/layers.py.
 """
 from __future__ import annotations
 
@@ -22,22 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ovmono3d_tpu_torch.models.vit import lecun_normal_
-
-
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2)
-
-
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 3, 1)
-
-
-def _conv_transpose(conv: nn.ConvTranspose2d, x: torch.Tensor,
-                    dtype: torch.dtype) -> torch.Tensor:
-    y = F.conv_transpose2d(_nchw(x.to(dtype)), conv.weight.to(dtype),
-                           conv.bias.to(dtype), stride=2)
-    return _nhwc(y)
+from ovmono3d_tpu_torch.models.layers import (ConvTranspose, conv_norm_pair,
+                                              init_flax_defaults)
 
 
 class _OutConvs(nn.Module):
@@ -53,11 +38,8 @@ class _OutConvs(nn.Module):
         self.output_norm = nn.LayerNorm(out_channels, eps=1e-6, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w1 = self.lateral.weight[:, :, 0, 0].to(self.dtype)
-        x = self.lateral_norm(F.linear(x.to(self.dtype), w1).float())
-        x = F.conv2d(_nchw(x.to(self.dtype)), self.output.weight.to(self.dtype),
-                     padding=1)
-        return self.output_norm(_nhwc(x).float())
+        return conv_norm_pair(x, self.lateral, self.lateral_norm, self.output,
+                              self.output_norm, self.dtype)
 
 
 class SimpleFeaturePyramid(nn.Module):
@@ -74,16 +56,16 @@ class SimpleFeaturePyramid(nn.Module):
         for i, scale in enumerate(self.scale_factors):
             stage_in = dim
             if scale == 4.0:
-                self.add_module(f"up4a_{i}", nn.ConvTranspose2d(
-                    dim, dim // 2, 2, stride=2, device=device))
+                self.add_module(f"up4a_{i}", ConvTranspose(
+                    dim, dim // 2, dtype=dtype, device=device))
                 self.add_module(f"up4_norm_{i}", nn.LayerNorm(
                     dim // 2, eps=1e-6, device=device))
-                self.add_module(f"up4b_{i}", nn.ConvTranspose2d(
-                    dim // 2, dim // 4, 2, stride=2, device=device))
+                self.add_module(f"up4b_{i}", ConvTranspose(
+                    dim // 2, dim // 4, dtype=dtype, device=device))
                 stage_in = dim // 4
             elif scale == 2.0:
-                self.add_module(f"up2_{i}", nn.ConvTranspose2d(
-                    dim, dim // 2, 2, stride=2, device=device))
+                self.add_module(f"up2_{i}", ConvTranspose(
+                    dim, dim // 2, dtype=dtype, device=device))
                 stage_in = dim // 2
             elif scale not in (1.0, 0.5):
                 raise ValueError(f"unsupported scale {scale}")
@@ -103,27 +85,19 @@ class SimpleFeaturePyramid(nn.Module):
         for i, scale in enumerate(self.scale_factors):
             x = feat
             if scale == 4.0:
-                x = _conv_transpose(getattr(self, f"up4a_{i}"), x, self.dtype)
+                x = getattr(self, f"up4a_{i}")(x)
                 x = getattr(self, f"up4_norm_{i}")(x.float())
                 x = F.gelu(x)
-                x = _conv_transpose(getattr(self, f"up4b_{i}"), x, self.dtype)
+                x = getattr(self, f"up4b_{i}")(x)
             elif scale == 2.0:
-                x = _conv_transpose(getattr(self, f"up2_{i}"), x, self.dtype)
+                x = getattr(self, f"up2_{i}")(x)
             elif scale == 0.5:
-                x = _nhwc(F.max_pool2d(_nchw(x), 2, 2))
+                x = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2)
+                x = x.permute(0, 2, 3, 1)
             out[self.feature_names[i]] = getattr(self, f"stage_{i}")(x)
         return out
 
     def init_weights(self, generator: torch.Generator) -> None:
-        """flax defaults: lecun-normal kernels (fan-in over kh*kw*in), zero
-        biases, unit LayerNorms."""
-        for mod in self.modules():
-            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
-                fan_in = (mod.in_channels * mod.kernel_size[0]
-                          * mod.kernel_size[1])
-                lecun_normal_(mod.weight, fan_in, generator)
-                if mod.bias is not None:
-                    nn.init.zeros_(mod.bias)
-            elif isinstance(mod, nn.LayerNorm):
-                nn.init.ones_(mod.weight)
-                nn.init.zeros_(mod.bias)
+        """flax's default initializers: lecun-normal kernels (fan-in over
+        kh*kw*in), zero biases, unit LayerNorms."""
+        init_flax_defaults(self, generator)

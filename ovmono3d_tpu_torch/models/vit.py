@@ -1,11 +1,23 @@
-"""DINOv2-style Vision Transformer trunk in PyTorch.
+"""Vision Transformer trunks in PyTorch: DINOv2 (the detector's), SAM's
+image encoder and Depth-Pro's encoders.
 
-Counterpart of ovmono3d_tpu/models/vit.py for the DINOv2 path: f32
-parameters, activations and products in the compute dtype (bf16 by default),
-LayerNorm statistics in f32, the learned position table bicubically resized
-to the runtime grid with DINOv2's +0.1 offset, and the depth-fusion 1x1 conv
-after the last block. Attention goes through `dot_product_attention`: the
-CUDA kernel on the card, the plain version on the CPU.
+Counterpart of ovmono3d_tpu/models/vit.py: f32 parameters, activations and
+products in the compute dtype (bf16 by default), LayerNorm statistics in
+f32. Options ported:
+
+- DINOv2 (the defaults): cls token, the learned position table bicubically
+  resized to the runtime grid with DINOv2's +0.1 offset, LayerScale, the
+  depth-fusion 1x1 conv after the last block;
+- SAM's image encoder: no cls token (`use_cls_token=False`), windowed
+  blocks (`window_size`, with global attention in `global_blocks`),
+  decomposed relative-position attention (`use_rel_pos`) and the
+  256-channel conv neck (`neck_channels`);
+- Depth-Pro's encoders: `final_norm` (DINOv2's trailing `norm`) and
+  `out_layers` (the pre-norm features of those blocks as `feat{i}`).
+
+Attention goes through `dot_product_attention` (CUDA kernel 1, or 3 and 4
+when training) and the rel-pos blocks through `rel_pos_attention` (kernel
+7, inference only); on the CPU both run their plain versions.
 
 Training: when the trunk needs gradients, attention runs through the
 autograd Function of ops/attention.py (the lse forward kernel and the
@@ -13,10 +25,13 @@ backward kernel); under no_grad / inference_mode it runs the inference
 kernel. Freezing the trunk (`BackboneConfig.freeze`) is done by
 `build_model`, which sets requires_grad=False on this module's parameters.
 
-Submodules carry the JAX package's parameter names (`block0.attn.qkv`, ...)
-so utils/flax_bridge.py maps the two trees mechanically. The options of the
-other trunks (CLIP, MAE, SAM, MiDaS) and remat raise NotImplementedError
-naming the ROADMAP item that ports them.
+Submodules carry the JAX package's parameter names (`block0.attn.qkv`,
+`block0.attn.rel_pos_h`, `neck_conv1`, `norm`, ...) so utils/flax_bridge.py
+maps the two trees mechanically. Options still to port raise
+NotImplementedError naming their ROADMAP item: the CLIP and MAE trunks'
+`pre_ln` and `pos_sincos`, the size-based position-table resize of the
+non-DINOv2 trunks (a grid other than the pretraining grid; SAM at 1024^2
+and Depth-Pro at 384^2 need none), the W8A8 `quant` path, and remat.
 """
 from __future__ import annotations
 
@@ -26,19 +41,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ovmono3d_tpu_torch.ops.attention import dot_product_attention
+from ovmono3d_tpu_torch.models.layers import conv_norm_pair, lecun_normal_
+from ovmono3d_tpu_torch.ops.attention import (dot_product_attention,
+                                              rel_pos_attention)
 
-_TRUNC = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
 # DINOv2 interpolate_pos_encoding's scale-factor offset (the JAX package's
 # "dinov2" preset, pos_interp_offset=0.1).
 DINOV2_POS_OFFSET = 0.1
-
-
-def lecun_normal_(w: torch.Tensor, fan_in: int,
-                  generator: torch.Generator) -> None:
-    """flax lecun_normal: truncated normal, variance 1 / fan_in."""
-    std = math.sqrt(1.0 / fan_in) / _TRUNC
-    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
 class Dense(nn.Linear):
@@ -141,36 +150,87 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
+def _resize_rel_pos(rel_pos: torch.Tensor, size: int) -> torch.Tensor:
+    """Linear-resize a decomposed rel-pos table [L, D] to 2*size-1 rows as
+    segment_anything's get_rel_pos does (F.interpolate mode="linear", which
+    does not antialias)."""
+    target = 2 * size - 1
+    if rel_pos.shape[0] == target:
+        return rel_pos
+    out = F.interpolate(rel_pos.T[None], size=target, mode="linear",
+                        align_corners=False)
+    return out[0].T
+
+
 class Attention(nn.Module):
-    """Global multi-head self-attention (no rel-pos).
+    """Multi-head self-attention, global or with SAM's decomposed rel-pos
+    bias (`use_rel_pos`; tables of 2*rel_pos_size-1 rows).
 
     `attn_fn` is the attention on the qkv output viewed as [B, N, 3, H, D],
-    returning [B, N, H, D]; it defaults to `dot_product_attention`.
+    returning [B, N, H, D]: `dot_product_attention(qkv)` by default, and
+    `rel_pos_attention(qkv, Rh, Rw, grid_hw)` with rel-pos.
     """
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, use_rel_pos: bool = False,
+                 rel_pos_size: int = 0):
         super().__init__()
         self.num_heads = num_heads
+        self.use_rel_pos = use_rel_pos
         self.qkv = Dense(dim, 3 * dim, dtype, device=device)
         self.proj = Dense(dim, dim, dtype, device=device)
-        self.attn_fn = dot_product_attention
+        if use_rel_pos:
+            n_rel = 2 * rel_pos_size - 1
+            self.rel_pos_h = nn.Parameter(
+                torch.empty(n_rel, dim // num_heads, device=device))
+            self.rel_pos_w = nn.Parameter(
+                torch.empty(n_rel, dim // num_heads, device=device))
+            self.attn_fn = rel_pos_attention
+        else:
+            self.attn_fn = dot_product_attention
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def rel_tables(self, grid_hw: tuple[int, int]
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Rh [h, h, D] and Rw [w, w, D]: the tables resized to the grid and
+        gathered at r_i - r_j + h - 1 (and likewise for columns), f32."""
+        h, w = grid_hw
+        rh = _resize_rel_pos(self.rel_pos_h, h)
+        rw = _resize_rel_pos(self.rel_pos_w, w)
+        dev = rh.device
+        idx_h = (torch.arange(h, device=dev)[:, None]
+                 - torch.arange(h, device=dev)[None, :] + h - 1)
+        idx_w = (torch.arange(w, device=dev)[:, None]
+                 - torch.arange(w, device=dev)[None, :] + w - 1)
+        return rh[idx_h], rw[idx_w]
+
+    def forward(self, x: torch.Tensor,
+                grid_hw: tuple[int, int] | None = None) -> torch.Tensor:
         B, N, C = x.shape
         H = self.num_heads
         qkv = self.qkv(x).view(B, N, 3, H, C // H)
-        out = self.attn_fn(qkv)              # [B, N, H, D]
+        if self.use_rel_pos:
+            out = self.attn_fn(qkv, *self.rel_tables(grid_hw), grid_hw)
+        else:
+            out = self.attn_fn(qkv)          # [B, N, H, D]
         return self.proj(out.reshape(B, N, C))
 
 
 class Block(nn.Module):
+    """Pre-norm transformer block. With `window` > 0 (SAM's windowed
+    blocks) the attention runs over window x window tiles of the token grid:
+    the grid is padded with zeros AFTER norm1 (segment_anything's order), so
+    the padded tokens are real keys of value proj(b_v), not LN(0)."""
+
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  layerscale: bool = True, dtype=torch.bfloat16,
-                 norm_eps: float = 1e-6, device=None):
+                 norm_eps: float = 1e-6, device=None,
+                 use_rel_pos: bool = False, rel_pos_size: int = 0,
+                 window: int = 0):
         super().__init__()
+        self.window = window
         self.norm1 = LayerNormBf16Out(dim, norm_eps, dtype, device)
-        self.attn = Attention(dim, num_heads, dtype, device)
+        self.attn = Attention(dim, num_heads, dtype, device, use_rel_pos,
+                              rel_pos_size)
         self.norm2 = LayerNormBf16Out(dim, norm_eps, dtype, device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, device)
         if layerscale:
@@ -179,9 +239,29 @@ class Block(nn.Module):
         else:
             self.ls1 = self.ls2 = nn.Identity()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x)))
+    def forward(self, x: torch.Tensor,
+                grid_hw: tuple[int, int] | None = None) -> torch.Tensor:
+        h = self.norm1(x)
+        if self.window > 0:
+            h = self._windowed_attn(h, grid_hw)
+        else:
+            h = self.attn(h, grid_hw)
+        x = x + self.ls1(h)
         return x + self.ls2(self.mlp(self.norm2(x)))
+
+    def _windowed_attn(self, h: torch.Tensor,
+                       grid_hw: tuple[int, int]) -> torch.Tensor:
+        B, N, C = h.shape
+        H, W = grid_hw
+        win = self.window
+        hp, wp = -(-H // win) * win, -(-W // win) * win
+        g = F.pad(h.view(B, H, W, C), (0, 0, 0, wp - W, 0, hp - H))
+        g = g.view(B, hp // win, win, wp // win, win, C)
+        g = g.permute(0, 1, 3, 2, 4, 5).reshape(-1, win * win, C)
+        g = self.attn(g, (win, win))
+        g = g.view(B, hp // win, wp // win, win, win, C)
+        g = g.permute(0, 1, 3, 2, 4, 5).reshape(B, hp, wp, C)
+        return g[:, :H, :W].reshape(B, N, C)
 
 
 def _bicubic_matrix(src: int, dst: int, device) -> torch.Tensor:
@@ -198,8 +278,9 @@ def _bicubic_matrix(src: int, dst: int, device) -> torch.Tensor:
     return out[0, :, :, 0].T
 
 
-def resize_pos_embed(pos_embed: torch.Tensor,
-                     grid_hw: tuple[int, int]) -> torch.Tensor:
+def resize_pos_embed(pos_embed: torch.Tensor, grid_hw: tuple[int, int],
+                     interpolate_offset: float = DINOV2_POS_OFFSET
+                     ) -> torch.Tensor:
     """Bicubic-resize a [1, 1 + G*G, C] table (cls first) to the (h, w) grid
     as DINOv2's interpolate_pos_encoding does: F.interpolate(mode="bicubic",
     align_corners=False, scale_factor=((h + 0.1) / G, (w + 0.1) / G)).
@@ -207,14 +288,19 @@ def resize_pos_embed(pos_embed: torch.Tensor,
     Bicubic resizing is separable, so it runs as two f32 products with the
     per-axis matrices: on an H100, F.interpolate on the 768-channel table
     itself took 4.6 ms per call, more than the attention of all 12 ViT-B
-    blocks at 896^2. The size-based mapping of the CLIP/MAE trunks is not
-    ported (ROADMAP slice 7). Returns [1, 1 + h*w, C].
+    blocks at 896^2. The other trunks' size-based mapping
+    (`interpolate_offset` 0) is not ported: at a grid other than the
+    pretraining grid it raises (ROADMAP slice 7). Returns [1, 1 + h*w, C].
     """
     cls_pe, patch_pe = pos_embed[:, :1], pos_embed[:, 1:]
     g = int(round(math.sqrt(patch_pe.shape[1])))
     c = patch_pe.shape[-1]
     h, w = grid_hw
     if (g, g) != (h, w):
+        if interpolate_offset != DINOV2_POS_OFFSET:
+            raise NotImplementedError(
+                f"position table of grid {g} at grid {grid_hw} with the "
+                "size-based mapping (CLIP/MAE/SAM/MiDaS): ROADMAP slice 7")
         wy = _bicubic_matrix(g, h, pos_embed.device)
         wx = _bicubic_matrix(g, w, pos_embed.device)
         x = torch.einsum("hg,gkc->hkc", wy, patch_pe.reshape(g, g, c))
@@ -224,24 +310,26 @@ def resize_pos_embed(pos_embed: torch.Tensor,
 
 
 class VisionTransformer(nn.Module):
-    """ViT trunk: NHWC image -> {'last_feat': [B, h, w, C] f32,
-    'cls': [B, C] f32}. Defaults are DINOv2 ViT-B/14."""
+    """ViT trunk: NHWC image -> {'last_feat': [B, h, w, C'] f32,
+    'cls': [B, C] f32, 'feat{i}': [B, h, w, C] for i in out_layers}.
+    Defaults are DINOv2 ViT-B/14; C' is neck_channels when there is a neck.
+    """
 
     def __init__(self, patch_size: int = 14, embed_dim: int = 768,
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
                  pretrain_grid: int = 37, layerscale: bool = True,
                  use_depth_fusion: bool = True, norm_eps: float = 1e-6, dtype=torch.bfloat16, device=None,
-                 *, pre_ln: bool = False, pos_sincos: bool = False,
-                 window_size: int = 0, use_rel_pos: bool = False,
-                 neck_channels: int = 0, remat: bool = False,
-                 quant: str = "none"):
+                 *, use_cls_token: bool = True,
+                 pos_interp_offset: float = DINOV2_POS_OFFSET,
+                 window_size: int = 0, global_blocks=(),
+                 use_rel_pos: bool = False, neck_channels: int = 0,
+                 out_layers=(), final_norm: bool = False,
+                 pre_ln: bool = False, pos_sincos: bool = False,
+                 remat: bool = False, quant: str = "none"):
         super().__init__()
         unported = [
             (pre_ln, "pre_ln (CLIP trunk): ROADMAP slice 7"),
             (pos_sincos, "pos_sincos (MAE trunk): ROADMAP slice 7"),
-            (window_size > 0, "window_size (SAM trunk): ROADMAP slice 6"),
-            (use_rel_pos, "use_rel_pos (SAM trunk): ROADMAP slice 6"),
-            (neck_channels > 0, "neck_channels (SAM trunk): ROADMAP slice 6"),
             (remat, "remat (queued with training): ROADMAP slice 3"),
             (quant != "none", f"quant={quant!r} (W8A8): ROADMAP slice 7"),
         ]
@@ -251,19 +339,38 @@ class VisionTransformer(nn.Module):
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.dtype = dtype
+        self.pos_interp_offset = pos_interp_offset
+        self.n_prefix = 1 if use_cls_token else 0
+        self.out_layers = tuple(out_layers)
         self.patch_embed = PatchEmbed(patch_size, embed_dim, 3, dtype, device)
-        self.pos_embed = nn.Parameter(
-            torch.empty(1, 1 + pretrain_grid**2, embed_dim, device=device))
-        self.cls_token = nn.Parameter(
+        self.pos_embed = nn.Parameter(torch.empty(
+            1, self.n_prefix + pretrain_grid**2, embed_dim, device=device))
+        self.cls_token = (nn.Parameter(
             torch.empty(1, 1, embed_dim, device=device))
+            if use_cls_token else None)
         self.depth = depth
         for i in range(depth):
+            windowed = window_size > 0 and i not in global_blocks
             self.add_module(f"block{i}", Block(
                 embed_dim, num_heads, mlp_ratio, layerscale, dtype, norm_eps,
-                device))
+                device, use_rel_pos=use_rel_pos,
+                rel_pos_size=window_size if windowed else pretrain_grid,
+                window=window_size if windowed else 0))
         self.depth_fusion = (
             nn.Conv2d(embed_dim + 1, embed_dim, 1, device=device)
             if use_depth_fusion else None)
+        self.norm = (nn.LayerNorm(embed_dim, eps=1e-6, device=device)
+                     if final_norm else None)
+        if neck_channels > 0:
+            self.neck_conv1 = nn.Conv2d(embed_dim, neck_channels, 1,
+                                        bias=False, device=device)
+            self.neck_norm1 = nn.LayerNorm(neck_channels, eps=1e-6,
+                                           device=device)
+            self.neck_conv2 = nn.Conv2d(neck_channels, neck_channels, 3,
+                                        padding=1, bias=False, device=device)
+            self.neck_norm2 = nn.LayerNorm(neck_channels, eps=1e-6,
+                                           device=device)
+        self.neck_channels = neck_channels
 
     def blocks(self) -> list[Block]:
         return [getattr(self, f"block{i}") for i in range(self.depth)]
@@ -273,17 +380,38 @@ class VisionTransformer(nn.Module):
         """images: [B, H, W, 3] normalized; prompt_depth: [B, H', W', 1]."""
         B, H, W, _ = images.shape
         h, w = H // self.patch_size, W // self.patch_size
+        p = self.n_prefix
         x = self.patch_embed(images)
-        cls = self.cls_token.expand(B, 1, self.embed_dim).to(x.dtype)
-        x = torch.cat([cls, x], dim=1)
-        pe = resize_pos_embed(self.pos_embed, (h, w))
+        if self.cls_token is not None:
+            cls = self.cls_token.expand(B, 1, self.embed_dim).to(x.dtype)
+            x = torch.cat([cls, x], dim=1)
+            pe = resize_pos_embed(self.pos_embed, (h, w),
+                                  self.pos_interp_offset)
+        else:
+            zero = self.pos_embed.new_zeros(1, 1, self.embed_dim)
+            pe = resize_pos_embed(torch.cat([zero, self.pos_embed], dim=1),
+                                  (h, w), self.pos_interp_offset)[:, 1:]
         x = x + pe.to(x.dtype)
-        for blk in self.blocks():
-            x = blk(x)
-        if self.depth_fusion is not None:
-            x = self._fuse_depth(x, prompt_depth, B, h, w)
-        feat = x[:, 1:].reshape(B, h, w, self.embed_dim)
-        return {"last_feat": feat.float(), "cls": x[:, 0].float()}
+        extra = {}
+        for i, blk in enumerate(self.blocks()):
+            if blk.window > 0 and p:
+                # Prefix tokens bypass a windowed block.
+                x = torch.cat([x[:, :p], blk(x[:, p:], (h, w))], dim=1)
+            else:
+                x = blk(x, (h, w))
+            if i == self.depth - 1 and self.depth_fusion is not None:
+                x = self._fuse_depth(x, prompt_depth, B, h, w)
+            if i in self.out_layers:
+                extra[f"feat{i}"] = x[:, p:].reshape(B, h, w, self.embed_dim)
+        if self.norm is not None:
+            x = self.norm(x.float()).to(x.dtype)
+        feat = x[:, p:].reshape(B, h, w, self.embed_dim)
+        if self.neck_channels > 0:
+            # SAM's neck.
+            feat = conv_norm_pair(feat, self.neck_conv1, self.neck_norm1,
+                                  self.neck_conv2, self.neck_norm2, self.dtype)
+        cls = x[:, 0] if p else x.mean(dim=1)
+        return {"last_feat": feat.float(), "cls": cls.float(), **extra}
 
     def _fuse_depth(self, x, prompt_depth, B, h, w):
         """Depth-prompt fusion after the last block (reference
@@ -291,23 +419,26 @@ class VisionTransformer(nn.Module):
         depth map the depth channel is zero and contributes nothing, so only
         the first C input channels are applied."""
         C = self.embed_dim
+        p = self.n_prefix
         wt = self.depth_fusion.weight[:, :, 0, 0].to(self.dtype)   # [C, C+1]
-        patch = x[:, 1:]
-        fused = F.linear(patch, wt[:, :C], self.depth_fusion.bias.to(self.dtype))
+        fused = F.linear(x[:, p:], wt[:, :C],
+                         self.depth_fusion.bias.to(self.dtype))
         if prompt_depth is not None:
             # F.interpolate bilinear, half-pixel, no antialiasing (dino.py:85).
             d = F.interpolate(prompt_depth.permute(0, 3, 1, 2).to(self.dtype),
                               size=(h, w), mode="bilinear",
                               align_corners=False)
             fused = fused + d.reshape(B, h * w, 1) * wt[:, C]
-        return torch.cat([x[:, :1], fused], dim=1)
+        return torch.cat([x[:, :p], fused], dim=1)
 
     def init_weights(self, generator: torch.Generator) -> None:
         """flax's initializers: lecun-normal kernels, zero biases, normal(0.02)
-        position table, zero cls token, LayerScale 1e-5."""
+        position table, zero cls token and rel-pos tables, LayerScale 1e-5,
+        unit LayerNorms."""
         self.patch_embed.init_weights(generator)
         nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=generator)
-        nn.init.zeros_(self.cls_token)
+        if self.cls_token is not None:
+            nn.init.zeros_(self.cls_token)
         for blk in self.blocks():
             blk.norm1.init_weights()
             blk.norm2.init_weights()
@@ -316,7 +447,19 @@ class VisionTransformer(nn.Module):
             for ls in (blk.ls1, blk.ls2):
                 if isinstance(ls, LayerScale):
                     ls.init_weights()
+            if blk.attn.use_rel_pos:
+                nn.init.zeros_(blk.attn.rel_pos_h)
+                nn.init.zeros_(blk.attn.rel_pos_w)
         if self.depth_fusion is not None:
             lecun_normal_(self.depth_fusion.weight, self.embed_dim + 1,
                           generator)
             nn.init.zeros_(self.depth_fusion.bias)
+        norms = [self.norm]
+        if self.neck_channels > 0:
+            for conv in (self.neck_conv1, self.neck_conv2):
+                lecun_normal_(conv.weight, conv.weight[0].numel(), generator)
+            norms += [self.neck_norm1, self.neck_norm2]
+        for norm in norms:
+            if norm is not None:
+                nn.init.ones_(norm.weight)
+                nn.init.zeros_(norm.bias)

@@ -25,9 +25,22 @@ Counterpart of ovmono3d_tpu/ops/attention.py for the ViT trunk:
   `attention_ref`; CUDA tensors to `FlashAttentionQKV` when a gradient is
   needed and to the inference kernel otherwise. Nothing falls back.
 
+Decomposed relative-position attention (the SAM image encoder's blocks):
+
+- `rel_pos_attention_ref`: the plain version, the same math as the JAX
+  package's `_rel_pos_attention_fast(..., clamp=None)`;
+- `rel_pos_flash_attention` (`csrc/relpos_flash_fwd.cu`, counted in
+  `rel_pos_flash_attention.launches`), replacing the TPU kernel
+  `_relpos_flash_kernel`: inference only, bf16, head dim 64 or 80;
+- `rel_pos_attention`: its dispatcher. f32 inputs (on any device) and CPU
+  tensors go to the plain version; CUDA bf16 goes to the kernel, with the
+  bias factors qrh/qrw computed outside it in f32 (`rel_pos_factors`), and
+  raises when a gradient is needed (no backward yet).
+
 Layout: q/k/v [B, N, H, D]; the dispatcher and the Function take the qkv
 projection's output viewed as [B, N, 3, H, D]. lse is [B, H, N] f32 in
-natural-log units.
+natural-log units. Rel-pos tables Rh [h, h, D] and Rw [w, w, D] are already
+gathered to the (h, w) grid; qrh [B, N, H, h] and qrw [B, N, H, w].
 """
 from __future__ import annotations
 
@@ -37,8 +50,10 @@ import math
 
 import torch
 
-KERNEL_SOURCES = ["flash_attn_fwd.cu", "flash_attn_bwd.cu"]
+KERNEL_SOURCES = ["flash_attn_fwd.cu", "flash_attn_bwd.cu",
+                  "relpos_flash_fwd.cu"]
 _HEAD_DIM = 64
+_REL_POS_HEAD_DIMS = (64, 80)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor,
@@ -91,7 +106,8 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @functools.cache
 def _kernels() -> tuple:
-    """(forward entry, backward entry) of the built libraries."""
+    """(forward, backward, rel-pos forward) entries of the built
+    libraries."""
     from ovmono3d_tpu_torch.utils import cuda_build
 
     libs = cuda_build.load(KERNEL_SOURCES)
@@ -107,7 +123,13 @@ def _kernels() -> tuple:
         + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     )
     bwd.restype = ctypes.c_int
-    return fwd, bwd
+    relpos = libs["relpos_flash_fwd.cu"].relpos_flash_fwd_bf16
+    relpos.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    relpos.restype = ctypes.c_int
+    return fwd, bwd, relpos
 
 
 def build_kernels() -> None:
@@ -160,7 +182,7 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch_fwd(q, k, v, lse: torch.Tensor | None) -> torch.Tensor:
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    fwd, _ = _kernels()
+    fwd = _kernels()[0]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -235,7 +257,7 @@ def flash_attention_packed_bwd(q: torch.Tensor, k: torch.Tensor,
     grad = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
     dq, dk, dv = grad.unbind(2)
     strides = [s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3]]
-    _, bwd = _kernels()
+    bwd = _kernels()[1]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -284,3 +306,129 @@ def dot_product_attention(qkv: torch.Tensor) -> torch.Tensor:
             return FlashAttentionQKV.apply(qkv)
         return flash_attention_packed(*qkv.unbind(2))
     raise ValueError(f"no attention path for device {qkv.device}")
+
+
+_REL_POS_NO_GRAD = ("rel-pos attention on CUDA is inference-only: its "
+                    "backward (SAM-backbone training) is ROADMAP queue 2 "
+                    "item 14; run under torch.no_grad() / inference_mode()")
+
+
+def rel_pos_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          Rh: torch.Tensor, Rw: torch.Tensor,
+                          grid_hw: tuple[int, int]) -> torch.Tensor:
+    """softmax(scale q k^T + bias_h + bias_w) v over an (h, w) token grid.
+
+    q/k/v: [B, h*w, H, D]; Rh [h, h, D], Rw [w, w, D] (cast to q's dtype
+    first). bias_h[i, j] = q_i . Rh[r_i, r_j] and bias_w[i, j] = q_i .
+    Rw[c_i, c_j] with f32 accumulation; f32 logits and softmax;
+    probabilities cast to v's dtype before PV; output in q's dtype. With f32
+    inputs this is the JAX package's exact f32 branch (vit.py)."""
+    B, N, H, D = q.shape
+    h, w = grid_hw
+    scale = 1.0 / math.sqrt(D)
+    q32 = q.float()
+    q_tok = q32.reshape(B, h, w, H, D)
+    bias_h = torch.einsum("brcnd,rkd->bnrck", q_tok, Rh.to(q.dtype).float())
+    bias_w = torch.einsum("brcnd,ckd->bnrck", q_tok, Rw.to(q.dtype).float())
+    logits = torch.einsum("bqhd,bkhd->bhqk", q32, k.float()) * scale
+    logits = logits.view(B, H, h, w, h, w) + (bias_h[..., :, None]
+                                              + bias_w[..., None, :])
+    probs = torch.softmax(logits.view(B, H, N, N), dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+    return out.to(q.dtype)
+
+
+def rel_pos_factors(q: torch.Tensor, Rh: torch.Tensor, Rw: torch.Tensor,
+                    grid_hw: tuple[int, int]
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's bias factors qrh [B, N, H, h] = q_i . Rh[r_i, a] and
+    qrw [B, N, H, w] = q_i . Rw[c_i, a]: q and the tables in q's dtype,
+    products and sums in f32, contiguous f32 results (the JAX package's
+    einsums before its kernel, without the TPU's bf16 cast)."""
+    B, N, H, D = q.shape
+    h, w = grid_hw
+    q_tok = q.float().reshape(B, h, w, H, D)
+    qrh = torch.einsum("brcnd,rkd->brcnk", q_tok, Rh.to(q.dtype).float())
+    qrw = torch.einsum("brcnd,ckd->brcnk", q_tok, Rw.to(q.dtype).float())
+    return (qrh.reshape(B, N, H, h).contiguous(),
+            qrw.reshape(B, N, H, w).contiguous())
+
+
+def check_rel_pos_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         qrh: torch.Tensor, qrw: torch.Tensor,
+                         grid_hw: tuple[int, int]) -> None:
+    """Raise ValueError unless kernel 7 takes these inputs as they are. The
+    device is checked last, so the layout checks run on CPU tensors too."""
+    h, w = grid_hw
+    b, n, heads, d = q.shape
+    if h * w != n:
+        raise ValueError(f"grid {grid_hw} has {h * w} tokens, q has {n}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        err = _layout_error(name, x, q.shape)
+        if err:
+            raise ValueError(err)
+    if d not in _REL_POS_HEAD_DIMS:
+        raise ValueError(f"head dim {d}; the kernel takes "
+                         f"{_REL_POS_HEAD_DIMS}")
+    for name, x, width in (("qrh", qrh, h), ("qrw", qrw, w)):
+        if (x.dtype != torch.float32 or tuple(x.shape) != (b, n, heads, width)
+                or not x.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous f32 [B, N, H, {width}] = "
+                f"{(b, n, heads, width)} tensor; got {x.dtype} "
+                f"{tuple(x.shape)}")
+    named = (("q", q), ("k", k), ("v", v), ("qrh", qrh), ("qrw", qrw))
+    if torch.is_grad_enabled() and any(x.requires_grad for _, x in named):
+        raise ValueError(_REL_POS_NO_GRAD)
+    for name, x in named:
+        if x.device.type != "cuda" or x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}; the kernel needs "
+                             f"all its tensors on one CUDA device")
+
+
+def rel_pos_flash_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, qrh: torch.Tensor,
+                            qrw: torch.Tensor, grid_hw: tuple[int, int]
+                            ) -> torch.Tensor:
+    """Launch the CUDA decomposed-rel-pos attention forward (kernel 7).
+
+    q/k/v: [B, h*w, H, D] bf16, D in {64, 80}, strided views welcome;
+    qrh/qrw: contiguous f32 [B, N, H, h] / [B, N, H, w] (`rel_pos_factors`).
+    Returns a contiguous [B, N, H, D] bf16. Counts each launch in
+    `rel_pos_flash_attention.launches`."""
+    check_rel_pos_inputs(q, k, v, qrh, qrw, grid_hw)
+    b, n, heads, d = q.shape
+    h, w = grid_hw
+    out = torch.empty((b, n, heads, d), dtype=q.dtype, device=q.device)
+    relpos = _kernels()[2]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = relpos(q.data_ptr(), k.data_ptr(), v.data_ptr(), qrh.data_ptr(),
+                    qrw.data_ptr(), out.data_ptr(), b, n, heads, d, h, w,
+                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                    1.0 / math.sqrt(d), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"relpos_flash_fwd_bf16 launch failed with CUDA error {rc} "
+            f"(B={b}, N={n}, H={heads}, D={d}, grid={grid_hw})")
+    rel_pos_flash_attention.launches += 1
+    return out
+
+
+rel_pos_flash_attention.launches = 0
+
+
+def rel_pos_attention(qkv: torch.Tensor, Rh: torch.Tensor, Rw: torch.Tensor,
+                      grid_hw: tuple[int, int]) -> torch.Tensor:
+    """Rel-pos attention for the SAM encoder's blocks: the qkv projection's
+    output viewed as [B, h*w, 3, H, D] -> [B, h*w, H, D]."""
+    q, k, v = qkv.unbind(2)
+    if qkv.dtype == torch.float32 or qkv.device.type == "cpu":
+        return rel_pos_attention_ref(q, k, v, Rh, Rw, grid_hw)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no rel-pos attention path for device {qkv.device}")
+    if torch.is_grad_enabled() and (qkv.requires_grad or Rh.requires_grad
+                                    or Rw.requires_grad):
+        raise NotImplementedError(_REL_POS_NO_GRAD)
+    qrh, qrw = rel_pos_factors(q, Rh, Rw, grid_hw)
+    return rel_pos_flash_attention(q, k, v, qrh, qrw, grid_hw)

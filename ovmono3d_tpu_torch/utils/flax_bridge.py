@@ -8,15 +8,24 @@ the layout:
   Dense kernel [in, out]                 -> Linear weight [out, in]
   Conv / PatchEmbed kernel HWIO          -> weight OIHW
   ConvTranspose kernel HWIO              -> weight IOHW, spatially flipped
-                                            (flax applies it mirrored)
+                                            (flax applies it mirrored: the
+                                            SFP's, SAM's up1/up2 and every
+                                            Depth-Pro deconv)
   LayerNorm scale                        -> weight
-  bias, pos_embed, cls_token, gamma      -> unchanged
+  any other leaf                         -> the parameter of the same name,
+                                            unchanged (bias, pos_embed,
+                                            cls_token, gamma, rel_pos_h/w,
+                                            SAM's gaussian_matrix,
+                                            point_embeddings, no_mask_embed,
+                                            iou_token, mask_tokens)
 
 The mapping is strict: a flax leaf with no torch parameter, a torch parameter
 no leaf fills, or a shape that disagrees raises. A port RCNN3D holds the
 trunk, the pyramid, the RPN, box and cube heads, so it takes the tree JAX's
 init through `RCNN3D.compute_losses` makes (the training tree); a tree from
-the oracle-only init lacks the RPN and box heads and is refused.
+the oracle-only init lacks the RPN and box heads and is refused. The GEO
+models (SAM's encoder, `SamSegmenter`, `DepthPro`) take their JAX modules'
+init trees.
 """
 from __future__ import annotations
 

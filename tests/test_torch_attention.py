@@ -118,9 +118,10 @@ def test_wrapper_rejects(bad, match):
 
 
 # On the card: the kernel against the plain version on the main path's
-# shapes (trunk, Depth-Pro, small ragged) and at the tile edges (64 rows).
-CUDA_SHAPES = [(1, 4097, 12, 64), (1, 577, 16, 64), (2, 77, 12, 64),
-               (1, 1, 2, 64), (1, 64, 2, 64), (3, 65, 4, 64)]
+# shapes (trunk, Depth-Pro's B=1 encoders and its 35-crop patch encoder,
+# small ragged) and at the tile edges (64 rows).
+CUDA_SHAPES = [(1, 4097, 12, 64), (1, 577, 16, 64), (35, 577, 16, 64),
+               (2, 77, 12, 64), (1, 1, 2, 64), (1, 64, 2, 64), (3, 65, 4, 64)]
 
 
 def _check_kernel(q, k, v):

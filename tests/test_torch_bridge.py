@@ -16,9 +16,14 @@ import __graft_entry__
 from ovmono3d_tpu import config as jcfg
 from ovmono3d_tpu.models.rcnn3d import build_model as jax_build_model
 from ovmono3d_tpu_torch import config as tcfg
+from ovmono3d_tpu_torch.models.backbones import SAM_ARCHS, VIT_PRESETS
+from ovmono3d_tpu_torch.models.depth import DepthPro
 from ovmono3d_tpu_torch.models.rcnn3d import build_model
+from ovmono3d_tpu_torch.models.sam import SamSegmenter
 from ovmono3d_tpu_torch.models.sfp import SimpleFeaturePyramid
+from ovmono3d_tpu_torch.models.vit import VisionTransformer
 from ovmono3d_tpu_torch.utils import flax_bridge
+from test_torch_depth import TINY
 from test_torch_rcnn3d import training_tree
 
 torch.set_num_threads(2)
@@ -105,6 +110,82 @@ def test_bridge_flips_conv_transpose():
     np.testing.assert_array_equal(w[:, 0], k[::-1, ::-1, :, 0].transpose(2, 0, 1))
 
 
+def _geo_tree(name):
+    """A GEO model's full-size flax tree (shapes only) and the port's model
+    on the meta device."""
+    import jax.numpy as jnp
+
+    from ovmono3d_tpu.models.backbones import VIT_PRESETS as JAX_PRESETS
+    from ovmono3d_tpu.models.depth import DepthPro as JaxDepthPro
+    from ovmono3d_tpu.models.sam import SamSegmenter as JaxSamSegmenter
+    from ovmono3d_tpu.models.vit import VisionTransformer as JaxViT
+
+    def shapes(module, *args):
+        return jax.eval_shape(module.init, jax.random.PRNGKey(0), *args)
+
+    def img(size):
+        return jax.ShapeDtypeStruct((1, size, size, 3), jnp.float32)
+
+    if name == "sam_vit_h":
+        arch = {**JAX_PRESETS["sam"], **SAM_ARCHS["vit_h"]}
+        tree = shapes(JaxViT(use_depth_fusion=False, **arch), img(1024))
+        port = VisionTransformer(
+            device="meta", use_depth_fusion=False, pos_interp_offset=0.0,
+            **{**VIT_PRESETS["sam"], **SAM_ARCHS["vit_h"]})
+    elif name == "sam_segmenter":
+        tree = shapes(JaxSamSegmenter(),
+                      jax.ShapeDtypeStruct((1, 64, 64, 256), jnp.float32),
+                      jax.ShapeDtypeStruct((1, 4), jnp.float32), 1024.0)
+        port = SamSegmenter(device="meta")
+    else:
+        tree = shapes(JaxDepthPro(), img(1536))
+        port = DepthPro(device="meta")
+    return tree, port
+
+
+@pytest.mark.parametrize("name", ["sam_vit_h", "sam_segmenter", "depth_pro"])
+def test_geo_trees_map_every_leaf_to_one_parameter(name):
+    tree, port = _geo_tree(name)
+    plan = flax_bridge.plan(port, tree)
+    leaves = jax.tree_util.tree_leaves(tree)
+    params = dict(port.named_parameters())
+    assert len(plan) == len(leaves) == len(params)
+    assert sum(int(np.prod(x.shape)) for x in leaves) == sum(
+        p.numel() for p in params.values())
+    flips = {path for path, (_, _, flip) in plan.items() if flip}
+    if name == "sam_vit_h":
+        assert plan["block0/attn/rel_pos_h"][0] == \
+            "block0.attn.rel_pos_h"
+        assert params["block7.attn.rel_pos_h"].shape == (127, 80)
+        assert plan["neck_norm1/scale"][0] == "neck_norm1.weight"
+        assert "cls_token" not in params and not flips
+    elif name == "sam_segmenter":
+        assert plan["mask_decoder/iou_token"] == (
+            "mask_decoder.iou_token", None, False)
+        assert flips == {"mask_decoder/up1/kernel", "mask_decoder/up2/kernel"}
+    else:
+        assert len(flips) == 1 + 3 + (2 + 3) + 4 + 1   # every ConvTranspose
+        assert {"up_image/kernel", "fusion0/deconv/kernel",
+                "head_deconv/kernel", "up_hook1_deconv2/kernel"} <= flips
+
+
+@pytest.mark.parametrize("name,path", [("depth_pro", "fusion0.deconv"),
+                                       ("sam_segmenter", "mask_decoder.up1")])
+def test_bridge_flips_geo_conv_transposes(name, path):
+    port = (DepthPro(dtype=torch.float32, **TINY) if name == "depth_pro"
+            else SamSegmenter(embed_dim=16, decoder_mlp_dim=32))
+    tree = _flax_like(port)
+    node = tree
+    for key in path.split("."):
+        node = node[key]
+    shape = node["kernel"].shape                        # [kh, kw, in, out]
+    k = np.arange(np.prod(shape), dtype=np.float32).reshape(shape)
+    node["kernel"] = k
+    flax_bridge.load_flax_params(port, tree)
+    w = port.get_submodule(path).weight.detach().numpy()  # [in, out, kh, kw]
+    np.testing.assert_array_equal(w, k[::-1, ::-1].transpose(2, 3, 0, 1))
+
+
 CONFIG_PAIRS = [
     (tcfg.BackboneConfig, jcfg.BackboneConfig),
     (tcfg.AnchorConfig, jcfg.AnchorConfig),
@@ -141,8 +222,10 @@ def test_flagship_config_matches_graft_entry():
                 getattr(getattr(ref, section), f.name), f"{section}.{f.name}"
 
 
+# JAX and the JAX package, and what the GPU machine lacks: cv2, torchvision.
 _JAX_IMPORT = re.compile(
-    r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|ovmono3d_tpu)(\.|\s|$)", re.M)
+    r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|ovmono3d_tpu|cv2|torchvision)"
+    r"(\.|\s|$)", re.M)
 
 
 _CUDA_JAX_INCLUDE = re.compile(r"^\s*#\s*include\s*[<\"][^>\"]*(jax|xla|pallas)",
@@ -153,13 +236,13 @@ def test_port_sources_import_no_jax():
     port = REPO / "ovmono3d_tpu_torch"
     files = sorted(port.rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert {"train", "parallel", "ops", "models", "utils"} <= {
+    assert {"train", "parallel", "ops", "models", "utils", "geo"} <= {
         f.parent.name for f in files}
     for f in files:
         assert not _JAX_IMPORT.search(f.read_text()), f
     cuda = sorted(port.glob("csrc/*.cu")) + sorted(port.glob("csrc/*.cuh"))
     assert {f.name for f in cuda} >= {"flash_attn_fwd.cu", "flash_attn_bwd.cu",
-                                      "flash_common.cuh"}
+                                      "relpos_flash_fwd.cu", "flash_common.cuh"}
     for f in cuda:
         assert not _CUDA_JAX_INCLUDE.search(f.read_text()), f
 
@@ -167,7 +250,8 @@ def test_port_sources_import_no_jax():
 def test_port_runs_with_jax_unimportable():
     code = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "ovmono3d_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "ovmono3d_tpu", "cv2",
+             "torchvision"):
     sys.modules[name] = None           # any import of them now fails
 import torch
 import ovmono3d_tpu_torch
@@ -186,6 +270,8 @@ with torch.inference_mode():
                 oracle_classes=torch.zeros(1, 1), oracle_scores=torch.ones(1, 1),
                 oracle_valid=torch.ones(1, 1, dtype=torch.bool))
 assert all(bool(torch.isfinite(v.float()).all()) for _, v in det.items())
+from ovmono3d_tpu_torch.geo.cli import synthetic_check
+assert synthetic_check("cpu")[0]
 assert not any(k.split(".")[0] in ("jax", "flax") and v is not None
                for k, v in sys.modules.items())
 print("ok")

@@ -66,12 +66,16 @@ def test_vit_f32_matches_jax(vit_pair, with_depth):
 
 
 def test_vit_unported_options_raise():
-    for kw, slice_no in [({"use_rel_pos": True}, 6), ({"window_size": 14}, 6),
-                         ({"pos_sincos": True}, 7), ({"pre_ln": True}, 7),
-                         ({"neck_channels": 256}, 6), ({"quant": "int8"}, 7),
-                         ({"remat": True}, 3)]:
+    for kw, slice_no in [({"pos_sincos": True}, 7), ({"pre_ln": True}, 7),
+                         ({"quant": "int8"}, 7), ({"remat": True}, 3)]:
         with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
             VisionTransformer(device="meta", **VIT_KW, **kw)
+    # The size-based position resize of the non-DINOv2 trunks: a table at
+    # its pretraining grid passes, any other grid raises.
+    pe = torch.zeros(1, 1 + 64, 16)
+    assert resize_pos_embed(pe, (8, 8), 0.0) is not None
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        resize_pos_embed(pe, (9, 9), 0.0)
 
 
 @pytest.mark.parametrize("grid", [(9, 9), (9, 11), (5, 12), (8, 8)])
