@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (ovmono3d_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's three paths, weights drawn from a seed: OVMono3D-LIFT
+Drives the port's four paths, weights drawn from a seed: OVMono3D-LIFT
 inference on oracle 2D boxes and a few training steps with the trunk
 unfrozen (RPN, box head and cube head losses, SGD), both with the flagship
-DINOv2 ViT-B/14 + SFP model at 896^2, and OVMono3D-GEO inference on oracle
-2D boxes (SAM ViT-H at 1024^2, SAM's mask decoder, Depth-Pro at 1536^2 and
-the box fit). Holds every CUDA kernel on those paths against its plain
-PyTorch version.
+DINOv2 ViT-B/14 + SFP model at 896^2; OVMono3D-GEO inference on oracle 2D
+boxes (SAM ViT-H at 1024^2, SAM's mask decoder, Depth-Pro at 1536^2 and the
+box fit); and open-vocabulary OVMono3D-LIFT serving (GroundingDINO Swin-B +
+BERT-base + deformable DETR on the 896^2 canvas, then the flagship cube
+model on its boxes). Holds every CUDA kernel on those paths against its
+plain PyTorch version.
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
 
 Kernels: 1 = the inference flash-attention forward, 3 = the training
 forward that also writes the row log-sum-exp, 4 = the attention backward,
-7 = the decomposed rel-pos attention forward of SAM's encoder.
+7 = the decomposed rel-pos attention forward of SAM's encoder, 8 = the Swin
+window attention forward of GroundingDINO's trunk.
 
 Phases, one line each (more for the build's resource report and the
 profiles' tables):
@@ -30,7 +33,13 @@ profiles' tables):
           (rel-pos tables ~N(0, 0.1^2)), then at SAM-H's global and
           windowed shapes its time, the plain version's, SDPA's with the
           [B, H, N, N] bias built from qrh/qrw inside the timed call (a
-          yardstick the port never calls) and the bound
+          yardstick the port never calls) and the bound; kernel 8 vs
+          window_attention_ref at Swin-B's four stage shapes at 896^2, with
+          the shifted blocks' region ids and without (bias ~N(0, 1)), and at
+          a small map (N = 64) with a bias of std 30 (one-hot softmax), then
+          at stages 0 and 2 its time, the plain version's, SDPA's with the
+          [BW, H, N, N] bias and mask built inside the timed call and the
+          bound
   slice   3 warm-up + 10 timed requests (B=1, 64 oracle boxes, as bench.py
           builds them): launches per forward, finite [1, 64, ...]
           detections, img/s, p50, peak memory; then the same model with
@@ -68,6 +77,22 @@ profiles' tables):
           (the kernel checks are the kernel phase's), fitted boxes printed
           side by side unchecked; a profile of 3
           images; the synthetic GEO self-check on the card (PASS)
+  ovlift  OVMono3DLift at full width from seed 0 (GroundingDINO SwinB, the
+          flagship cube model; OVLIFT_SETS below says which weights are
+          moved off their init and why), a tokenizer whose vocabulary holds
+          the words of the 50 categories of configs/category_meta50.json,
+          serving 640x480 random images (532x709 content on the 896^2
+          canvas) with those 50 categories as the prompt: 2 warm-up + 5
+          timed images (img/s, p50, synchronised ms per stage, peak memory,
+          24 kernel-8 and 12 kernel-1 launches per image, finite [300, ...]
+          detections with valid classes < 50); one image's detection and
+          lift run with the host synchronisation check on (none allowed);
+          one image with window_attention_ref in every Swin block: Swin's
+          s1/s2/s3 within OVLIFT_MAX_REL / OVLIFT_MEAN_REL of the plain run
+          (a guard of the model), with plain bf16 vs f32 probabilities
+          printed beside, and pred_logits, pred_boxes and the lifted corners
+          printed unchecked (top-900 selection and NMS flip on rounding); a
+          profile of 3 images
 Then a JSON line of the kernels, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failure raises before that line and the
 exit code is not 0.
@@ -90,9 +115,21 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from ovmono3d_tpu_torch.config import SolverConfig, flagship_config  # noqa: E402
+from ovmono3d_tpu_torch.config import (  # noqa: E402
+    Config,
+    SolverConfig,
+    flagship_config,
+)
 from ovmono3d_tpu_torch.geo import cli as geo  # noqa: E402
 from ovmono3d_tpu_torch.models import rcnn3d  # noqa: E402
+from ovmono3d_tpu_torch.models.gdino import swin  # noqa: E402
+from ovmono3d_tpu_torch.models.gdino.tokenizer import (  # noqa: E402
+    BertTokenizer,
+)
+from ovmono3d_tpu_torch.models.ovmono3d import (  # noqa: E402
+    OVMono3DLift,
+    default_focal_K,
+)
 from ovmono3d_tpu_torch.models.rcnn3d import build_model  # noqa: E402
 from ovmono3d_tpu_torch.ops.boxes import uniform_draws  # noqa: E402
 from ovmono3d_tpu_torch.ops import attention  # noqa: E402
@@ -132,6 +169,26 @@ TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-2, 5e-2
 GEO_H, GEO_W, GEO_BOXES, GEO_WARMUP, GEO_TIMED = 512, 704, 8, 2, 5
 GEO_MAX_REL, GEO_MEAN_REL = 1e-1, 2e-2
 GEO_DEPTH_BIAS = 0.5   # the depth head's output bias in the geo phase
+# Kernel 8: (BW, N, H) of Swin-B's four stages at 896^2 (patch grid 224,
+# window 12: 19^2, 10^2, 5^2 and 3^2 windows, D = 32), and a small map's
+# single 8x8 window (N = 64), 4 images of it.
+WINDOW_SHAPES = {"stage0": (361, 144, 4), "stage1": (100, 144, 8),
+                 "stage2": (25, 144, 16), "stage3": (9, 144, 32)}
+WINDOW_SMALL, WINDOW_SMALL_BIAS_STD = (4, 64, 4), 30.0
+OV_H, OV_W, OV_WARMUP, OV_TIMED = 480, 640, 2, 5
+OVLIFT_MAX_REL, OVLIFT_MEAN_REL = 1e-1, 2e-2
+CATEGORY_META = Path(__file__).resolve().parent / "configs" / \
+    "category_meta50.json"
+# Weights the ovlift phase moves off the flax init, and why: the deformable
+# offset and weight kernels start at zero (every sample on its reference
+# point: the bilinear path unchecked); the Swin bias tables at std 0.02
+# (kernel 8's bias path unseen under bf16 rounding); the fusion layer scales
+# at 1e-4 (the image-text fusion adds nothing); the box heads' last kernels
+# at zero (boxes are the proposals, the queries carry no position).
+OVLIFT_SETS = {"sampling_offsets / attention_weights kernels": 0.1,
+               "Swin rel_pos_bias tables": 1.0,
+               "fusion gamma_v / gamma_l": 0.1,
+               "box heads' last kernels": 0.01}
 
 
 def say(phase: str, msg: str) -> None:
@@ -171,7 +228,7 @@ def build_phase() -> None:
         log = lib.with_name(lib.name + ".log")
         if log.is_file():
             for line in log.read_text().splitlines():
-                m = re.search(r"((flash|relpos)_[a-z_]+_kernel)"
+                m = re.search(r"((flash|relpos|window)_[a-z_]+_kernel)"
                               r"(IL[bi](\d+)E)?", line)
                 if "Compiling entry" in line and m:
                     flag = {"0": "<false>", "1": "<true>", None: ""}.get(
@@ -381,6 +438,94 @@ def relpos_kernel_phase() -> dict:
                           f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
             out[name] = t
     return {**out["sam_h_global"], "max_abs_err": worst}
+
+
+def window_inputs(bw, n, h, seed, shifted, bias_std=1.0):
+    """Kernel 8's inputs as a Swin block makes them: q/k/v views of one qkv
+    tensor, an f32 bias [H, N, N] and, for a shifted block, the region ids
+    of one image's sqrt(BW) x sqrt(BW) windows (a shift of half the
+    window)."""
+    q, k, v = qkv_views(bw, n, h, 32, seed)
+    g = torch.Generator(device="cuda").manual_seed(2000 + seed)
+    bias = torch.randn(h, n, n, device="cuda", generator=g) * bias_std
+    ids = None
+    if shifted:
+        side, win = math.isqrt(bw), math.isqrt(n)
+        ids = swin._region_ids(side * win, side * win, win, win // 2,
+                               q.device)
+    return q, k, v, bias, ids
+
+
+def window_bound_ms(bw, n, h, d, nw) -> tuple[float, str]:
+    """Kernel 8's bound: 4 BW H N^2 D flops; q, k, v, out in bf16, the bias
+    in f32 and the ids in int32, each moved once."""
+    flops = 4 * bw * h * n * n * d
+    nbytes = 4 * bw * n * h * d * 2 + h * n * n * 4 + nw * n * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa_window(q, k, v, bias, ids):
+    """The same function as one PyTorch call: SDPA with the [BW, H, N, N]
+    bias and shift mask built inside the call, as the kernel does."""
+    bw, n, h, _ = q.shape
+    mask = bias[None].expand(bw, h, n, n)
+    if ids is not None:
+        nw = ids.shape[0]
+        shift = torch.where(ids[:, :, None] == ids[:, None, :], 0.0, -1e9)
+        mask = (mask.reshape(bw // nw, nw, h, n, n)
+                + shift[None, :, None]).reshape(bw, h, n, n)
+    return F.scaled_dot_product_attention(*sdpa_views(q, k, v),
+                                          attn_mask=mask.to(q.dtype))
+
+
+def window_kernel_phase() -> dict:
+    """Kernel 8 against window_attention_ref at Swin-B's stage shapes, with
+    and without region ids, and at a small map with a one-hot softmax; then
+    its times at stages 0 and 2 (shifted blocks). Returns stage 0's numbers
+    (the JSON line's) with the worst error over all cases."""
+    worst = 0.0
+    cases = [(name, shape, shifted, 1.0)
+             for name, shape in WINDOW_SHAPES.items()
+             for shifted in (True, False)]
+    cases.append(("small_map", WINDOW_SMALL, True, WINDOW_SMALL_BIAS_STD))
+    with torch.no_grad():
+        for i, (name, (bw, n, h), shifted, std) in enumerate(cases):
+            q, k, v, bias, ids = window_inputs(bw, n, h, i, shifted, std)
+            if name == "small_map":
+                g = torch.Generator(device="cuda").manual_seed(3000)
+                ids = torch.randint(0, 3, (bw, n), device="cuda",
+                                    generator=g, dtype=torch.int32)
+            got = attention.window_flash_attention(q, k, v, bias, ids)
+            torch.cuda.synchronize()
+            # A one-hot softmax returns single entries of v (up to ~5),
+            # where a bf16 ulp exceeds the absolute limit: relative only.
+            worst = max(worst, check_close(
+                f"k8 {name} {(bw, n, h, 32)} ids={ids is not None} out "
+                f"(bias std {std})", got,
+                attention.window_attention_ref(q, k, v, bias, ids),
+                absolute=name != "small_map"))
+            del got
+        out = {}
+        for name in ("stage0", "stage2"):
+            bw, n, h = WINDOW_SHAPES[name]
+            q, k, v, bias, ids = window_inputs(bw, n, h, 0, True)
+            t = {"ms": time_ms(lambda: attention.window_flash_attention(
+                     q, k, v, bias, ids)),
+                 "plain_ms": time_ms(lambda: attention.window_attention_ref(
+                     q, k, v, bias, ids), reps=5),
+                 "library_ms": time_ms(
+                     lambda: sdpa_window(q, k, v, bias, ids))}
+            t["bound_ms"], t["bound_by"] = window_bound_ms(bw, n, h, 32,
+                                                           ids.shape[0])
+            say("kernel", f"k8 {name} {(bw, n, h, 32)} shifted, median of "
+                          f"timed calls: kernel {t['ms']:.4f} ms, plain "
+                          f"{t['plain_ms']:.4f} ms, SDPA with bias and mask "
+                          f"{t['library_ms']:.4f} ms, bound "
+                          f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+            out[name] = t
+    return {**out["stage0"], "max_abs_err": worst}
 
 
 def bench_inputs():
@@ -1067,12 +1212,267 @@ def compare_geo(models, request) -> None:
     check(not failed, f"GEO kernel vs plain within limits: {failed} not")
 
 
+def category_tokenizer() -> tuple[list[str], BertTokenizer]:
+    """The 50 category names and a tokenizer whose vocabulary holds their
+    words (the released bert-base-uncased vocab.txt is not in the
+    repository): the special tokens at their BERT ids, each word at an id
+    from 2000 up."""
+    names = json.loads(CATEGORY_META.read_text())["thing_classes"]
+    vocab = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102,
+             ".": 1012, "?": 1029}
+    probe = BertTokenizer(vocab)
+    for word in sorted({w for name in names for w in probe._basic(name)}):
+        vocab.setdefault(word, 2000 + len(vocab))
+    return names, BertTokenizer(vocab)
+
+
+def ovlift_weights(pipe: OVMono3DLift) -> None:
+    """Move the weights OVLIFT_SETS names off their init (seeded), and the
+    cube model's LayerScales and pose bias as in the slice phase."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    gd = pipe.gdino
+    n_enc, n_dec = gd.enc_layers, gd.dec_layers
+    with torch.no_grad():
+        for layer in ([getattr(gd, f"img_enc{i}") for i in range(n_enc)]
+                      + [getattr(gd, f"dec{i}") for i in range(n_dec)]):
+            std = OVLIFT_SETS["sampling_offsets / attention_weights kernels"]
+            layer.sampling_offsets.weight.normal_(0.0, std, generator=g)
+            layer.attention_weights.weight.normal_(0.0, std, generator=g)
+        for blk in gd.backbone.blocks().values():
+            blk.attn.rel_pos_bias.normal_(
+                0.0, OVLIFT_SETS["Swin rel_pos_bias tables"], generator=g)
+        for i in range(n_enc):
+            fusion = getattr(gd, f"fusion{i}")
+            fusion.gamma_v.fill_(OVLIFT_SETS["fusion gamma_v / gamma_l"])
+            fusion.gamma_l.fill_(OVLIFT_SETS["fusion gamma_v / gamma_l"])
+        for head in (gd.enc_bbox_head, gd.ref_point_head, gd.bbox_head):
+            getattr(head, f"l{head.layers - 1}").weight.normal_(
+                0.0, OVLIFT_SETS["box heads' last kernels"], generator=g)
+        for blk in pipe.rcnn.backbone.vit.blocks():
+            blk.ls1.gamma.fill_(0.1)
+            blk.ls2.gamma.fill_(0.1)
+        pipe.rcnn.cube_head.pose.bias.copy_(torch.tensor(IDENTITY_6D))
+
+
+def ov_requests(n: int, seed: int):
+    """n random 640x480 uint8 images."""
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, 256, (OV_H, OV_W, 3), generator=g,
+                          dtype=torch.uint8).numpy() for _ in range(n)]
+
+
+def serve_ov(pipe, images, K, names):
+    dets, lats = [], []
+    for image in images:
+        t0 = time.perf_counter()
+        det = pipe.predict(image, K, names)
+        torch.cuda.synchronize()
+        lats.append(time.perf_counter() - t0)
+        dets.append(det)
+    return dets, lats
+
+
+def check_ov_detections(det, n_classes: int) -> None:
+    for name, x in det.items():
+        check(x.shape[0] == 300, f"{name} shape {tuple(x.shape)} starts [300]")
+        check(bool(torch.isfinite(x.float()).all()), f"{name} finite")
+    check(bool((det.classes[det.valid] < n_classes).all()),
+          "valid classes inside the prompt")
+
+
+def set_window_attention(pipe, fn) -> None:
+    for blk in pipe.gdino.backbone.blocks().values():
+        blk.attn.attn_fn = fn
+
+
+def _window_plain(qkv, bias, ids):
+    return attention.window_attention_ref(*qkv.unbind(2), bias, ids)
+
+
+def _window_f32(qkv, bias, ids):
+    """window_attention_ref with q, k, v, the probabilities and PV in
+    f32."""
+    return attention.window_attention_ref(*qkv.float().unbind(2), bias,
+                                          ids).to(qkv.dtype)
+
+
+def ovlift_phase() -> dict:
+    """Open-vocabulary OVMono3D-LIFT serving at full width; returns the
+    launches of kernels 8 and 1 in the timed images."""
+    t0 = time.perf_counter()
+    names, tok = category_tokenizer()
+    pipe = OVMono3DLift.build(Config(model=flagship_config(S)), tok,
+                              device="cuda", seed=0)
+    ovlift_weights(pipe)
+    n_params = sum(p.numel() for m in (pipe.gdino, pipe.rcnn)
+                   for p in m.parameters())
+    say("ovlift", f"GroundingDINO SwinB + flagship cube model (896^2, seed "
+                  f"0), {n_params} parameters, built in "
+                  f"{time.perf_counter() - t0:.1f} s; moved off the init: "
+                  + ", ".join(f"{k} {v}" for k, v in OVLIFT_SETS.items()))
+    K = default_focal_K(OV_H, OV_W)
+    images = ov_requests(OV_WARMUP + OV_TIMED, seed=4)
+    req = pipe.prepare(images[0], K, names)
+    check(tuple(req["text"]["input_ids"].shape) == (1, 128),
+          f"the prompt's bucket {tuple(req['text']['input_ids'].shape)}")
+    serve_ov(pipe, images[:OV_WARMUP], K, names)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.window_flash_attention.launches = 0
+    attention.flash_attention_packed.launches = 0
+    dets, lats = serve_ov(pipe, images[OV_WARMUP:], K, names)
+    launches = {"window": attention.window_flash_attention.launches,
+                "fwd": attention.flash_attention_packed.launches}
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["window"] == 24 * OV_TIMED,
+          f"{launches['window']} kernel-8 launches for {OV_TIMED} images "
+          "(24 Swin blocks each)")
+    check(launches["fwd"] == 12 * OV_TIMED,
+          f"{launches['fwd']} kernel-1 launches for {OV_TIMED} images (12 "
+          "DINOv2 blocks each)")
+    for det in dets:
+        check_ov_detections(det, len(names))
+    p50 = statistics.median(lats) * 1e3
+    stages: dict = {}
+    for image in images[OV_WARMUP:]:
+        trace: dict = {}
+        pipe.predict(image, K, names, trace=trace)
+        for k, ms in trace["ms"].items():
+            stages[k] = stages.get(k, 0.0) + ms / OV_TIMED
+    n_valid = sum(int(d.valid.sum()) for d in dets) / OV_TIMED
+    say("ovlift", f"{OV_TIMED} images of {OV_W}x{OV_H} ({len(names)} "
+                  f"categories, a {req['text']['input_ids'].shape[1]}-token "
+                  f"prompt): {rate(lats)}; per image "
+                  f"{launches['window'] // OV_TIMED} kernel-8 and "
+                  f"{launches['fwd'] // OV_TIMED} kernel-1 launches; "
+                  f"{n_valid:.1f} valid of 300 slots; peak memory {peak} "
+                  "bytes; ms per image by stage (synchronised): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    with torch.inference_mode():
+        device_profile("ovlift", lambda: serve_ov(
+            pipe, images[OV_WARMUP:OV_WARMUP + 3], K, names), 3, p50,
+            per="image", repeat=1)
+    gdino_breakdown(pipe, images[OV_WARMUP], K, names)
+    check_no_sync(pipe, images[OV_WARMUP], K, names)
+    compare_ovlift(pipe, images[OV_WARMUP], K, names)
+    return launches
+
+
+def gdino_breakdown(pipe, image, K, names) -> None:
+    """Synchronised ms of GroundingDINO's parts on one prepared request:
+    BERT with the text projection, the Swin trunk, and the whole forward
+    (the rest is the enhancer, the query selection and the decoder)."""
+    req = pipe.prepare(image, K, names)
+    text = req["text"]
+    tensor = pipe._gdino_normalize(req["canvas"][None], req["hw"])
+    gd = pipe.gdino
+    parts = {
+        "text encoder": lambda: gd.encode_text(
+            text["input_ids"], text["text_mask"], text["text_self_mask"],
+            text["position_ids"]),
+        "swin": lambda: gd.backbone(tensor, gd.backbone.rel_biases()),
+        "whole forward": lambda: gd(tensor, text["input_ids"],
+                                    text["text_mask"], text["text_self_mask"],
+                                    text["position_ids"]),
+    }
+    with torch.inference_mode():
+        ms = {k: time_ms(fn, reps=3, warmup=1) for k, fn in parts.items()}
+    say("ovlift", "GroundingDINO parts, CUDA-event medians: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in ms.items()))
+
+
+def check_no_sync(pipe, image, K, names) -> None:
+    """Detection, postprocess and lift of a prepared request with the
+    card's synchronisation check on: any host synchronisation between them
+    (a copy from pageable memory, .item(), a data-dependent shape) warns,
+    and the phase fails on one."""
+    import warnings
+
+    req = pipe.prepare(image, K, names)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            det = pipe.run(req)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    say("ovlift", f"prepared request's detection + lift: {len(syncs)} host "
+                  f"synchronisations ({int(det.valid.sum())} valid)"
+                  + (f"; first: {syncs[0][:200]}" if syncs else ""))
+    check(not syncs, "no host synchronisation between detection and lift")
+
+
+def compare_ovlift(pipe, image, K, names) -> None:
+    """One image with kernel 8 and with window_attention_ref in every Swin
+    block: Swin's s1/s2/s3 held to the plain run within OVLIFT_MAX_REL /
+    OVLIFT_MEAN_REL (a guard of the model: bf16 attention alone, plain vs
+    f32 probabilities printed beside, moves them about as far; the kernel
+    phase holds the kernel to its plain version at these shapes); then
+    pred_logits, pred_boxes and the lifted corners printed unchecked, since
+    top-900 selection and NMS flip on rounding."""
+    runs = {}
+    req = pipe.prepare(image, K, names)
+    tensor = pipe._gdino_normalize(req["canvas"][None], req["hw"])
+    for name, fn in (("kernel", attention.window_attention),
+                     ("plain", _window_plain), ("plain_f32", _window_f32)):
+        set_window_attention(pipe, fn)
+        with torch.inference_mode():
+            feats = pipe.gdino.backbone(tensor,
+                                        pipe.gdino.backbone.rel_biases())
+        trace: dict = {}
+        det = pipe.predict(image, K, names, trace=trace)
+        runs[name] = (feats, trace, det)
+    set_window_attention(pipe, attention.window_attention)
+
+    def deviation(a, b, key):
+        x, y = runs[a][0][key].float(), runs[b][0][key].float()
+        d = (x - y).abs()
+        return (d.max().item() / y.abs().max().item(),
+                d.mean().item() / y.abs().mean().item())
+
+    failed = []
+    for key in ("s1", "s2", "s3"):
+        mx, mean = deviation("kernel", "plain", key)
+        f32_mx, f32_mean = deviation("plain", "plain_f32", key)
+        say("ovlift", f"kernel vs plain Swin {key} "
+                      f"{tuple(runs['plain'][0][key].shape)}: max |diff| / "
+                      f"max |ref| {mx:.3e} (limit {OVLIFT_MAX_REL}), mean "
+                      f"|diff| / mean |ref| {mean:.3e} (limit "
+                      f"{OVLIFT_MEAN_REL}); plain vs f32 probabilities "
+                      f"{f32_mx:.3e} / {f32_mean:.3e}")
+        if not (mx <= OVLIFT_MAX_REL and mean <= OVLIFT_MEAN_REL):
+            failed.append(key)
+    k_tr, p_tr = runs["kernel"][1], runs["plain"][1]
+    k_det, p_det = runs["kernel"][2], runs["plain"][2]
+    live = p_tr["pred_logits"] > -1e8               # not the masked tokens
+    d_logit = (k_tr["pred_logits"] - p_tr["pred_logits"])[live].abs().max()
+    d_box = (k_tr["pred_boxes"] - p_tr["pred_boxes"]).abs().max()
+    d_corner = (k_det.corners3d - p_det.corners3d).abs().max()
+    same_cls = int((k_det.classes == p_det.classes).sum())
+    say("ovlift", f"kernel vs plain, unchecked: pred_logits max |diff| "
+                  f"{d_logit.item():.3e} (scale "
+                  f"{p_tr['pred_logits'][live].abs().max().item():.3e}), "
+                  f"pred_boxes {d_box.item():.3e}; valid slots "
+                  f"{int(k_det.valid.sum())} vs {int(p_det.valid.sum())}, "
+                  f"same class in {same_cls} of 300; corners3d max |diff| "
+                  f"{d_corner.item():.3e} (scale "
+                  f"{p_det.corners3d.abs().max().item():.3e}); plain run "
+                  "stages (ms): " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in p_tr["ms"].items()))
+    check(not failed, f"Swin kernel vs plain within limits: {failed} not")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = device_phase()
     build_phase()
     k = kernel_phase()
     k["relpos"] = relpos_kernel_phase()
+    k["window"] = window_kernel_phase()
     model, images, inputs, launches, p50_ms = slice_phase()
     profile_phase(model, images[WARMUP:WARMUP + 5], inputs, p50_ms)
     sensitivity_phase(model, images[WARMUP], inputs)
@@ -1083,9 +1483,13 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     geo_launches = geo_phase()
-    launches = {"fwd": launches + geo_launches["fwd"],
+    gc.collect()
+    torch.cuda.empty_cache()
+    ov_launches = ovlift_phase()
+    launches = {"fwd": launches + geo_launches["fwd"] + ov_launches["fwd"],
                 "lse": train_launches["lse"], "bwd": train_launches["bwd"],
-                "relpos": geo_launches["relpos"]}
+                "relpos": geo_launches["relpos"],
+                "window": ov_launches["window"]}
     src = "ovmono3d_tpu_torch/csrc/"
     meta = {
         "fwd": ("flash_attn_fwd_bf16", src + "flash_attn_fwd.cu",
@@ -1096,6 +1500,8 @@ def main() -> None:
                 "ovmono3d_tpu/ops/attention.py:691"),
         "relpos": ("relpos_flash_fwd_bf16", src + "relpos_flash_fwd.cu",
                    "ovmono3d_tpu/ops/attention.py:277"),
+        "window": ("window_attn_fwd_bf16", src + "window_attn_fwd.cu",
+                   "ovmono3d_tpu/ops/attention.py:1474"),
     }
     kernels = []
     for kind, (name, source, replaces) in meta.items():

@@ -1,9 +1,9 @@
-"""Configuration for the port: the fields the oracle-2D LIFT path and the
-training step read.
+"""Configuration for the port: the fields the oracle-2D LIFT path, the
+training step and open-vocabulary serving read.
 
 Same names and defaults as ovmono3d_tpu/config.py (a test holds them field
-by field against the JAX dataclasses). YAML loading and the input, dataset
-and evaluation sections arrive with the slices that read them.
+by field against the JAX dataclasses). YAML loading and the dataset and
+evaluation sections arrive with the slices that read them.
 """
 from __future__ import annotations
 
@@ -146,10 +146,23 @@ class TestConfig:
 
 
 @dataclass(frozen=True)
+class InputConfig:
+    min_size_train: tuple[int, ...] = (532,)
+    min_size_test: int = 532        # ResizeShortestEdge at serving time
+    max_size_train: int = 896
+    max_size_test: int = 896
+    random_flip: bool = True
+    train_set_percentage: float = 1.0
+    depth_size: tuple[int, int] = (800, 600)
+    format: str = "RGB"
+
+
+@dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
     test: TestConfig = field(default_factory=TestConfig)
+    input: InputConfig = field(default_factory=InputConfig)
 
 
 def flagship_config(square_pad: int = 896) -> ModelConfig:

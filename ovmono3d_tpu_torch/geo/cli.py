@@ -24,12 +24,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import pickle
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ovmono3d_tpu_torch.geo.pipeline import fit_box_from_mask_depth
 from ovmono3d_tpu_torch.models.backbones import SAM_ARCHS, VIT_PRESETS
@@ -37,6 +35,8 @@ from ovmono3d_tpu_torch.models.depth import DepthPro, metric_depth
 from ovmono3d_tpu_torch.models.sam import SamSegmenter
 from ovmono3d_tpu_torch.models.vit import VisionTransformer
 from ovmono3d_tpu_torch.utils.device import resolve_device
+from ovmono3d_tpu_torch.utils.image import resize_bilinear
+from ovmono3d_tpu_torch.utils.stages import Stages
 
 SCORE_THRESHOLD = 0.30          # reference ovmono3d_geo.py:274
 S_SAM, S_DEPTH = 1024, 1536     # SAM's canvas; Depth-Pro's fixed input
@@ -91,45 +91,10 @@ def build_geo_models(sam_arch: str = "vit_b", depth_bf16: bool = False,
     return GeoModels(sam.eval(), seg.eval(), depth.eval())
 
 
-def _resize(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
-    """cv2.resize(INTER_LINEAR) of [..., H, W, C] maps: F.interpolate
-    bilinear, half-pixel, no antialias."""
-    lead = x.shape[:-3]
-    y = x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2)
-    y = F.interpolate(y, size=tuple(hw), mode="bilinear", align_corners=False,
-                      antialias=False)
-    return y.permute(0, 2, 3, 1).reshape(*lead, *hw, x.shape[-1])
-
-
 def _normalize(img: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(PIXEL_MEAN, device=img.device)
     std = torch.tensor(PIXEL_STD, device=img.device)
     return (img - mean) / std
-
-
-class _Stages:
-    """Per-stage wall time into trace["ms"] (synchronising the device at
-    each mark) when a trace dict is given; nothing otherwise."""
-
-    def __init__(self, trace: dict | None, device: torch.device):
-        self.trace, self.device = trace, device
-        if trace is not None:
-            trace["ms"] = {}
-            self._sync()
-            self.t = time.perf_counter()
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def mark(self, stage: str, **tensors) -> None:
-        if self.trace is None:
-            return
-        self._sync()
-        now = time.perf_counter()
-        self.trace["ms"][stage] = (now - self.t) * 1e3
-        self.t = now
-        self.trace.update(tensors)
 
 
 def predict_image(models: GeoModels, image, K, dets: list[dict],
@@ -145,7 +110,7 @@ def predict_image(models: GeoModels, image, K, dets: list[dict],
     "ms", synchronising the device between stages) and the intermediate
     tensors: canonical_inverse_depth, depth_map, embed, mask_logits."""
     dev = models.device
-    stages = _Stages(trace, dev)
+    stages = Stages(trace, dev)
     img = torch.as_tensor(image, device=dev).float() / 255.0
     H, W = img.shape[:2]
     Kt = torch.as_tensor(K, dtype=torch.float32, device=dev)
@@ -155,18 +120,18 @@ def predict_image(models: GeoModels, image, K, dets: list[dict],
     with torch.inference_mode():
         # Depth-Pro metric depth, with the known focal length, back at the
         # image's resolution.
-        cid = models.depth(_normalize(_resize(img, (Sd, Sd)))[None])[
+        cid = models.depth(_normalize(resize_bilinear(img, (Sd, Sd)))[None])[
             "canonical_inverse_depth"]
         f_px = (Kt[0, 0] * Sd / W).reshape(1)
-        depth_map = _resize(metric_depth(cid, f_px, Sd)[..., None],
-                            (H, W))[0, ..., 0]
+        depth_map = resize_bilinear(metric_depth(cid, f_px, Sd)[..., None],
+                                    (H, W))[0, ..., 0]
         stages.mark("depth", canonical_inverse_depth=cid, depth_map=depth_map)
         # SAM's embedding of the image, scaled to the canvas and placed
         # top-left.
         scale = Ss / max(H, W)
         sh, sw = int(H * scale), int(W * scale)
         canvas = torch.zeros(Ss, Ss, 3, device=dev)
-        canvas[:sh, :sw] = _normalize(_resize(img, (sh, sw)))
+        canvas[:sh, :sw] = _normalize(resize_bilinear(img, (sh, sw)))
         embed = models.sam_encoder(canvas[None])["last_feat"]
         stages.mark("sam_encoder", embed=embed)
         if not kept:
@@ -180,7 +145,8 @@ def predict_image(models: GeoModels, image, K, dets: list[dict],
         mh, mw = logits.shape[-2:]
         ch = max(1, int(round(mh * (H * scale) / Ss)))
         cw = max(1, int(round(mw * (W * scale) / Ss)))
-        mask_img = _resize(logits[:, :ch, :cw, None], (H, W))[..., 0] > 0
+        mask_img = resize_bilinear(logits[:, :ch, :cw, None],
+                                   (H, W))[..., 0] > 0
         stages.mark("segment", mask_logits=logits)
         fit = fit_box_from_mask_depth(mask_img.float(), depth_map, Kt)
         fit = {k: v.cpu() for k, v in fit.items()}

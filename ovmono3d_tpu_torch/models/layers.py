@@ -8,7 +8,8 @@ layout, so no copies are made. `ConvTranspose` is the kernel-2, stride-2
 upsampling of the feature pyramid, SAM's mask decoder and Depth-Pro; the
 bridge flips the flax kernel into it (utils/flax_bridge.py). `conv_norm_pair`
 is the 1x1 conv -> LayerNorm -> 3x3 conv -> LayerNorm of SAM's neck and of
-every pyramid level.
+every pyramid level. `LayerNorm` and `GroupNorm` are flax's with
+`dtype=float32`: f32 statistics and output whatever the input's dtype.
 """
 from __future__ import annotations
 
@@ -62,6 +63,28 @@ class ConvTranspose(nn.ConvTranspose2d):
         return y.permute(0, 2, 3, 1)
 
 
+class LayerNorm(nn.LayerNorm):
+    """flax nn.LayerNorm(dtype=float32): the input in f32, f32 out."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax nn.GroupNorm over [B, H, W, C] maps, in f32. Written out: a
+    group of one value (a 1x1 map) is normalized to the bias, as in flax,
+    where F.group_norm refuses it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[0], x.shape[-1]
+        g = x.float().reshape(b, -1, self.num_groups, c // self.num_groups)
+        mean = g.mean(dim=(1, 3), keepdim=True)
+        var = (g - mean).square().mean(dim=(1, 3), keepdim=True)
+        y = ((g - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        return y * self.weight + self.bias
+
+
 def conv_norm_pair(x: torch.Tensor, conv1: nn.Conv2d, norm1: nn.LayerNorm,
                    conv2: nn.Conv2d, norm2: nn.LayerNorm,
                    dtype: torch.dtype) -> torch.Tensor:
@@ -76,18 +99,35 @@ def conv_norm_pair(x: torch.Tensor, conv1: nn.Conv2d, norm1: nn.LayerNorm,
 
 
 def init_flax_defaults(module: nn.Module, generator: torch.Generator) -> None:
-    """flax's default initializers over every Linear, conv and LayerNorm
-    of `module`: lecun-normal kernels (fan-in over kh * kw * in), zero
-    biases, unit LayerNorms."""
+    """flax's default initializers over every Linear, conv, LayerNorm and
+    GroupNorm of `module`: lecun-normal kernels (fan-in over kh * kw * in),
+    zero biases, unit scales."""
     for mod in module.modules():
         if isinstance(mod, nn.Linear):
             lecun_normal_(mod.weight, mod.in_features, generator)
         elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
             kh, kw = mod.kernel_size
             lecun_normal_(mod.weight, mod.in_channels * kh * kw, generator)
-        elif isinstance(mod, nn.LayerNorm):
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             nn.init.ones_(mod.weight)
         else:
             continue
         if mod.bias is not None:
             nn.init.zeros_(mod.bias)
+
+
+def init_seeded(model: nn.Module, seed: int) -> nn.Module:
+    """`model` (built on the meta device, with an `init_weights(generator)`)
+    materialized on the CPU and filled from torch.Generator(seed), so a
+    seed gives the same weights whatever device the model moves to. Raises
+    if a parameter is left unset."""
+    model = model.to_empty(device="cpu")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.fill_(float("nan"))
+        model.init_weights(torch.Generator().manual_seed(seed))
+        unset = [name for name, p in model.named_parameters()
+                 if torch.isnan(p).any()]
+    if unset:
+        raise RuntimeError(f"parameters left uninitialized: {unset}")
+    return model

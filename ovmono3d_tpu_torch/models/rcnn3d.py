@@ -36,6 +36,7 @@ from torch import nn
 from ovmono3d_tpu_torch.config import ModelConfig
 from ovmono3d_tpu_torch.models.backbones import build_backbone
 from ovmono3d_tpu_torch.models.heads import CubeHead, FastRCNNHead, RPNHead
+from ovmono3d_tpu_torch.models.layers import init_seeded
 from ovmono3d_tpu_torch.ops import boxes as box_ops
 from ovmono3d_tpu_torch.ops.iou2d import pairwise_ioa, pairwise_iou
 from ovmono3d_tpu_torch.ops.nms import nms_mask_parallel, stable_topk
@@ -43,7 +44,7 @@ from ovmono3d_tpu_torch.ops.roi_align import multilevel_roi_align
 from ovmono3d_tpu_torch.ops.rotation import so3_relative_angle
 from ovmono3d_tpu_torch.structures import Detections, GroundTruth
 from ovmono3d_tpu_torch.utils import geometry as geom
-from ovmono3d_tpu_torch.utils.device import resolve_device
+from ovmono3d_tpu_torch.utils.device import device_constant, resolve_device
 
 SQRT_2 = 1.4142135623730951
 
@@ -492,8 +493,8 @@ class RCNN3D(nn.Module):
         self.cube_head.init_weights(generator)
 
     def preprocess(self, image: torch.Tensor) -> torch.Tensor:
-        mean = torch.tensor(self.cfg.pixel_mean, device=image.device)
-        std = torch.tensor(self.cfg.pixel_std, device=image.device)
+        mean = device_constant(self.cfg.pixel_mean, image.device)
+        std = device_constant(self.cfg.pixel_std, image.device)
         return (image - mean) / std
 
     def features(self, image: torch.Tensor,
@@ -702,14 +703,6 @@ def build_model(cfg: ModelConfig, priors: dict | None = None, device=None,
         model = RCNN3D(cfg, priors, device=device)
         model.backbone.vit.requires_grad_(not cfg.backbone.freeze)
         return model
-    model = RCNN3D(cfg, priors, device="meta").to_empty(device="cpu")
-    with torch.no_grad():
-        for p in model.parameters():
-            p.fill_(float("nan"))
-        model.init_weights(torch.Generator().manual_seed(seed))
-        unset = [name for name, p in model.named_parameters()
-                 if torch.isnan(p).any()]
-    if unset:
-        raise RuntimeError(f"parameters left uninitialized: {unset}")
+    model = init_seeded(RCNN3D(cfg, priors, device="meta"), seed)
     model.backbone.vit.requires_grad_(not cfg.backbone.freeze)
     return model.to(device)

@@ -37,10 +37,24 @@ Decomposed relative-position attention (the SAM image encoder's blocks):
   bias factors qrh/qrw computed outside it in f32 (`rel_pos_factors`), and
   raises when a gradient is needed (no backward yet).
 
+Swin window attention (GroundingDINO's image trunk):
+
+- `window_attention_ref`: the plain version, the same math as the JAX
+  package's `window_attention_xla(..., clamp_c=None)`;
+- `window_flash_attention` (`csrc/window_attn_fwd.cu`, counted in
+  `window_flash_attention.launches`), replacing the TPU kernel
+  `_window_kernel`: inference only, bf16, head dim 32;
+- `window_attention`: its dispatcher. f32 inputs (on any device) and CPU
+  tensors go to the plain version; CUDA bf16 goes to the kernel, and raises
+  when a gradient is needed (the JAX window attention is forward-only: the
+  Swin trunk is frozen).
+
 Layout: q/k/v [B, N, H, D]; the dispatcher and the Function take the qkv
 projection's output viewed as [B, N, 3, H, D]. lse is [B, H, N] f32 in
 natural-log units. Rel-pos tables Rh [h, h, D] and Rw [w, w, D] are already
-gathered to the (h, w) grid; qrh [B, N, H, h] and qrw [B, N, H, w].
+gathered to the (h, w) grid; qrh [B, N, H, h] and qrw [B, N, H, w]. Window
+attention runs over BW = B * nw windows of N tokens: bias [H, N, N] f32 and
+region ids [nw, N] int32 (window b takes row b % nw), or None.
 """
 from __future__ import annotations
 
@@ -51,9 +65,11 @@ import math
 import torch
 
 KERNEL_SOURCES = ["flash_attn_fwd.cu", "flash_attn_bwd.cu",
-                  "relpos_flash_fwd.cu"]
+                  "relpos_flash_fwd.cu", "window_attn_fwd.cu"]
 _HEAD_DIM = 64
 _REL_POS_HEAD_DIMS = (64, 80)
+_WINDOW_HEAD_DIM = 32
+_WINDOW_MAX_TOKENS = 1024   # csrc/window_attn_fwd.cu kMaxTokens
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor,
@@ -106,8 +122,8 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @functools.cache
 def _kernels() -> tuple:
-    """(forward, backward, rel-pos forward) entries of the built
-    libraries."""
+    """(forward, backward, rel-pos forward, window forward) entries of the
+    built libraries."""
     from ovmono3d_tpu_torch.utils import cuda_build
 
     libs = cuda_build.load(KERNEL_SOURCES)
@@ -129,7 +145,13 @@ def _kernels() -> tuple:
         + [ctypes.c_float, ctypes.c_void_p]
     )
     relpos.restype = ctypes.c_int
-    return fwd, bwd, relpos
+    window = libs["window_attn_fwd.cu"].window_attn_fwd_bf16
+    window.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    window.restype = ctypes.c_int
+    return fwd, bwd, relpos, window
 
 
 def build_kernels() -> None:
@@ -432,3 +454,112 @@ def rel_pos_attention(qkv: torch.Tensor, Rh: torch.Tensor, Rw: torch.Tensor,
         raise NotImplementedError(_REL_POS_NO_GRAD)
     qrh, qrw = rel_pos_factors(q, Rh, Rw, grid_hw)
     return rel_pos_flash_attention(q, k, v, qrh, qrw, grid_hw)
+
+
+_WINDOW_NO_GRAD = ("window attention on CUDA is inference-only, as the JAX "
+                   "package's is (the Swin trunk is frozen); run under "
+                   "torch.no_grad() / inference_mode()")
+
+
+def window_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: torch.Tensor,
+                         ids: torch.Tensor | None = None) -> torch.Tensor:
+    """softmax(scale q k^T + bias[h] + mask) v over each window.
+
+    q/k/v: [BW, N, H, D]; bias [H, N, N] f32; ids [nw, N] region ids or
+    None, window b taking ids[b % nw] and pairs of unequal ids getting -1e9.
+    f32 logits and softmax; probabilities cast to v's dtype before PV, which
+    accumulates in f32; output in q's dtype."""
+    bw, n, h, d = q.shape
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(),
+                          k.float()) * (1.0 / math.sqrt(d))
+    logits = logits + bias.float()[None]
+    if ids is not None:
+        nw = ids.shape[0]
+        mask = torch.where(ids[:, :, None] == ids[:, None, :], 0.0, -1e9)
+        logits = (logits.view(bw // nw, nw, h, n, n)
+                  + mask[None, :, None]).view(bw, h, n, n)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhnm,bmhd->bnhd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)
+
+
+def check_window_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor, ids: torch.Tensor | None) -> None:
+    """Raise ValueError unless kernel 8 takes these inputs as they are. The
+    device is checked last, so the layout checks run on CPU tensors too."""
+    bw, n, h, d = q.shape
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        err = _layout_error(name, x, q.shape)
+        if err:
+            raise ValueError(err)
+    if d != _WINDOW_HEAD_DIM:
+        raise ValueError(f"head dim {d}; the kernel takes {_WINDOW_HEAD_DIM}")
+    if not 0 < n <= _WINDOW_MAX_TOKENS:
+        raise ValueError(f"{n} tokens a window; the kernel takes 1 to "
+                         f"{_WINDOW_MAX_TOKENS}")
+    if (bias.dtype != torch.float32 or tuple(bias.shape) != (h, n, n)
+            or not bias.is_contiguous()):
+        raise ValueError(f"bias must be a contiguous f32 [H, N, N] = "
+                         f"{(h, n, n)} tensor; got {bias.dtype} "
+                         f"{tuple(bias.shape)}")
+    named = [("q", q), ("k", k), ("v", v), ("bias", bias)]
+    if ids is not None:
+        if (ids.dtype != torch.int32 or ids.dim() != 2 or ids.shape[1] != n
+                or bw % ids.shape[0] or not ids.is_contiguous()):
+            raise ValueError(f"ids must be a contiguous int32 [nw, N] tensor "
+                             f"with nw dividing {bw} windows; got "
+                             f"{ids.dtype} {tuple(ids.shape)}")
+        named.append(("ids", ids))
+    if torch.is_grad_enabled() and any(x.requires_grad for _, x in named):
+        raise ValueError(_WINDOW_NO_GRAD)
+    for name, x in named:
+        if x.device.type != "cuda" or x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}; the kernel needs "
+                             f"all its tensors on one CUDA device")
+
+
+def window_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor,
+                           ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the CUDA Swin window-attention forward (kernel 8).
+
+    q/k/v: [BW, N, H, 32] bf16, strided views welcome; bias: contiguous
+    [H, N, N] f32; ids: contiguous [nw, N] int32 or None. Returns a
+    contiguous [BW, N, H, 32] bf16. Counts each launch in
+    `window_flash_attention.launches`."""
+    check_window_inputs(q, k, v, bias, ids)
+    bw, n, h, d = q.shape
+    out = torch.empty((bw, n, h, d), dtype=q.dtype, device=q.device)
+    window = _kernels()[3]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = window(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                    None if ids is None else ids.data_ptr(), out.data_ptr(),
+                    bw, n, h, d, 0 if ids is None else ids.shape[0],
+                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                    1.0 / math.sqrt(d), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"window_attn_fwd_bf16 launch failed with CUDA error {rc} "
+            f"(BW={bw}, N={n}, H={h}, D={d}, ids={ids is not None})")
+    window_flash_attention.launches += 1
+    return out
+
+
+window_flash_attention.launches = 0
+
+
+def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
+                     ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Window attention for the Swin blocks: the qkv projection's output
+    viewed as [BW, N, 3, H, D] -> [BW, N, H, D]."""
+    q, k, v = qkv.unbind(2)
+    if qkv.dtype == torch.float32 or qkv.device.type == "cpu":
+        return window_attention_ref(q, k, v, bias, ids)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no window attention path for device {qkv.device}")
+    if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
+        raise NotImplementedError(_WINDOW_NO_GRAD)
+    return window_flash_attention(q, k, v, bias, ids)

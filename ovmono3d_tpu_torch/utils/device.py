@@ -1,5 +1,8 @@
-"""Where the port's entry points run: on the card unless asked for the CPU."""
+"""Where the port's entry points run (on the card unless asked for the CPU),
+and small constants kept there."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -18,3 +21,19 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@functools.cache
+def _constant(values: tuple, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
+def device_constant(values: tuple, device, dtype=torch.float32
+                    ) -> torch.Tensor:
+    """A small constant tensor made once per (values, dtype, device) and
+    reused. Uploading it in every forward would make the host wait for the
+    card: a copy from pageable host memory synchronises the stream. Made
+    outside inference mode, so autograd may save it; never modify it."""
+    return _constant(values, dtype, torch.device(device))

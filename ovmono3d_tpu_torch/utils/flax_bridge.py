@@ -11,13 +11,17 @@ the layout:
                                             (flax applies it mirrored: the
                                             SFP's, SAM's up1/up2 and every
                                             Depth-Pro deconv)
-  LayerNorm scale                        -> weight
+  LayerNorm / GroupNorm scale            -> weight
+  Embed embedding [num, features]        -> Embedding weight, unchanged
   any other leaf                         -> the parameter of the same name,
                                             unchanged (bias, pos_embed,
                                             cls_token, gamma, rel_pos_h/w,
                                             SAM's gaussian_matrix,
                                             point_embeddings, no_mask_embed,
-                                            iou_token, mask_tokens)
+                                            iou_token, mask_tokens;
+                                            GroundingDINO's level_embed,
+                                            tgt_embed, gamma_v/gamma_l and
+                                            the Swin rel_pos_bias tables)
 
 The mapping is strict: a flax leaf with no torch parameter, a torch parameter
 no leaf fills, or a shape that disagrees raises. A port RCNN3D holds the
@@ -25,7 +29,8 @@ trunk, the pyramid, the RPN, box and cube heads, so it takes the tree JAX's
 init through `RCNN3D.compute_losses` makes (the training tree); a tree from
 the oracle-only init lacks the RPN and box heads and is refused. The GEO
 models (SAM's encoder, `SamSegmenter`, `DepthPro`) take their JAX modules'
-init trees.
+init trees, and `GroundingDINO` (Swin, BERT, the enhancer and decoder)
+its JAX module's.
 """
 from __future__ import annotations
 
@@ -63,7 +68,7 @@ def _rule(mod: nn.Module, leaf: str) -> tuple[str, tuple | None, bool]:
         if isinstance(mod, nn.Linear):
             return "weight", (1, 0), False
         raise KeyError(f"no kernel layout for {type(mod).__name__}")
-    if leaf == "scale":
+    if leaf in ("scale", "embedding"):
         return "weight", None, False
     return leaf, None, False
 

@@ -16,22 +16,21 @@ from __future__ import annotations
 import torch
 
 from ovmono3d_tpu_torch.ops.rotation import axis_angle_to_matrix, matmul3
+from ovmono3d_tpu_torch.utils.device import device_constant
 
 _EPS = 1e-8
 
 # Local unit-cuboid corners, [8, 3] (math_util.py:151-167).
-CORNER_SIGNS = torch.tensor(
-    [
-        [-1.0, -1.0, -1.0],
-        [+1.0, -1.0, -1.0],
-        [+1.0, +1.0, -1.0],
-        [-1.0, +1.0, -1.0],
-        [-1.0, -1.0, +1.0],
-        [+1.0, -1.0, +1.0],
-        [+1.0, +1.0, +1.0],
-        [-1.0, +1.0, +1.0],
-    ]
-) * 0.5
+CORNER_SIGNS = (
+    (-0.5, -0.5, -0.5),
+    (+0.5, -0.5, -0.5),
+    (+0.5, +0.5, -0.5),
+    (-0.5, +0.5, -0.5),
+    (-0.5, -0.5, +0.5),
+    (+0.5, -0.5, +0.5),
+    (+0.5, +0.5, +0.5),
+    (-0.5, +0.5, +0.5),
+)
 
 
 def cuboid_corners(box3d: torch.Tensor,
@@ -41,7 +40,7 @@ def cuboid_corners(box3d: torch.Tensor,
     center = box3d[..., :3]
     whl = box3d[..., 3:6]
     scale = torch.stack([whl[..., 2], whl[..., 1], whl[..., 0]], dim=-1)
-    signs = CORNER_SIGNS.to(device=box3d.device, dtype=box3d.dtype)
+    signs = device_constant(CORNER_SIGNS, box3d.device, box3d.dtype)
     local = signs * scale[..., None, :]                       # [..., 8, 3]
     if R is not None:
         # local_k' = R @ local_k for every corner k.

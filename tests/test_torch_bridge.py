@@ -186,6 +186,44 @@ def test_bridge_flips_geo_conv_transposes(name, path):
     np.testing.assert_array_equal(w, k[::-1, ::-1].transpose(2, 3, 0, 1))
 
 
+def test_gdino_swinb_tree_maps_every_leaf_to_one_parameter():
+    """GroundingDINO at the reference's SwinB configuration (Swin-B,
+    BERT-base, 6 + 6 layers, 900 queries), as shapes only: every leaf of
+    the flax tree has one parameter of the port's model on the meta device,
+    with the same total count."""
+    import jax.numpy as jnp
+
+    from ovmono3d_tpu.models.gdino.model import GroundingDINO as JaxGDINO
+    from ovmono3d_tpu_torch.models.ovmono3d import build_gdino
+
+    sds = jax.ShapeDtypeStruct
+    tree = jax.eval_shape(
+        JaxGDINO().init, jax.random.PRNGKey(0),
+        sds((1, 256, 256, 3), jnp.float32), sds((1, 8), jnp.int32),
+        sds((1, 8), jnp.bool_), sds((1, 8, 8), jnp.bool_),
+        sds((1, 8), jnp.int32))
+    port = build_gdino(device="meta")
+    plan = flax_bridge.plan(port, tree)
+    leaves = jax.tree_util.tree_leaves(tree)
+    params = dict(port.named_parameters())
+    assert len(plan) == len(leaves) == len(params)
+    n = sum(int(np.prod(x.shape)) for x in leaves)
+    assert n == sum(p.numel() for p in params.values()) > 2e8
+    assert plan["bert/word_embeddings/embedding"][0] == \
+        "bert.word_embeddings.weight"
+    assert params["bert.word_embeddings.weight"].shape == (30522, 768)
+    assert plan["backbone/stage2_block17/attn/rel_pos_bias"][0] == \
+        "backbone.stage2_block17.attn.rel_pos_bias"
+    assert params["backbone.stage3_block1.attn.rel_pos_bias"].shape == (
+        23 * 23, 32)
+    assert params["backbone.patch_embed.weight"].shape == (128, 3, 4, 4)
+    assert params["extra_proj.weight"].shape == (256, 1024, 3, 3)
+    assert plan["input_proj_norm2/scale"][0] == "input_proj_norm2.weight"
+    assert params["tgt_embed"].shape == (900, 256)
+    assert params["fusion5.gamma_l"].shape == (256,)
+    assert not any(flip for _, _, flip in plan.values())
+
+
 CONFIG_PAIRS = [
     (tcfg.BackboneConfig, jcfg.BackboneConfig),
     (tcfg.AnchorConfig, jcfg.AnchorConfig),
@@ -195,6 +233,7 @@ CONFIG_PAIRS = [
     (tcfg.ModelConfig, jcfg.ModelConfig),
     (tcfg.SolverConfig, jcfg.SolverConfig),
     (tcfg.TestConfig, jcfg.TestConfig),
+    (tcfg.InputConfig, jcfg.InputConfig),
 ]
 
 
@@ -236,13 +275,14 @@ def test_port_sources_import_no_jax():
     port = REPO / "ovmono3d_tpu_torch"
     files = sorted(port.rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert {"train", "parallel", "ops", "models", "utils", "geo"} <= {
-        f.parent.name for f in files}
+    assert {"train", "parallel", "ops", "models", "utils", "geo",
+            "gdino"} <= {f.parent.name for f in files}
     for f in files:
         assert not _JAX_IMPORT.search(f.read_text()), f
     cuda = sorted(port.glob("csrc/*.cu")) + sorted(port.glob("csrc/*.cuh"))
-    assert {f.name for f in cuda} >= {"flash_attn_fwd.cu", "flash_attn_bwd.cu",
-                                      "relpos_flash_fwd.cu", "flash_common.cuh"}
+    assert {f.name for f in cuda} >= {
+        "flash_attn_fwd.cu", "flash_attn_bwd.cu", "relpos_flash_fwd.cu",
+        "window_attn_fwd.cu", "flash_common.cuh"}
     for f in cuda:
         assert not _CUDA_JAX_INCLUDE.search(f.read_text()), f
 
