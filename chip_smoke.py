@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (ovmono3d_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's four paths, weights drawn from a seed: OVMono3D-LIFT
+Drives the port's five paths, weights drawn from a seed: OVMono3D-LIFT
 inference on oracle 2D boxes and a few training steps with the trunk
 unfrozen (RPN, box head and cube head losses, SGD), both with the flagship
 DINOv2 ViT-B/14 + SFP model at 896^2; OVMono3D-GEO inference on oracle 2D
 boxes (SAM ViT-H at 1024^2, SAM's mask decoder, Depth-Pro at 1536^2 and the
 box fit); and open-vocabulary OVMono3D-LIFT serving (GroundingDINO Swin-B +
 BERT-base + deformable DETR on the 896^2 canvas, then the flagship cube
-model on its boxes). Holds every CUDA kernel on those paths against its
-plain PyTorch version.
+model on its boxes); and the W8A8 int8 serving option of the ViT trunks
+(oracle LIFT, and GEO with the tanh-GELU epilogue too). Holds every CUDA
+kernel on those paths against its plain PyTorch version.
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
 
 Kernels: 1 = the inference flash-attention forward, 3 = the training
 forward that also writes the row log-sum-exp, 4 = the attention backward,
 7 = the decomposed rel-pos attention forward of SAM's encoder, 8 = the Swin
-window attention forward of GroundingDINO's trunk.
+window attention forward of GroundingDINO's trunk, 10 = the int8 x int8 ->
+int32 product of the W8A8 serving option (the trunks' qkv, proj, fc1, fc2).
 
 Phases, one line each (more for the build's resource report and the
 profiles' tables):
@@ -39,7 +41,14 @@ profiles' tables):
           a small map (N = 64) with a bias of std 30 (one-hot softmax), then
           at stages 0 and 2 its time, the plain version's, SDPA's with the
           [BW, H, N, N] bias and mask built inside the timed call and the
-          bound
+          bound; kernel 10 at every product shape of the int8 paths
+          (INT8_SHAPES) and a ragged one: the int32 accumulator equal to
+          int8_mm_ref, the bf16 dequantized product within 1 bf16 ulp of
+          dequantize_ref (activations ~N(0, 1) bf16, weights ~N(0, 0.02^2),
+          quantized), then at LIFT's and SAM-H's fc1 its time, the plain
+          version's, torch._int_mm + the same epilogue and bf16 F.linear
+          (yardsticks the port never calls), the activation's quantization
+          and the bound
   slice   3 warm-up + 10 timed requests (B=1, 64 oracle boxes, as bench.py
           builds them): launches per forward, finite [1, 64, ...]
           detections, img/s, p50, peak memory; then the same model with
@@ -93,6 +102,20 @@ profiles' tables):
           printed beside, and pred_logits, pred_boxes and the lifted corners
           printed unchecked (top-900 selection and NMS flip on rounding); a
           profile of 3 images
+  quant   the W8A8 int8 serving option: the flagship with quant="int8"
+          (seed 0, weights as the slice phase) serves bench.py's request
+          (OVMONO3D_QUANT=int8): 3 warm-up + 10 timed (img/s, p50, peak
+          memory, 48 kernel-10 and 12 kernel-1 launches per request), a
+          profile of 5; its trunk's last_feat against the same weights with
+          quant="none" within the JAX package's limits (relative Frobenius <
+          QUANT_REL, cosine > QUANT_COS; corners3d printed unchecked); then
+          GEO with quant="int8" and gelu="tanh" in SAM ViT-H's and
+          Depth-Pro's trunks (tools/bench_geo_models.py --quant int8 --gelu
+          tanh; weights as the geo phase): 2 warm-up + 3 timed images (img/s,
+          p50, ms per stage, peak memory, 416 kernel-10 launches per image),
+          a profile of 2, and one image against the bf16 + erf trunks of the
+          same weights: SAM embedding and inverse depth within GEO_QUANT_REL
+          / GEO_QUANT_COS (int8 + erf, mask logits and boxes printed beside)
 Then a JSON line of the kernels, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failure raises before that line and the
 exit code is not 0.
@@ -131,8 +154,10 @@ from ovmono3d_tpu_torch.models.ovmono3d import (  # noqa: E402
     default_focal_K,
 )
 from ovmono3d_tpu_torch.models.rcnn3d import build_model  # noqa: E402
+from ovmono3d_tpu_torch.models.vit import GELUS, Mlp  # noqa: E402
 from ovmono3d_tpu_torch.ops.boxes import uniform_draws  # noqa: E402
 from ovmono3d_tpu_torch.ops import attention  # noqa: E402
+from ovmono3d_tpu_torch.ops import quant  # noqa: E402
 from ovmono3d_tpu_torch.parallel.train_step import (  # noqa: E402
     create_train_state,
     make_train_step,
@@ -156,8 +181,10 @@ RELPOS_SHAPES = {"sam_h_global": (1, (64, 64), 16, 80),
                  "sam_b_global": (1, (64, 64), 12, 64),
                  "ragged": (2, (6, 10), 12, 64)}
 REL_POS_STD = 0.1     # about a trained SAM table's scale
-# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate and HBM3.
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor-core rates
+# and HBM3.
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+PEAK_INT8_OPS = 1979e12
 MAX_ERR, MEAN_ERR = 2e-2, 2e-3
 # Relative limits beside the absolute ones: at N=4097 the outputs are ~0.02,
 # where 2e-2 absolute would pass an error of several percent.
@@ -176,6 +203,36 @@ WINDOW_SHAPES = {"stage0": (361, 144, 4), "stage1": (100, 144, 8),
                  "stage2": (25, 144, 16), "stage3": (9, 144, 32)}
 WINDOW_SMALL, WINDOW_SMALL_BIAS_STD = (4, 64, 4), 30.0
 OV_H, OV_W, OV_WARMUP, OV_TIMED = 480, 640, 2, 5
+# Kernel 10: (rows R, K, M) of every product of the int8 serving paths, per
+# image: the LIFT trunk (DINOv2 ViT-B/14 at 896^2, 4097 tokens), SAM ViT-H at
+# 1024^2 (4096 tokens in global blocks, 25 windows of 196 in windowed ones),
+# Depth-Pro's ViT-L/16 patch encoder (35 crops of 577 tokens) and its image
+# and FOV encoders (577); a small ragged case.
+INT8_SHAPES = {
+    "lift_qkv": (4097, 768, 2304), "lift_proj": (4097, 768, 768),
+    "lift_fc1": (4097, 768, 3072), "lift_fc2": (4097, 3072, 768),
+    "sam_h_global_qkv": (4096, 1280, 3840),
+    "sam_h_window_qkv": (4900, 1280, 3840),
+    "sam_h_global_proj": (4096, 1280, 1280),
+    "sam_h_window_proj": (4900, 1280, 1280),
+    "sam_h_fc1": (4096, 1280, 5120), "sam_h_fc2": (4096, 5120, 1280),
+    "dp_patch_qkv": (20195, 1024, 3072), "dp_patch_proj": (20195, 1024, 1024),
+    "dp_patch_fc1": (20195, 1024, 4096), "dp_patch_fc2": (20195, 4096, 1024),
+    "dp_image_qkv": (577, 1024, 3072), "dp_image_proj": (577, 1024, 1024),
+    "dp_image_fc1": (577, 1024, 4096), "dp_image_fc2": (577, 4096, 1024),
+    "ragged": (77, 64, 200),
+}
+# Kernel-10 launches per image: 4 products in each block of the trunks.
+LIFT_INT8_LAUNCHES, GEO_INT8_LAUNCHES = 12 * 4, 32 * 4 + 3 * 24 * 4
+# The int8 trunk against the bf16 one on the same weights: the JAX package's
+# own limits (tests/test_quant.py), relative Frobenius error and cosine.
+QUANT_REL, QUANT_COS = 5e-2, 0.999
+QUANT_WARMUP, QUANT_TIMED = 3, 10
+GEO_QUANT_WARMUP, GEO_QUANT_TIMED = 2, 3
+# int8 + tanh GEO against the bf16 + erf trunks of the same weights, a guard
+# of the models: twice the largest deviation of the first run on the card
+# (SAM embedding 2.98e-2 relative, cosine 1 - 4.45e-4; PERF.md, Findings).
+GEO_QUANT_REL, GEO_QUANT_COS = 6e-2, 0.999
 OVLIFT_MAX_REL, OVLIFT_MEAN_REL = 1e-1, 2e-2
 CATEGORY_META = Path(__file__).resolve().parent / "configs" / \
     "category_meta50.json"
@@ -220,19 +277,22 @@ def device_phase() -> str:
 
 def build_phase() -> None:
     t0 = time.perf_counter()
+    sources = attention.KERNEL_SOURCES + quant.KERNEL_SOURCES
+    libs = list(cuda_build.build(sources).values())   # one nvcc each, at once
     attention.build_kernels()
-    libs = [cuda_build.library_path(src) for src in attention.KERNEL_SOURCES]
+    quant.build_kernels()
     say("build", f"{', '.join(lib.name for lib in libs)} ready in "
                  f"{time.perf_counter() - t0:.1f} s")
     for lib in libs:
         log = lib.with_name(lib.name + ".log")
         if log.is_file():
             for line in log.read_text().splitlines():
-                m = re.search(r"((flash|relpos|window)_[a-z_]+_kernel)"
-                              r"(IL[bi](\d+)E)?", line)
+                m = re.search(r"((flash|relpos|window|int8)_[a-z_]+_kernel)"
+                              r"(IL([bi])(\d+)E)?", line)
                 if "Compiling entry" in line and m:
-                    flag = {"0": "<false>", "1": "<true>", None: ""}.get(
-                        m[4], f"<{m[4]}>")
+                    flag = "" if m[4] is None else (
+                        f"<{m[5]}>" if m[4] == "i"
+                        else "<true>" if m[5] == "1" else "<false>")
                     say("build", f"{lib.stem.rsplit('_', 1)[0][3:]}: "
                                  f"{m[1]}{flag}")
                 elif "registers" in line or "spill" in line:
@@ -526,6 +586,95 @@ def window_kernel_phase() -> dict:
                           f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
             out[name] = t
     return {**out["stage0"], "max_abs_err": worst}
+
+
+def int8_operands(rows, depth, cols, seed):
+    """Kernel 10's inputs as QDense makes them: activations ~N(0, 1) in bf16
+    quantized per row, weights ~N(0, 0.02^2) quantized per output channel,
+    and the bf16 operands they came from; a bias ~N(0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(4000 + seed)
+    x = torch.randn(rows, depth, device="cuda", generator=g).bfloat16()
+    w = torch.randn(cols, depth, device="cuda", generator=g) * 0.02
+    bias = torch.randn(cols, device="cuda", generator=g)
+    xq, x_scale = quant.quantize_int8(x, -1)
+    wq, w_scale = quant.quantize_int8(w, -1)
+    return xq, x_scale, wq, w_scale.reshape(-1), bias, x, w.bfloat16()
+
+
+def int8_bound_ms(rows, depth, cols) -> tuple[float, str]:
+    """Kernel 10's bound (the dequantizing instance the path runs): 2 R K M
+    int8 operations; xq and wq (int8), the scales and the bias (f32) read
+    once, the bf16 output written once."""
+    ops = 2 * rows * depth * cols
+    nbytes = (rows + cols) * depth + 4 * (rows + 2 * cols) + 2 * rows * cols
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def int8_kernel_phase() -> dict:
+    """Kernel 10 against its plain version at every INT8_SHAPES shape: the
+    int32 accumulator exact (torch.equal with int8_mm_ref) and the bf16
+    dequantized product within 1 bf16 ulp of dequantize_ref; then at LIFT's
+    and SAM-H's fc1 the times of the kernel, its plain version,
+    torch._int_mm (cuBLASLt) with the same epilogue in torch, and bf16
+    F.linear at the same shape (the product the int8 path replaces; both
+    yardsticks the port never calls), and the bound. Returns LIFT fc1's
+    numbers (the JSON line's) with the worst error over all shapes."""
+    worst, worst_ulp = 0.0, 0
+    with torch.no_grad():
+        for i, (name, (r, k, m)) in enumerate(INT8_SHAPES.items()):
+            xq, x_scale, wq, w_scale, bias, _, _ = int8_operands(r, k, m, i)
+            acc = quant.int8_gemm(xq, wq)
+            torch.cuda.synchronize()
+            want_acc = quant.int8_mm_ref(xq, wq)
+            check(torch.equal(acc, want_acc),
+                  f"k10 {name} raw: int32 accumulator equal to int8_mm_ref")
+            got = quant.int8_gemm(xq, wq, x_scale, w_scale, bias)
+            torch.cuda.synchronize()
+            want = quant.dequantize_ref(want_acc, x_scale, w_scale, bias,
+                                        torch.bfloat16)
+            err = (got.float() - want.float()).abs().max().item()
+            ulps = int((got.view(torch.int16).int()
+                        - want.view(torch.int16).int()).abs().max())
+            n_diff = int((got != want).sum())
+            say("kernel", f"k10 {name} [{r}, {k}] x [{m}, {k}]: raw equal; "
+                          f"dequant bf16 max_abs_err {err:.3e}, max "
+                          f"{ulps} bf16 ulp, {n_diff} of {r * m} differ; "
+                          f"max |ref| {want.float().abs().max().item():.3e}; "
+                          f"|acc| max {want_acc.abs().max().item()}")
+            check(ulps <= 1, f"k10 {name}: dequant within 1 bf16 ulp")
+            worst, worst_ulp = max(worst, err), max(worst_ulp, ulps)
+            del acc, want_acc, got, want
+        out = {}
+        for name in ("lift_fc1", "sam_h_fc1"):
+            r, k, m = INT8_SHAPES[name]
+            xq, x_scale, wq, w_scale, bias, x, w = int8_operands(r, k, m, 0)
+            wq_t, bias_b = wq.T, bias.bfloat16()
+            t = {"ms": time_ms(lambda: quant.int8_gemm(xq, wq, x_scale,
+                                                       w_scale, bias)),
+                 "plain_ms": time_ms(lambda: quant.dequantize_ref(
+                     quant.int8_mm_ref(xq, wq), x_scale, w_scale, bias,
+                     torch.bfloat16), reps=5),
+                 "library_ms": time_ms(lambda: quant.dequantize_ref(
+                     torch._int_mm(xq, wq_t), x_scale, w_scale, bias,
+                     torch.bfloat16)),
+                 "int_mm_alone_ms": time_ms(lambda: torch._int_mm(xq, wq_t)),
+                 "bf16_linear_ms": time_ms(lambda: F.linear(x, w, bias_b)),
+                 "act_quant_ms": time_ms(lambda: quant.quantize_int8(x, -1))}
+            t["bound_ms"], t["bound_by"] = int8_bound_ms(r, k, m)
+            rate = 2 * r * k * m / t["ms"] / 1e9
+            say("kernel", f"k10 {name} [{r}, {k}] x [{m}, {k}], median of "
+                          f"timed calls: kernel {t['ms']:.4f} ms ({rate:.1f} "
+                          f"TOPS, {rate / PEAK_INT8_OPS * 1e12:.1%} of the "
+                          f"int8 peak), plain {t['plain_ms']:.4f} ms, "
+                          f"torch._int_mm + epilogue {t['library_ms']:.4f} ms "
+                          f"(_int_mm alone {t['int_mm_alone_ms']:.4f}), bf16 "
+                          f"F.linear {t['bf16_linear_ms']:.4f} ms, the "
+                          f"activation's quantization {t['act_quant_ms']:.4f} "
+                          f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+            out[name] = t
+    return {**out["lift_fc1"], "max_abs_err": worst}
 
 
 def bench_inputs():
@@ -1088,20 +1237,7 @@ def geo_phase() -> dict:
     t0 = time.perf_counter()
     models = geo.build_geo_models("vit_h", depth_bf16=True, device="cuda",
                                   seed=0)
-    g = torch.Generator(device="cuda").manual_seed(1)
-    # Flax starts the rel-pos tables at zero, where kernel 7's bias path
-    # would go unchecked; Depth-Pro's LayerScales as in the slice phase;
-    # the depth head's bias so its final ReLU passes most pixels and the
-    # inverse-depth comparison reads values, not zeros.
-    with torch.no_grad():
-        for blk in models.sam_encoder.blocks():
-            blk.attn.rel_pos_h.normal_(0.0, REL_POS_STD, generator=g)
-            blk.attn.rel_pos_w.normal_(0.0, REL_POS_STD, generator=g)
-        for vit in models.depth.trunks():
-            for blk in vit.blocks():
-                blk.ls1.gamma.fill_(0.1)
-                blk.ls2.gamma.fill_(0.1)
-        models.depth.head_out.bias.fill_(GEO_DEPTH_BIAS)
+    geo_weights(models)
     n_params = sum(p.numel() for m in (models.sam_encoder, models.segmenter,
                                        models.depth) for p in m.parameters())
     say("geo", f"SAM ViT-H (1024^2), SAM decoder and Depth-Pro (1536^2, "
@@ -1123,21 +1259,9 @@ def geo_phase() -> dict:
     check(launches["fwd"] == 72 * GEO_TIMED,
           f"{launches['fwd']} kernel-1 launches for {GEO_TIMED} images (24 "
           "blocks of 3 Depth-Pro encoders each)")
-    check(0 < sum(map(len, preds)), "some box fitted")
-    for pred in preds:
-        check(len(pred) <= GEO_BOXES - 2, f"{len(pred)} boxes for "
-              f"{GEO_BOXES - 2} above the threshold")
-        for box in pred:
-            check(all(math.isfinite(x) for x in box["center_cam"]
-                      + box["dimensions"] + sum(box["pose"], [])),
-                  "finite boxes")
+    check_geo_preds(preds)
     p50 = statistics.median(lats) * 1e3
-    stages: dict = {}
-    for image, K, dets in requests[GEO_WARMUP:]:
-        trace: dict = {}
-        geo.predict_image(models, image, K, dets, trace=trace)
-        for k, ms in trace["ms"].items():
-            stages[k] = stages.get(k, 0.0) + ms / GEO_TIMED
+    stages = geo_stages(models, requests[GEO_WARMUP:])
     say("geo", f"{GEO_TIMED} images of {GEO_W}x{GEO_H}, {GEO_BOXES} oracle "
                f"boxes: {rate(lats)}; per image "
                f"{launches['relpos'] // GEO_TIMED} kernel-7 and "
@@ -1156,6 +1280,45 @@ def geo_phase() -> dict:
                f"{'PASS' if ok else 'FAIL'}")
     check(ok, "GEO synthetic self-check")
     return launches
+
+
+def geo_weights(models) -> None:
+    """Flax starts the rel-pos tables at zero, where kernel 7's bias path
+    would go unchecked; Depth-Pro's LayerScales as in the slice phase; the
+    depth head's bias so its final ReLU passes most pixels and the
+    inverse-depth comparison reads values, not zeros."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for blk in models.sam_encoder.blocks():
+            blk.attn.rel_pos_h.normal_(0.0, REL_POS_STD, generator=g)
+            blk.attn.rel_pos_w.normal_(0.0, REL_POS_STD, generator=g)
+        for vit in models.depth.trunks():
+            for blk in vit.blocks():
+                blk.ls1.gamma.fill_(0.1)
+                blk.ls2.gamma.fill_(0.1)
+        models.depth.head_out.bias.fill_(GEO_DEPTH_BIAS)
+
+
+def check_geo_preds(preds) -> None:
+    check(0 < sum(map(len, preds)), "some box fitted")
+    for pred in preds:
+        check(len(pred) <= GEO_BOXES - 2, f"{len(pred)} boxes for "
+              f"{GEO_BOXES - 2} above the threshold")
+        for box in pred:
+            check(all(math.isfinite(x) for x in box["center_cam"]
+                      + box["dimensions"] + sum(box["pose"], [])),
+                  "finite boxes")
+
+
+def geo_stages(models, requests) -> dict:
+    """Synchronised ms per image in each stage, averaged over `requests`."""
+    stages: dict = {}
+    for image, K, dets in requests:
+        trace: dict = {}
+        geo.predict_image(models, image, K, dets, trace=trace)
+        for k, ms in trace["ms"].items():
+            stages[k] = stages.get(k, 0.0) + ms / len(requests)
+    return stages
 
 
 def compare_geo(models, request) -> None:
@@ -1466,6 +1629,202 @@ def compare_ovlift(pipe, image, K, names) -> None:
     check(not failed, f"Swin kernel vs plain within limits: {failed} not")
 
 
+def set_serving(module, quant_mode: str, gelu: str) -> None:
+    """Put every trunk product of `module` in `quant_mode` and every trunk
+    MLP on `gelu`, keeping the weights, so two settings compare on the same
+    weights."""
+    for mod in module.modules():
+        if isinstance(mod, quant.QDense):
+            mod.quant = quant_mode
+        elif isinstance(mod, Mlp):
+            mod.approximate = GELUS[gelu]
+
+
+def reset_counts() -> None:
+    for fn in (quant.int8_gemm, attention.flash_attention_packed,
+               attention.rel_pos_flash_attention):
+        fn.launches = 0
+
+
+def rel_cos(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """||a - b|| / ||b|| and the cosine of a and b, in f32."""
+    a, b = a.float().flatten(), b.float().flatten()
+    return ((a - b).norm() / b.norm()).item(), (
+        (a @ b) / (a.norm() * b.norm())).item()
+
+
+def quant_phase() -> dict:
+    """The W8A8 int8 serving option at full width: oracle LIFT as bench.py
+    builds it with OVMONO3D_QUANT=int8, then GEO with int8 and tanh-GELU
+    trunks as tools/bench_geo_models.py --quant int8 --gelu tanh builds
+    them. Returns the launches of kernels 10, 1 and 7 in the timed runs."""
+    t0 = time.perf_counter()
+    cfg = flagship_config(S)
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, quant="int8"))
+    model = build_model(cfg, device="cuda", seed=0).eval()
+    with torch.no_grad():       # as the slice phase
+        for blk in model.backbone.vit.blocks():
+            blk.ls1.gamma.fill_(0.1)
+            blk.ls2.gamma.fill_(0.1)
+        model.cube_head.pose.bias.copy_(torch.tensor(IDENTITY_6D))
+    say("quant", f"flagship model, quant=int8 (896^2, seed 0) built in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    inputs = bench_inputs()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.rand(QUANT_WARMUP + QUANT_TIMED, 1, S, S, 3,
+                        device="cuda", generator=g) * 255.0
+    with torch.inference_mode():
+        serve(model, images[:QUANT_WARMUP], inputs)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        dets, lats = serve(model, images[QUANT_WARMUP:], inputs)
+        out = {"int8": quant.int8_gemm.launches,
+               "fwd": attention.flash_attention_packed.launches}
+        peak = torch.cuda.max_memory_allocated()
+    check(out["int8"] == LIFT_INT8_LAUNCHES * QUANT_TIMED,
+          f"{out['int8']} kernel-10 launches for {QUANT_TIMED} LIFT requests "
+          f"({LIFT_INT8_LAUNCHES} each)")
+    check(out["fwd"] == 12 * QUANT_TIMED,
+          f"{out['fwd']} kernel-1 launches for {QUANT_TIMED} LIFT requests")
+    for det in dets:
+        check_detections(det)
+    p50 = statistics.median(lats) * 1e3
+    say("quant", f"int8 LIFT, {QUANT_TIMED} requests (B=1, {N_BOXES} oracle "
+                 f"boxes): {rate(lats)}; per request "
+                 f"{out['int8'] // QUANT_TIMED} kernel-10 and "
+                 f"{out['fwd'] // QUANT_TIMED} kernel-1 launches; peak memory "
+                 f"{peak} bytes")
+    with torch.inference_mode():
+        device_profile("quant", lambda: serve(
+            model, images[QUANT_WARMUP:QUANT_WARMUP + 5], inputs), 5, p50,
+            per="image", repeat=1)
+    compare_quant_lift(model, images[QUANT_WARMUP], inputs)
+    del model, images, dets
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    models = geo.build_geo_models("vit_h", depth_bf16=True, device="cuda",
+                                  seed=0, quant="int8", gelu="tanh")
+    geo_weights(models)
+    say("quant", f"GEO models, quant=int8 and gelu=tanh in SAM ViT-H and "
+                 f"Depth-Pro's trunks (seed 0, weights as the geo phase), "
+                 f"built in {time.perf_counter() - t0:.1f} s")
+    requests = geo_requests(GEO_QUANT_WARMUP + GEO_QUANT_TIMED, seed=2)
+    serve_geo(models, requests[:GEO_QUANT_WARMUP])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    preds, lats = serve_geo(models, requests[GEO_QUANT_WARMUP:])
+    geo_out = {"int8": quant.int8_gemm.launches,
+               "fwd": attention.flash_attention_packed.launches,
+               "relpos": attention.rel_pos_flash_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+    n = GEO_QUANT_TIMED
+    check(geo_out["int8"] == GEO_INT8_LAUNCHES * n,
+          f"{geo_out['int8']} kernel-10 launches for {n} GEO images "
+          f"({GEO_INT8_LAUNCHES} each)")
+    check(geo_out["fwd"] == 72 * n and geo_out["relpos"] == 32 * n,
+          f"kernel-1 / kernel-7 launches {geo_out['fwd']} / "
+          f"{geo_out['relpos']} for {n} GEO images")
+    check_geo_preds(preds)
+    p50 = statistics.median(lats) * 1e3
+    stages = geo_stages(models, requests[GEO_QUANT_WARMUP:])
+    say("quant", f"int8 + tanh GEO, {n} images of {GEO_W}x{GEO_H}, "
+                 f"{GEO_BOXES} oracle boxes: {rate(lats)}; per image "
+                 f"{geo_out['int8'] // n} kernel-10, {geo_out['relpos'] // n} "
+                 f"kernel-7 and {geo_out['fwd'] // n} kernel-1 launches; "
+                 f"{sum(map(len, preds)) / n:.1f} boxes; peak memory {peak} "
+                 "bytes; ms per image by stage (synchronised): "
+                 + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    with torch.inference_mode():
+        device_profile("quant", lambda: serve_geo(
+            models, requests[GEO_QUANT_WARMUP:GEO_QUANT_WARMUP + 2]), 2, p50,
+            per="image", repeat=1)
+    compare_quant_geo(models, requests[GEO_QUANT_WARMUP])
+    return {k: out.get(k, 0) + geo_out[k] for k in geo_out}
+
+
+def compare_quant_lift(model, image, inputs) -> None:
+    """One request with quant=int8 and with quant="none" on the same
+    weights: the trunk's last_feat held to the JAX package's own limits for
+    W8A8 against bf16 (a guard of the model: the kernel is held to its plain
+    version in the kernel phase); corners3d printed beside, unchecked."""
+    feats = []
+    hook = model.backbone.vit.register_forward_hook(
+        lambda mod, args, out: feats.append(out["last_feat"]))
+    dets = {}
+    try:
+        with torch.inference_mode():
+            for mode in ("int8", "none"):
+                set_serving(model, mode, "erf")
+                dets[mode] = model(image, **inputs)
+    finally:
+        hook.remove()
+        set_serving(model, "int8", "erf")
+    rel, cos = rel_cos(feats[0], feats[1])
+    d_corner = (dets["int8"].corners3d - dets["none"].corners3d).abs().max()
+    say("quant", f"int8 vs bf16 trunk, same weights: last_feat "
+                 f"{tuple(feats[1].shape)} ||diff|| / ||bf16|| {rel:.3e} "
+                 f"(limit {QUANT_REL}, margin {QUANT_REL / max(rel, 1e-30):.1f}"
+                 f"x), cosine {cos:.6f} (limit {QUANT_COS}, margin "
+                 f"{(1 - QUANT_COS) / max(1 - cos, 1e-30):.1f}x); unchecked: "
+                 f"corners3d max |diff| {d_corner.item():.3e} (scale "
+                 f"{dets['none'].corners3d.abs().max().item():.3e})")
+    check(rel < QUANT_REL and cos > QUANT_COS,
+          "int8 trunk within the JAX package's limits of the bf16 trunk")
+
+
+def compare_quant_geo(models, request) -> None:
+    """One image with int8 + tanh trunks and with the bf16 + erf trunks of
+    the same weights (and, printed beside, int8 + erf): the SAM embedding
+    and the canonical inverse depth (as it is, and less the head's bias)
+    held to GEO_QUANT_REL / GEO_QUANT_COS, a guard of the models; mask
+    logits and fitted boxes printed unchecked."""
+    runs = {}
+    try:
+        for name, mode, gelu in (("int8_tanh", "int8", "tanh"),
+                                 ("int8_erf", "int8", "erf"),
+                                 ("bf16_erf", "none", "erf")):
+            for m in (models.sam_encoder, models.depth):
+                set_serving(m, mode, gelu)
+            trace: dict = {}
+            preds = geo.predict_image(models, *request, trace=trace)
+            runs[name] = (preds, trace)
+    finally:
+        for m in (models.sam_encoder, models.depth):
+            set_serving(m, "int8", "tanh")
+    failed = []
+    for key, offset in (("embed", 0.0), ("canonical_inverse_depth", 0.0),
+                        ("canonical_inverse_depth", GEO_DEPTH_BIAS),
+                        ("mask_logits", 0.0)):
+        ref = runs["bf16_erf"][1][key] - offset
+        rel, cos = rel_cos(runs["int8_tanh"][1][key] - offset, ref)
+        rel_e, cos_e = rel_cos(runs["int8_erf"][1][key] - offset, ref)
+        name = f"{key} less {offset}" if offset else key
+        checked = key != "mask_logits"
+        say("quant", f"GEO int8 + tanh vs bf16 + erf, {name} "
+                     f"{tuple(ref.shape)}: ||diff|| / ||ref|| {rel:.3e}, "
+                     f"cosine {cos:.6f}"
+                     + (f" (limits {GEO_QUANT_REL} / {GEO_QUANT_COS}, "
+                        f"margins {GEO_QUANT_REL / max(rel, 1e-30):.1f}x / "
+                        f"{(1 - GEO_QUANT_COS) / max(1 - cos, 1e-30):.1f}x)"
+                        if checked else " (unchecked)")
+                     + f"; int8 + erf vs bf16 + erf {rel_e:.3e} / "
+                       f"{cos_e:.6f}")
+        if checked and not (rel < GEO_QUANT_REL and cos > GEO_QUANT_COS):
+            failed.append(name)
+    for a, b in zip(runs["int8_tanh"][0], runs["bf16_erf"][0]):
+        say("quant", f"  box {a['category_id']}: center int8 "
+                     f"{[round(x, 3) for x in a['center_cam']]} bf16 "
+                     f"{[round(x, 3) for x in b['center_cam']]}; dims int8 "
+                     f"{[round(x, 3) for x in a['dimensions']]} bf16 "
+                     f"{[round(x, 3) for x in b['dimensions']]}")
+    check(not failed, f"GEO int8 + tanh vs bf16 + erf within limits: "
+                      f"{failed} not")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = device_phase()
@@ -1473,6 +1832,7 @@ def main() -> None:
     k = kernel_phase()
     k["relpos"] = relpos_kernel_phase()
     k["window"] = window_kernel_phase()
+    k["int8"] = int8_kernel_phase()
     model, images, inputs, launches, p50_ms = slice_phase()
     profile_phase(model, images[WARMUP:WARMUP + 5], inputs, p50_ms)
     sensitivity_phase(model, images[WARMUP], inputs)
@@ -1486,10 +1846,14 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     ov_launches = ovlift_phase()
-    launches = {"fwd": launches + geo_launches["fwd"] + ov_launches["fwd"],
+    gc.collect()
+    torch.cuda.empty_cache()
+    q_launches = quant_phase()
+    launches = {"fwd": launches + geo_launches["fwd"] + ov_launches["fwd"]
+                + q_launches["fwd"],
                 "lse": train_launches["lse"], "bwd": train_launches["bwd"],
-                "relpos": geo_launches["relpos"],
-                "window": ov_launches["window"]}
+                "relpos": geo_launches["relpos"] + q_launches["relpos"],
+                "window": ov_launches["window"], "int8": q_launches["int8"]}
     src = "ovmono3d_tpu_torch/csrc/"
     meta = {
         "fwd": ("flash_attn_fwd_bf16", src + "flash_attn_fwd.cu",
@@ -1502,6 +1866,8 @@ def main() -> None:
                    "ovmono3d_tpu/ops/attention.py:277"),
         "window": ("window_attn_fwd_bf16", src + "window_attn_fwd.cu",
                    "ovmono3d_tpu/ops/attention.py:1474"),
+        "int8": ("int8_gemm_s8", src + "int8_gemm.cu",
+                 "tools/probe_int8_pallas.py:38"),
     }
     kernels = []
     for kind, (name, source, replaces) in meta.items():

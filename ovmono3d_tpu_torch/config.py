@@ -26,7 +26,11 @@ class BackboneConfig:
     out_channels: int = 256         # SFP channels
     scale_factors: tuple[float, ...] = (2.0, 1.0, 0.5)
     square_pad: int = 896           # fixed input side
-    quant: str = "none"             # int8 serving: ROADMAP slice 7
+    quant: str = "none"             # "int8": W8A8 serving of the trunk's
+                                    # qkv/proj/fc1/fc2 (ops/quant.py;
+                                    # SERVING-only)
+    gelu: str = "erf"               # "tanh": approximate-GELU serving
+                                    # epilogue of the trunk MLPs
 
 
 @dataclass(frozen=True)

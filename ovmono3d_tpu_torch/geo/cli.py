@@ -8,7 +8,8 @@ placed top-left on a 1024^2 canvas; for every 2D box scoring at least 0.30
 to the canvas's content and resized to the image; then the GEO box fit
 (geo/pipeline.py). Fits with no usable pixel are dropped.
 
-    python -m ovmono3d_tpu_torch.geo.cli --synthetic [--device cpu]
+    python -m ovmono3d_tpu_torch.geo.cli --synthetic [--device cpu] \
+        [--gelu tanh]
 
 `--synthetic` checks the geometry end to end without models: exact masks
 and depth maps of known boxes must give back their front faces. The
@@ -34,7 +35,7 @@ from ovmono3d_tpu_torch.models.backbones import SAM_ARCHS, VIT_PRESETS
 from ovmono3d_tpu_torch.models.depth import DepthPro, metric_depth
 from ovmono3d_tpu_torch.models.sam import SamSegmenter
 from ovmono3d_tpu_torch.models.vit import VisionTransformer
-from ovmono3d_tpu_torch.utils.device import resolve_device
+from ovmono3d_tpu_torch.utils.device import device_constant, resolve_device
 from ovmono3d_tpu_torch.utils.image import resize_bilinear
 from ovmono3d_tpu_torch.utils.stages import Stages
 
@@ -68,22 +69,26 @@ def check_depth_dtype(depth_bf16: bool, device: torch.device) -> None:
 
 
 def build_geo_models(sam_arch: str = "vit_b", depth_bf16: bool = False,
-                     device=None, seed: int = 0) -> GeoModels:
+                     device=None, seed: int = 0, quant: str = "none",
+                     gelu: str = "erf") -> GeoModels:
     """SAM's image encoder (`sam_arch` over the sam preset, bf16), SAM's
     prompt encoder and mask decoder (f32) and Depth-Pro (bf16 with
     `depth_bf16`, else f32: CPU only), in eval mode, with weights drawn from
     a generator seeded with `seed` on `device` (so a seed's weights differ
-    between devices). On CUDA, keep torch.backends.cuda.matmul.allow_tf32
-    and torch.backends.cudnn.allow_tf32 False: the decoder and the fit are
-    f32 math."""
+    between devices). `quant` ("int8": W8A8, SERVING-only) and `gelu`
+    ("tanh") are the serving options of SAM's and Depth-Pro's ViT trunks, as
+    tools/bench_geo_models.py passes them. On CUDA, keep
+    torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    False: the decoder and the fit are f32 math."""
     device = resolve_device(device)
     check_depth_dtype(depth_bf16, device)
     sam = VisionTransformer(
         use_depth_fusion=False, pos_interp_offset=0.0, device=device,
+        quant=quant, gelu=gelu,
         **{**VIT_PRESETS["sam"], **SAM_ARCHS[sam_arch]})
     seg = SamSegmenter(device=device)
     depth = DepthPro(dtype=torch.bfloat16 if depth_bf16 else torch.float32,
-                     device=device)
+                     quant=quant, gelu=gelu, device=device)
     g = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         for model in (sam, seg, depth):
@@ -92,9 +97,8 @@ def build_geo_models(sam_arch: str = "vit_b", depth_bf16: bool = False,
 
 
 def _normalize(img: torch.Tensor) -> torch.Tensor:
-    mean = torch.tensor(PIXEL_MEAN, device=img.device)
-    std = torch.tensor(PIXEL_STD, device=img.device)
-    return (img - mean) / std
+    return ((img - device_constant(PIXEL_MEAN, img.device))
+            / device_constant(PIXEL_STD, img.device))
 
 
 def predict_image(models: GeoModels, image, K, dets: list[dict],
@@ -221,6 +225,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="SAM encoder size (the reference uses vit_h)")
     ap.add_argument("--depth-bf16", action="store_true",
                     help="run Depth-Pro in bf16 (needed on CUDA)")
+    ap.add_argument("--gelu", default="erf", choices=("erf", "tanh"),
+                    help="the GELU of SAM's and Depth-Pro's ViT MLPs: exact "
+                         "erf (the released models' op) or the approximate "
+                         "tanh serving epilogue (not bit-identical)")
     ap.add_argument("--eval", action="store_true")
     ap.add_argument("--eval-only", action="store_true")
     ap.add_argument("--device", default=None,

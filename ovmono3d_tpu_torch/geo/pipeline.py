@@ -27,14 +27,16 @@ from __future__ import annotations
 
 import torch
 
+from ovmono3d_tpu_torch.utils.device import device_constant
 from ovmono3d_tpu_torch.utils.geometry import cuboid_corners
 
 # Corner order of the reference's gen_8corners (ovmono3d_geo.py:106-113).
-_CORNER_FLAGS = torch.tensor([
-    [0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
-    [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1],
-], dtype=torch.float32)
+_CORNER_FLAGS = ((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0),
+                 (0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1))
 _FLIP = (1.0, -1.0, -1.0)          # open3d-frame flip, diag(1, -1, -1)
+# The 27 voxel offsets of a 3x3x3 neighbourhood.
+_NEIGHBOURS = tuple((dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+                    for dz in (-1, 0, 1))
 _GRID = 1024                       # voxel cells per axis, 10 bits each
 _SENTINEL = torch.iinfo(torch.int64).max
 
@@ -110,7 +112,7 @@ def _voxel_density_keep(points: torch.Tensor, mask: torch.Tensor,
     about +-5 m at the first eps. Points outside the grid are outliers:
     never kept, never counted. One sort per row, then each neighbour
     voxel's count is searchsorted(right) - searchsorted(left)."""
-    eps_t = torch.tensor(eps, dtype=points.dtype, device=points.device)
+    eps_t = device_constant((eps,), points.device, points.dtype)
     q_raw = torch.floor(points / eps_t).to(torch.int64) + _GRID // 2
     in_range = ((q_raw >= 0) & (q_raw < _GRID)).all(-1)
     valid = mask & in_range
@@ -118,9 +120,7 @@ def _voxel_density_keep(points: torch.Tensor, mask: torch.Tensor,
     ids = torch.where(valid, _pack(q), torch.full_like(q[..., 0], _SENTINEL))
     sorted_ids = torch.sort(ids, dim=-1).values
     counts = torch.zeros_like(ids)
-    offsets = torch.tensor([(dx, dy, dz) for dx in (-1, 0, 1)
-                            for dy in (-1, 0, 1) for dz in (-1, 0, 1)],
-                           device=points.device)
+    offsets = device_constant(_NEIGHBOURS, points.device, torch.int64)
     for off in offsets:
         nq = q + off
         nok = ((nq >= 0) & (nq < _GRID)).all(-1)
@@ -186,10 +186,10 @@ def fit_box_from_mask_depth(mask: torch.Tensor, depth: torch.Tensor,
     base = torch.stack([mins[:, 0], maxs[:, 1], maxs[:, 2]], dim=-1)
     extent = torch.stack([maxs[:, 0] - mins[:, 0], mins[:, 1] - maxs[:, 1],
                           mins[:, 2] - maxs[:, 2]], dim=-1)
-    flags = _CORNER_FLAGS.to(depth.device)
+    flags = device_constant(_CORNER_FLAGS, depth.device)
     corners = base[:, None] + flags * extent[:, None] - offset
     corners = _rot_points(corners, heading_to_rotmat(yaw)) + offset
-    corners_cam = corners * torch.tensor(_FLIP, device=depth.device)
+    corners_cam = corners * device_constant(_FLIP, depth.device)
 
     center = corners_cam.mean(-2)
     # dims in the reference's get_dims order: (w, h, l) = (|c0 - c4|,

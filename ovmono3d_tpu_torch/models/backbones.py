@@ -53,7 +53,8 @@ class ViTSFPBackbone(nn.Module):
             depth=cfg.depth, num_heads=cfg.num_heads,
             pretrain_grid=cfg.pretrain_grid, layerscale=cfg.layerscale,
             use_depth_fusion=cfg.use_depth_fusion,
-            dtype=dtype, device=device, remat=cfg.remat, quant=cfg.quant)
+            dtype=dtype, device=device, remat=cfg.remat, quant=cfg.quant,
+            gelu=cfg.gelu)
         self.sfp = SimpleFeaturePyramid(
             cfg.embed_dim, cfg.out_channels, cfg.scale_factors,
             trunk_stride=cfg.patch_size, dtype=dtype, device=device)

@@ -25,9 +25,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ovmono3d_tpu_torch.models.layers import (Conv, ConvTranspose,
+from ovmono3d_tpu_torch.models.layers import (Conv, ConvTranspose, Dense,
                                               init_flax_defaults)
-from ovmono3d_tpu_torch.models.vit import Dense, VisionTransformer
+from ovmono3d_tpu_torch.models.vit import VisionTransformer
 
 
 def _resize(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
@@ -125,7 +125,9 @@ class DepthPro(nn.Module):
     """Multi-scale patchwork ViT encoder + DPT fusion decoder + FOV head.
 
     Defaults are the released model (dinov2l16_384 trunks at 384^2, image
-    pyramid 1536 / 768 / 384). Submodules carry the JAX module's names.
+    pyramid 1536 / 768 / 384). `quant` and `gelu` are the three ViT trunks'
+    serving options (models/vit.py). Submodules carry the JAX module's
+    names.
     """
 
     def __init__(self, patch_size: int = 16, encoder_size: int = 384,
@@ -135,7 +137,8 @@ class DepthPro(nn.Module):
                  scaled_dims=(1024, 1024, 512), hook_ids=(11, 5),
                  hook_dims=(256, 256), fusion_dim: int = 256,
                  merge_padding: int = 3, num_fov_layers: int = 2,
-                 use_fov: bool = True, dtype=torch.bfloat16, device=None):
+                 use_fov: bool = True, quant: str = "none", gelu: str = "erf",
+                 dtype=torch.bfloat16, device=None):
         super().__init__()
         E, P = encoder_size, patch_size
         if E % P:
@@ -155,7 +158,7 @@ class DepthPro(nn.Module):
                 P, vit_dim, vit_depth, vit_heads, pretrain_grid=E // P,
                 layerscale=True, use_depth_fusion=False, dtype=dtype,
                 device=device, pos_interp_offset=0.0, final_norm=True,
-                out_layers=hooks)
+                out_layers=hooks, quant=quant, gelu=gelu)
 
         def conv(name, cin, cout, k, stride=1, padding=0, bias=True):
             self.add_module(name, Conv(cin, cout, k, stride, padding, bias,

@@ -17,8 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ovmono3d_tpu_torch.models.layers import LayerNorm, init_flax_defaults
-from ovmono3d_tpu_torch.models.vit import Dense
+from ovmono3d_tpu_torch.models.layers import (Dense, LayerNorm,
+                                              init_flax_defaults)
 
 
 def init_embeddings(module: nn.Module, generator: torch.Generator) -> None:

@@ -34,9 +34,8 @@ from ovmono3d_tpu_torch.models.gdino.transformer import (
     BiAttentionBlock, BoxMLP, DecoderLayer, DeformableLayer,
     TextEnhancerLayer, coordinate_sine_embedding, inverse_sigmoid,
     sine_position_embedding)
-from ovmono3d_tpu_torch.models.layers import (Conv, GroupNorm,
+from ovmono3d_tpu_torch.models.layers import (Conv, Dense, GroupNorm,
                                               init_flax_defaults)
-from ovmono3d_tpu_torch.models.vit import Dense
 from ovmono3d_tpu_torch.ops.nms import stable_topk
 from ovmono3d_tpu_torch.utils.device import device_constant
 

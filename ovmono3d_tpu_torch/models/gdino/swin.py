@@ -31,8 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ovmono3d_tpu_torch.models.layers import LayerNorm, init_flax_defaults
-from ovmono3d_tpu_torch.models.vit import Dense, PatchEmbed
+from ovmono3d_tpu_torch.models.layers import (Dense, LayerNorm,
+                                              init_flax_defaults)
+from ovmono3d_tpu_torch.models.vit import PatchEmbed
 from ovmono3d_tpu_torch.ops.attention import window_attention
 
 

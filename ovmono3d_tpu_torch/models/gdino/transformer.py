@@ -24,8 +24,7 @@ from torch import nn
 
 from ovmono3d_tpu_torch.models.gdino.deformable import (
     deformable_attention_core)
-from ovmono3d_tpu_torch.models.layers import LayerNorm
-from ovmono3d_tpu_torch.models.vit import Dense
+from ovmono3d_tpu_torch.models.layers import Dense, LayerNorm
 
 
 def _dim_t(half: int, temperature: float, device) -> torch.Tensor:

@@ -1,5 +1,9 @@
-"""flax-style convolutions on channels-last (NHWC) maps and flax's default
-initializers, shared by the port's models.
+"""flax-style dense layers and convolutions on channels-last (NHWC) maps, and
+flax's default initializers, shared by the port's models.
+
+`Dense` is flax's `nn.Dense` (and the JAX package's `QDense` with
+quant="none"): f32 parameters, the product in its `dtype`; ops/quant.py's
+`QDense` adds the int8 serving path on top of it.
 
 `Conv` and `ConvTranspose` keep f32 parameters in PyTorch's layouts (OIHW,
 IOHW) and compute in their `dtype`, as flax's `nn.Conv(dtype=...)` does. A
@@ -27,6 +31,25 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
     """flax lecun_normal: truncated normal, variance 1 / fan_in."""
     std = math.sqrt(1.0 / fan_in) / _TRUNC
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+class Dense(nn.Linear):
+    """Linear with f32 parameters, computed in `dtype` (flax Dense/QDense
+    with quant="none")."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=torch.bfloat16,
+                 bias: bool = True, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+    def init_lecun(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.in_features, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
 
 class Conv(nn.Conv2d):

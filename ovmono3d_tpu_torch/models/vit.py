@@ -19,6 +19,12 @@ Attention goes through `dot_product_attention` (CUDA kernel 1, or 3 and 4
 when training) and the rel-pos blocks through `rel_pos_attention` (kernel
 7, inference only); on the CPU both run their plain versions.
 
+Serving options of every trunk: `quant="int8"` runs each block's qkv, proj,
+fc1 and fc2 as W8A8 products (ops/quant.py `QDense`: CUDA kernel 10 on the
+card; SERVING-only, it raises when autograd would need it), and
+`gelu="tanh"` the MLPs' approximate GELU. The defaults ("none", "erf") are
+the released models' ops.
+
 Training: when the trunk needs gradients, attention runs through the
 autograd Function of ops/attention.py (the lse forward kernel and the
 backward kernel); under no_grad / inference_mode it runs the inference
@@ -31,7 +37,7 @@ maps the two trees mechanically. Options still to port raise
 NotImplementedError naming their ROADMAP item: the CLIP and MAE trunks'
 `pre_ln` and `pos_sincos`, the size-based position-table resize of the
 non-DINOv2 trunks (a grid other than the pretraining grid; SAM at 1024^2
-and Depth-Pro at 384^2 need none), the W8A8 `quant` path, and remat.
+and Depth-Pro at 384^2 need none), and remat.
 """
 from __future__ import annotations
 
@@ -44,29 +50,11 @@ from torch import nn
 from ovmono3d_tpu_torch.models.layers import conv_norm_pair, lecun_normal_
 from ovmono3d_tpu_torch.ops.attention import (dot_product_attention,
                                               rel_pos_attention)
+from ovmono3d_tpu_torch.ops.quant import QDense
 
 # DINOv2 interpolate_pos_encoding's scale-factor offset (the JAX package's
 # "dinov2" preset, pos_interp_offset=0.1).
 DINOV2_POS_OFFSET = 0.1
-
-
-class Dense(nn.Linear):
-    """Linear with f32 parameters, computed in `dtype` (flax Dense/QDense
-    with quant="none")."""
-
-    def __init__(self, in_features: int, out_features: int, dtype=torch.bfloat16,
-                 bias: bool = True, device=None):
-        super().__init__(in_features, out_features, bias=bias, device=device)
-        self.dtype = dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
-
-    def init_lecun(self, generator: torch.Generator) -> None:
-        lecun_normal_(self.weight, self.in_features, generator)
-        if self.bias is not None:
-            nn.init.zeros_(self.bias)
 
 
 class PatchEmbed(nn.Module):
@@ -137,17 +125,26 @@ class LayerScale(nn.Module):
         nn.init.constant_(self.gamma, self.init_value)
 
 
+GELUS = {"erf": "none", "tanh": "tanh"}   # gelu option -> F.gelu approximate
+
+
 class Mlp(nn.Module):
-    """fc1 -> exact (erf) GELU -> fc2."""
+    """fc1 -> GELU -> fc2. `gelu` is "erf" (exact, the released models' op)
+    or "tanh" (the approximate form, jax.nn.gelu(approximate=True): the JAX
+    package's opt-in serving epilogue, not bit-identical). `quant` is the
+    products' int8 serving option (ops/quant.py)."""
 
     def __init__(self, dim: int, hidden_dim: int, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, quant: str = "none", gelu: str = "erf"):
         super().__init__()
-        self.fc1 = Dense(dim, hidden_dim, dtype, device=device)
-        self.fc2 = Dense(hidden_dim, dim, dtype, device=device)
+        if gelu not in GELUS:
+            raise ValueError(f"gelu={gelu!r}; the port takes {tuple(GELUS)}")
+        self.approximate = GELUS[gelu]
+        self.fc1 = QDense(dim, hidden_dim, dtype, device=device, quant=quant)
+        self.fc2 = QDense(hidden_dim, dim, dtype, device=device, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
 
 
 def _resize_rel_pos(rel_pos: torch.Tensor, size: int) -> torch.Tensor:
@@ -168,17 +165,18 @@ class Attention(nn.Module):
 
     `attn_fn` is the attention on the qkv output viewed as [B, N, 3, H, D],
     returning [B, N, H, D]: `dot_product_attention(qkv)` by default, and
-    `rel_pos_attention(qkv, Rh, Rw, grid_hw)` with rel-pos.
+    `rel_pos_attention(qkv, Rh, Rw, grid_hw)` with rel-pos. `quant` is the
+    qkv and proj products' int8 serving option (ops/quant.py).
     """
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.bfloat16,
                  device=None, use_rel_pos: bool = False,
-                 rel_pos_size: int = 0):
+                 rel_pos_size: int = 0, quant: str = "none"):
         super().__init__()
         self.num_heads = num_heads
         self.use_rel_pos = use_rel_pos
-        self.qkv = Dense(dim, 3 * dim, dtype, device=device)
-        self.proj = Dense(dim, dim, dtype, device=device)
+        self.qkv = QDense(dim, 3 * dim, dtype, device=device, quant=quant)
+        self.proj = QDense(dim, dim, dtype, device=device, quant=quant)
         if use_rel_pos:
             n_rel = 2 * rel_pos_size - 1
             self.rel_pos_h = nn.Parameter(
@@ -225,14 +223,14 @@ class Block(nn.Module):
                  layerscale: bool = True, dtype=torch.bfloat16,
                  norm_eps: float = 1e-6, device=None,
                  use_rel_pos: bool = False, rel_pos_size: int = 0,
-                 window: int = 0):
+                 window: int = 0, quant: str = "none", gelu: str = "erf"):
         super().__init__()
         self.window = window
         self.norm1 = LayerNormBf16Out(dim, norm_eps, dtype, device)
         self.attn = Attention(dim, num_heads, dtype, device, use_rel_pos,
-                              rel_pos_size)
+                              rel_pos_size, quant)
         self.norm2 = LayerNormBf16Out(dim, norm_eps, dtype, device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, device, quant, gelu)
         if layerscale:
             self.ls1 = LayerScale(dim, dtype=dtype, device=device)
             self.ls2 = LayerScale(dim, dtype=dtype, device=device)
@@ -325,13 +323,13 @@ class VisionTransformer(nn.Module):
                  use_rel_pos: bool = False, neck_channels: int = 0,
                  out_layers=(), final_norm: bool = False,
                  pre_ln: bool = False, pos_sincos: bool = False,
-                 remat: bool = False, quant: str = "none"):
+                 remat: bool = False, quant: str = "none",
+                 gelu: str = "erf"):
         super().__init__()
         unported = [
             (pre_ln, "pre_ln (CLIP trunk): ROADMAP slice 7"),
             (pos_sincos, "pos_sincos (MAE trunk): ROADMAP slice 7"),
             (remat, "remat (queued with training): ROADMAP slice 3"),
-            (quant != "none", f"quant={quant!r} (W8A8): ROADMAP slice 7"),
         ]
         for asked, what in unported:
             if asked:
@@ -355,7 +353,8 @@ class VisionTransformer(nn.Module):
                 embed_dim, num_heads, mlp_ratio, layerscale, dtype, norm_eps,
                 device, use_rel_pos=use_rel_pos,
                 rel_pos_size=window_size if windowed else pretrain_grid,
-                window=window_size if windowed else 0))
+                window=window_size if windowed else 0, quant=quant,
+                gelu=gelu))
         self.depth_fusion = (
             nn.Conv2d(embed_dim + 1, embed_dim, 1, device=device)
             if use_depth_fusion else None)

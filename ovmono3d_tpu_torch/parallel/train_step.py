@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import torch
 
 from ovmono3d_tpu_torch.models.rcnn3d import RCNN3D
+from ovmono3d_tpu_torch.ops.quant import refuse_quantized
 from ovmono3d_tpu_torch.structures import GroundTruth
 from ovmono3d_tpu_torch.train.optim import Optimizer
 
@@ -64,7 +65,9 @@ class TrainState:
 def create_train_state(model: RCNN3D, optimizer: Optimizer,
                        seed: int = 0) -> TrainState:
     """A fresh state on the optimizer's (the model's) device; the sampling
-    generator is seeded with `seed`."""
+    generator is seeded with `seed`. Refuses a model built with
+    quant="int8" (SERVING-only)."""
+    refuse_quantized(model)
     dev = optimizer.device
     return TrainState(
         model=model, optimizer=optimizer,
@@ -92,8 +95,10 @@ def make_train_step(model: RCNN3D, optimizer: Optimizer,
     state.generator). Runs on the model's device. Frozen parameters
     (requires_grad False) get no gradient and no update, like the JAX package's
     trainable_mask. `metrics` are device tensors: the losses, total_loss
-    and skipped (1.0 on a skipped step).
+    and skipped (1.0 on a skipped step). Refuses a model built with
+    quant="int8" (SERVING-only).
     """
+    refuse_quantized(model)
 
     def train_step(state: TrainState, batch: dict):
         gt = GroundTruth(boxes=batch["gt_boxes"], classes=batch["gt_classes"],

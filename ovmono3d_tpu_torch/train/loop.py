@@ -16,6 +16,7 @@ import time
 from typing import Callable, Iterator
 
 from ovmono3d_tpu_torch.config import Config
+from ovmono3d_tpu_torch.ops.quant import SERVING_ONLY
 from ovmono3d_tpu_torch.train.checkpoint import SingleCheckpointer
 
 logger = logging.getLogger(__name__)
@@ -36,8 +37,10 @@ def train(cfg: Config, state, step_fn: Callable, data_iter: Iterator,
     checkpoint exists yet -- and rebuild the data stream with
     `data_iter_factory(attempt)`. `eval_fn(state) -> dict` runs every
     cfg.test.eval_period steps unless the current step diverged. Returns
-    the final state.
+    the final state. Refuses cfg.model.backbone.quant="int8" (SERVING-only).
     """
+    if cfg.model.backbone.quant != "none":
+        raise ValueError(SERVING_ONLY)
     solver = cfg.solver
     stabilize = cfg.model.stabilize
     attempts = 0

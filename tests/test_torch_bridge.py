@@ -282,14 +282,14 @@ def test_port_sources_import_no_jax():
     cuda = sorted(port.glob("csrc/*.cu")) + sorted(port.glob("csrc/*.cuh"))
     assert {f.name for f in cuda} >= {
         "flash_attn_fwd.cu", "flash_attn_bwd.cu", "relpos_flash_fwd.cu",
-        "window_attn_fwd.cu", "flash_common.cuh"}
+        "window_attn_fwd.cu", "int8_gemm.cu", "flash_common.cuh"}
     for f in cuda:
         assert not _CUDA_JAX_INCLUDE.search(f.read_text()), f
 
 
 def test_port_runs_with_jax_unimportable():
     code = """
-import importlib, pkgutil, sys
+import dataclasses, importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "optax", "ovmono3d_tpu", "cv2",
              "torchvision"):
     sys.modules[name] = None           # any import of them now fails
@@ -302,14 +302,17 @@ from ovmono3d_tpu_torch.models.rcnn3d import build_model
 cfg = ModelConfig(num_classes=5, backbone=BackboneConfig(
     embed_dim=32, depth=1, num_heads=2, pretrain_grid=8, out_channels=32,
     square_pad=112), cube=CubeHeadConfig(fc_dim=32))
-model = build_model(cfg, device="cpu")
-with torch.inference_mode():
-    det = model(torch.rand(1, 112, 112, 3) * 255, torch.eye(3)[None] * 100,
-                torch.full((1, 2), 112), torch.ones(1),
-                oracle_boxes=torch.tensor([[[10.0, 10.0, 60.0, 70.0]]]),
-                oracle_classes=torch.zeros(1, 1), oracle_scores=torch.ones(1, 1),
-                oracle_valid=torch.ones(1, 1, dtype=torch.bool))
-assert all(bool(torch.isfinite(v.float()).all()) for _, v in det.items())
+for quant in ("none", "int8"):
+    model = build_model(dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, quant=quant, gelu="tanh")), device="cpu")
+    with torch.inference_mode():
+        det = model(torch.rand(1, 112, 112, 3) * 255, torch.eye(3)[None] * 100,
+                    torch.full((1, 2), 112), torch.ones(1),
+                    oracle_boxes=torch.tensor([[[10.0, 10.0, 60.0, 70.0]]]),
+                    oracle_classes=torch.zeros(1, 1),
+                    oracle_scores=torch.ones(1, 1),
+                    oracle_valid=torch.ones(1, 1, dtype=torch.bool))
+    assert all(bool(torch.isfinite(v.float()).all()) for _, v in det.items())
 from ovmono3d_tpu_torch.geo.cli import synthetic_check
 assert synthetic_check("cpu")[0]
 assert not any(k.split(".")[0] in ("jax", "flax") and v is not None

@@ -67,9 +67,13 @@ def test_vit_f32_matches_jax(vit_pair, with_depth):
 
 def test_vit_unported_options_raise():
     for kw, slice_no in [({"pos_sincos": True}, 7), ({"pre_ln": True}, 7),
-                         ({"quant": "int8"}, 7), ({"remat": True}, 3)]:
+                         ({"remat": True}, 3)]:
         with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
             VisionTransformer(device="meta", **VIT_KW, **kw)
+    # W8A8 is ported (tests/test_torch_quant.py); other modes are refused.
+    assert VisionTransformer(device="meta", quant="int8", **VIT_KW)
+    with pytest.raises(ValueError, match="quant='int4'"):
+        VisionTransformer(device="meta", quant="int4", **VIT_KW)
     # The size-based position resize of the non-DINOv2 trunks: a table at
     # its pretraining grid passes, any other grid raises.
     pe = torch.zeros(1, 1 + 64, 16)
