@@ -9,8 +9,10 @@ boxes (SAM ViT-H at 1024^2, SAM's mask decoder, Depth-Pro at 1536^2 and the
 box fit); and open-vocabulary OVMono3D-LIFT serving (GroundingDINO Swin-B +
 BERT-base + deformable DETR on the 896^2 canvas, then the flagship cube
 model on its boxes); and the W8A8 int8 serving option of the ViT trunks
-(oracle LIFT, and GEO with the tanh-GELU epilogue too). Holds every CUDA
-kernel on those paths against its plain PyTorch version.
+(oracle LIFT, and GEO with the tanh-GELU epilogue too). Besides, GEO in the
+JAX GEO CLI's default configuration (Depth-Pro in f32), and LIFT serving and
+training under OVMONO3D_PACKED_ATTN=0 (the head-major attention family).
+Holds every CUDA kernel on those paths against its plain PyTorch version.
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
 
@@ -18,11 +20,15 @@ Kernels: 1 = the inference flash-attention forward, 3 = the training
 forward that also writes the row log-sum-exp, 4 = the attention backward,
 7 = the decomposed rel-pos attention forward of SAM's encoder, 8 = the Swin
 window attention forward of GroundingDINO's trunk, 10 = the int8 x int8 ->
-int32 product of the W8A8 serving option (the trunks' qkv, proj, fc1, fc2).
+int32 product of the W8A8 serving option (the trunks' qkv, proj, fc1, fc2);
+1 f32 = kernel 1's f32 instance (f32 products on the FP32 pipes); 2, 5, 6 =
+the head-major counterparts of 1, 3, 4 (the same CUDA sources, launched on
+the same views through their own wrappers).
 
 Phases, one line each (more for the build's resource report and the
 profiles' tables):
-  device  the card, its power limit, TF32 off for matmuls and cuDNN
+  device  the card, its power limit, TF32 as PyTorch starts (the entry
+          points that place a model on the card turn it off)
   build   nvcc builds (or loads) of the kernel libraries, in parallel
   kernel  kernel 1 vs attention_ref, kernel 3 vs attention_lse_ref and
           kernel 4 vs attention_bwd_ref at the trunk, Depth-Pro's B=1 and
@@ -48,7 +54,14 @@ profiles' tables):
           quantized), then at LIFT's and SAM-H's fc1 its time, the plain
           version's, torch._int_mm + the same epilogue and bf16 F.linear
           (yardsticks the port never calls), the activation's quantization
-          and the bound
+          and the bound; kernel 1's f32 instance vs f32 attention_ref at
+          Depth-Pro's shapes and a ragged one (within F32_MAX_REL of max
+          |ref|), kernel 2 vs attention_ref at the trunk (bf16, f32), at
+          N = 8192 past the packed gate and at the JAX tests' [2, 150, 3,
+          32] (bf16, f32), kernels 5 and 6 vs the plain versions at the B=8
+          train shape (the plain ones per image) and at [2, 150, 3, 32];
+          each one's time, the plain version's, SDPA's and the bound (f32
+          on the FP32 pipes' 67 TFLOP/s)
   slice   3 warm-up + 10 timed requests (B=1, 64 oracle boxes, as bench.py
           builds them): launches per forward, finite [1, 64, ...]
           detections, img/s, p50, peak memory; then the same model with
@@ -59,7 +72,11 @@ profiles' tables):
   sensitivity  how far bf16 rounding inside attention moves corners3d,
           with the pose bias at its zero init and at the identity: kernel
           vs attention_ref, and attention_ref vs the same math with f32
-          probabilities
+          probabilities; then the trunk's last_feat with cuBLAS's bf16
+          reduced-precision reductions on and off, against bf16 noise (the
+          kernel vs attention_ref), printed; TF32 off after build_model, and
+          the RPN conv in f32 within 1e-5 of float64 (with cuDNN's TF32
+          printed beside)
   train   the flagship with the trunk unfrozen, default SGD solver, on a
           synthetic batch of 8 images (16 GT slots each, 3D boxes in front
           of the camera, 2D boxes their projected cuboids): 2 warm-up + 5
@@ -74,6 +91,14 @@ profiles' tables):
           within 5e-2 of the plain one's norm, each with its margin; the
           gradients from each run's own heads, and attention_ref in f32
           against bf16, printed beside
+  headmajor  OVMONO3D_PACKED_ATTN=0: bench.py's LIFT request, 1 warm-up + 3
+          timed (12 kernel-2 launches a request and no other attention
+          kernel; detections against the packed route's on the same image,
+          bit-identity printed, held to 2e-2 of each field's scale); one B=8
+          loss and trunk gradient of the unfrozen flagship with each route,
+          same weights and draws (bit-identity printed, held to
+          TRAIN_LOSS_REL / TRAIN_GRAD_REL); 2 train steps (12 kernel-5 and
+          12 kernel-6 launches a step and no other)
   geo     SAM ViT-H (bf16, rel-pos tables ~N(0, 0.1^2)), SAM's decoder
           (f32) and Depth-Pro (bf16, LayerScales 0.1, depth-head bias 0.5)
           from seed 0 serve 704x512 images with 8 oracle boxes each (2 under
@@ -86,6 +111,13 @@ profiles' tables):
           (the kernel checks are the kernel phase's), fitted boxes printed
           side by side unchecked; a profile of 3
           images; the synthetic GEO self-check on the card (PASS)
+  geo_f32 the JAX GEO CLI's default: build_geo_models("vit_h",
+          depth_bf16=False), weights as the geo phase: 2 warm-up + 3 timed
+          images (img/s, p50, stages, peak memory, 72 f32 kernel-1 and 32
+          kernel-7 launches an image, no other attention kernel), a profile
+          of 2; one image's inverse depth against f32 attention_ref in every
+          Depth-Pro block (within GEO_F32_REL) and, printed, against a bf16
+          Depth-Pro holding the same weights
   ovlift  OVMono3DLift at full width from seed 0 (GroundingDINO SwinB, the
           flagship cube model; OVLIFT_SETS below says which weights are
           moved off their init and why), a tokenizer whose vocabulary holds
@@ -122,10 +154,12 @@ exit code is not 0.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -146,6 +180,7 @@ from ovmono3d_tpu_torch.config import (  # noqa: E402
 from ovmono3d_tpu_torch.geo import cli as geo  # noqa: E402
 from ovmono3d_tpu_torch.models import rcnn3d  # noqa: E402
 from ovmono3d_tpu_torch.models.gdino import swin  # noqa: E402
+from ovmono3d_tpu_torch.models.depth import DepthPro  # noqa: E402
 from ovmono3d_tpu_torch.models.gdino.tokenizer import (  # noqa: E402
     BertTokenizer,
 )
@@ -181,10 +216,29 @@ RELPOS_SHAPES = {"sam_h_global": (1, (64, 64), 16, 80),
                  "sam_b_global": (1, (64, 64), 12, 64),
                  "ragged": (2, (6, 10), 12, 64)}
 REL_POS_STD = 0.1     # about a trained SAM table's scale
-# H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor-core rates
-# and HBM3.
+# The f32 instance of kernel 1: Depth-Pro's B=1 encoders and 35-crop patch
+# encoder in f32 (the JAX GEO CLI's default), a small ragged case.
+F32_SHAPES = {"depth_pro": (1, 577, 16, 64),
+              "depth_pro_patches": (35, 577, 16, 64),
+              "ragged": (2, 77, 12, 64)}
+# Kernel 2 ((B, N, H, D), dtype): the LIFT trunk in bf16 and f32, a sequence
+# past the packed gate's 6144, and the JAX package's own test shape (3 heads
+# of 32, which do not tile to 128 lanes) in bf16 and f32.
+K2_SHAPES = {"trunk": ((1, 4097, 12, 64), torch.bfloat16),
+             "trunk_f32": ((1, 4097, 12, 64), torch.float32),
+             "long": ((1, 8192, 12, 64), torch.bfloat16),
+             "small": ((2, 150, 3, 32), torch.bfloat16),
+             "small_f32": ((2, 150, 3, 32), torch.float32)}
+# Kernels 5 and 6: the B=8 train step's trunk shape and the small one.
+K56_SHAPES = {"train": (8, 4097, 12, 64), "small": (2, 150, 3, 32)}
+# f32 kernels against f32 attention_ref: exact products on both sides,
+# summed in another order.
+F32_MAX_REL = 2e-5
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor-core rates,
+# f32 on the FP32 pipes (no tensor cores) and HBM3.
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 PEAK_INT8_OPS = 1979e12
+PEAK_F32_FLOPS = 67e12
 MAX_ERR, MEAN_ERR = 2e-2, 2e-3
 # Relative limits beside the absolute ones: at N=4097 the outputs are ~0.02,
 # where 2e-2 absolute would pass an error of several percent.
@@ -195,6 +249,10 @@ TRAIN_B, TRAIN_GT, TRAIN_WARMUP, TRAIN_TIMED = 8, 16, 2, 5
 TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-2, 5e-2
 GEO_H, GEO_W, GEO_BOXES, GEO_WARMUP, GEO_TIMED = 512, 704, 8, 2, 5
 GEO_MAX_REL, GEO_MEAN_REL = 1e-1, 2e-2
+GEO_F32_WARMUP, GEO_F32_TIMED = 2, 3
+# f32 Depth-Pro's inverse depth, f32 kernel 1 against f32 attention_ref.
+GEO_F32_REL = 1e-4
+HEADMAJOR_TIMED, HEADMAJOR_STEPS = 3, 2
 GEO_DEPTH_BIAS = 0.5   # the depth head's output bias in the geo phase
 # Kernel 8: (BW, N, H) of Swin-B's four stages at 896^2 (patch grid 224,
 # window 12: 19^2, 10^2, 5^2 and 3^2 windows, D = 32), and a small map's
@@ -266,12 +324,13 @@ def device_phase() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    # f32 products of the head and decode stand in for the JAX package's
-    # Precision.HIGHEST: no TF32.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # TF32 stays as PyTorch starts it: the entry points that place a model
+    # on the card turn it off (utils.device.disable_tf32).
     say("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
-                  f"torch {torch.__version__} cuda {torch.version.cuda}")
+                  f"torch {torch.__version__} cuda {torch.version.cuda}; "
+                  f"TF32 at start: matmul "
+                  f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+                  f"{torch.backends.cudnn.allow_tf32}")
     return card
 
 
@@ -299,10 +358,10 @@ def build_phase() -> None:
                     say("build", "  " + line.strip())
 
 
-def qkv_views(b, n, h, d, seed):
+def qkv_views(b, n, h, d, seed, dtype=torch.bfloat16):
     g = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=g,
-                      dtype=torch.bfloat16)
+                      dtype=dtype)
     return qkv.view(b, n, 3, h, d).unbind(2)
 
 
@@ -342,19 +401,24 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
     return mx
 
 
-def bound_ms(b: int, n: int, h: int, d: int, kind: str) -> tuple[float, str]:
+def bound_ms(b: int, n: int, h: int, d: int, kind: str,
+             dtype=torch.bfloat16) -> tuple[float, str]:
     """The least time the card could take for attention's work at [B, N, H,
-    D]: the larger of the tensor-core time (4 B H N^2 D flops forward, 10
-    B H N^2 D backward: the JAX kernels' cost estimates) and the memory
-    time (each input read once, each output written once)."""
+    D]: the larger of the compute time (4 B H N^2 D flops forward, 10
+    B H N^2 D backward: the JAX kernels' cost estimates; bf16 at the
+    tensor-core peak, f32 at the FP32 pipes' peak, the f32 instance's
+    basis) and the memory time (each input read once, each output written
+    once)."""
     elems = b * n * h * d
+    size = torch.tensor([], dtype=dtype).element_size()
     if kind == "bwd":
         flops = 10 * b * h * n * n * d
-        nbytes = 8 * elems * 2 + 2 * b * h * n * 4   # q k v o do dq dk dv; lse, delta
+        nbytes = 8 * elems * size + 2 * b * h * n * 4   # q k v o do dq dk dv; lse, delta
     else:
         flops = 4 * b * h * n * n * d
-        nbytes = 4 * elems * 2 + (b * h * n * 4 if kind == "lse" else 0)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        nbytes = 4 * elems * size + (b * h * n * 4 if kind == "lse" else 0)
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -362,6 +426,41 @@ def bound_ms(b: int, n: int, h: int, d: int, kind: str) -> tuple[float, str]:
 def sdpa_views(q, k, v):
     """The same strided views in SDPA's [B, H, N, D] layout (no copy)."""
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def sdpa_bwd_ms(q, k, v, do) -> float:
+    """SDPA's backward alone: one forward with autograd, then the timed
+    gradient calls reuse its graph."""
+    with torch.enable_grad():
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(*sdpa_views(qg, kg, vg))
+        do_t = do.transpose(1, 2)
+        return time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qg, kg, vg), do_t, retain_graph=True))
+
+
+def check_f32(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Hold an f32 kernel's output to the f32 plain version within
+    F32_MAX_REL of max |ref|; returns the max abs error."""
+    err, ref = (got - want).abs(), want.abs()
+    mx, ref_mx = err.max().item(), ref.max().item()
+    say("kernel", f"{name}: max_abs_err {mx:.3e} mean_abs_err "
+                  f"{err.mean().item():.3e}; max |ref| {ref_mx:.3e} "
+                  f"(limit {F32_MAX_REL} of it, margin "
+                  f"{F32_MAX_REL * ref_mx / max(mx, 1e-30):.1f}x)")
+    check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+          f"{name}: finite f32 output")
+    check(mx <= F32_MAX_REL * ref_mx,
+          f"{name}: error within {F32_MAX_REL} of max |ref|")
+    return mx
+
+
+def per_image(fn, *xs) -> tuple:
+    """`fn` over one batch element at a time, the results concatenated:
+    the plain versions' [B, H, N, N] f32 tensors of a B=8 trunk batch
+    (6.4 GB each) need not sit side by side."""
+    outs = [fn(*(x[i:i + 1] for x in xs)) for i in range(xs[0].shape[0])]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def kernel_phase() -> dict:
@@ -409,15 +508,8 @@ def kernel_phase() -> dict:
             lambda: attention.flash_attention_packed_bwd(q, k, v, o, lse, do))
         bwd_plain = time_ms(
             lambda: attention.attention_bwd_ref(q, k, v, o, lse, do), reps=5)
-    # SDPA's backward alone: one forward with autograd, then the timed
-    # gradient calls reuse its graph.
-    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(*sdpa_views(qg, kg, vg))
-    do_t = do.transpose(1, 2)
-    out["bwd"] = {"ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": time_ms(
-        lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do_t,
-                                    retain_graph=True))}
-    del sdpa_out
+    out["bwd"] = {"ms": bwd_ms, "plain_ms": bwd_plain,
+                  "library_ms": sdpa_bwd_ms(q, k, v, do)}
     for kind in ("fwd", "lse", "bwd"):
         out[kind]["max_abs_err"] = worst[kind]
         out[kind]["bound_ms"], out[kind]["bound_by"] = bound_ms(b, n, h, d,
@@ -428,6 +520,100 @@ def kernel_phase() -> dict:
                       f"{out[kind]['library_ms']:.4f} ms, bound "
                       f"{out[kind]['bound_ms']:.4f} ms "
                       f"({out[kind]['bound_by']})")
+    return out
+
+
+def timing(name: str, fwd, plain, library, bound: tuple[float, str],
+           plain_reps: int = 20) -> dict:
+    """ms of the kernel call, its plain version and the library yardstick,
+    with the bound beside them, printed on one line."""
+    out = {"ms": time_ms(fwd), "plain_ms": time_ms(plain, reps=plain_reps),
+           "library_ms": library if isinstance(library, float)
+           else time_ms(library), "bound_ms": bound[0], "bound_by": bound[1]}
+    say("kernel", f"{name}, median of timed calls: kernel {out['ms']:.4f} "
+                  f"ms, plain {out['plain_ms']:.4f} ms, SDPA "
+                  f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} "
+                  f"ms ({out['bound_by']})")
+    return out
+
+
+def headmajor_kernel_phase() -> dict:
+    """The f32 instance of kernel 1 at F32_SHAPES against f32 attention_ref,
+    kernel 2 at K2_SHAPES against attention_ref, kernels 5 and 6 at
+    K56_SHAPES against attention_lse_ref / attention_bwd_ref (per image at
+    B=8); then each one's times at its shapes, beside the plain version's,
+    SDPA's on the same views (a yardstick the port never calls) and the
+    bound. Returns the JSON entries' numbers: kernel 1 f32 timed at
+    Depth-Pro's 35-crop shape, kernels 2, 5 and 6 at the B=1 trunk."""
+    worst = {"fwd_f32": 0.0, "k2": 0.0, "k5": 0.0, "k6": 0.0}
+    out = {}
+    with torch.no_grad():
+        for i, (name, shape) in enumerate(F32_SHAPES.items()):
+            q, k, v = qkv_views(*shape, seed=200 + i, dtype=torch.float32)
+            worst["fwd_f32"] = max(worst["fwd_f32"], check_f32(
+                f"k1 f32 {name} {shape}",
+                attention.flash_attention_packed(q, k, v),
+                attention.attention_ref(q, k, v)))
+        b, n, h, d = F32_SHAPES["depth_pro_patches"]
+        q, k, v = qkv_views(b, n, h, d, seed=201, dtype=torch.float32)
+        out["fwd_f32"] = timing(
+            f"k1 f32 depth_pro_patches {(b, n, h, d)}",
+            lambda: attention.flash_attention_packed(q, k, v),
+            lambda: attention.attention_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(*sdpa_views(q, k, v)),
+            bound_ms(b, n, h, d, "fwd", torch.float32))
+        for i, (name, (shape, dtype)) in enumerate(K2_SHAPES.items()):
+            q, k, v = qkv_views(*shape, seed=300 + i, dtype=dtype)
+            got = attention.flash_attention(q, k, v)
+            want = attention.attention_ref(q, k, v)
+            label = f"k2 {name} {shape} {str(dtype)[6:]}"
+            err = (check_f32(label, got, want) if dtype == torch.float32
+                   else check_close(label, got, want, absolute=True))
+            worst["k2"] = max(worst["k2"], err)
+            timed = timing(
+                label, lambda: attention.flash_attention(q, k, v),
+                lambda: attention.attention_ref(q, k, v),
+                lambda: F.scaled_dot_product_attention(*sdpa_views(q, k, v)),
+                bound_ms(*shape, "fwd", dtype), plain_reps=5)
+            if name == "trunk":
+                out["k2"] = timed
+            del got, want
+        for i, (name, shape) in enumerate(K56_SHAPES.items()):
+            q, k, v = qkv_views(*shape, seed=400 + i)
+            do = qkv_views(*shape, seed=500 + i)[0]
+            o, lse = attention.flash_attention_fwd_lse(q, k, v)
+            want_o, want_lse = per_image(attention.attention_lse_ref, q, k, v)
+            worst["k5"] = max(worst["k5"],
+                              check_close(f"k5 {name} {shape} out", o, want_o),
+                              check_close(f"k5 {name} lse", lse, want_lse))
+            grads = attention.flash_attention_bwd(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+            want = per_image(attention.attention_bwd_ref, q, k, v, o, lse, do)
+            for g, w, gname in zip(grads, want, ("dq", "dk", "dv")):
+                worst["k6"] = max(worst["k6"], check_close(
+                    f"k6 {name} {gname}", g, w))
+            del grads, want, want_o, want_lse
+        for name, shape in (("trunk", KERNEL_SHAPES["trunk"]),
+                            ("small", K56_SHAPES["small"])):
+            q, k, v = qkv_views(*shape, seed=600)
+            do = qkv_views(*shape, seed=601)[0]
+            o, lse = attention.flash_attention_fwd_lse(q, k, v)
+            k5 = timing(
+                f"k5 {name} {shape}",
+                lambda: attention.flash_attention_fwd_lse(q, k, v),
+                lambda: attention.attention_lse_ref(q, k, v),
+                lambda: F.scaled_dot_product_attention(*sdpa_views(q, k, v)),
+                bound_ms(*shape, "lse"), plain_reps=5)
+            k6 = timing(
+                f"k6 {name} {shape}",
+                lambda: attention.flash_attention_bwd(q, k, v, o, lse, do),
+                lambda: attention.attention_bwd_ref(q, k, v, o, lse, do),
+                sdpa_bwd_ms(q, k, v, do), bound_ms(*shape, "bwd"),
+                plain_reps=5)
+            if name == "trunk":
+                out["k5"], out["k6"] = k5, k6
+    for kind, err in worst.items():
+        out[kind]["max_abs_err"] = err
     return out
 
 
@@ -723,25 +909,31 @@ def rate(lats) -> str:
 IDENTITY_6D = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0)
 
 
+def lift_model(cfg):
+    """The serving model of `cfg` from seed 0 in eval mode, its LayerScales
+    at 0.1 and its pose bias at the identity's 6D vector.
+
+    Trained LayerScales are orders of magnitude above the 1e-5 init; at
+    1e-5 every block's output falls below bf16's resolution in the residual
+    stream, and a kernel-vs-plain comparison would see no difference
+    whatever the kernel computed. At its zero init the 6D outputs are ~1e-3
+    and Gram-Schmidt turns bf16 rounding anywhere upstream into
+    percent-level rotation changes, which would drown the comparison."""
+    model = build_model(cfg, device="cuda", seed=0).eval()
+    with torch.no_grad():
+        for blk in model.backbone.vit.blocks():
+            blk.ls1.gamma.fill_(0.1)
+            blk.ls2.gamma.fill_(0.1)
+        model.cube_head.pose.bias.copy_(torch.tensor(IDENTITY_6D))
+    return model
+
+
 def slice_phase():
     """Returns the model, its images and request inputs, the kernel's
     launches in the timed run and that run's p50 in ms."""
     t0 = time.perf_counter()
-    model = build_model(flagship_config(S), device="cuda", seed=0).eval()
-    blocks = model.backbone.vit.blocks()
-    n_blocks = len(blocks)
-    # Trained LayerScales are orders of magnitude above the 1e-5 init; at
-    # 1e-5 every block's output falls below bf16's resolution in the
-    # residual stream, and the kernel-vs-plain comparison below would see
-    # no difference whatever the kernel computed. The pose bias is the
-    # identity's 6D vector: at its zero init the 6D outputs are ~1e-3 and
-    # Gram-Schmidt turns bf16 rounding anywhere upstream into percent-level
-    # rotation changes, which would drown the comparison.
-    with torch.no_grad():
-        for blk in blocks:
-            blk.ls1.gamma.fill_(0.1)
-            blk.ls2.gamma.fill_(0.1)
-        model.cube_head.pose.bias.copy_(torch.tensor(IDENTITY_6D))
+    model = lift_model(flagship_config(S))
+    n_blocks = len(model.backbone.vit.blocks())
     say("slice", f"flagship model (896^2, 50 classes, seed 0) built in "
                  f"{time.perf_counter() - t0:.1f} s")
     inputs = bench_inputs()
@@ -878,6 +1070,73 @@ def sensitivity_phase(model, image, inputs) -> None:
                            f"{rel['kernel', 'plain']:.2%}, plain vs f32 "
                            f"probabilities {rel['plain', 'f32_probs']:.2%}")
     set_attention(model, attention.dot_product_attention)
+    reduced_precision_reduction(model, image, inputs)
+    tf32_conv_error(model)
+
+
+def tf32_conv_error(model) -> None:
+    """The RPN head's f32 conv against a float64 conv: with the flags as
+    build_model left them (TF32 off) within 1e-5 relative; with cuDNN's
+    TF32 (PyTorch's default) printed beside."""
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "build_model turned TF32 off")
+    conv = model.rpn_head.conv
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(1, conv.in_channels, 112, 112, device="cuda", generator=g)
+    errs = {}
+    with torch.no_grad():
+        want = F.conv2d(x.double(), conv.weight.double(),
+                        conv.bias.double(), padding=1)
+        try:
+            for name, tf32 in (("off", False), ("on", True)):
+                torch.backends.cudnn.allow_tf32 = tf32
+                got = conv(x).double()
+                errs[name] = ((got - want).norm() / want.norm()).item()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    say("sensitivity", f"RPN conv {tuple(x.shape)} f32 vs float64, "
+                       f"||diff|| / ||ref||: TF32 off (as build_model sets "
+                       f"it) {errs['off']:.3e} (limit 1e-5), cuDNN TF32 on "
+                       f"{errs['on']:.3e}")
+    check(errs["off"] <= 1e-5, "f32 conv within 1e-5 of float64")
+
+
+def reduced_precision_reduction(model, image, inputs) -> None:
+    """How far cuBLAS's reduced-precision reductions in bf16 products
+    (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+    True by default; the JAX package accumulates in f32) move the trunk's
+    last_feat, against bf16 noise: the same trunk with attention_ref in
+    place of the kernel. Printed, not checked; the flag is left as it
+    was."""
+    feats = {}
+    name = ""
+    hook = model.backbone.vit.register_forward_hook(
+        lambda mod, args, out: feats.__setitem__(name, out["last_feat"]))
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    try:
+        with torch.inference_mode():
+            for name, reduced, fn in (
+                    ("on", True, attention.dot_product_attention),
+                    ("off", False, attention.dot_product_attention),
+                    ("plain", True, attention.attention_ref)):
+                torch.backends.cuda.matmul.\
+                    allow_bf16_reduced_precision_reduction = reduced
+                set_attention(model, fn)
+                model(image, **inputs)
+    finally:
+        hook.remove()
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+        set_attention(model, attention.dot_product_attention)
+    rel, cos = rel_cos(feats["off"], feats["on"])
+    noise, noise_cos = rel_cos(feats["plain"], feats["on"])
+    say("sensitivity", f"bf16 reduced-precision reduction on vs off: "
+                       f"last_feat {tuple(feats['on'].shape)} ||diff|| / "
+                       f"||ref|| {rel:.3e}, cosine {cos:.6f}, bit-identical "
+                       f"{torch.equal(feats['on'], feats['off'])}; bf16 "
+                       f"noise (kernel vs attention_ref, flag on) {noise:.3e}"
+                       f", cosine {noise_cos:.6f}")
 
 
 def synthetic_batch(b: int, m: int, seed: int, size: int = S,
@@ -925,28 +1184,27 @@ def check_losses(metrics: dict, what: str) -> None:
         check(bool(torch.isfinite(v).all()), f"{what}: {name} finite")
 
 
-def reset_train_counts() -> None:
-    for fn in (attention.flash_attention_packed,
-               attention.flash_attention_packed_lse,
-               attention.flash_attention_packed_bwd):
-        fn.launches = 0
+def train_model():
+    """The flagship's config with the trunk unfrozen, and its model from
+    seed 0 with the LayerScales at 0.1 as `lift_model` sets them, so
+    attention shows in the loss and in every trunk gradient."""
+    cfg = flagship_config(S)
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, freeze=False))
+    model = build_model(cfg, device="cuda", seed=0)
+    with torch.no_grad():
+        for blk in model.backbone.vit.blocks():
+            blk.ls1.gamma.fill_(0.1)
+            blk.ls2.gamma.fill_(0.1)
+    return cfg, model
 
 
 def train_phase() -> dict:
     """Train steps of the flagship with the trunk unfrozen; returns the
     launches of kernels 3 and 4 in the timed steps."""
     t0 = time.perf_counter()
-    cfg = flagship_config(S)
-    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
-        cfg.backbone, freeze=False))
-    model = build_model(cfg, device="cuda", seed=0)
+    cfg, model = train_model()
     blocks = model.backbone.vit.blocks()
-    # LayerScales as in the slice phase, so attention shows in the loss and
-    # in every trunk gradient the comparison below reads.
-    with torch.no_grad():
-        for blk in blocks:
-            blk.ls1.gamma.fill_(0.1)
-            blk.ls2.gamma.fill_(0.1)
     opt = Optimizer(SolverConfig(), model)
     state = create_train_state(model, opt, seed=0)
     step = make_train_step(model, opt, cfg.stabilize)
@@ -962,7 +1220,7 @@ def train_phase() -> dict:
         check_losses(metrics, "warm-up step")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_train_counts()
+    reset_attention_counts()
     lats = []
     for _ in range(TRAIN_TIMED):
         t1 = time.perf_counter()
@@ -1010,6 +1268,25 @@ def _unmatched(a: torch.Tensor, valid_a: torch.Tensor, b: torch.Tensor,
     return int(((d.amin(-1) > 1.0) & valid_a[0]).sum())
 
 
+def batch_gt(batch: dict) -> GroundTruth:
+    return GroundTruth(boxes=batch["gt_boxes"], classes=batch["gt_classes"],
+                       boxes3d=batch["gt_boxes3d"], poses=batch["gt_poses"],
+                       valid=batch["gt_valid"])
+
+
+def sampling_draws(model, batch: dict, seed: int) -> dict:
+    """compute_losses' sampling uniforms for `batch`, from a seeded
+    generator, so two runs sample the same anchors and proposals."""
+    dev = batch["image"].device
+    b, size = batch["image"].shape[:2]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_anchors = sum(len(model.cfg.anchors.aspect_ratios) * (size // st) ** 2
+                    for st in model.feature_strides)
+    n_props = model.cfg.rpn.post_nms_topk_train + batch["gt_boxes"].shape[1]
+    return {"anchor": uniform_draws((b, 2, n_anchors), g, dev),
+            "proposal": uniform_draws((b, 2, n_props), g, dev)}
+
+
 def compare_train_step(model, batch) -> None:
     """One B=1 loss and gradient from the same state, with the kernels and
     with attention_ref in every block, and the same sampling draws.
@@ -1035,17 +1312,8 @@ def compare_train_step(model, batch) -> None:
     from each run's own heads are printed beside, unchecked, with
     attention_ref in f32 against bf16 as their yardstick."""
     one = {k: v[:1] for k, v in batch.items()}
-    gt = GroundTruth(boxes=one["gt_boxes"], classes=one["gt_classes"],
-                     boxes3d=one["gt_boxes3d"], poses=one["gt_poses"],
-                     valid=one["gt_valid"])
-    dev = one["image"].device
-    g = torch.Generator(device=dev).manual_seed(2)
-    feats_hw = [one["image"].shape[1] // st for st in model.feature_strides]
-    n_anchors = sum(len(model.cfg.anchors.aspect_ratios) * hw * hw
-                    for hw in feats_hw)
-    n_props = model.cfg.rpn.post_nms_topk_train + one["gt_boxes"].shape[1]
-    draws = {"anchor": uniform_draws((1, 2, n_anchors), g, dev),
-             "proposal": uniform_draws((1, 2, n_props), g, dev)}
+    gt = batch_gt(one)
+    draws = sampling_draws(model, one, seed=2)
 
     rpn_proposals, sample_proposals = (rcnn3d.rpn_proposals,
                                        rcnn3d.sample_proposals)
@@ -1106,7 +1374,7 @@ def compare_train_step(model, batch) -> None:
         for name, fn, share in runs:
             set_attention(model, fn)
             upstream["share"] = share
-            reset_train_counts()
+            reset_attention_counts()
             torch.cuda.reset_peak_memory_stats()
             losses = model.compute_losses(one["image"], one["K"],
                                           one["im_hw"], one["im_scale_ratio"],
@@ -1375,6 +1643,254 @@ def compare_geo(models, request) -> None:
     check(not failed, f"GEO kernel vs plain within limits: {failed} not")
 
 
+ATTENTION_WRAPPERS = (
+    attention.flash_attention_packed, attention.flash_attention_packed_lse,
+    attention.flash_attention_packed_bwd, attention.flash_attention,
+    attention.flash_attention_fwd_lse, attention.flash_attention_bwd)
+
+
+def attention_counts() -> dict:
+    """Every ViT attention wrapper's launches, f32 instances apart."""
+    out = {}
+    for fn in ATTENTION_WRAPPERS:
+        out[fn.__name__] = fn.launches
+        if hasattr(fn, "launches_f32"):
+            out[fn.__name__ + "_f32"] = fn.launches_f32
+    return out
+
+
+def reset_attention_counts() -> None:
+    for fn in ATTENTION_WRAPPERS + (attention.rel_pos_flash_attention,):
+        fn.launches = 0
+        if hasattr(fn, "launches_f32"):
+            fn.launches_f32 = 0
+
+
+def geo_f32_phase() -> dict:
+    """The JAX GEO CLI's default configuration: Depth-Pro in f32
+    (build_geo_models(depth_bf16=False)), SAM ViT-H in bf16, at the
+    reference's sizes; returns the launches of kernel 1's f32 instance and
+    of kernel 7 in the timed images."""
+    t0 = time.perf_counter()
+    models = geo.build_geo_models("vit_h", depth_bf16=False, device="cuda",
+                                  seed=0)
+    geo_weights(models)
+    check(models.depth.dtype == torch.float32, "an f32 Depth-Pro")
+    say("geo_f32", f"SAM ViT-H (bf16), SAM decoder and Depth-Pro (f32), seed "
+                   f"0, weights as the geo phase, built in "
+                   f"{time.perf_counter() - t0:.1f} s")
+    requests = geo_requests(GEO_F32_WARMUP + GEO_F32_TIMED, seed=2)
+    serve_geo(models, requests[:GEO_F32_WARMUP])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_attention_counts()
+    preds, lats = serve_geo(models, requests[GEO_F32_WARMUP:])
+    counts = attention_counts()
+    relpos = attention.rel_pos_flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    n = GEO_F32_TIMED
+    f32 = counts["flash_attention_packed_f32"]
+    check(f32 == 72 * n, f"{f32} f32 kernel-1 launches for {n} images (24 "
+                         "blocks of 3 Depth-Pro encoders each)")
+    check(relpos == 32 * n, f"{relpos} kernel-7 launches for {n} images")
+    check(sum(counts.values()) == f32,
+          f"no other attention kernel launched: {counts}")
+    check_geo_preds(preds)
+    p50 = statistics.median(lats) * 1e3
+    stages = geo_stages(models, requests[GEO_F32_WARMUP:])
+    say("geo_f32", f"{n} images of {GEO_W}x{GEO_H}, {GEO_BOXES} oracle "
+                   f"boxes: {rate(lats)}; per image {f32 // n} f32 kernel-1 "
+                   f"and {relpos // n} kernel-7 launches; "
+                   f"{sum(map(len, preds)) / n:.1f} boxes; peak memory "
+                   f"{peak} bytes; ms per image by stage (synchronised): "
+                   + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    device_profile("geo_f32", lambda: serve_geo(
+        models, requests[GEO_F32_WARMUP:GEO_F32_WARMUP + 2]), 2, p50,
+        per="image", repeat=1)
+    compare_geo_f32(models, requests[GEO_F32_WARMUP])
+    return {"fwd_f32": f32, "relpos": relpos}
+
+
+def compare_geo_f32(models, request) -> None:
+    """One image's canonical inverse depth with f32 kernel 1 against the
+    same models with f32 attention_ref in every Depth-Pro block (within
+    GEO_F32_REL, relative Frobenius); and, printed unchecked, against a
+    bf16 Depth-Pro holding the same weights (what --depth-bf16 changes)."""
+    key = "canonical_inverse_depth"
+    blocks = [blk for vit in models.depth.trunks() for blk in vit.blocks()]
+    traces = {}
+    try:
+        for name, fn in (("kernel", attention.dot_product_attention),
+                         ("plain", lambda qkv: attention.attention_ref(
+                             *qkv.unbind(2)))):
+            for blk in blocks:
+                blk.attn.attn_fn = fn
+            traces[name] = {}
+            geo.predict_image(models, *request, trace=traces[name])
+    finally:
+        for blk in blocks:
+            blk.attn.attn_fn = attention.dot_product_attention
+    f32_depth = models.depth
+    models.depth = DepthPro(dtype=torch.bfloat16, device="cuda").eval()
+    try:
+        models.depth.load_state_dict(f32_depth.state_dict())
+        traces["bf16"] = {}
+        geo.predict_image(models, *request, trace=traces["bf16"])
+    finally:
+        models.depth = f32_depth
+    got = traces["kernel"][key]
+    check(got.dtype == torch.float32, "f32 inverse depth")
+    line = []
+    for offset in (0.0, GEO_DEPTH_BIAS):
+        rel, _ = rel_cos(got - offset, traces["plain"][key] - offset)
+        rel_b, cos_b = rel_cos(traces["bf16"][key] - offset, got - offset)
+        line.append((offset, rel, rel_b, cos_b))
+        say("geo_f32", f"{key} {tuple(got.shape)}"
+                       + (f" less {offset}" if offset else "")
+                       + f": f32 kernel vs f32 attention_ref ||diff|| / "
+                         f"||ref|| {rel:.3e}"
+                       + (f" (limit {GEO_F32_REL}, margin "
+                          f"{GEO_F32_REL / max(rel, 1e-30):.1f}x)"
+                          if not offset else " (unchecked)")
+                       + f"; bf16 Depth-Pro vs f32, same weights (unchecked): "
+                         f"{rel_b:.3e}, cosine {cos_b:.6f}")
+    check(line[0][1] <= GEO_F32_REL,
+          f"f32 inverse depth within {GEO_F32_REL} of attention_ref's")
+
+
+@contextlib.contextmanager
+def switched(**env):
+    """Set environment switches for the duration of the block."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def trunk_loss_and_grads(model, batch, draws):
+    """compute_losses on `batch` with fixed draws: the total loss and the
+    trunk parameters' gradients."""
+    losses = model.compute_losses(batch["image"], batch["K"], batch["im_hw"],
+                                  batch["im_scale_ratio"], batch_gt(batch),
+                                  draws=draws)
+    total = sum(losses.values())
+    trunk = dict(model.backbone.vit.named_parameters())
+    grads = torch.autograd.grad(total, list(trunk.values()))
+    return total.detach(), dict(zip(trunk, grads))
+
+
+def headmajor_phase() -> dict:
+    """OVMONO3D_PACKED_ATTN=0, the JAX package's switch to the head-major
+    family: bench.py's LIFT request (kernel 2 in every block) and the
+    flagship's B=8 train step with the trunk unfrozen (kernels 5 and 6),
+    each held to the packed route's on the same weights. Returns the
+    launches of kernels 2, 5 and 6 in the timed runs."""
+    off = {"OVMONO3D_PACKED_ATTN": "0"}
+    model = lift_model(flagship_config(S))
+    n_blocks = len(model.backbone.vit.blocks())
+    inputs = bench_inputs()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.rand(1 + HEADMAJOR_TIMED, 1, S, S, 3, device="cuda",
+                        generator=g) * 255.0
+    with torch.inference_mode():
+        packed = model(images[1], **inputs)
+        with switched(**off):
+            serve(model, images[:1], inputs)
+            reset_attention_counts()
+            dets, lats = serve(model, images[1:], inputs)
+            counts = attention_counts()
+    k2 = counts["flash_attention"]
+    check(k2 == n_blocks * HEADMAJOR_TIMED and sum(counts.values()) == k2,
+          f"kernel-2 launches alone, {n_blocks} a request: {counts}")
+    for det in dets:
+        check_detections(det)
+    same = all(torch.equal(getattr(dets[0], f), getattr(packed, f))
+               for f in ("center_cam", "dimensions", "corners3d"))
+    devs = {f: ((getattr(dets[0], f) - getattr(packed, f)).abs().max().item(),
+                getattr(packed, f).abs().max().item())
+            for f in ("center_cam", "dimensions", "corners3d")}
+    say("headmajor", f"LIFT with OVMONO3D_PACKED_ATTN=0: {rate(lats)}; "
+                     f"{k2 // HEADMAJOR_TIMED} kernel-2 launches a request; "
+                     f"against the packed route, same image: bit-identical "
+                     f"{same}; max abs deviation " + ", ".join(
+                         f"{f} {d:.3e} (scale {sc:.3e})"
+                         for f, (d, sc) in devs.items()))
+    for f, (dev, scale) in devs.items():
+        check(dev <= 2e-2 * scale + 1e-4,
+              f"{f}: head-major vs packed within 2e-2 of scale {scale}")
+    del model, images, dets, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, model = train_model()
+    batch = synthetic_batch(TRAIN_B, TRAIN_GT, seed=1)
+    draws = sampling_draws(model, batch, seed=3)
+    runs = {}
+    for route, env in (("packed", {}), ("headmajor", off)):
+        with switched(**env):
+            reset_attention_counts()
+            runs[route] = trunk_loss_and_grads(model, batch, draws)
+            torch.cuda.synchronize()
+            counts = attention_counts()
+        want = ("flash_attention_packed_lse", "flash_attention_packed_bwd")
+        if route == "headmajor":
+            want = ("flash_attention_fwd_lse", "flash_attention_bwd")
+        check(all(counts[w] == n_blocks for w in want)
+              and sum(counts.values()) == 2 * n_blocks,
+              f"{route} loss and gradient: {counts}")
+    (loss_p, grads_p), (loss_h, grads_h) = runs["packed"], runs["headmajor"]
+    loss_rel = abs(loss_h.item() - loss_p.item()) / abs(loss_p.item())
+    rels = {n: ((grads_h[n] - grads_p[n]).norm() / grads_p[n].norm()).item()
+            for n in grads_p}
+    n_equal = sum(torch.equal(grads_h[n], grads_p[n]) for n in grads_p)
+    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
+    say("headmajor", f"B={TRAIN_B} loss and trunk gradients, head-major vs "
+                     f"packed, same weights and draws: total loss "
+                     f"{loss_h.item():.6f} vs {loss_p.item():.6f} "
+                     f"(bit-identical {torch.equal(loss_h, loss_p)}, rel "
+                     f"{loss_rel:.3e}, limit {TRAIN_LOSS_REL}); "
+                     f"{n_equal} of {len(rels)} trunk gradients "
+                     f"bit-identical; ||g_h - g_p|| / ||g_p|| median "
+                     f"{statistics.median(rels.values()):.3e}, worst "
+                     + ", ".join(f"{n} {v:.3e}" for n, v in worst)
+                     + f" (limit {TRAIN_GRAD_REL})")
+    check(loss_rel <= TRAIN_LOSS_REL, "loss within the limit")
+    check(worst[0][1] <= TRAIN_GRAD_REL, "trunk gradients within the limit")
+    del runs, grads_p, grads_h
+
+    opt = Optimizer(SolverConfig(), model)
+    state = create_train_state(model, opt, seed=0)
+    step = make_train_step(model, opt, cfg.stabilize)
+    with switched(**off):
+        reset_attention_counts()
+        lats = []
+        for _ in range(HEADMAJOR_STEPS):
+            t1 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            lats.append(time.perf_counter() - t1)
+            check_losses(metrics, "head-major step")
+        counts = attention_counts()
+    k5, k6 = counts["flash_attention_fwd_lse"], counts["flash_attention_bwd"]
+    check(k5 == k6 == n_blocks * HEADMAJOR_STEPS
+          and sum(counts.values()) == k5 + k6,
+          f"kernel 5/6 launches alone, {n_blocks} each a step: {counts}")
+    check(int(state.skipped) == 0, f"{int(state.skipped)} steps skipped")
+    say("headmajor", f"{HEADMAJOR_STEPS} train steps with "
+                     f"OVMONO3D_PACKED_ATTN=0 (B={TRAIN_B}): "
+                     + ", ".join(f"{t * 1e3:.3f}" for t in lats)
+                     + f" ms; per step {k5 // HEADMAJOR_STEPS} kernel-5 and "
+                       f"{k6 // HEADMAJOR_STEPS} kernel-6 launches; total "
+                       f"loss {float(metrics['total_loss']):.4f}")
+    return {"k2": k2, "k5": k5, "k6": k6}
+
+
 def category_tokenizer() -> tuple[list[str], BertTokenizer]:
     """The 50 category names and a tokenizer whose vocabulary holds their
     words (the released bert-base-uncased vocab.txt is not in the
@@ -1641,9 +2157,8 @@ def set_serving(module, quant_mode: str, gelu: str) -> None:
 
 
 def reset_counts() -> None:
-    for fn in (quant.int8_gemm, attention.flash_attention_packed,
-               attention.rel_pos_flash_attention):
-        fn.launches = 0
+    reset_attention_counts()
+    quant.int8_gemm.launches = 0
 
 
 def rel_cos(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -1662,12 +2177,7 @@ def quant_phase() -> dict:
     cfg = flagship_config(S)
     cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
         cfg.backbone, quant="int8"))
-    model = build_model(cfg, device="cuda", seed=0).eval()
-    with torch.no_grad():       # as the slice phase
-        for blk in model.backbone.vit.blocks():
-            blk.ls1.gamma.fill_(0.1)
-            blk.ls2.gamma.fill_(0.1)
-        model.cube_head.pose.bias.copy_(torch.tensor(IDENTITY_6D))
+    model = lift_model(cfg)
     say("quant", f"flagship model, quant=int8 (896^2, seed 0) built in "
                  f"{time.perf_counter() - t0:.1f} s")
     inputs = bench_inputs()
@@ -1833,6 +2343,7 @@ def main() -> None:
     k["relpos"] = relpos_kernel_phase()
     k["window"] = window_kernel_phase()
     k["int8"] = int8_kernel_phase()
+    k.update(headmajor_kernel_phase())
     model, images, inputs, launches, p50_ms = slice_phase()
     profile_phase(model, images[WARMUP:WARMUP + 5], inputs, p50_ms)
     sensitivity_phase(model, images[WARMUP], inputs)
@@ -1842,7 +2353,13 @@ def main() -> None:
     train_launches = train_phase()
     gc.collect()
     torch.cuda.empty_cache()
+    hm_launches = headmajor_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
     geo_launches = geo_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_launches = geo_f32_phase()
     gc.collect()
     torch.cuda.empty_cache()
     ov_launches = ovlift_phase()
@@ -1852,8 +2369,10 @@ def main() -> None:
     launches = {"fwd": launches + geo_launches["fwd"] + ov_launches["fwd"]
                 + q_launches["fwd"],
                 "lse": train_launches["lse"], "bwd": train_launches["bwd"],
-                "relpos": geo_launches["relpos"] + q_launches["relpos"],
-                "window": ov_launches["window"], "int8": q_launches["int8"]}
+                "relpos": geo_launches["relpos"] + q_launches["relpos"]
+                + f32_launches["relpos"],
+                "window": ov_launches["window"], "int8": q_launches["int8"],
+                "fwd_f32": f32_launches["fwd_f32"], **hm_launches}
     src = "ovmono3d_tpu_torch/csrc/"
     meta = {
         "fwd": ("flash_attn_fwd_bf16", src + "flash_attn_fwd.cu",
@@ -1868,6 +2387,15 @@ def main() -> None:
                    "ovmono3d_tpu/ops/attention.py:1474"),
         "int8": ("int8_gemm_s8", src + "int8_gemm.cu",
                  "tools/probe_int8_pallas.py:38"),
+        "fwd_f32": ("flash_attn_fwd_f32", src + "flash_attn_fwd.cu",
+                    "ovmono3d_tpu/ops/attention.py:238"),
+        "k2": ("flash_attn_fwd_bf16 head-major (flash_attention)",
+               src + "flash_attn_fwd.cu", "ovmono3d_tpu/ops/attention.py:95/:60"),
+        "k5": ("flash_attn_fwd_bf16+lse head-major (flash_attention_fwd_lse)",
+               src + "flash_attn_fwd.cu", "ovmono3d_tpu/ops/attention.py:895"),
+        "k6": ("flash_attn_bwd_bf16 head-major (flash_attention_bwd)",
+               src + "flash_attn_bwd.cu",
+               "ovmono3d_tpu/ops/attention.py:992/:925/:957"),
     }
     kernels = []
     for kind, (name, source, replaces) in meta.items():

@@ -1,8 +1,13 @@
 // Flash-attention backward for Hopper (sm_90a): bf16 in and out, f32 math.
 //
-// Replaces: ovmono3d_tpu/ops/attention.py:_flash_bwd_packed_kernel, the TPU
-// kernel behind flash_attention_packed_bwd. From q, k, v (strided views of
-// the qkv projection's output [B, N, 3, H, D]), the output's gradient do,
+// Replaces two TPU kernels of ovmono3d_tpu/ops/attention.py, at head dims 32
+// and 64: _flash_bwd_packed_kernel, behind flash_attention_packed_bwd
+// (packed [B, N, H*D]), and the head-major _flash_bwd_fused_kernel or its
+// split pair _flash_bwd_dq_kernel / _flash_bwd_dkv_kernel, behind
+// flash_attention_bwd ([B*H, N, D]). The TPU's tiling needs both layouts;
+// these kernels take any batch/token/head strides, so one pair serves both.
+// From q, k, v (strided views, e.g. of the qkv projection's output
+// [B, N, 3, H, D]), the output's gradient do,
 // the forward's row log-sum-exp lse ([B, H, N] f32, natural log, written by
 // flash_attn_fwd.cu) and delta = rowsum(do * o) ([B, H, N] f32, a small
 // reduction done outside), it rebuilds the probabilities tile by tile,
@@ -10,9 +15,10 @@
 // and computes
 //     dv = p^T do,   dp = do v^T,   ds = p * (dp - delta),
 //     dk = ds^T q / sqrt(D),   dq = ds k / sqrt(D).
-// dq, dk and dv are written with their own strides, so they land straight in
-// the three slots of one [B, N, 3, H, D] gradient of the qkv output: the qkv
-// projection's backward reads it with no stack or copy.
+// dq, dk and dv are written with their own strides: the packed route lands
+// them straight in the three slots of one [B, N, 3, H, D] gradient of the
+// qkv output, which the qkv projection's backward reads with no stack or
+// copy; the head-major route writes three [B, N, H, D] tensors.
 //
 // What bounds it on this card: tensor-core work. The backward needs
 // 10*N^2*D flops per (batch, head) (p rebuilt once, four products); this
@@ -43,7 +49,8 @@
 // stored. In the dq kernel keys past N get p = 0 and query rows past N are
 // not stored.
 //
-// Not yet: wgmma, TMA, a fused single-pass variant.
+// Not yet: wgmma, TMA, a fused single-pass variant (the TPU's
+// _flash_bwd_fused_kernel), an f32 instance.
 
 #include "flash_common.cuh"
 
@@ -68,9 +75,11 @@ struct Grad {
   float scale, scale_log2;
 };
 
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Grad a) {
-  __shared__ __align__(16) __nv_bfloat16 sq[2][kTileElems];
-  __shared__ __align__(16) __nv_bfloat16 sdo[2][kTileElems];
+  constexpr int kTile = Tile<D>::kElems;
+  __shared__ __align__(16) __nv_bfloat16 sq[2][kTile];
+  __shared__ __align__(16) __nv_bfloat16 sdo[2][kTile];
   __shared__ float slse[2][kBlock];       // lse in base-2 units
   __shared__ float sdelta[2][kBlock];
 
@@ -103,28 +112,28 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Grad a) {
 
   // Prologue: this block's K and V tile through buffer 1 into registers,
   // the first q/do tile into buffer 0.
-  load_tile(sq[1], kb, a.ks.n, k0, n, tid);
-  load_tile(sdo[1], vb, a.vs.n, k0, n, tid);
-  load_tile(sq[0], qb, a.qs.n, 0, n, tid);
-  load_tile(sdo[0], dob, a.dos.n, 0, n, tid);
+  load_tile<D>(sq[1], kb, a.ks.n, k0, n, tid);
+  load_tile<D>(sdo[1], vb, a.vs.n, k0, n, tid);
+  load_tile<D>(sq[0], qb, a.qs.n, 0, n, tid);
+  load_tile<D>(sdo[0], dob, a.dos.n, 0, n, tid);
   cp_async_commit();
   load_rows(0, 0);
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t kf[kHeadDim / 16][4];
-  uint32_t vf[kHeadDim / 16][4];
-  load_a_frags(kf, sq[1], warp, g, t);
-  load_a_frags(vf, sdo[1], warp, g, t);
+  uint32_t kf[D / 16][4];
+  uint32_t vf[D / 16][4];
+  load_a_frags<D>(kf, sq[1], warp, g, t);
+  load_a_frags<D>(vf, sdo[1], warp, g, t);
   __syncthreads();
 
-  float dk[kHeadDim / 8][4] = {};
-  float dv[kHeadDim / 8][4] = {};
+  float dk[D / 8][4] = {};
+  float dv[D / 8][4] = {};
 
   for (int it = 0; it < n_tiles; ++it) {
     const int cur = it & 1;
     if (it + 1 < n_tiles) {
-      load_tile(sq[cur ^ 1], qb, a.qs.n, (it + 1) * kBlock, n, tid);
-      load_tile(sdo[cur ^ 1], dob, a.dos.n, (it + 1) * kBlock, n, tid);
+      load_tile<D>(sq[cur ^ 1], qb, a.qs.n, (it + 1) * kBlock, n, tid);
+      load_tile<D>(sdo[cur ^ 1], dob, a.dos.n, (it + 1) * kBlock, n, tid);
       cp_async_commit();
       load_rows(cur ^ 1, (it + 1) * kBlock);
       cp_async_wait<1>();
@@ -136,7 +145,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Grad a) {
     // s^T = K Q^T for this warp's 16 keys and the tile's 64 queries, then
     // p^T = exp2(s^T * scale log2(e) - lse2[query]).
     float p[kBlock / 8][4] = {};
-    mma_a_rowsT(p, kf, sq[cur], g, t);
+    mma_a_rowsT<D>(p, kf, sq[cur], g, t);
 #pragma unroll
     for (int j = 0; j < kBlock / 8; ++j) {
 #pragma unroll
@@ -148,11 +157,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Grad a) {
     }
     uint32_t pf[kBlock / 16][4];
     pack_a_frags(pf, p);
-    mma_p_rows(dv, pf, sdo[cur], lane);           // dv += p^T do
+    mma_p_rows<D>(dv, pf, sdo[cur], lane);           // dv += p^T do
 
     // dp^T = V dO^T; ds^T = p^T (dp^T - delta[query]).
     float ds[kBlock / 8][4] = {};
-    mma_a_rowsT(ds, vf, sdo[cur], g, t);
+    mma_a_rowsT<D>(ds, vf, sdo[cur], g, t);
 #pragma unroll
     for (int j = 0; j < kBlock / 8; ++j) {
 #pragma unroll
@@ -164,20 +173,22 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Grad a) {
     }
     uint32_t dsf[kBlock / 16][4];
     pack_a_frags(dsf, ds);
-    mma_p_rows(dk, dsf, sq[cur], lane);           // dk += ds^T q
+    mma_p_rows<D>(dk, dsf, sq[cur], lane);           // dk += ds^T q
     __syncthreads();   // the next iteration's loads overwrite this buffer
   }
 
   const int row0 = k0 + warp * 16;
-  store_rows(a.dk + batch * a.dks.b + head * a.dks.h, a.dks.n, dk, row0, n,
+  store_rows<D>(a.dk + batch * a.dks.b + head * a.dks.h, a.dks.n, dk, row0, n,
              g, t, a.scale, a.scale);
-  store_rows(a.dv + batch * a.dvs.b + head * a.dvs.h, a.dvs.n, dv, row0, n,
+  store_rows<D>(a.dv + batch * a.dvs.b + head * a.dvs.h, a.dvs.n, dv, row0, n,
              g, t, 1.f, 1.f);
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Grad a) {
-  __shared__ __align__(16) __nv_bfloat16 sk[2][kTileElems];
-  __shared__ __align__(16) __nv_bfloat16 sv[2][kTileElems];
+  constexpr int kTile = Tile<D>::kElems;
+  __shared__ __align__(16) __nv_bfloat16 sk[2][kTile];
+  __shared__ __align__(16) __nv_bfloat16 sv[2][kTile];
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -198,10 +209,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Grad a) {
 
   // Prologue: this block's Q and dO tile through buffer 1 into registers,
   // the first K/V tile into buffer 0.
-  load_tile(sk[1], qb, a.qs.n, q0, n, tid);
-  load_tile(sv[1], dob, a.dos.n, q0, n, tid);
-  load_tile(sk[0], kb, a.ks.n, 0, n, tid);
-  load_tile(sv[0], vb, a.vs.n, 0, n, tid);
+  load_tile<D>(sk[1], qb, a.qs.n, q0, n, tid);
+  load_tile<D>(sv[1], dob, a.dos.n, q0, n, tid);
+  load_tile<D>(sk[0], kb, a.ks.n, 0, n, tid);
+  load_tile<D>(sv[0], vb, a.vs.n, 0, n, tid);
   cp_async_commit();
   const int r0 = q0 + warp * 16 + g;
   const int r1 = r0 + 8;
@@ -211,19 +222,19 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Grad a) {
   const float dl1 = r1 < n ? a.delta[row_bh + r1] : 0.f;
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[kHeadDim / 16][4];
-  uint32_t dof[kHeadDim / 16][4];
-  load_a_frags(qf, sk[1], warp, g, t);
-  load_a_frags(dof, sv[1], warp, g, t);
+  uint32_t qf[D / 16][4];
+  uint32_t dof[D / 16][4];
+  load_a_frags<D>(qf, sk[1], warp, g, t);
+  load_a_frags<D>(dof, sv[1], warp, g, t);
   __syncthreads();
 
-  float dq[kHeadDim / 8][4] = {};
+  float dq[D / 8][4] = {};
 
   for (int it = 0; it < n_tiles; ++it) {
     const int cur = it & 1;
     if (it + 1 < n_tiles) {
-      load_tile(sk[cur ^ 1], kb, a.ks.n, (it + 1) * kBlock, n, tid);
-      load_tile(sv[cur ^ 1], vb, a.vs.n, (it + 1) * kBlock, n, tid);
+      load_tile<D>(sk[cur ^ 1], kb, a.ks.n, (it + 1) * kBlock, n, tid);
+      load_tile<D>(sv[cur ^ 1], vb, a.vs.n, (it + 1) * kBlock, n, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -233,7 +244,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Grad a) {
 
     // p = exp2(s * scale log2(e) - lse2), zero for keys past n.
     float p[kBlock / 8][4] = {};
-    mma_a_rowsT(p, qf, sk[cur], g, t);
+    mma_a_rowsT<D>(p, qf, sk[cur], g, t);
     const int key0 = it * kBlock;
 #pragma unroll
     for (int j = 0; j < kBlock / 8; ++j) {
@@ -247,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Grad a) {
 
     // dp = dO V^T; ds = p (dp - delta).
     float ds[kBlock / 8][4] = {};
-    mma_a_rowsT(ds, dof, sv[cur], g, t);
+    mma_a_rowsT<D>(ds, dof, sv[cur], g, t);
 #pragma unroll
     for (int j = 0; j < kBlock / 8; ++j) {
       ds[j][0] = p[j][0] * (ds[j][0] - dl0);
@@ -257,28 +268,41 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Grad a) {
     }
     uint32_t dsf[kBlock / 16][4];
     pack_a_frags(dsf, ds);
-    mma_p_rows(dq, dsf, sk[cur], lane);           // dq += ds k
+    mma_p_rows<D>(dq, dsf, sk[cur], lane);           // dq += ds k
     __syncthreads();   // the next iteration's loads overwrite this buffer
   }
 
-  store_rows(a.dq + batch * a.dqs.b + head * a.dqs.h, a.dqs.n, dq,
+  store_rows<D>(a.dq + batch * a.dqs.b + head * a.dqs.h, a.dqs.n, dq,
              q0 + warp * 16, n, g, t, a.scale, a.scale);
+}
+
+template <int D>
+int launch(const Grad& a, int batch, cudaStream_t st) {
+  const dim3 grid((a.n + kBlock - 1) / kBlock, a.heads, batch);
+  flash_bwd_dkdv_kernel<D><<<grid, kThreads, 0, st>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  flash_bwd_dq_kernel<D><<<grid, kThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, dout: [B, N, H, 64] bf16; dq, dk, dv: [B, N, H, 64] bf16 outputs.
-// Each has its own batch/token/head strides (in elements, last stride 1,
-// 16-byte aligned rows), given in `strides` as 21 values: (b, n, h) for q,
-// k, v, dout, dq, dk, dv in that order. lse, delta: contiguous [B, H, N]
-// f32. Launches the dk/dv kernel and then the dq kernel on `stream`;
-// returns cudaGetLastError().
+// q, k, v, dout: [B, N, H, D] bf16, D in {32, 64}; dq, dk, dv: [B, N, H, D]
+// bf16 outputs. Each has its own batch/token/head strides (in elements, last
+// stride 1, 16-byte aligned rows), given in `strides` as 21 values: (b, n,
+// h) for q, k, v, dout, dq, dk, dv in that order. lse, delta: contiguous
+// [B, H, N] f32. Launches the dk/dv kernel and then the dq kernel on
+// `stream`; returns cudaGetLastError() (or cudaErrorInvalidValue for a shape
+// it does not take).
 extern "C" int flash_attn_bwd_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, void* dk, void* dv,
     int batch, int n, int heads, int head_dim, const long long* strides,
     float scale, void* stream) {
-  if (head_dim != kHeadDim || n <= 0 || batch <= 0 || heads <= 0 ||
+  if (n <= 0 || batch <= 0 || heads <= 0 || batch > 65535 || heads > 65535 ||
       strides == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -306,13 +330,12 @@ extern "C" int flash_attn_bwd_bf16(
   a.heads = heads;
   a.scale = scale;
   a.scale_log2 = scale * kLog2e;
-  const dim3 grid((n + kBlock - 1) / kBlock, heads, batch);
   const auto st = static_cast<cudaStream_t>(stream);
-  flash_bwd_dkdv_kernel<<<grid, kThreads, 0, st>>>(a);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) {
-    return static_cast<int>(err);
+  if (head_dim == 64) {
+    return launch<64>(a, batch, st);
   }
-  flash_bwd_dq_kernel<<<grid, kThreads, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (head_dim == 32) {
+    return launch<32>(a, batch, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

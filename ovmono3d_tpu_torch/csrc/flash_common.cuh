@@ -1,9 +1,10 @@
 // Building blocks shared by the flash-attention kernels (sm_90a): tile
 // geometry, cp.async copies, mma.sync m16n8k16 bf16 products with f32
 // accumulators, ldmatrix and fragment packing. Header-only, included by
-// flash_attn_fwd.cu, flash_attn_bwd.cu and relpos_flash_fwd.cu. The tile
-// helpers are templates over the head dim D (a multiple of 16); D defaults
-// to 64, the only head dim of kernels 1, 3 and 4.
+// flash_attn_fwd.cu, flash_attn_bwd.cu, relpos_flash_fwd.cu and
+// window_attn_fwd.cu. The tile helpers are templates over the head dim D (a
+// multiple of 16), which every caller names: 32 and 64 for the ViT
+// attention, 64 and 80 for the rel-pos kernel, 32 for the window kernel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -13,7 +14,6 @@
 
 namespace flash {
 
-constexpr int kHeadDim = 64;
 constexpr int kBlock = 64;                  // rows per q tile and per k/v tile
 constexpr int kWarps = kBlock / 16;         // each warp owns 16 rows of a tile
 constexpr int kThreads = kWarps * 32;
@@ -27,7 +27,6 @@ struct Tile {
   static constexpr int kElems = kBlock * kStride;
   static constexpr int kChunks = D / 8;     // 16-byte chunks a row
 };
-constexpr int kTileElems = Tile<kHeadDim>::kElems;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -84,7 +83,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Copy rows [row0, row0 + 64) of one head (row stride `row_stride`) into a
 // padded smem tile; rows at or past n arrive as zeros.
-template <int D = kHeadDim>
+template <int D>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
                                           const __nv_bfloat16* base,
                                           long long row_stride, int row0,
@@ -108,7 +107,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
 // A fragments (m16 x k16, row major) of the 16 rows of a 64 x D smem tile
 // that warp `warp` owns, over the whole head dim: frag[kk] covers columns
 // [16 kk, 16 kk + 16).
-template <int D = kHeadDim>
+template <int D>
 __device__ __forceinline__ void load_a_frags(uint32_t (&frag)[D / 16][4],
                                              const __nv_bfloat16* tile,
                                              int warp, int g, int t) {
@@ -128,7 +127,7 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&frag)[D / 16][4],
 // is this warp's 16 x D operand and `tile` holds 64 rows of D: the product
 // of A with every row of the tile (the "rows as n, head dim as k" pattern of
 // S = Q K^T).
-template <int D = kHeadDim>
+template <int D>
 __device__ __forceinline__ void mma_a_rowsT(float (&acc)[kBlock / 8][4],
                                             const uint32_t (&a)[D / 16][4],
                                             const __nv_bfloat16* tile, int g,
@@ -149,7 +148,7 @@ __device__ __forceinline__ void mma_a_rowsT(float (&acc)[kBlock / 8][4],
 // over the tile's 64 rows (the "rows as k" pattern of O = P V).
 // ldmatrix.trans yields the B fragments of two 8-wide column groups per
 // 16-row step.
-template <int D = kHeadDim>
+template <int D>
 __device__ __forceinline__ void mma_p_rows(float (&acc)[D / 8][4],
                                            const uint32_t (&p)[kBlock / 16][4],
                                            const __nv_bfloat16* tile,
@@ -185,7 +184,7 @@ __device__ __forceinline__ void pack_a_frags(uint32_t (&frag)[kBlock / 16][4],
 // Store this warp's 16 x D f32 accumulator tile, rows times scale0 and
 // scale1, as bf16 rows row0 + g and row0 + g + 8 of `base` (row stride
 // `row_stride`), skipping rows at or past n.
-template <int D = kHeadDim>
+template <int D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* base,
                                            long long row_stride,
                                            const float (&acc)[D / 8][4],

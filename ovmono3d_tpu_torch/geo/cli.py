@@ -15,10 +15,11 @@ to the canvas's content and resized to the image; then the GEO box fit
 and depth maps of known boxes must give back their front faces. The
 dataset and evaluation flags (`--config-file`, `--eval`, `--eval-only`)
 wait for the data pipeline and the Omni3D evaluator (ROADMAP queue 1
-items 6-7). Entry points run on the card unless given a CPU device; there,
-Depth-Pro runs in bf16 only (`--depth-bf16`): kernel 1 has no f32 instance
-yet (ROADMAP queue 2 item 13). Released SAM and Depth-Pro weights are not
-loaded yet (ROADMAP queue 1 item 9): weights are drawn from a seed.
+items 3-5). Entry points run on the card unless given a CPU device.
+Depth-Pro runs in f32 unless `--depth-bf16` is given, as in the JAX CLI;
+on the card its f32 attention is kernel 1's f32 instance. Released SAM and
+Depth-Pro weights are not loaded yet (ROADMAP queue 1 item 8): weights are
+drawn from a seed.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ from ovmono3d_tpu_torch.models.backbones import SAM_ARCHS, VIT_PRESETS
 from ovmono3d_tpu_torch.models.depth import DepthPro, metric_depth
 from ovmono3d_tpu_torch.models.sam import SamSegmenter
 from ovmono3d_tpu_torch.models.vit import VisionTransformer
-from ovmono3d_tpu_torch.utils.device import device_constant, resolve_device
+from ovmono3d_tpu_torch.utils.device import (device_constant, disable_tf32,
+                                             resolve_device)
 from ovmono3d_tpu_torch.utils.image import resize_bilinear
 from ovmono3d_tpu_torch.utils.stages import Stages
 
@@ -60,28 +62,21 @@ class GeoModels:
         return self.segmenter.mask_decoder.iou_token.device
 
 
-def check_depth_dtype(depth_bf16: bool, device: torch.device) -> None:
-    if device.type == "cuda" and not depth_bf16:
-        raise NotImplementedError(
-            "Depth-Pro in f32 on CUDA: kernel 1 takes bf16 only, and the "
-            "f32 instance is ROADMAP queue 2 item 13; pass depth_bf16=True "
-            "(--depth-bf16)")
-
-
 def build_geo_models(sam_arch: str = "vit_b", depth_bf16: bool = False,
                      device=None, seed: int = 0, quant: str = "none",
                      gelu: str = "erf") -> GeoModels:
     """SAM's image encoder (`sam_arch` over the sam preset, bf16), SAM's
     prompt encoder and mask decoder (f32) and Depth-Pro (bf16 with
-    `depth_bf16`, else f32: CPU only), in eval mode, with weights drawn from
-    a generator seeded with `seed` on `device` (so a seed's weights differ
-    between devices). `quant` ("int8": W8A8, SERVING-only) and `gelu`
-    ("tanh") are the serving options of SAM's and Depth-Pro's ViT trunks, as
-    tools/bench_geo_models.py passes them. On CUDA, keep
-    torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
-    False: the decoder and the fit are f32 math."""
+    `depth_bf16`, else f32, the JAX CLI's default), in eval mode, with
+    weights drawn from a generator seeded with `seed` on `device` (so a
+    seed's weights differ between devices). `quant` ("int8": W8A8,
+    SERVING-only) and `gelu` ("tanh") are the serving options of SAM's and
+    Depth-Pro's ViT trunks, as tools/bench_geo_models.py passes them. On
+    CUDA it turns TF32 off for matmuls and cuDNN
+    (`utils.device.disable_tf32`): the decoder, the fit and an f32 Depth-Pro
+    are f32 math."""
     device = resolve_device(device)
-    check_depth_dtype(depth_bf16, device)
+    disable_tf32(device)
     sam = VisionTransformer(
         use_depth_fusion=False, pos_interp_offset=0.0, device=device,
         quant=quant, gelu=gelu,
@@ -224,7 +219,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--sam-arch", default="vit_b", choices=tuple(SAM_ARCHS),
                     help="SAM encoder size (the reference uses vit_h)")
     ap.add_argument("--depth-bf16", action="store_true",
-                    help="run Depth-Pro in bf16 (needed on CUDA)")
+                    help="run Depth-Pro in bf16 (default f32, as the JAX "
+                         "CLI)")
     ap.add_argument("--gelu", default="erf", choices=("erf", "tanh"),
                     help="the GELU of SAM's and Depth-Pro's ViT MLPs: exact "
                          "erf (the released models' op) or the approximate "
@@ -255,10 +251,9 @@ def main(argv=None) -> None:
         if not ok:
             raise SystemExit(1)
         return
-    check_depth_dtype(args.depth_bf16, resolve_device(args.device))
     raise NotImplementedError(
         "GEO over a dataset (--config-file, --eval, --eval-only): the Omni3D "
-        "data pipeline and evaluator are ROADMAP queue 1 items 6-7; "
+        "data pipeline and evaluator are ROADMAP queue 1 items 3-5; "
         "predict_image runs one image")
 
 

@@ -21,7 +21,8 @@ keeps its density-core criterion on a voxel grid at the same eps schedule
 and acceptance rule, by a sort and searchsorted over packed voxel ids.
 
 All in f32 on elementwise products or f32 matrix products: on the card,
-`torch.backends.cuda.matmul.allow_tf32` must stay False (its default).
+TF32 must stay off (`torch.backends.cuda.matmul.allow_tf32` False, its
+default), as `geo.cli.build_geo_models` keeps it (`utils.device.disable_tf32`).
 """
 from __future__ import annotations
 

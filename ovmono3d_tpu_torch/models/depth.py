@@ -12,8 +12,9 @@ OVMono3D-GEO runs for metric depth):
 - the canonical-inverse-depth head and the FOV head.
 
 The three trunks are the port's VisionTransformer with `final_norm`, their
-attention in CUDA kernel 1 on the card (bf16 only: an f32 Depth-Pro runs on
-the CPU). Maps stay channels-last; convs run in the model's dtype.
+attention in CUDA kernel 1 on the card: its bf16 instance for a bf16
+Depth-Pro, its f32 instance (exact f32 products) for an f32 one, the JAX
+GEO CLI's default. Maps stay channels-last; convs run in the model's dtype.
 
 Metric decode (Depth-Pro's convention): depth = 1 / (c_inv * W / f_px).
 """

@@ -40,7 +40,8 @@ from ovmono3d_tpu_torch.models.gdino.tokenizer import BertTokenizer
 from ovmono3d_tpu_torch.models.layers import init_seeded
 from ovmono3d_tpu_torch.models.rcnn3d import RCNN3D, build_model
 from ovmono3d_tpu_torch.structures import Detections
-from ovmono3d_tpu_torch.utils.device import device_constant, resolve_device
+from ovmono3d_tpu_torch.utils.device import (device_constant, disable_tf32,
+                                             resolve_device)
 from ovmono3d_tpu_torch.utils.image import (resize_bilinear,
                                             resize_shortest_edge)
 from ovmono3d_tpu_torch.utils.stages import Stages
@@ -55,8 +56,11 @@ def build_gdino(gdino_kwargs: dict | None = None, device=None,
     """GroundingDINO (the SwinB configuration unless `gdino_kwargs` say
     otherwise) in eval mode, its weights drawn from torch.Generator(seed) on
     the CPU and moved to `device` (CUDA unless the caller asks for another;
-    "meta" gives shapes only)."""
+    "meta" gives shapes only). On CUDA it turns TF32 off for matmuls and
+    cuDNN (`utils.device.disable_tf32`): the f32 input projections and
+    BERT feed a discrete top-900 selection."""
     device = resolve_device(device)
+    disable_tf32(device)
     model = GroundingDINO(**(gdino_kwargs or {}), device="meta")
     if device.type == "meta":
         return model.eval()
@@ -92,8 +96,8 @@ class OVMono3DLift:
         `seed + 1` for GroundingDINO), on `device`. `gdino_size` defaults to
         the cube model's square pad: the reference runs the detector on the
         same canvas. `priors` as `rcnn3d.build_model` takes them. On CUDA
-        keep torch.backends.cuda.matmul.allow_tf32 and
-        torch.backends.cudnn.allow_tf32 False."""
+        both builders turn TF32 off for matmuls and cuDNN
+        (`utils.device.disable_tf32`)."""
         device = resolve_device(device)
         if gdino_size is None:
             gdino_size = cfg.model.backbone.square_pad
@@ -108,7 +112,8 @@ class OVMono3DLift:
     def build_2d_only(cls, tokenizer: BertTokenizer,
                       gdino_kwargs: dict | None = None, gdino_size: int = 800,
                       device=None, seed: int = 1) -> "OVMono3DLift":
-        """Detector only (no cube model): serves `detect_2d`."""
+        """Detector only (no cube model): serves `detect_2d`. On CUDA,
+        `build_gdino` turns TF32 off (`utils.device.disable_tf32`)."""
         return cls(None, None, build_gdino(gdino_kwargs, device, seed),
                    tokenizer, gdino_size=gdino_size)
 

@@ -44,7 +44,8 @@ from ovmono3d_tpu_torch.ops.roi_align import multilevel_roi_align
 from ovmono3d_tpu_torch.ops.rotation import so3_relative_angle
 from ovmono3d_tpu_torch.structures import Detections, GroundTruth
 from ovmono3d_tpu_torch.utils import geometry as geom
-from ovmono3d_tpu_torch.utils.device import device_constant, resolve_device
+from ovmono3d_tpu_torch.utils.device import (device_constant, disable_tf32,
+                                             resolve_device)
 
 SQRT_2 = 1.4142135623730951
 
@@ -694,11 +695,12 @@ def build_model(cfg: ModelConfig, priors: dict | None = None, device=None,
 
     Parameters are made on the CPU, filled by the flax-style initializers
     from one generator (so a seed gives the same weights on every device),
-    then moved. On CUDA, set torch.backends.cuda.matmul.allow_tf32 and
-    torch.backends.cudnn.allow_tf32 to False first: the f32 heads, losses
-    and decode stand in for the JAX package's Precision.HIGHEST.
+    then moved. On CUDA it turns TF32 off for matmuls and cuDNN
+    (`utils.device.disable_tf32`): the f32 heads, losses and decode stand in
+    for the JAX package's Precision.HIGHEST.
     """
     device = resolve_device(device)
+    disable_tf32(device)
     if device.type == "meta":
         model = RCNN3D(cfg, priors, device=device)
         model.backbone.vit.requires_grad_(not cfg.backbone.freeze)

@@ -15,9 +15,12 @@ f32. Options ported:
 - Depth-Pro's encoders: `final_norm` (DINOv2's trailing `norm`) and
   `out_layers` (the pre-norm features of those blocks as `feat{i}`).
 
-Attention goes through `dot_product_attention` (CUDA kernel 1, or 3 and 4
-when training) and the rel-pos blocks through `rel_pos_attention` (kernel
-7, inference only); on the CPU both run their plain versions.
+Attention goes through `dot_product_attention` and the rel-pos blocks
+through `rel_pos_attention` (kernel 7, inference only); on the CPU both run
+their plain versions. On the card `dot_product_attention` routes as the JAX
+package does: kernel 1 (its bf16 instance, or its f32 one for an f32 trunk
+such as the JAX GEO CLI's default Depth-Pro), or the head-major kernel 2
+for shapes the packed gate refuses and under OVMONO3D_PACKED_ATTN=0.
 
 Serving options of every trunk: `quant="int8"` runs each block's qkv, proj,
 fc1 and fc2 as W8A8 products (ops/quant.py `QDense`: CUDA kernel 10 on the
@@ -25,10 +28,12 @@ card; SERVING-only, it raises when autograd would need it), and
 `gelu="tanh"` the MLPs' approximate GELU. The defaults ("none", "erf") are
 the released models' ops.
 
-Training: when the trunk needs gradients, attention runs through the
-autograd Function of ops/attention.py (the lse forward kernel and the
-backward kernel); under no_grad / inference_mode it runs the inference
-kernel. Freezing the trunk (`BackboneConfig.freeze`) is done by
+Training: when the trunk needs gradients, attention runs through an
+autograd Function of ops/attention.py: kernels 3 and 4 (packed), or the
+head-major 5 and 6 for shapes the packed gate refuses and under
+OVMONO3D_PACKED_ATTN=0 or OVMONO3D_PACKED_BWD=0; bf16 only (an f32 trunk
+with gradients raises on the card). Under no_grad / inference_mode it runs
+the inference kernels. Freezing the trunk (`BackboneConfig.freeze`) is done by
 `build_model`, which sets requires_grad=False on this module's parameters.
 
 Submodules carry the JAX package's parameter names (`block0.attn.qkv`,
@@ -164,7 +169,9 @@ class Attention(nn.Module):
     bias (`use_rel_pos`; tables of 2*rel_pos_size-1 rows).
 
     `attn_fn` is the attention on the qkv output viewed as [B, N, 3, H, D],
-    returning [B, N, H, D]: `dot_product_attention(qkv)` by default, and
+    returning [B, N, H, D]: `dot_product_attention(qkv)` by default (on the
+    card kernel 1 in bf16 or f32, or the head-major kernel 2, and kernels
+    3 + 4 or 5 + 6 under autograd, as ops/attention.py routes them), and
     `rel_pos_attention(qkv, Rh, Rw, grid_hw)` with rel-pos. `quant` is the
     qkv and proj products' int8 serving option (ops/quant.py).
     """

@@ -1,29 +1,53 @@
 """Multi-head attention: the plain PyTorch versions and the Hopper kernels.
 
-Counterpart of ovmono3d_tpu/ops/attention.py for the ViT trunk:
+Counterpart of ovmono3d_tpu/ops/attention.py for the ViT trunks:
 
 - `attention_ref`: the plain forward, the same math as `attention_xla`
   (f32 logits, f32 softmax, probabilities cast to v's dtype before PV).
   CPU tensors run it, with autograd through the plain math.
 - `attention_lse_ref` / `attention_bwd_ref`: the plain forward with its row
-  log-sum-exp and the explicit backward formula, in f32. Kernels 3 and 4
-  are held against them (tests and `chip_smoke.py`); no model path calls
-  them.
+  log-sum-exp and the explicit backward formula, in f32: the plain versions
+  of kernels 3 and 5 and of kernels 4 and 6. No model path calls them.
 - Kernel wrappers, each launching a hand-written CUDA kernel (sm_90a) or
-  raising, and counting its launches in `<wrapper>.launches`:
-  - `flash_attention_packed` (`csrc/flash_attn_fwd.cu`), replacing the TPU
-    kernel `_flash_kernel_packed`: the inference forward;
-  - `flash_attention_packed_lse` (the same source, lse instance), replacing
-    `_flash_kernel_packed_lse`: the training forward, which also writes the
-    row log-sum-exp;
-  - `flash_attention_packed_bwd` (`csrc/flash_attn_bwd.cu`), replacing
-    `_flash_bwd_packed_kernel`: dq, dk and dv into one packed gradient.
-- `FlashAttentionQKV`: the autograd Function over the packed qkv tensor,
-  kernel 3 forward and kernel 4 backward (the JAX package's
-  `_attn_fwd`/`_attn_bwd`).
-- `dot_product_attention`: the dispatcher. CPU tensors go to
-  `attention_ref`; CUDA tensors to `FlashAttentionQKV` when a gradient is
-  needed and to the inference kernel otherwise. Nothing falls back.
+  raising, and counting its launches in `<wrapper>.launches` (the f32
+  instance's in `<wrapper>.launches_f32`). The JAX package has a packed
+  ([B, N, H*D]) and a head-major ([B*H, N, D]) family because the TPU's
+  tiling fixes the layout a kernel reads. The CUDA kernels take any
+  batch/token/head strides, so both families launch the same sources on the
+  caller's [B, N, H, D] views, with no transposed copy (the head-major
+  route's `to_bh` copies would only move bytes here), at head dims 32 and
+  64:
+  - `flash_attention_packed` (kernel 1, `csrc/flash_attn_fwd.cu`, replacing
+    `_flash_kernel_packed`) and `flash_attention` (kernel 2, the same
+    source, replacing `_flash_kernel_single` / `_flash_kernel`): the
+    inference forward, bf16 or f32 (the f32 instance computes exact f32
+    products on the FP32 pipes, not TF32);
+  - `flash_attention_packed_lse` (kernel 3) and `flash_attention_fwd_lse`
+    (kernel 5, replacing `_flash_kernel_single_lse`), the same source's lse
+    instance: the training forward, which also writes the row
+    log-sum-exp; bf16;
+  - `flash_attention_packed_bwd` (kernel 4, `csrc/flash_attn_bwd.cu`): dq,
+    dk and dv into one packed gradient; `flash_attention_bwd` (kernel 6, the
+    same source, replacing `_flash_bwd_fused_kernel` and the split
+    `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel`): three separate
+    gradients; bf16.
+  The head-major wrappers (2, 5, 6) run their plain versions on CPU tensors;
+  the packed ones refuse them.
+- `FlashAttentionQKV` (kernels 3 + 4) and `HeadMajorAttention` (kernels
+  5 + 6): autograd Functions over the packed qkv tensor, the JAX package's
+  `_attn_fwd` / `_attn_bwd` with its packed and head-major residuals.
+- `dot_product_attention`: the dispatcher, routing as the JAX package's
+  `_attention_autoselect` does through copies of its gates `_use_packed`
+  and `_packed_bwd_wins` and their switches OVMONO3D_PACKED_ATTN and
+  OVMONO3D_PACKED_BWD. CPU tensors go to `attention_ref`. On CUDA without a
+  gradient: kernel 1 where `_use_packed` holds, else kernel 2; with one:
+  `FlashAttentionQKV` where `_use_packed` and `_packed_bwd_wins` hold, else
+  `HeadMajorAttention`. Two deliberate differences: past N = 6144 the JAX
+  package differentiates `attention_xla`, and `HeadMajorAttention` gives
+  the same gradient without its [B, H, N, N] tensors; and the JAX kernels'
+  clamped softmax (OVMONO3D_ATTN_CLAMP) has no counterpart, since these
+  kernels are exact for every logit. f32 with a gradient, and head dims
+  other than 32 and 64, raise. Nothing falls back.
 
 Decomposed relative-position attention (the SAM image encoder's blocks):
 
@@ -49,27 +73,36 @@ Swin window attention (GroundingDINO's image trunk):
   when a gradient is needed (the JAX window attention is forward-only: the
   Swin trunk is frozen).
 
-Layout: q/k/v [B, N, H, D]; the dispatcher and the Function take the qkv
+Layout: q/k/v [B, N, H, D]; the dispatcher and the Functions take the qkv
 projection's output viewed as [B, N, 3, H, D]. lse is [B, H, N] f32 in
-natural-log units. Rel-pos tables Rh [h, h, D] and Rw [w, w, D] are already
-gathered to the (h, w) grid; qrh [B, N, H, h] and qrw [B, N, H, w]. Window
-attention runs over BW = B * nw windows of N tokens: bias [H, N, N] f32 and
-region ids [nw, N] int32 (window b takes row b % nw), or None.
+natural-log units and unclamped. The JAX head-major lse is log2 of the
+denominator of its softmax shifted by the clamp C = 50, laid out
+[B*H, 1, n_q] with n_q padded to its q block: lse_ln = lse2 * ln 2 + C on
+the first N entries (exact while the row's max logit is within its clamp
+window). Rel-pos tables Rh [h, h, D] and Rw [w, w, D] are already gathered
+to the (h, w) grid; qrh [B, N, H, h] and qrw [B, N, H, w]. Window attention
+runs over BW = B * nw windows of N tokens: bias [H, N, N] f32 and region ids
+[nw, N] int32 (window b takes row b % nw), or None.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+import os
 
 import torch
 
 KERNEL_SOURCES = ["flash_attn_fwd.cu", "flash_attn_bwd.cu",
                   "relpos_flash_fwd.cu", "window_attn_fwd.cu"]
-_HEAD_DIM = 64
+_HEAD_DIMS = (32, 64)      # csrc/flash_attn_{fwd,bwd}.cu instances
+_FWD_DTYPES = (torch.bfloat16, torch.float32)
 _REL_POS_HEAD_DIMS = (64, 80)
 _WINDOW_HEAD_DIM = 32
 _WINDOW_MAX_TOKENS = 1024   # csrc/window_attn_fwd.cu kMaxTokens
+_F32_NO_GRAD = ("f32 attention with a gradient on CUDA: the training "
+                "kernels (3-6) take bfloat16 only; their f32 instance is "
+                "ROADMAP queue 2 item 7")
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor,
@@ -120,38 +153,55 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _use_packed(n: int, h: int, d: int) -> bool:
+    """The JAX package's packed-path gate (ops/attention.py `_use_packed`),
+    copied: a group of heads whose width tiles to 128 lanes, and N <= 6144
+    (its single-KV-block VMEM bound); OVMONO3D_PACKED_ATTN=0 turns it off.
+    The CUDA kernels have neither limit: the gate keeps the two packages'
+    routes equal, so a shape or a switch picks the same family in both."""
+    if os.environ.get("OVMONO3D_PACKED_ATTN", "1") == "0":
+        return False
+    g = 1
+    while (g * d) % 128 != 0 and g <= h:
+        g += 1
+    return h % g == 0 and n <= 6144
+
+
+def _packed_bwd_wins() -> bool:
+    """The JAX package's `_packed_bwd_wins`, copied: whether training
+    attention takes the packed pair (kernels 3 + 4) rather than the
+    head-major one (5 + 6). Packed unless OVMONO3D_PACKED_BWD says "0"
+    ("1" forces it)."""
+    env = os.environ.get("OVMONO3D_PACKED_BWD", "auto")
+    if env in ("0", "1"):
+        return env == "1"
+    return True
+
+
 @functools.cache
-def _kernels() -> tuple:
-    """(forward, backward, rel-pos forward, window forward) entries of the
-    built libraries."""
+def _kernels() -> dict:
+    """The entries of the built libraries, by name."""
     from ovmono3d_tpu_torch.utils import cuda_build
 
     libs = cuda_build.load(KERNEL_SOURCES)
-    fwd = libs["flash_attn_fwd.cu"].flash_attn_fwd_bf16
-    fwd.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
-        + [ctypes.c_float, ctypes.c_void_p]
-    )
-    fwd.restype = ctypes.c_int
-    bwd = libs["flash_attn_bwd.cu"].flash_attn_bwd_bf16
-    bwd.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
-    )
-    bwd.restype = ctypes.c_int
-    relpos = libs["relpos_flash_fwd.cu"].relpos_flash_fwd_bf16
-    relpos.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
-        + [ctypes.c_float, ctypes.c_void_p]
-    )
-    relpos.restype = ctypes.c_int
-    window = libs["window_attn_fwd.cu"].window_attn_fwd_bf16
-    window.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
-        + [ctypes.c_float, ctypes.c_void_p]
-    )
-    window.restype = ctypes.c_int
-    return fwd, bwd, relpos, window
+    strided = [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    fns = {
+        "fwd": (libs["flash_attn_fwd.cu"].flash_attn_fwd_bf16,
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + strided),
+        "fwd_f32": (libs["flash_attn_fwd.cu"].flash_attn_fwd_f32,
+                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + strided),
+        "bwd": (libs["flash_attn_bwd.cu"].flash_attn_bwd_bf16,
+                [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]),
+        "relpos": (libs["relpos_flash_fwd.cu"].relpos_flash_fwd_bf16,
+                   [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + strided),
+        "window": (libs["window_attn_fwd.cu"].window_attn_fwd_bf16,
+                   [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + strided),
+    }
+    for fn, argtypes in fns.values():
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return {name: fn for name, (fn, _) in fns.items()}
 
 
 def build_kernels() -> None:
@@ -160,17 +210,20 @@ def build_kernels() -> None:
     _kernels()
 
 
-def _layout_error(name: str, x: torch.Tensor, shape) -> str | None:
+def _layout_error(name: str, x: torch.Tensor, shape,
+                  dtypes=(torch.bfloat16,)) -> str | None:
     """Why the kernels cannot take `x` as it is, or None."""
-    if x.dtype != torch.bfloat16:
-        return f"{name} is {x.dtype}; the kernel takes bfloat16"
+    if x.dtype not in dtypes:
+        return (f"{name} is {x.dtype}; the kernel takes "
+                + " or ".join(str(t).removeprefix("torch.") for t in dtypes))
     if x.dim() != 4 or tuple(x.shape) != tuple(shape):
         return (f"{name} has shape {tuple(x.shape)}; want [B, N, H, D] equal "
                 f"to q's {tuple(shape)}")
     if x.stride(-1) != 1:
         return f"{name} needs a unit stride over D"
-    # 16-byte rows: cp.async moves 8 bf16 at a time.
-    if x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3]):
+    # 16-byte rows: cp.async moves 8 bf16 or 4 f32 at a time.
+    per_copy = 16 // x.element_size()
+    if x.data_ptr() % 16 or any(s % per_copy for s in x.stride()[:3]):
         return (f"{name}: pointer and batch/token/head strides must be "
                 f"16-byte aligned (strides {x.stride()})")
     return None
@@ -178,23 +231,33 @@ def _layout_error(name: str, x: torch.Tensor, shape) -> str | None:
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *others: tuple[str, torch.Tensor],
-                        forward_only: bool = False) -> None:
+                        forward_only: bool = False,
+                        dtypes=(torch.bfloat16,),
+                        wrapper: str = "flash_attention_packed") -> None:
     """Raise ValueError unless the kernels take q/k/v (and the named
-    `others`) as they are. `forward_only` also refuses inputs that need a
-    gradient, for the inference kernel. The device is checked last, so the
-    layout checks run on CPU tensors too."""
+    `others`) as they are: one dtype of `dtypes`, head dim 32 or 64.
+    `forward_only` also refuses inputs that need a gradient, for the
+    inference kernels (`wrapper` names the refusing one). The device is
+    checked last, so the layout checks run on CPU tensors too."""
+    if q.dtype == torch.float32 and q.dtype not in dtypes:
+        raise ValueError(_F32_NO_GRAD)
     named = [("q", q), ("k", k), ("v", v), *others]
     for name, x in named:
-        err = _layout_error(name, x, q.shape)
+        err = _layout_error(name, x, q.shape, dtypes)
         if err:
             raise ValueError(err)
+        if x.dtype != q.dtype:
+            raise ValueError(f"{name} is {x.dtype}, q {q.dtype}: the kernel "
+                             f"takes all its inputs in one dtype")
         if forward_only and x.requires_grad and torch.is_grad_enabled():
             raise ValueError(
-                "flash_attention_packed is forward-only; dot_product_attention "
-                "runs the backward kernel through FlashAttentionQKV")
-    if q.shape[-1] != _HEAD_DIM:
-        raise ValueError(f"head dim {q.shape[-1]}; the kernel takes "
-                         f"{_HEAD_DIM}")
+                f"{wrapper} is forward-only; dot_product_attention runs the "
+                f"backward kernels through FlashAttentionQKV or "
+                f"HeadMajorAttention")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]}; the kernels take "
+                         f"{_HEAD_DIMS}: other head dims are ROADMAP queue 2 "
+                         f"item 7")
     for name, x in named:
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"{name} is on {x.device}; the kernel needs "
@@ -202,38 +265,83 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch_fwd(q, k, v, lse: torch.Tensor | None) -> torch.Tensor:
+    """One launch of csrc/flash_attn_fwd.cu's instance for q's dtype, after
+    the checks; returns the contiguous [B, N, H, D] output."""
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    fwd = _kernels()[0]
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    f32 = q.dtype == torch.float32
+    name = "flash_attn_fwd_f32" if f32 else "flash_attn_fwd_bf16"
+    fn = _kernels()["fwd_f32" if f32 else "fwd"]
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if not f32:
+        ptrs.append(None if lse is None else lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if lse is None else lse.data_ptr(),
-                 b, n, h, d, *q.stride()[:3], *k.stride()[:3],
-                 *v.stride()[:3], 1.0 / math.sqrt(d), stream)
+        rc = fn(*ptrs, b, n, h, d, *strides, 1.0 / math.sqrt(d), stream)
     if rc != 0:
         raise RuntimeError(
-            f"flash_attn_fwd_bf16 launch failed with CUDA error {rc} "
+            f"{name} launch failed with CUDA error {rc} "
             f"(B={b}, N={n}, H={h}, D={d}, lse={lse is not None})")
     return out
 
 
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA flash-attention forward (kernel 1, inference).
-    [B, N, H, D] -> same.
+    """Launch the CUDA flash-attention forward (kernel 1, inference), bf16
+    or f32, head dim 32 or 64. [B, N, H, D] -> same.
 
     q/k/v may be strided views (the qkv projection's [B, N, 3, H, D] output
     unbound along the 3); the result is contiguous, so its [B, N, H*D] view
-    is free. Counts each launch in `flash_attention_packed.launches`.
+    is free. Counts each launch in `flash_attention_packed.launches` (bf16)
+    or `flash_attention_packed.launches_f32` (the f32 instance).
     """
-    check_kernel_inputs(q, k, v, forward_only=True)
+    check_kernel_inputs(q, k, v, forward_only=True, dtypes=_FWD_DTYPES)
     out = _launch_fwd(q, k, v, None)
-    flash_attention_packed.launches += 1
+    if q.dtype == torch.float32:
+        flash_attention_packed.launches_f32 += 1
+    else:
+        flash_attention_packed.launches += 1
     return out
 
 
 flash_attention_packed.launches = 0
+flash_attention_packed.launches_f32 = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Kernel 2, the head-major inference forward (the JAX package's
+    `flash_attention`): [B, N, H, D] -> same, bf16 or f32, head dim 32 or
+    64, any N.
+
+    On CUDA it launches csrc/flash_attn_fwd.cu on the given views: the JAX
+    wrapper's [B*H, N, D] copies (`to_bh`) serve the TPU's tiling, and the
+    CUDA kernel reads the head-major order through its head stride instead.
+    The result is contiguous. CPU tensors run `attention_ref`. Counts each
+    launch in `flash_attention.launches` (bf16) or
+    `flash_attention.launches_f32` (f32)."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v)
+    check_kernel_inputs(q, k, v, forward_only=True, dtypes=_FWD_DTYPES,
+                        wrapper="flash_attention")
+    out = _launch_fwd(q, k, v, None)
+    if q.dtype == torch.float32:
+        flash_attention.launches_f32 += 1
+    else:
+        flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+flash_attention.launches_f32 = 0
+
+
+def _fwd_lse(q, k, v, wrapper: str) -> tuple[torch.Tensor, torch.Tensor]:
+    check_kernel_inputs(q, k, v, wrapper=wrapper)
+    b, n, h, _ = q.shape
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    return _launch_fwd(q, k, v, lse), lse
 
 
 def flash_attention_packed_lse(q: torch.Tensor, k: torch.Tensor,
@@ -243,15 +351,63 @@ def flash_attention_packed_lse(q: torch.Tensor, k: torch.Tensor,
     training). Returns out [B, N, H, D] bf16 (contiguous) and lse
     [B, H, N] f32, natural log. Counts each launch in
     `flash_attention_packed_lse.launches`."""
-    check_kernel_inputs(q, k, v)
-    b, n, h, _ = q.shape
-    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    out = _launch_fwd(q, k, v, lse)
+    out, lse = _fwd_lse(q, k, v, "flash_attention_packed_lse")
     flash_attention_packed_lse.launches += 1
     return out, lse
 
 
 flash_attention_packed_lse.launches = 0
+
+
+def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 5, the head-major training forward (the JAX package's
+    `flash_attention_fwd_lse`): out [B, N, H, D] (contiguous, q's dtype)
+    and lse [B, H, N] f32, natural log and unclamped (the module docstring
+    maps it to the JAX lse). Any N (the JAX kernel takes N <= 6144).
+
+    On CUDA it launches csrc/flash_attn_fwd.cu's lse instance on the given
+    views, bf16 only (no copies, as `flash_attention`). CPU tensors run
+    `attention_lse_ref`. Counts each launch in
+    `flash_attention_fwd_lse.launches`."""
+    if q.device.type == "cpu":
+        out, lse = attention_lse_ref(q, k, v)
+        return out.to(q.dtype), lse
+    out, lse = _fwd_lse(q, k, v, "flash_attention_fwd_lse")
+    flash_attention_fwd_lse.launches += 1
+    return out, lse
+
+
+flash_attention_fwd_lse.launches = 0
+
+
+def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv) -> None:
+    """One launch of csrc/flash_attn_bwd.cu (the dk/dv and the dq kernels)
+    writing dq, dk and dv through their own strides. delta = rowsum(do * o)
+    is a small torch reduction here, as in the JAX package."""
+    b, n, h, d = q.shape
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, n)
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous [B, H, N] = {(b, h, n)} "
+                         f"f32 tensor; got {lse.dtype} {tuple(lse.shape)}")
+    check_kernel_inputs(q, k, v, ("o", o), ("do", do))
+    if lse.device != q.device:
+        raise ValueError(f"lse is on {lse.device}, q on {q.device}")
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    strides = [s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _kernels()["bwd"](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, n, h, d,
+            (ctypes.c_longlong * len(strides))(*strides),
+            1.0 / math.sqrt(d), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attn_bwd_bf16 launch failed with CUDA error {rc} "
+            f"(B={b}, N={n}, H={h}, D={d})")
 
 
 def flash_attention_packed_bwd(q: torch.Tensor, k: torch.Tensor,
@@ -263,39 +419,46 @@ def flash_attention_packed_bwd(q: torch.Tensor, k: torch.Tensor,
     q/k/v/o/do: [B, N, H, D] bf16 (strided views welcome), lse: [B, H, N]
     f32 from `flash_attention_packed_lse`. Returns the packed gradient
     [B, N, 3, H, D] bf16, whose slots 0/1/2 are dq/dk/dv: the gradient of
-    the qkv projection's output. delta = rowsum(do * o) is a small torch
-    reduction here, as in the JAX package. Counts each launch in
+    the qkv projection's output. Counts each launch in
     `flash_attention_packed_bwd.launches`.
     """
     b, n, h, d = q.shape
-    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, n)
-            or not lse.is_contiguous()):
-        raise ValueError(f"lse must be a contiguous [B, H, N] = {(b, h, n)} "
-                         f"f32 tensor; got {lse.dtype} {tuple(lse.shape)}")
-    check_kernel_inputs(q, k, v, ("o", o), ("do", do))
-    if lse.device != q.device:
-        raise ValueError(f"lse is on {lse.device}, q on {q.device}")
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     grad = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
-    dq, dk, dv = grad.unbind(2)
-    strides = [s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3]]
-    bwd = _kernels()[1]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), b, n, h, d,
-                 (ctypes.c_longlong * len(strides))(*strides),
-                 1.0 / math.sqrt(d), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_attn_bwd_bf16 launch failed with CUDA error {rc} "
-            f"(B={b}, N={n}, H={h}, D={d})")
+    _launch_bwd(q, k, v, o, lse, do, *grad.unbind(2))
     flash_attention_packed_bwd.launches += 1
     return grad
 
 
 flash_attention_packed_bwd.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 6, the head-major attention backward (the JAX package's
+    `flash_attention_bwd`): dq, dk and dv, three contiguous [B, N, H, D]
+    tensors in q's dtype, from q/k/v/o/do [B, N, H, D] and lse [B, H, N]
+    (natural log, from `flash_attention_fwd_lse`).
+
+    On CUDA it launches csrc/flash_attn_bwd.cu (FlashAttention-2's dk/dv +
+    dq split, the TPU's `fused=False` pair; bf16) on the given views. CPU
+    tensors run `attention_bwd_ref`. Counts each launch in
+    `flash_attention_bwd.launches`."""
+    if q.device.type == "cpu":
+        dq, dk, dv = attention_bwd_ref(q, k, v, o, lse, do)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    _launch_bwd(q, k, v, o, lse, do, *grads)
+    flash_attention_bwd.launches += 1
+    return grads
+
+
+flash_attention_bwd.launches = 0
+
+
+def _contiguous_do(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    return dout.contiguous() if _layout_error("do", dout, out.shape) else dout
 
 
 class FlashAttentionQKV(torch.autograd.Function):
@@ -313,26 +476,54 @@ class FlashAttentionQKV(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout: torch.Tensor) -> torch.Tensor:
         qkv, out, lse = ctx.saved_tensors
-        if _layout_error("do", dout, out.shape):
-            dout = dout.contiguous()
-        return flash_attention_packed_bwd(*qkv.unbind(2), out, lse, dout)
+        return flash_attention_packed_bwd(*qkv.unbind(2), out, lse,
+                                          _contiguous_do(dout, out))
+
+
+class HeadMajorAttention(torch.autograd.Function):
+    """Attention over the packed qkv tensor [B, N, 3, H, D] -> [B, N, H, D]
+    through the head-major pair: kernel 5 forward, saving (qkv, out, lse);
+    kernel 6 backward, whose dq, dk and dv are stacked into the gradient of
+    qkv (one copy the packed pair does not make)."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor) -> torch.Tensor:
+        out, lse = flash_attention_fwd_lse(*qkv.unbind(2))
+        ctx.save_for_backward(qkv, out, lse)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout: torch.Tensor) -> torch.Tensor:
+        qkv, out, lse = ctx.saved_tensors
+        return torch.stack(flash_attention_bwd(
+            *qkv.unbind(2), out, lse, _contiguous_do(dout, out)), dim=2)
 
 
 def dot_product_attention(qkv: torch.Tensor) -> torch.Tensor:
-    """Attention for the ViT trunk: the qkv projection's output viewed as
-    [B, N, 3, H, D] -> [B, N, H, D]."""
+    """Attention for the ViT trunks: the qkv projection's output viewed as
+    [B, N, 3, H, D] -> [B, N, H, D], routed as the module docstring says."""
+    q, k, v = qkv.unbind(2)
     if qkv.device.type == "cpu":
-        return attention_ref(*qkv.unbind(2))
-    if qkv.device.type == "cuda":
-        if torch.is_grad_enabled() and qkv.requires_grad:
+        return attention_ref(q, k, v)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no attention path for device {qkv.device}")
+    _, n, h, d = q.shape
+    packed = _use_packed(n, h, d)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        if qkv.dtype == torch.float32:
+            raise NotImplementedError(_F32_NO_GRAD)
+        if packed and _packed_bwd_wins():
             return FlashAttentionQKV.apply(qkv)
-        return flash_attention_packed(*qkv.unbind(2))
-    raise ValueError(f"no attention path for device {qkv.device}")
+        return HeadMajorAttention.apply(qkv)
+    if packed:
+        return flash_attention_packed(q, k, v)
+    return flash_attention(q, k, v)
 
 
 _REL_POS_NO_GRAD = ("rel-pos attention on CUDA is inference-only: its "
                     "backward (SAM-backbone training) is ROADMAP queue 2 "
-                    "item 14; run under torch.no_grad() / inference_mode()")
+                    "item 5; run under torch.no_grad() / inference_mode()")
 
 
 def rel_pos_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -422,7 +613,7 @@ def rel_pos_flash_attention(q: torch.Tensor, k: torch.Tensor,
     b, n, heads, d = q.shape
     h, w = grid_hw
     out = torch.empty((b, n, heads, d), dtype=q.dtype, device=q.device)
-    relpos = _kernels()[2]
+    relpos = _kernels()["relpos"]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = relpos(q.data_ptr(), k.data_ptr(), v.data_ptr(), qrh.data_ptr(),
@@ -532,7 +723,7 @@ def window_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_window_inputs(q, k, v, bias, ids)
     bw, n, h, d = q.shape
     out = torch.empty((bw, n, h, d), dtype=q.dtype, device=q.device)
-    window = _kernels()[3]
+    window = _kernels()["window"]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = window(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),

@@ -1,5 +1,5 @@
 """Where the port's entry points run (on the card unless asked for the CPU),
-and small constants kept there."""
+how f32 runs there (no TF32), and small constants kept there."""
 from __future__ import annotations
 
 import functools
@@ -21,6 +21,18 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def disable_tf32(device: torch.device) -> None:
+    """On a CUDA `device`, turn TF32 off for cuBLAS matmuls and cuDNN
+    convolutions (`torch.backends.cuda.matmul.allow_tf32` and
+    `torch.backends.cudnn.allow_tf32`; cuDNN defaults to TF32), so f32
+    products and convolutions keep f32's mantissa, as the JAX package
+    computes them. The flags are process-wide: every entry point that places
+    a model on the card calls this."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
 
 
 @functools.cache

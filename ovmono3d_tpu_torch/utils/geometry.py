@@ -4,9 +4,8 @@ Counterpart of ovmono3d_tpu/utils/geometry.py (reference
 cubercnn/util/math_util.py). The JAX code pins Precision.HIGHEST for its
 small products; here they are written out as elementwise multiply-adds, which
 are full f32 on any device. The model's other f32 products (the cube head,
-exact ROI pooling) need `torch.backends.cuda.matmul.allow_tf32 = False` and
-`torch.backends.cudnn.allow_tf32 = False` on the card; the callers that
-build the model on CUDA set both first.
+exact ROI pooling) need TF32 off on the card: `build_model` turns it off
+when it places the model on CUDA (`utils.device.disable_tf32`).
 
 Cuboid convention: box3d = [X, Y, Z, W, H, L]; the local corner template
 places L along x, H along y and W along z.

@@ -102,8 +102,8 @@ def test_wrapper_rejects(bad, match):
     q, k, v = _packed_views(1, 40, 2, 64)
     if bad == "dtype":
         q = q.float()
-    elif bad == "head_dim":
-        q, k, v = _packed_views(1, 40, 4, 32)
+    elif bad == "head_dim":          # the kernels take 32 and 64
+        q, k, v = _packed_views(1, 40, 2, 80)
     elif bad == "stride":
         v = torch.zeros(1, 40, 2, 128, dtype=v.dtype)[..., ::2]
     elif bad == "grad":

@@ -132,15 +132,8 @@ def test_synthetic_self_check_passes(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [["--config-file", "x.yaml"], ["--eval"],
                                   ["--eval-only"]])
 def test_cli_dataset_flags_raise(argv):
-    with pytest.raises(NotImplementedError, match="queue 1 items 6-7"):
+    with pytest.raises(NotImplementedError, match="queue 1 items 3-5"):
         cli.main(argv + ["--device", "cpu", "--depth-bf16"])
-
-
-def test_f32_depth_pro_refused_on_cuda():
-    cli.check_depth_dtype(False, torch.device("cpu"))
-    cli.check_depth_dtype(True, torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="queue 2 item 13"):
-        cli.check_depth_dtype(False, torch.device("cuda"))
 
 
 def test_entry_points_default_to_cuda():

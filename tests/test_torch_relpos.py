@@ -246,7 +246,7 @@ def test_dispatcher_on_cuda(cuda_device):
         out = tattn.rel_pos_attention(qkv, rh, rw, grid)
     assert tattn.rel_pos_flash_attention.launches == before + 1
     assert out.shape == q.shape and out.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="queue 2 item 14"):
+    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
         tattn.rel_pos_attention(qkv, rh.requires_grad_(), rw, grid)
     # f32 stays the plain exact branch on the card.
     with torch.no_grad():
