@@ -11,8 +11,12 @@ BERT-base + deformable DETR on the 896^2 canvas, then the flagship cube
 model on its boxes); and the W8A8 int8 serving option of the ViT trunks
 (oracle LIFT, and GEO with the tanh-GELU epilogue too). Besides, GEO in the
 JAX GEO CLI's default configuration (Depth-Pro in f32), and LIFT serving and
-training under OVMONO3D_PACKED_ATTN=0 (the head-major attention family).
-Holds every CUDA kernel on those paths against its plain PyTorch version.
+training under OVMONO3D_PACKED_ATTN=0 (the head-major attention family);
+the Omni3D evaluation of the flagship (oracle and learned 2D, AP2D / AP3D
+with the exact 3D IoU on the card); and the entry points of the kernels no
+model path reaches: the differentiable fused LayerNorm and the counterparts
+of the JAX package's LayerNorm and attention-sweep probes. Holds every CUDA
+kernel on those paths against its plain PyTorch version.
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
 
@@ -23,7 +27,10 @@ window attention forward of GroundingDINO's trunk, 10 = the int8 x int8 ->
 int32 product of the W8A8 serving option (the trunks' qkv, proj, fc1, fc2);
 1 f32 = kernel 1's f32 instance (f32 products on the FP32 pipes); 2, 5, 6 =
 the head-major counterparts of 1, 3, 4 (the same CUDA sources, launched on
-the same views through their own wrappers).
+the same views through their own wrappers); 9 = the fused row LayerNorm
+(layer_norm_fused), 12 = the LayerNorm probe's variants v2 / v3 / v4 (the
+same source's instances), 11 = the attention sweep's forward (8 instances:
+block_q and block_k in {64, 128}, softmax in f32 or bf16).
 
 Phases, one line each (more for the build's resource report and the
 profiles' tables):
@@ -148,6 +155,39 @@ profiles' tables):
           a profile of 2, and one image against the bf16 + erf trunks of the
           same weights: SAM embedding and inverse depth within GEO_QUANT_REL
           / GEO_QUANT_COS (int8 + erf, mask logits and boxes printed beside)
+  ln      kernel 9 vs layer_norm_ref at LN_SHAPES (the probe's trunk at B=1
+          and 8, Depth-Pro's patches, SAM-H, a Swin stage-0 map, ragged
+          rows) for bf16 and f32 in and out (LN_TOL), its autograd
+          Function's gradients vs the plain autograd, its time at B=8 and
+          B=1 beside the plain version's, F.layer_norm's (a yardstick the
+          port never calls) and the byte bound, no bf16 output more than
+          one ulp off; kernel 12's v2 / v3 / v4 vs their plain versions
+          (none more than one ulp off) and the control, v4's instance
+          apart from v2's plain version; then the paths, each with the
+          counts at 0:
+          layer_norm_fused forward + backward at B=8 (one launch), and the
+          probe counterpart (ovmono3d_tpu_torch.probes.layernorm) at
+          [8, 4097, 768]: v0-v4 times, max|err| vs v0, bound, F.layer_norm
+  sweep   kernel 11: each instance vs attn_sweep_ref at its block_k on
+          peaked rows at a small ragged shape (the limit of
+          probes.attn_sweep.error), two controls that must fail it (the
+          bf16 softmax against the f32 plain version, the mean of v), then
+          the probe counterpart (ovmono3d_tpu_torch.probes.attn_sweep) at
+          [1, 4097, 12, 64] with the counts at 0: each instance's time,
+          error on peaked rows, SDPA and bound
+  eval    the flagship (seed 0, as the slice phase) on the eval CLI's two
+          generated datasets (EVAL_IMAGES records each, random 640x480
+          images made on the host) at batch EVAL_BATCH through
+          eval.cli.evaluate_dataset and the helper with its 3D IoU on the
+          card, oracle 2D then learned 2D: img/s, p50 of a batch, data vs
+          compute time, 12 kernel-1 launches a batch, finite predictions,
+          AP2D / AP3D per dataset and overall (AP2D 100 on the GT oracle),
+          a profile of one batch; one batch with attention_ref: oracle 3D
+          fields within 2e-2 of their scale, learned: proposals and
+          detections that change printed, the shared detections' 3D
+          fields within 2e-2; GT as the prediction gives AP2D = AP3D = 100
+          on the card; pairwise_iou3d on the card within EVAL_IOU_ATOL of
+          the CPU
 Then a JSON line of the kernels, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failure raises before that line and the
 exit code is not 0.
@@ -162,11 +202,11 @@ import math
 import os
 import re
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -176,6 +216,12 @@ from ovmono3d_tpu_torch.config import (  # noqa: E402
     Config,
     SolverConfig,
     flagship_config,
+)
+from ovmono3d_tpu_torch.data.build import build_test_iterator  # noqa: E402
+from ovmono3d_tpu_torch.data.synthetic import synthetic_datasets  # noqa: E402
+from ovmono3d_tpu_torch.eval import cli as eval_cli  # noqa: E402
+from ovmono3d_tpu_torch.evaluation.helper import (  # noqa: E402
+    Omni3DEvaluationHelper,
 )
 from ovmono3d_tpu_torch.geo import cli as geo  # noqa: E402
 from ovmono3d_tpu_torch.models import rcnn3d  # noqa: E402
@@ -192,7 +238,15 @@ from ovmono3d_tpu_torch.models.rcnn3d import build_model  # noqa: E402
 from ovmono3d_tpu_torch.models.vit import GELUS, Mlp  # noqa: E402
 from ovmono3d_tpu_torch.ops.boxes import uniform_draws  # noqa: E402
 from ovmono3d_tpu_torch.ops import attention  # noqa: E402
+from ovmono3d_tpu_torch.ops import attn_sweep  # noqa: E402
+from ovmono3d_tpu_torch.ops import iou3d  # noqa: E402
+from ovmono3d_tpu_torch.ops import layernorm  # noqa: E402
 from ovmono3d_tpu_torch.ops import quant  # noqa: E402
+from ovmono3d_tpu_torch.probes import attn_sweep as sweep_probe  # noqa: E402
+from ovmono3d_tpu_torch.probes import card as card_name  # noqa: E402
+from ovmono3d_tpu_torch.probes import (  # noqa: E402
+    bf16_ulp_diff, device_ms, time_ms)
+from ovmono3d_tpu_torch.probes import layernorm as ln_probe  # noqa: E402
 from ovmono3d_tpu_torch.parallel.train_step import (  # noqa: E402
     create_train_state,
     make_train_step,
@@ -294,6 +348,28 @@ GEO_QUANT_REL, GEO_QUANT_COS = 6e-2, 0.999
 OVLIFT_MAX_REL, OVLIFT_MEAN_REL = 1e-1, 2e-2
 CATEGORY_META = Path(__file__).resolve().parent / "configs" / \
     "category_meta50.json"
+# Kernel 9: (shape) of its checks: the TPU probe's trunk at B=1 and B=8,
+# Depth-Pro's patch batch (ViT-L), SAM ViT-H, a Swin-B stage-0 map at 896^2
+# (C = 128) and a ragged row count; every (input, output) dtype pair, each
+# held to layer_norm_ref within LN_TOL of its output dtype (atol, rtol: the
+# JAX tests' own, tests/test_layernorm.py).
+LN_SHAPES = {"trunk_b1": (1, 4097, 768), "trunk_b8": (8, 4097, 768),
+             "depth_pro_patches": (35, 577, 1024), "sam_h": (1, 4096, 1280),
+             "swin_stage0": (1, 224, 224, 128), "ragged": (3, 77, 256)}
+LN_DTYPES = ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+             (torch.float32, torch.float32), (torch.float32, torch.bfloat16))
+LN_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-6, 1e-6)}
+# Kernel 11 against attn_sweep_ref at its block_k, on peaked rows
+# (sweep_probe.checked_inputs) at a small ragged shape and at the probe's:
+# the limit is sweep_probe.error's (at most ULP_SHARE of the elements more
+# than one bf16 ulp apart, none more than ATOL); two controls must fail it.
+SWEEP_SMALL = (2, 333, 4, 64)
+# The eval phase: the flagship on the two generated datasets of the eval
+# CLI's --synthetic (EVAL_IMAGES records each, random 640x480 images), batch
+# EVAL_BATCH, oracle 2D and learned 2D; 3D IoU on the card against the CPU
+# within EVAL_IOU_ATOL (f32 on both, other sum orders and FMA contraction).
+EVAL_IMAGES, EVAL_BATCH = 32, 8
+EVAL_IOU_ATOL = 1e-4
 # Weights the ovlift phase moves off the flax init, and why: the deformable
 # offset and weight kernels start at zero (every sample on its reference
 # point: the bilinear path unchecked); the Swin bias tables at std 0.02
@@ -319,11 +395,7 @@ def device_phase() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: chip_smoke "
                            "needs an NVIDIA GPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
+    card = card_name()
     # TF32 stays as PyTorch starts it: the entry points that place a model
     # on the card turn it off (utils.device.disable_tf32).
     say("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
@@ -336,17 +408,28 @@ def device_phase() -> str:
 
 def build_phase() -> None:
     t0 = time.perf_counter()
-    sources = attention.KERNEL_SOURCES + quant.KERNEL_SOURCES
+    sources = (attention.KERNEL_SOURCES + quant.KERNEL_SOURCES
+               + layernorm.KERNEL_SOURCES + attn_sweep.KERNEL_SOURCES)
     libs = list(cuda_build.build(sources).values())   # one nvcc each, at once
-    attention.build_kernels()
-    quant.build_kernels()
+    for mod in (attention, quant, layernorm, attn_sweep):
+        mod.build_kernels()
     say("build", f"{', '.join(lib.name for lib in libs)} ready in "
                  f"{time.perf_counter() - t0:.1f} s")
     for lib in libs:
         log = lib.with_name(lib.name + ".log")
-        if log.is_file():
+        if log.is_file() and lib.name.startswith("liblayernorm"):
+            # 76 instances: their largest register count and any spill.
+            text = log.read_text()
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+            spills = sorted(set(re.findall(r"(\d+) bytes spill stores",
+                                           text)) - {"0"})
+            say("build", f"layernorm_fwd: {len(regs)} instances of "
+                         f"ln_fwd_kernel, at most {max(regs)} registers, "
+                         f"spill stores {spills or 'none'} bytes")
+        elif log.is_file():
             for line in log.read_text().splitlines():
-                m = re.search(r"((flash|relpos|window|int8)_[a-z_]+_kernel)"
+                m = re.search(r"((flash|relpos|window|int8|sweep)_[a-z_]+"
+                              r"_kernel)"
                               r"(IL([bi])(\d+)E)?", line)
                 if "Compiling entry" in line and m:
                     flag = "" if m[4] is None else (
@@ -363,22 +446,6 @@ def qkv_views(b, n, h, d, seed, dtype=torch.bfloat16):
     qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=g,
                       dtype=dtype)
     return qkv.view(b, n, 3, h, d).unbind(2)
-
-
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of `reps` CUDA-event-timed calls, in ms."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -2335,6 +2402,468 @@ def compare_quant_geo(models, request) -> None:
                       f"{failed} not")
 
 
+def ln_inputs(shape, dtype, seed):
+    """x ~ N(0.8, 1.7^2) (the TPU probe's residual-stream input), scale ~
+    U(0.5, 1.5), bias ~ N(0, 0.1^2), on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=g, device="cuda") * 1.7 + 0.8).to(dtype)
+    return (x, torch.rand(c, generator=g, device="cuda") + 0.5,
+            torch.randn(c, generator=g, device="cuda") * 0.1)
+
+
+def ln_kernel_phase() -> dict:
+    """Kernel 9 against layer_norm_ref at LN_SHAPES in every dtype pair, its
+    autograd Function's gradients against the plain version's, and its
+    times at the trunk; kernel 12 (the probe's v2, v3, v4) against their
+    plain versions at the probe's [8, 4097, 768]. Launches made here are
+    not a path's: the paths reset the counts."""
+    worst = 0.0
+    for i, (name, shape) in enumerate(LN_SHAPES.items()):
+        for in_dt, out_dt in LN_DTYPES:
+            x, scale, bias = ln_inputs(shape, in_dt, seed=i)
+            got = layernorm.layer_norm_fused(x, scale, bias, 1e-6, out_dt)
+            torch.cuda.synchronize()
+            want = layernorm.layer_norm_ref(x, scale, bias, 1e-6, out_dt)
+            atol, rtol = LN_TOL[out_dt]
+            err = (got.float() - want.float()).abs()
+            excess = (err - rtol * want.float().abs()).max().item()
+            mx = err.max().item()
+            tag = (f"k9 {name} {tuple(shape)} {str(in_dt)[6:]}->"
+                   f"{str(out_dt)[6:]}")
+            ulps = ""
+            if out_dt == torch.bfloat16:
+                n_diff, n_beyond = bf16_ulp_diff(got, want)
+                ulps = (f"; {n_diff} of {got.numel()} elements differ, "
+                        f"{n_beyond} by more than one bf16 ulp")
+                check(n_beyond == 0, f"{tag}: no element more than one bf16 "
+                                     "ulp from the plain version")
+            say("ln", f"{tag}: max_abs_err {mx:.3e} (limit {atol} + {rtol} "
+                      f"|ref|, margin {atol - excess:.3e}){ulps}")
+            check(got.dtype == out_dt and bool(torch.isfinite(got).all()),
+                  f"{tag}: finite {out_dt} output")
+            check(excess <= atol, f"{tag}: within {atol} + {rtol} |ref|")
+            if out_dt == in_dt:
+                worst = max(worst, mx)
+            del x, got, want, err
+    # The Function's backward is the plain math's: with a loss linear in
+    # the output both gradients take the same upstream gradient.
+    x, scale, bias = ln_inputs((3, 577, 1024), torch.float32, seed=20)
+    w = torch.randn(x.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(21))
+    grads = []
+    for fn in (layernorm.layer_norm_fused, layernorm.layer_norm_ref):
+        leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        (fn(*leaves, 1e-6, torch.float32) * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for gname, a, b in zip(("x", "scale", "bias"), *grads):
+        d = (a - b).abs().max().item()
+        say("ln", f"k9 backward d{gname}: max abs diff {d:.3e} against the "
+                  f"plain autograd (max |grad| {b.abs().max().item():.3e})")
+        check(d <= 1e-5 * max(1.0, b.abs().max().item()),
+              f"k9 backward d{gname} within 1e-5 of the plain autograd")
+    out = {}
+    for name in ("trunk_b8", "trunk_b1"):
+        x, scale, bias = ln_inputs(LN_SHAPES[name], torch.bfloat16, seed=0)
+        lib = ln_probe.library(x, scale, bias)
+        fused = lambda: layernorm.layer_norm_fused(  # noqa: E731
+            x, scale, bias, 1e-6, torch.bfloat16)
+        t = {"ms": time_ms(fused),
+             "device_ms": device_ms(fused, "ln_fwd_kernel"),
+             "library_device_ms": device_ms(lib, "layer_norm"),
+             "plain_ms": time_ms(lambda: layernorm.layer_norm_ref(
+                 x, scale, bias, 1e-6, torch.bfloat16)),
+             "library_ms": time_ms(lib),
+             "bound_ms": ln_probe.bound_ms(x, torch.bfloat16),
+             "bound_by": "bytes"}
+        say("ln", f"k9 {name} {LN_SHAPES[name]} bf16->bf16, median of timed "
+                  f"calls: kernel {t['ms']:.4f} ms (device "
+                  f"{t['device_ms']:.4f} ms by the profiler), plain "
+                  f"{t['plain_ms']:.4f} ms, F.layer_norm (bf16 weights) "
+                  f"{t['library_ms']:.4f} ms (device "
+                  f"{t['library_device_ms']:.4f} ms), bound "
+                  f"{t['bound_ms']:.4f} ms (bytes)")
+        out[name] = t
+    out = {"k9": {**out["trunk_b8"], "max_abs_err": worst}}
+    # Kernel 12's instances at the probe's shape, before the probe's path:
+    # each within 2e-2 + 2e-2 |ref| of its own plain version with no element
+    # more than one bf16 ulp from it (the two differ in the order of the f32
+    # sums and in rsqrtf alone); and the control, v4's instance against v2's
+    # plain version, apart in at least 10x as many elements and 0.1% of
+    # them (v4's bf16 squares). v3 differs from v2 by at most an f32 ulp of
+    # its statistics, which bf16 outputs cannot show apart from the sum order.
+    x, scale, bias = ln_probe.inputs(8)
+    plain_v2 = layernorm.ln_probe_ref(x, scale, bias, "v2")
+    counts = {}
+    for variant in ("v2", "v3", "v4"):
+        got = getattr(layernorm, f"ln_probe_{variant}")(x, scale, bias)
+        torch.cuda.synchronize()
+        want = layernorm.ln_probe_ref(x, scale, bias, variant)
+        err = (got.float() - want.float()).abs()
+        excess = (err - 2e-2 * want.float().abs()).max().item()
+        n_diff, n_beyond = bf16_ulp_diff(got, want)
+        counts[variant] = (n_diff, bf16_ulp_diff(got, plain_v2)[0])
+        say("ln", f"k12 {variant} [8, 4097, 768]: max_abs_err "
+                  f"{err.max().item():.3e} against its plain version "
+                  f"(limit 2e-2 + 2e-2 |ref|); {n_diff} of {got.numel()} "
+                  f"elements differ from it, {n_beyond} by more than one "
+                  f"bf16 ulp; {counts[variant][1]} differ from v2's plain "
+                  "version")
+        check(excess <= 2e-2, f"k12 {variant} within 2e-2 + 2e-2 |ref|")
+        check(n_beyond == 0, f"k12 {variant}: no element more than one bf16 "
+                             "ulp from its plain version")
+    n_own, n_v2 = counts["v4"]
+    check(n_v2 >= max(10 * n_own, 1e-3 * x.numel()),
+          f"control: k12 v4's instance differs from v2's plain version in "
+          f"{n_v2} elements, at least 10x the {n_own} against its own and "
+          "0.1% of them")
+    return out
+
+
+def ln_paths() -> dict:
+    """The entry points of kernels 9 and 12, each with the counts at 0
+    before it and read after: layer_norm_fused forward and backward at the
+    trunk's B=8 (the differentiable op), then the probe's run at
+    [8, 4097, 768]. Returns their kernel entries' numbers."""
+    x, scale, bias = ln_inputs(LN_SHAPES["trunk_b8"], torch.bfloat16, seed=0)
+    layernorm.layernorm_fwd.launches = dict.fromkeys(layernorm.MODES, 0)
+    x.requires_grad_()
+    y = layernorm.layer_norm_fused(x, scale, bias)
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    k9 = layernorm.layernorm_fwd.launches["f32_stats"]
+    check(k9 == 1 and bool(torch.isfinite(x.grad).all()),
+          f"layer_norm_fused launched kernel 9 once ({k9}), finite gradient")
+    layernorm.layernorm_fwd.launches = dict.fromkeys(layernorm.MODES, 0)
+    rows = ln_probe.rows(8)
+    launches = dict(layernorm.layernorm_fwd.launches)
+    say("ln", f"probe path: launches {launches}")
+    out = {"k9_launches": k9}
+    for r in rows:
+        device = (f" (device {r['device_ms']:.4f} ms)" if "device_ms" in r
+                  else "")
+        own = ("" if "n_diff" not in r else
+               f" ({r['n_diff']} elements differ from its plain version, "
+               f"{r['n_beyond_ulp']} by more than one bf16 ulp; "
+               f"{r['n_diff_v2']} from v2's)")
+        say("ln", f"probe {r['name']:<16} {r['ms']:.4f} ms{device}, max|err| "
+                  f"vs v0 {r['err_v0']:.3e}{own}, bound {r['bound_ms']:.4f} "
+                  f"ms, F.layer_norm {r['library_ms']:.4f} ms")
+        if "variant" in r:
+            mode = layernorm.PROBE_MODES[r["variant"]]
+            check(launches[mode] > 0, f"probe {r['variant']} launched {mode}")
+            check(r["n_beyond_ulp"] == 0, f"probe {r['variant']}: no element "
+                                          "more than one bf16 ulp off")
+            out[f"k12_{r['variant']}"] = {
+                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "library_ms", "max_abs_err")},
+                "bound_by": "bytes", "launches": launches[mode]}
+    return out
+
+
+def sweep_kernel_phase() -> dict:
+    """Kernel 11: every instance against attn_sweep_ref on peaked rows at a
+    small ragged shape, and two controls that must fail the same limit (the
+    bf16-softmax instance against the f32-softmax plain version; the mean
+    of v, what uniform weights give); then the probe's path at
+    [1, 4097, 12, 64] with the counts at 0: each instance's time, its error
+    against the plain version at its block_k, SDPA on the same views and
+    the bound."""
+    lim = (f"at most {sweep_probe.ULP_SHARE} of the elements more than one "
+           f"bf16 ulp and none more than {sweep_probe.ATOL} apart")
+    q, k, v = sweep_probe.checked_inputs(SWEEP_SMALL, seed=30)
+    for bq, bk, f32 in attn_sweep.INSTANCES:
+        got = attn_sweep.attn_sweep(q, k, v, bq, bk, f32)
+        torch.cuda.synchronize()
+        e = sweep_probe.error(got, attn_sweep.attn_sweep_ref(q, k, v, bk, f32))
+        say("sweep", f"k11 bq{bq} bk{bk} f32={f32} at {SWEEP_SMALL}: "
+                     f"max_abs_err {e['max_abs_err']:.3e}, "
+                     f"{e['share_beyond_ulp']:.3e} of the elements > 1 ulp")
+        check(e["ok"], f"k11 bq{bq} bk{bk} f32={f32} at {SWEEP_SMALL} "
+                       f"within {lim}")
+    got = attn_sweep.attn_sweep(q, k, v, 64, 64, False)
+    controls = {
+        "the bf16-softmax instance against the f32-softmax plain version":
+            (got, attn_sweep.attn_sweep_ref(q, k, v, 64, True)),
+        "the mean of v (uniform weights) against the plain version":
+            (v.float().mean(1, keepdim=True).expand_as(v).bfloat16(),
+             attn_sweep.attn_sweep_ref(q, k, v, 64, True))}
+    for what, (a, b) in controls.items():
+        e = sweep_probe.error(a, b)
+        say("sweep", f"control, {what}: max_abs_err {e['max_abs_err']:.3e}, "
+                     f"{e['share_beyond_ulp']:.3e} of the elements > 1 ulp")
+        check(not e["ok"], f"control {what} fails {lim}")
+    attn_sweep.attn_sweep.launches = dict.fromkeys(attn_sweep.INSTANCES, 0)
+    rows = sweep_probe.rows()
+    launches = dict(attn_sweep.attn_sweep.launches)
+    out = {}
+    for r in rows:
+        inst = (r["block_q"], r["block_k"], r["softmax_f32"])
+        name = (f"bq{inst[0]} bk{inst[1]} "
+                f"{'f32' if inst[2] else 'bf16'} softmax")
+        say("sweep", f"k11 {name} {list(sweep_probe.SHAPE)}: {r['ms']:.4f} "
+                     f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                     f"SDPA {r['library_ms']:.4f} ms, plain "
+                     f"{r['plain_ms']:.4f} ms, max_abs_err "
+                     f"{r['max_abs_err']:.3e} on peaked rows "
+                     f"({r['share_beyond_ulp']:.3e} > 1 ulp); "
+                     f"{launches[inst]} launches")
+        check(r["ok"], f"k11 {name} within {lim}")
+        check(launches[inst] > 0, f"k11 {name} launched on the probe path")
+        out[inst] = {**{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "max_abs_err")},
+                     "launches": launches[inst]}
+    return out
+
+
+class CheckedHelper(Omni3DEvaluationHelper):
+    """The evaluation helper, holding every prediction it is given finite."""
+
+    def add_image(self, dataset, gt, pred, eval_prox=False):
+        for key, x in pred.items():
+            check(bool(np.isfinite(np.asarray(x, np.float64)).all()),
+                  f"eval {dataset}: {key} finite")
+        self.n_dets = getattr(self, "n_dets", 0) + len(pred["classes"])
+        super().add_image(dataset, gt, pred, eval_prox)
+
+
+def random_image_loader(seed: int):
+    """A record's image: uniform uint8 noise of its size from (seed,
+    image_id), made on the host as a decoder would."""
+    def load(rec):
+        rng = np.random.default_rng((seed, rec["image_id"]))
+        return rng.integers(0, 256, (rec["height"], rec["width"], 3),
+                            dtype=np.uint8)
+    return load
+
+
+def eval_phase() -> int:
+    """The Omni3D evaluation path: the flagship (seed 0, as lift_model) on
+    the eval CLI's two generated datasets, through eval_cli.evaluate_dataset
+    and the helper with its 3D IoU on the card, in oracle and learned-2D
+    mode; GT as the prediction; the card's 3D IoU against the CPU's; kernel
+    against attention_ref on one batch of each mode. Returns kernel 1's
+    launches in the two timed runs."""
+    cfg = dataclasses.replace(Config(), model=flagship_config(S))
+    model = lift_model(cfg.model)
+    n_blocks = len(model.backbone.vit.blocks())
+    names = json.loads(CATEGORY_META.read_text())["thing_classes"]
+    run = eval_cli.make_run_fn(model)
+    total = 0
+    for mode, oracle in (("oracle", True), ("learned", False)):
+        data, novel = synthetic_datasets(50, names, num=EVAL_IMAGES,
+                                         oracle=oracle)
+        loaders = {name: random_image_loader(i)
+                   for i, name in enumerate(data)}
+        first = next(iter(data))
+        eval_cli.evaluate_dataset(      # warm-up, not counted
+            cfg, model, data[first][:EVAL_BATCH], loaders[first], EVAL_BATCH,
+            Omni3DEvaluationHelper(50, names, device="cuda"), "warmup",
+            run=run)
+        helper = CheckedHelper(50, names, novel_categories=novel,
+                               device="cuda")
+        reset_attention_counts()
+        t0 = time.perf_counter()
+        stats = [eval_cli.evaluate_dataset(cfg, model, recs, loaders[name],
+                                           EVAL_BATCH, helper, name, run=run)
+                 for name, recs in data.items()]
+        wall = time.perf_counter() - t0
+        launches = attention.flash_attention_packed.launches
+        n_img = sum(st["images"] for st in stats)
+        batch_ms = [ms for st in stats for ms in st["batch_ms"]]
+        check(launches == n_blocks * len(batch_ms),
+              f"eval {mode}: {launches} kernel-1 launches for "
+              f"{len(batch_ms)} batches of {n_blocks} blocks")
+        total += launches
+        summary = helper.summarize_all()
+        say("eval", f"{mode}: {n_img} images in {wall:.3f} s, "
+                    f"{n_img / wall:.3f} img/s; p50 of a batch of "
+                    f"{EVAL_BATCH} {statistics.median(batch_ms):.3f} ms "
+                    f"(upload + model + download); data "
+                    f"{sum(st['data_s'] for st in stats):.3f} s against "
+                    f"compute {sum(st['compute_s'] for st in stats):.3f} s; "
+                    f"{launches} kernel-1 launches; "
+                    f"{helper.n_dets} detections")
+        for name, res in [*summary["datasets"].items(),
+                          ("overall", summary["overall"])]:
+            say("eval", f"{mode} {name}: AP2D {res['AP2D']:.4f} AP3D "
+                        f"{res['AP3D']:.4f} AP3D@15 {res['AP3D@15']:.4f} "
+                        f"AP3D@25 {res['AP3D@25']:.4f}")
+            check(all(math.isfinite(res[k]) for k in ("AP2D", "AP3D")),
+                  f"eval {mode} {name}: finite AP")
+            if oracle:
+                check(abs(res["AP2D"] - 100.0) < 1e-6,
+                      f"eval {mode} {name}: GT-oracle boxes give AP2D 100")
+        batch = next(iter(build_test_iterator(
+            cfg, data[first][:EVAL_BATCH], EVAL_BATCH, loaders[first],
+            max_oracle=max(64, cfg.test.detections_per_image))))[1]
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        with torch.inference_mode():
+            device_profile("eval", lambda: run(batch), 1,
+                           statistics.median(batch_ms), per="batch")
+        if oracle:
+            compare_eval_oracle(model, run, batch)
+        else:
+            compare_eval_learned(model, run, batch)
+    gt_as_prediction(names)
+    iou3d_card_vs_cpu(names)
+    set_attention(model, attention.dot_product_attention)
+    return total
+
+
+def _det_fields(det, keys=("classes", "valid", "boxes", "corners3d",
+                           "center_cam", "dimensions")):
+    return {k: getattr(det, k) for k in keys}
+
+
+def compare_eval_oracle(model, run, batch) -> None:
+    """One batch of the oracle mode with attention_ref in every block: the
+    3D fields of the valid slots within 2e-2 of their scale (the slice
+    phase's limits)."""
+    with torch.inference_mode():
+        kern = _det_fields(run(batch))
+        set_attention(model, attention.attention_ref)
+        plain = _det_fields(run(batch))
+        set_attention(model, attention.dot_product_attention)
+    valid = plain["valid"]
+    for field in ("center_cam", "dimensions", "corners3d"):
+        a, b = kern[field][valid], plain[field][valid]
+        dev, scale = (a - b).abs().max().item(), b.abs().max().item()
+        say("eval", f"oracle, kernel vs attention_ref on {valid.sum().item()} "
+                    f"boxes: {field} max abs deviation {dev:.3e} (scale "
+                    f"{scale:.3e})")
+        check(dev <= 2e-2 * scale + 1e-4,
+              f"eval oracle {field} within 2e-2 of its scale")
+
+
+def _matches(a_boxes, a_cls, b_boxes, b_cls, tol: float) -> list:
+    """Greedy (i, j) pairs of rows of a and b with one class and boxes
+    within `tol` pixels (each b row used once)."""
+    if not len(a_boxes) or not len(b_boxes):
+        return []
+    close = ((a_boxes[:, None] - b_boxes[None]).abs().amax(-1) <= tol) \
+        & (a_cls[:, None] == b_cls[None])
+    pairs, used = [], set()
+    for i, row in enumerate(close.cpu().tolist()):
+        j = next((j for j, ok in enumerate(row) if ok and j not in used),
+                 None)
+        if j is not None:
+            pairs.append((i, j))
+            used.add(j)
+    return pairs
+
+
+def compare_eval_learned(model, run, batch) -> None:
+    """One batch of the learned mode with the kernels and with
+    attention_ref: how many of each image's proposals have no proposal of
+    the other run within 0.01 px and within 0.5 px, how far the rest move,
+    and how many detections change (no detection of the same class within
+    0.5 px); kernel and plain attention move the RPN's deltas by ~1e-3,
+    which the anchors scale to fractions of a pixel, and near-tied
+    proposals swap; printed, not checked), and the 3D boxes of the
+    detections both runs share within 2e-2 of their scale."""
+    rpn = model.cfg.rpn
+    hw = batch["im_hw"].float()
+    out = {}
+    with torch.inference_mode():
+        for name, fn in (("kernel", attention.dot_product_attention),
+                         ("plain", attention.attention_ref)):
+            set_attention(model, fn)
+            feats = model.features(batch["image"])
+            logits, deltas, anchors, sizes = model._rpn_forward(feats)
+            props = rcnn3d.rpn_proposals(
+                logits, deltas, anchors, sizes, hw, rpn.pre_nms_topk_test,
+                rpn.post_nms_topk_test, rpn.nms_thresh, rpn.min_box_size)
+            out[name] = (props, _det_fields(run(batch)))
+        set_attention(model, attention.dot_product_attention)
+    (kp, kd), (pp, pd) = out["kernel"], out["plain"]
+    changed_d, n_p, n_d, devs = 0, 0, 0, {}
+    nearest = []      # each proposal's distance to the plain run's nearest
+    for i in range(batch["image"].shape[0]):
+        a_p, b_p = kp[0][i][kp[2][i]], pp[0][i][pp[2][i]]
+        n_p += len(a_p)
+        if len(a_p) and len(b_p):
+            nearest.append((a_p[:, None] - b_p[None]).abs().amax(-1)
+                           .amin(1))
+        else:
+            nearest.append(torch.full((len(a_p),), math.inf,
+                                      device=a_p.device))
+        a = {k: v[i][kd["valid"][i]] for k, v in kd.items()}
+        b = {k: v[i][pd["valid"][i]] for k, v in pd.items()}
+        pairs = _matches(a["boxes"], a["classes"], b["boxes"], b["classes"],
+                         0.5)
+        n_d += len(a["classes"])
+        changed_d += len(a["classes"]) - len(pairs)
+        for field in ("center_cam", "dimensions", "corners3d"):
+            if pairs:
+                x = a[field][[p for p, _ in pairs]]
+                y = b[field][[q for _, q in pairs]]
+                d, s = devs.get(field, (0.0, 0.0))
+                devs[field] = (max(d, (x - y).abs().max().item()),
+                               max(s, y.abs().max().item()))
+    nearest = torch.cat(nearest)
+    moved = nearest[nearest <= 0.5]
+    if not len(moved):
+        moved = torch.zeros(1)
+    say("eval", f"learned, kernel vs attention_ref on {batch['image'].shape[0]}"
+                f" images: of {n_p} proposals {int((nearest > 1e-2).sum())} "
+                f"have no proposal of the plain run within 0.01 px and "
+                f"{int((nearest > 0.5).sum())} none within 0.5 px (the "
+                f"others move by at most {moved.max().item():.3f} px, median "
+                f"{moved.median().item():.3f}); {changed_d} of {n_d} "
+                f"detections change (class + box); on the shared ones "
+                + ", ".join(f"{f} max abs deviation {d:.3e} (scale {s:.3e})"
+                            for f, (d, s) in devs.items()))
+    check(n_d > 0 and changed_d < n_d, "eval learned: shared detections")
+    for field, (d, s) in devs.items():
+        check(d <= 2e-2 * s + 1e-4,
+              f"eval learned {field} of shared detections within 2e-2 of "
+              f"its scale")
+
+
+def gt_as_prediction(names) -> None:
+    """GT as the prediction of every record of both generated datasets:
+    AP2D = AP3D = 100 through the helper with its 3D IoU on the card."""
+    data, _ = synthetic_datasets(50, names, num=EVAL_IMAGES)
+    helper = Omni3DEvaluationHelper(50, names, device="cuda")
+    for name, recs in data.items():
+        for rec in recs:
+            gt = eval_cli._record_gt(rec)
+            helper.add_image(name, gt, {**gt,
+                                        "scores": np.ones(len(gt["classes"]))})
+    res = helper.summarize_all()["overall"]
+    say("eval", f"GT as the prediction: AP2D {res['AP2D']:.4f} AP3D "
+                f"{res['AP3D']:.4f}")
+    check(abs(res["AP2D"] - 100.0) < 1e-6 and abs(res["AP3D"] - 100.0) < 1e-6,
+          "GT as the prediction gives AP2D = AP3D = 100 on the card")
+
+
+def iou3d_card_vs_cpu(names) -> None:
+    """pairwise_iou3d on the card against the same call on the CPU: the GT
+    cuboids of a generated dataset against themselves turned and shifted,
+    and its time at that size."""
+    data, _ = synthetic_datasets(50, names, num=EVAL_IMAGES)
+    corners = np.concatenate([eval_cli._record_gt(r)["corners3d"]
+                              for r in data["synthetic_a"]])
+    a = torch.from_numpy(corners)
+    c, s = math.cos(0.3), math.sin(0.3)
+    rot = torch.tensor([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    center = a.mean(1, keepdim=True)
+    b = (a - center) @ rot.T + center + torch.tensor([0.1, 0.0, 0.2])
+    cpu = iou3d.pairwise_iou3d(a, b)[1]
+    ac, bc = a.cuda(), b.cuda()
+    card = iou3d.pairwise_iou3d(ac, bc)[1]
+    err = (card.cpu() - cpu).abs().max().item()
+    ms = time_ms(lambda: iou3d.pairwise_iou3d(ac, bc), reps=5)
+    say("eval", f"pairwise_iou3d {tuple(cpu.shape)} pairs: card vs CPU max "
+                f"abs diff {err:.3e} (limit {EVAL_IOU_ATOL}); "
+                f"{(cpu > 0).sum().item()} overlapping pairs; {ms:.3f} ms on "
+                f"the card")
+    check(err <= EVAL_IOU_ATOL, f"3D IoU on the card within {EVAL_IOU_ATOL} "
+                                f"of the CPU")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = device_phase()
@@ -2344,6 +2873,9 @@ def main() -> None:
     k["window"] = window_kernel_phase()
     k["int8"] = int8_kernel_phase()
     k.update(headmajor_kernel_phase())
+    k.update(ln_kernel_phase())
+    ln = ln_paths()
+    sweep = sweep_kernel_phase()
     model, images, inputs, launches, p50_ms = slice_phase()
     profile_phase(model, images[WARMUP:WARMUP + 5], inputs, p50_ms)
     sensitivity_phase(model, images[WARMUP], inputs)
@@ -2366,13 +2898,17 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     q_launches = quant_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    eval_launches = eval_phase()
     launches = {"fwd": launches + geo_launches["fwd"] + ov_launches["fwd"]
-                + q_launches["fwd"],
+                + q_launches["fwd"] + eval_launches,
                 "lse": train_launches["lse"], "bwd": train_launches["bwd"],
                 "relpos": geo_launches["relpos"] + q_launches["relpos"]
                 + f32_launches["relpos"],
                 "window": ov_launches["window"], "int8": q_launches["int8"],
-                "fwd_f32": f32_launches["fwd_f32"], **hm_launches}
+                "fwd_f32": f32_launches["fwd_f32"], **hm_launches,
+                "k9": ln["k9_launches"]}
     src = "ovmono3d_tpu_torch/csrc/"
     meta = {
         "fwd": ("flash_attn_fwd_bf16", src + "flash_attn_fwd.cu",
@@ -2397,13 +2933,31 @@ def main() -> None:
                src + "flash_attn_bwd.cu",
                "ovmono3d_tpu/ops/attention.py:992/:925/:957"),
     }
+    meta["k9"] = ("layernorm_fwd kF32Stats (layer_norm_fused)",
+                  src + "layernorm_fwd.cu", "ovmono3d_tpu/ops/layernorm.py:28")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = []
     for kind, (name, source, replaces) in meta.items():
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[kind],
-                        **{key: k[kind][key] for key in (
-                            "max_abs_err", "ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms")}})
+                        **{key: k[kind][key] for key in keys}})
+    probe_lines = {"v2": ("kF32Stats", 53), "v3": ("kRecipMean", 84),
+                   "v4": ("kBf16Squares", 124)}
+    for variant, (inst, line) in probe_lines.items():
+        r = ln[f"k12_{variant}"]
+        kernels.append({"name": f"layernorm_fwd {inst} (probe {variant})",
+                        "route": "cuda", "source": src + "layernorm_fwd.cu",
+                        "replaces": f"tools/probe_layernorm.py:{line}",
+                        "launches": r["launches"],
+                        **{key: r[key] for key in keys}})
+    for (bq, bk, f32), r in sweep.items():
+        kernels.append({"name": f"attn_sweep_fwd_bf16<{bq}, {bk}, "
+                                f"{'f32' if f32 else 'bf16'} softmax>",
+                        "route": "cuda", "source": src + "attn_sweep_fwd.cu",
+                        "replaces": "tools/profile_attn_sweep.py:15",
+                        "launches": r["launches"],
+                        **{key: r[key] for key in keys}})
     print(json.dumps({"kernels": kernels}), flush=True)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}", flush=True)

@@ -1,19 +1,26 @@
-"""Configuration for the port: the fields the oracle-2D LIFT path, the
-training step and open-vocabulary serving read.
+"""Configuration for the port: typed frozen dataclasses, YAML files with
+`_BASE_` inheritance, and `dotted.path=value` overrides.
 
 Same names and defaults as ovmono3d_tpu/config.py (a test holds them field
-by field against the JAX dataclasses). YAML loading and the dataset and
-evaluation sections arrive with the slices that read them.
+by field against the JAX dataclasses), and `load_config` / `oracle2d_file`
+are copies of its functions: every file under configs/ loads to the same
+values in both packages. The port carries the fields its paths read and the
+ones the shipped YAML files set; the JAX package's TPU options (the remat
+policy, the attention backend) and gradient accumulation have no field
+here, and a YAML file that sets them is refused as an unknown key.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any
 
 
 @dataclass(frozen=True)
 class BackboneConfig:
     name: str = "dinov2"            # only dinov2 is ported
+    model_name: str = "vitb14"
     patch_size: int = 14
     embed_dim: int = 768
     depth: int = 12
@@ -120,6 +127,7 @@ class ModelConfig:
     exact_roi_pool: bool = False
     stabilize: float = 0.01         # skip fraction that triggers a restart
     max_proposals: int = 512        # padded proposals per image (train)
+    max_detections: int = 100       # padded detections per image (test)
 
 
 @dataclass(frozen=True)
@@ -145,8 +153,44 @@ class SolverConfig:
 
 
 @dataclass(frozen=True)
+class DatasetConfig:
+    train: tuple[str, ...] = ("Objectron_train", "Objectron_val")
+    test: tuple[str, ...] = ("Objectron_test",)
+    test_base: tuple[str, ...] = ("Objectron_test",)
+    test_novel: tuple[str, ...] = ()
+    category_names: tuple[str, ...] = ()
+    category_names_base: tuple[str, ...] = (
+        "bicycle", "books", "bottle", "camera", "cereal box", "chair",
+        "cup", "laptop", "shoes",
+    )
+    category_names_novel: tuple[str, ...] = ()
+    ignore_names: tuple[str, ...] = ()
+    truncation_thres: float = 0.99
+    visibility_thres: float = 0.01
+    min_height_thres: float = 0.0
+    max_depth: float = 1e8
+    modal_2d_boxes: bool = False
+    trunc_2d_boxes: bool = True
+    data_root: str = "datasets"     # base dir for Omni3D jsons/images
+    # Directory of per-image prompt-depth .npz files (key 'depth', named
+    # <image stem>.npz); empty = no prompt depth.
+    depth_dir: str = ""
+    oracle2d_eval_mode: str = "target_aware"  # target_aware | previous_metric
+    # {eval_mode: {base|novel: {dataset: path}}}, or a flat {dataset: path}.
+    oracle2d_files: dict[str, Any] = field(default_factory=dict)
+    balance_datasets: bool = False
+    repeat_threshold: float = 0.0
+    filter_empty_annotations: bool = True
+
+
+@dataclass(frozen=True)
 class TestConfig:
+    oracle2d: bool = True
+    cat_mode: str = "base"          # base | novel | all
     eval_period: int = 29000        # in-train evaluation period (0 = off)
+    visibility_thres: float = 0.5   # the GT ignore decision at evaluation
+    truncation_thres: float = 0.5
+    detections_per_image: int = 100
 
 
 @dataclass(frozen=True)
@@ -165,8 +209,12 @@ class InputConfig:
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
-    test: TestConfig = field(default_factory=TestConfig)
     input: InputConfig = field(default_factory=InputConfig)
+    datasets: DatasetConfig = field(default_factory=DatasetConfig)
+    test: TestConfig = field(default_factory=TestConfig)
+    output_dir: str = "output"
+    seed: int = 5
+    vis_period: int = 2320
 
 
 def flagship_config(square_pad: int = 896) -> ModelConfig:
@@ -174,3 +222,121 @@ def flagship_config(square_pad: int = 896) -> ModelConfig:
     RPN + box head + cube head, 50 classes, at `square_pad`^2 input."""
     bb = dataclasses.replace(BackboneConfig(), square_pad=square_pad)
     return ModelConfig(num_classes=50, backbone=bb)
+
+
+# ---------------------------------------------------------------------------
+# Loading / overriding (copies of the JAX package's functions)
+# ---------------------------------------------------------------------------
+
+def _set_in_dict(d: dict, path: str, value: Any) -> dict:
+    """Functionally set a dotted path inside a plain-dict config field."""
+    head, _, rest = path.partition(".")
+    d = dict(d)
+    if rest:
+        child = d.get(head)
+        d[head] = _set_in_dict(child if isinstance(child, dict) else {},
+                               rest, value)
+    else:
+        d[head] = value
+    return d
+
+
+def _set_by_path(obj: Any, path: str, value: Any) -> Any:
+    """Functionally set a dotted path on a (frozen) dataclass tree."""
+    head, _, rest = path.partition(".")
+    if not dataclasses.is_dataclass(obj):
+        raise KeyError(f"cannot descend into non-dataclass at '{head}'")
+    names = {f.name: f for f in dataclasses.fields(obj)}
+    if head not in names:
+        raise KeyError(
+            f"unknown config key '{head}' on {type(obj).__name__}; "
+            f"valid: {sorted(names)}"
+        )
+    if rest:
+        child = getattr(obj, head)
+        if isinstance(child, dict):
+            # dict-valued fields (oracle2d_files) take any nested keys.
+            return dataclasses.replace(
+                obj, **{head: _set_in_dict(child, rest, value)})
+        return dataclasses.replace(
+            obj, **{head: _set_by_path(child, rest, value)})
+    current = getattr(obj, head)
+    return dataclasses.replace(obj, **{head: _coerce(value, current)})
+
+
+def _coerce(value: Any, like: Any) -> Any:
+    """Coerce a YAML/CLI value to the type of the existing field value."""
+    if isinstance(like, bool):
+        if isinstance(value, str):
+            return value.lower() in ("1", "true", "yes", "on")
+        return bool(value)
+    if isinstance(like, int) and not isinstance(like, bool):
+        return int(value)
+    if isinstance(like, float):
+        return float(value)
+    if isinstance(like, tuple):
+        if isinstance(value, str):
+            value = [v for v in value.strip("()[]").split(",") if v.strip()]
+        elif not isinstance(value, (list, tuple)):
+            # A scalar override of a tuple field -> a 1-tuple, like yacs.
+            value = [value]
+        elem = like[0] if like else value[0] if value else None
+        if elem is not None and not isinstance(elem, (tuple, list)):
+            return tuple(type(elem)(v) for v in value)
+        return tuple(tuple(x) if isinstance(x, list) else x for x in value)
+    return value
+
+
+def _flatten(d: dict, prefix: str = "") -> list[tuple[str, Any]]:
+    out = []
+    for k, v in d.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.extend(_flatten(v, key + "."))
+        else:
+            out.append((key, v))
+    return out
+
+
+def load_config(yaml_path: str | Path | None = None,
+                overrides: list[str] | None = None,
+                base: Config | None = None) -> Config:
+    """Build a Config: defaults -> YAML (with its _BASE_ chain) -> overrides
+    (`dotted.path=value` strings, each value parsed as YAML). PyYAML is
+    imported here, only when a file or an override needs it."""
+    cfg = base or Config()
+    if yaml_path is not None:
+        import yaml
+
+        yaml_path = Path(yaml_path)
+        with open(yaml_path) as f:
+            data = yaml.safe_load(f) or {}
+        if "_BASE_" in data:
+            base_rel = data.pop("_BASE_")
+            cfg = load_config(yaml_path.parent / base_rel, base=cfg)
+        for key, value in _flatten(data):
+            cfg = _set_by_path(cfg, key, value)
+    for item in overrides or []:
+        import yaml
+
+        key, _, value = item.partition("=")
+        cfg = _set_by_path(cfg, key.strip(), yaml.safe_load(value.strip()))
+    return cfg
+
+
+def oracle2d_file(ds_cfg: DatasetConfig, dataset: str,
+                  cat_mode: str) -> str | None:
+    """The oracle-2D detection JSON of a test dataset:
+    `oracle2d_files[eval_mode][cat_mode][dataset]` (cat_mode "all" reads
+    "base"), or a flat `{dataset: path}`; None when none is configured."""
+    files = ds_cfg.oracle2d_files or {}
+    sub = files.get(ds_cfg.oracle2d_eval_mode)
+    if isinstance(sub, dict):
+        mode = cat_mode if cat_mode in ("base", "novel") else "base"
+        per_mode = sub.get(mode)
+        if isinstance(per_mode, dict):
+            path = per_mode.get(dataset)
+            return path if isinstance(path, str) else None
+        return None
+    path = files.get(dataset)
+    return path if isinstance(path, str) else None

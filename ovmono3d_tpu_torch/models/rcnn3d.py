@@ -1,11 +1,14 @@
 """RCNN3D in PyTorch (counterpart of ovmono3d_tpu/models/rcnn3d.py).
 
-Inference: OVMono3D-LIFT on given 2D boxes, the reference's evaluation
-protocol (reference rcnn3d.py:100-102, roi_heads.py:232-243):
+Inference (`RCNN3D.forward`): OVMono3D-LIFT on given 2D boxes, the
+reference's evaluation protocol (reference rcnn3d.py:100-102,
+roi_heads.py:232-243), or on the model's own 2D detections when no oracle
+boxes are given (`_detect_2d`: RPN proposals -> box head -> per-class boxes
+-> `fast_rcnn_inference`):
 
-  pixel normalization -> DINOv2 trunk + SFP -> multilevel ROIAlignV2 ->
-  cube head -> decode_cube (virtual depth, allocentric pose, 3D lift) ->
-  Detections scored sqrt(score * conf).
+  pixel normalization -> DINOv2 trunk + SFP -> [RPN + box head] ->
+  multilevel ROIAlignV2 -> cube head -> decode_cube (virtual depth,
+  allocentric pose, 3D lift) -> Detections scored sqrt(score * conf).
 
 Training (`RCNN3D.compute_losses`): trunk + SFP -> RPN head -> anchor
 labeling with IoU-weighted sampling -> IoUness RPN losses; proposals (per
@@ -22,8 +25,6 @@ Batch contract, as in the JAX package (static shapes):
   im_scale_ratio  [B]         original / network-input scale
   oracle_boxes/classes/scores/valid: [B, N, ...] given 2D boxes (inference)
   gt              GroundTruth padded to M slots per image (training)
-
-Learned 2D inference (`_detect_2d`) is queued (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -39,7 +40,8 @@ from ovmono3d_tpu_torch.models.heads import CubeHead, FastRCNNHead, RPNHead
 from ovmono3d_tpu_torch.models.layers import init_seeded
 from ovmono3d_tpu_torch.ops import boxes as box_ops
 from ovmono3d_tpu_torch.ops.iou2d import pairwise_ioa, pairwise_iou
-from ovmono3d_tpu_torch.ops.nms import nms_mask_parallel, stable_topk
+from ovmono3d_tpu_torch.ops.nms import (batched_nms_mask, nms_mask_parallel,
+                                       stable_topk)
 from ovmono3d_tpu_torch.ops.roi_align import multilevel_roi_align
 from ovmono3d_tpu_torch.ops.rotation import so3_relative_angle
 from ovmono3d_tpu_torch.structures import Detections, GroundTruth
@@ -111,6 +113,62 @@ def rpn_proposals(logits: torch.Tensor, deltas: torch.Tensor,
     top_scores, idx = stable_topk(masked, post_nms_topk)
     top_boxes = torch.gather(boxes, 1, idx[..., None].expand(b, -1, 4))
     return top_boxes, top_scores, top_scores > neg_inf
+
+
+def fast_rcnn_inference(boxes_per_class: torch.Tensor, scores: torch.Tensor,
+                        prop_valid: torch.Tensor, im_hw: torch.Tensor,
+                        score_thresh: float, nms_thresh: float, topk: int):
+    """detectron2 fast_rcnn_inference_single_image, fixed-shape and batched
+    (the JAX package's `fast_rcnn_inference_single` over images).
+
+    boxes_per_class [B, N, C, 4], scores [B, N, C] (softmax without the
+    background column), prop_valid [B, N], im_hw [B, 2] float. Boxes are
+    clipped to the image; candidates above `score_thresh` from valid
+    proposals with finite boxes are cut to the best n_cand = min(max(4 topk,
+    256), N C) before the class-aware NMS (a candidate outside them enters
+    the top `topk` only if NMS kills nearly all better ones), then the
+    `topk` best kept ones are taken. Every top-k is `stable_topk`: under
+    seeded weights the class scores nearly tie, and equal scores keep index
+    order as in the JAX package. Returns boxes [B, K, 4], scores [B, K] (0
+    where invalid), classes [B, K], valid [B, K], proposal index [B, K].
+    """
+    b, n, c = scores.shape
+    h, w = im_hw[:, 0, None], im_hw[:, 1, None]
+    boxes = boxes_per_class.reshape(b, n * c, 4)
+    zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
+    boxes = torch.stack([
+        torch.minimum(torch.maximum(boxes[..., 0], zero), w),
+        torch.minimum(torch.maximum(boxes[..., 1], zero), h),
+        torch.minimum(torch.maximum(boxes[..., 2], zero), w),
+        torch.minimum(torch.maximum(boxes[..., 3], zero), h),
+    ], dim=-1)
+    flat_scores = scores.reshape(b, n * c)
+    classes = torch.arange(c, dtype=torch.int32,
+                           device=scores.device).repeat(n).expand(b, -1)
+    prop_idx = torch.arange(n, dtype=torch.int32, device=scores.device) \
+        .repeat_interleave(c).expand(b, -1)
+    valid = ((flat_scores > score_thresh)
+             & prop_valid.repeat_interleave(c, dim=1)
+             & torch.isfinite(boxes).all(-1))
+    n_cand = min(max(4 * topk, 256), n * c)
+    neg = torch.finfo(flat_scores.dtype).min
+    _, cand = stable_topk(torch.where(valid, flat_scores,
+                                      torch.full_like(flat_scores, neg)),
+                          n_cand)
+    boxes = torch.gather(boxes, 1, cand[..., None].expand(b, n_cand, 4))
+    flat_scores = torch.gather(flat_scores, 1, cand)
+    classes = torch.gather(classes, 1, cand)
+    prop_idx = torch.gather(prop_idx, 1, cand)
+    valid = torch.gather(valid, 1, cand)
+    keep = batched_nms_mask(boxes, flat_scores, classes, nms_thresh, valid)
+    top, idx = stable_topk(torch.where(keep, flat_scores,
+                                       torch.full_like(flat_scores, neg)),
+                           topk)
+    det_valid = top > score_thresh
+    return (torch.gather(boxes, 1, idx[..., None].expand(b, topk, 4)),
+            torch.where(det_valid, top, torch.zeros_like(top)),
+            torch.gather(classes, 1, idx), det_valid,
+            torch.gather(prop_idx, 1, idx))
 
 
 def label_anchors(anchors: torch.Tensor, gt: GroundTruth,
@@ -459,8 +517,9 @@ def cube_losses(cfg, dec: dict, gt_boxes3d: torch.Tensor,
 
 
 class RCNN3D(nn.Module):
-    """OVMono3D-LIFT model: oracle-2D inference and the training losses. `priors` (optional) holds tensors dims
-    [C, 2, 3], z_scales [C, B], z_stats [C, B, 2] for the prior decodes."""
+    """OVMono3D-LIFT model: oracle- and learned-2D inference and the
+    training losses. `priors` (optional) holds tensors dims [C, 2, 3],
+    z_scales [C, B], z_stats [C, B, 2] for the prior decodes."""
 
     def __init__(self, cfg: ModelConfig, priors: dict | None = None,
                  device=None):
@@ -556,27 +615,73 @@ class RCNN3D(nn.Module):
     def forward(self, image, K, im_hw, im_scale_ratio, depth=None,
                 oracle_boxes=None, oracle_classes=None, oracle_scores=None,
                 oracle_valid=None) -> Detections:
-        """Batched inference on oracle 2D boxes."""
-        if oracle_boxes is None:
-            raise NotImplementedError(
-                "learned 2D detection (_detect_2d): ROADMAP slice 2")
+        """Batched inference: on the oracle 2D boxes when they are given
+        (the RPN and the box head are skipped), else on the model's own 2D
+        detections (`_detect_2d`, max_detections slots an image)."""
+        oracle = (oracle_boxes, oracle_classes, oracle_scores, oracle_valid)
+        if any(x is None for x in oracle) and any(x is not None
+                                                  for x in oracle):
+            raise ValueError(
+                "oracle_boxes, oracle_classes, oracle_scores and oracle_valid "
+                "go together: all four (oracle 2D boxes) or none (the "
+                "model's own 2D detections)")
         feats = self.features(image, depth)
-        classes = oracle_classes.to(torch.int32)
-        dec, _ = self._run_cube(feats, oracle_boxes, classes, K, im_hw,
+        if oracle_boxes is not None:
+            det_boxes, det_classes = oracle_boxes, oracle_classes.to(
+                torch.int32)
+            det_scores, det_valid = oracle_scores, oracle_valid
+        else:
+            det_boxes, det_scores, det_classes, det_valid = self._detect_2d(
+                feats, im_hw)
+        dec, _ = self._run_cube(feats, det_boxes, det_classes, K, im_hw,
                                 im_scale_ratio)
-        fused = torch.sqrt((oracle_scores * dec["conf"]).clamp(min=0.0))
+        fused = torch.sqrt((det_scores * dec["conf"]).clamp(min=0.0))
         ratio = im_scale_ratio[:, None, None]
         return Detections(
-            boxes=oracle_boxes * ratio,
-            scores=torch.where(oracle_valid, fused, torch.zeros_like(fused)),
-            classes=classes,
-            valid=oracle_valid,
+            boxes=det_boxes * ratio,
+            scores=torch.where(det_valid, fused, torch.zeros_like(fused)),
+            classes=det_classes,
+            valid=det_valid,
             center_cam=dec["center_cam"],
             center_2d=torch.stack([dec["x"], dec["y"]], -1) * ratio,
             dimensions=dec["dims"],
             pose=dec["pose"],
             corners3d=dec["corners"],
         )
+
+    def _detect_2d(self, feats: dict, im_hw: torch.Tensor):
+        """Learned 2D detection (the JAX package's `_detect_2d`): test-time
+        RPN proposals, the box head on them, per-class boxes, then
+        `fast_rcnn_inference`. Returns boxes [B, K, 4], scores, classes and
+        valid [B, K], K = max_detections."""
+        rpn_cfg, box_cfg = self.cfg.rpn, self.cfg.roi_box
+        logits, deltas, anchors, level_sizes = self._rpn_forward(feats)
+        hw = im_hw.float()
+        prop_boxes, _, prop_valid = rpn_proposals(
+            logits, deltas, anchors, level_sizes, hw,
+            rpn_cfg.pre_nms_topk_test, rpn_cfg.post_nms_topk_test,
+            rpn_cfg.nms_thresh, rpn_cfg.min_box_size)
+        b, p = prop_boxes.shape[:2]
+        pooled = self._pool_flat(feats, prop_boxes, box_cfg.pooler_resolution,
+                                 box_cfg.pooler_sampling_ratio)
+        scores_logits, box_deltas = self.box_head(pooled)
+        c = self.cfg.num_classes
+        probs = torch.softmax(scores_logits, dim=-1)[:, :-1]
+        flat_boxes = prop_boxes.reshape(b * p, 4)
+        if box_cfg.cls_agnostic_bbox_reg:
+            per_class = box_ops.apply_deltas(
+                box_deltas, flat_boxes, box_cfg.bbox_reg_weights
+            )[:, None, :].expand(b * p, c, 4)
+        else:
+            per_class = box_ops.apply_deltas(
+                box_deltas.reshape(b * p, c, 4),
+                flat_boxes[:, None, :].expand(b * p, c, 4),
+                box_cfg.bbox_reg_weights)
+        det = fast_rcnn_inference(
+            per_class.reshape(b, p, c, 4), probs.reshape(b, p, c), prop_valid,
+            hw, box_cfg.score_thresh_test, box_cfg.nms_thresh_test,
+            self.cfg.max_detections)
+        return det[:4]
 
     # -- training -----------------------------------------------------------
 

@@ -78,15 +78,16 @@ def batched_nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
                      classes: torch.Tensor, iou_threshold: float,
                      valid: torch.Tensor | None = None) -> torch.Tensor:
     """Class-aware NMS by the coordinate-offset trick (detectron2
-    batched_nms): boxes [N, 4] of different classes [N] never suppress each
-    other. The offset span is taken over finite, valid boxes only, so one
+    batched_nms): boxes [..., N, 4] of different classes [..., N] never
+    suppress each other; leading dims are independent sets (images). The
+    offset span is taken over each set's finite, valid boxes only, so one
     non-finite slot cannot poison every shifted box."""
     ok = torch.isfinite(boxes).all(dim=-1)
     if valid is not None:
         ok = ok & valid
-    safe = torch.where(ok[:, None], boxes, torch.zeros_like(boxes))
-    span = safe.max() - safe.min() + 1.0
-    shifted = safe + (classes.to(boxes.dtype) * span)[:, None]
+    safe = torch.where(ok[..., None], boxes, torch.zeros_like(boxes))
+    span = safe.amax((-2, -1)) - safe.amin((-2, -1)) + 1.0
+    shifted = safe + (classes.to(boxes.dtype) * span[..., None])[..., None]
     return nms_mask_parallel(shifted, scores, iou_threshold, ok)
 
 

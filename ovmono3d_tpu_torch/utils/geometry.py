@@ -32,6 +32,26 @@ CORNER_SIGNS = (
 )
 
 
+# 12 triangles over the 8 corners (math_util.py:195-213), and the 6 quad
+# faces in winding order with outward normals (ops/iou3d.py's planes):
+# copies of the JAX package's CUBOID_FACES and CUBOID_QUAD_FACES.
+CUBOID_FACES = (
+    (0, 1, 2), (2, 3, 0),  # front
+    (1, 5, 6), (6, 2, 1),  # right
+    (4, 0, 3), (3, 7, 4),  # left
+    (5, 4, 7), (7, 6, 5),  # back
+    (4, 5, 1), (1, 0, 4),  # top
+    (3, 2, 6), (6, 7, 3),  # bottom
+)
+CUBOID_QUAD_FACES = (
+    (0, 1, 2, 3),  # front  (z = -W/2)
+    (4, 7, 6, 5),  # back   (z = +W/2)
+    (0, 4, 5, 1),  # top    (y = -H/2)
+    (3, 2, 6, 7),  # bottom (y = +H/2)
+    (0, 3, 7, 4),  # left   (x = -L/2)
+    (1, 5, 6, 2),  # right  (x = +L/2)
+)
+
 def cuboid_corners(box3d: torch.Tensor,
                    R: torch.Tensor | None = None) -> torch.Tensor:
     """[..., 6] boxes ([X, Y, Z, W, H, L]) and optional [..., 3, 3]

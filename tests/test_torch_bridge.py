@@ -234,6 +234,7 @@ CONFIG_PAIRS = [
     (tcfg.SolverConfig, jcfg.SolverConfig),
     (tcfg.TestConfig, jcfg.TestConfig),
     (tcfg.InputConfig, jcfg.InputConfig),
+    (tcfg.DatasetConfig, jcfg.DatasetConfig),
 ]
 
 
@@ -276,13 +277,15 @@ def test_port_sources_import_no_jax():
     files = sorted(port.rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert {"train", "parallel", "ops", "models", "utils", "geo",
-            "gdino"} <= {f.parent.name for f in files}
+            "gdino", "data", "evaluation", "vis", "eval", "probes"} <= {
+        f.parent.name for f in files}
     for f in files:
         assert not _JAX_IMPORT.search(f.read_text()), f
     cuda = sorted(port.glob("csrc/*.cu")) + sorted(port.glob("csrc/*.cuh"))
     assert {f.name for f in cuda} >= {
         "flash_attn_fwd.cu", "flash_attn_bwd.cu", "relpos_flash_fwd.cu",
-        "window_attn_fwd.cu", "int8_gemm.cu", "flash_common.cuh"}
+        "window_attn_fwd.cu", "int8_gemm.cu", "flash_common.cuh",
+        "layernorm_fwd.cu", "attn_sweep_fwd.cu"}
     for f in cuda:
         assert not _CUDA_JAX_INCLUDE.search(f.read_text()), f
 
@@ -291,7 +294,7 @@ def test_port_runs_with_jax_unimportable():
     code = """
 import dataclasses, importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "optax", "ovmono3d_tpu", "cv2",
-             "torchvision"):
+             "torchvision", "yaml", "PIL"):
     sys.modules[name] = None           # any import of them now fails
 import torch
 import ovmono3d_tpu_torch
@@ -315,6 +318,17 @@ for quant in ("none", "int8"):
     assert all(bool(torch.isfinite(v.float()).all()) for _, v in det.items())
 from ovmono3d_tpu_torch.geo.cli import synthetic_check
 assert synthetic_check("cpu")[0]
+# The evaluation path without PyYAML, PIL or cv2: a config built in code.
+from ovmono3d_tpu_torch.config import Config
+from ovmono3d_tpu_torch.data.synthetic import synthetic_datasets
+from ovmono3d_tpu_torch.eval.cli import evaluate_dataset
+from ovmono3d_tpu_torch.evaluation.helper import Omni3DEvaluationHelper
+ecfg = dataclasses.replace(Config(), model=cfg, input=dataclasses.replace(
+    Config().input, min_size_test=96, max_size_test=112))
+helper = Omni3DEvaluationHelper(5, list("abcde"), device="cpu")
+data, _ = synthetic_datasets(5, list("abcde"), num=2)
+evaluate_dataset(ecfg, model, data["synthetic_a"], None, 2, helper, "a")
+assert helper.summarize_all()["datasets"]["a"]["AP2D"] == 100.0
 assert not any(k.split(".")[0] in ("jax", "flax") and v is not None
                for k, v in sys.modules.items())
 print("ok")

@@ -173,10 +173,14 @@ def test_slice_3d_fields(slice_pair, field):
 
 
 def test_forward_without_oracle_raises():
+    """Without some of the oracle arguments: the oracle path needs all four
+    (without any, the model detects its own 2D boxes,
+    tests/test_torch_detect2d.py)."""
     port = build_model(port_config(tiny_config().model), device="meta")
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(ValueError, match="go together"):
         port(torch.zeros(1, S, S, 3), torch.eye(3)[None],
-             torch.full((1, 2), S), torch.ones(1))
+             torch.full((1, 2), S), torch.ones(1),
+             oracle_boxes=torch.zeros(1, 2, 4))
 
 
 def test_build_model_seeded():
