@@ -36,14 +36,25 @@ Phases, one line each (more for the build's resource report and the
 profiles' tables):
   device  the card, its power limit, TF32 as PyTorch starts (the entry
           points that place a model on the card turn it off)
-  build   nvcc builds (or loads) of the kernel libraries, in parallel
+  build   nvcc builds (or loads) of the kernel libraries, in parallel;
+          the bf16 D = 64 forward's two instances (flash_fwd_sm90_kernel):
+          registers and spill stores from the -Xptxas -v log (no spills)
+          and their HGMMA and UTMALDG instructions in cuobjdump's SASS
+          (both above 0)
   kernel  kernel 1 vs attention_ref, kernel 3 vs attention_lse_ref and
           kernel 4 vs attention_bwd_ref at the trunk, Depth-Pro's B=1 and
-          35-crop shapes and a small ragged shape (max / mean abs error,
-          absolute and relative to the output); then at the trunk shape each kernel's time, its plain
-          version's, F.scaled_dot_product_attention's forward or backward
-          on the same views (a yardstick the port never calls) and the
-          card's bound for the work; kernel 7 vs rel_pos_attention_ref at
+          35-crop shapes, a small ragged shape, the 128-row tile's edges
+          (N = 64, 128, 129) and N = 8192 (max / mean abs error, absolute
+          and relative to the output); kernels 1 and 3 at the probe's four
+          shapes (probes/flash_fwd.py: the trunk, an eval batch of 8,
+          Depth-Pro's patches, N = 8192): the wgmma design, the earlier
+          mma.sync design and SDPA in turns, each by CUDA events and by the
+          profiler's device time, the wgmma design's device time below the
+          mma.sync design's at the trunk and at B=8; then at the trunk
+          shape each kernel's time, its plain version's,
+          F.scaled_dot_product_attention's forward or backward on the same
+          views (a yardstick the port never calls) and the card's bound for
+          the work; kernel 7 vs rel_pos_attention_ref at
           SAM-H global and windowed, SAM-B global and a small ragged grid
           (rel-pos tables ~N(0, 0.1^2)), then at SAM-H's global and
           windowed shapes its time, the plain version's, SDPA's with the
@@ -68,7 +79,8 @@ profiles' tables):
           32] (bf16, f32), kernels 5 and 6 vs the plain versions at the B=8
           train shape (the plain ones per image) and at [2, 150, 3, 32];
           each one's time, the plain version's, SDPA's and the bound (f32
-          on the FP32 pipes' 67 TFLOP/s)
+          on the FP32 pipes' 67 TFLOP/s); for kernels 2 and 5 at the trunk
+          also the device times of both designs and of SDPA
   slice   3 warm-up + 10 timed requests (B=1, 64 oracle boxes, as bench.py
           builds them): launches per forward, finite [1, 64, ...]
           detections, img/s, p50, peak memory; then the same model with
@@ -188,7 +200,10 @@ profiles' tables):
           fields within 2e-2; GT as the prediction gives AP2D = AP3D = 100
           on the card; pairwise_iou3d on the card within EVAL_IOU_ATOL of
           the CPU
-Then a JSON line of the kernels, the card's name and power limit, and last
+Then a JSON line of the kernels (kernels 1, 2, 3 and 5 at the trunk shape
+also with previous_ms, device_ms, previous_device_ms and library_device_ms:
+the mma.sync design's event time and the device times of both designs and
+of SDPA), the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failure raises before that line and the
 exit code is not 0.
 """
@@ -202,6 +217,7 @@ import math
 import os
 import re
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -243,6 +259,7 @@ from ovmono3d_tpu_torch.ops import iou3d  # noqa: E402
 from ovmono3d_tpu_torch.ops import layernorm  # noqa: E402
 from ovmono3d_tpu_torch.ops import quant  # noqa: E402
 from ovmono3d_tpu_torch.probes import attn_sweep as sweep_probe  # noqa: E402
+from ovmono3d_tpu_torch.probes import flash_fwd as fwd_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import card as card_name  # noqa: E402
 from ovmono3d_tpu_torch.probes import (  # noqa: E402
     bf16_ulp_diff, device_ms, time_ms)
@@ -256,12 +273,24 @@ from ovmono3d_tpu_torch.train.optim import Optimizer  # noqa: E402
 from ovmono3d_tpu_torch.utils import cuda_build  # noqa: E402
 from ovmono3d_tpu_torch.utils import geometry as geom  # noqa: E402
 
+# The bf16 D = 64 forward's kernel (kernels 1, 2, 3, 5) and the SASS
+# instructions that show its design: wgmma and TMA loads.
+FWD_DESIGN, SASS_OPS = "flash_fwd_sm90_kernel", ("HGMMA", "UTMALDG")
+# The JSON entries of kernels 1, 2, 3 and 5 carry, besides every kernel's
+# keys, the mma.sync design's event time and the device times of both
+# designs and of SDPA (fwd_probe.rows, design_times).
+DESIGN_KEYS = ("previous_ms", "device_ms", "previous_device_ms",
+               "library_device_ms")
+FWD_KEYS = ("ms", "library_ms", "bound_ms", "bound_by") + DESIGN_KEYS
 # Kernels 1, 3 and 4: (B, N, H, D). The LIFT trunk; Depth-Pro's image and
 # FOV encoders (B=1) and its patch encoder (the 35 pyramid crops in one
-# batch); a small ragged case.
+# batch); a small ragged case; the 128-row tile's edges: one partial tile,
+# one full tile, one row past a tile; a long sequence.
 KERNEL_SHAPES = {"trunk": (1, 4097, 12, 64), "depth_pro": (1, 577, 16, 64),
                  "depth_pro_patches": (35, 577, 16, 64),
-                 "ragged": (2, 77, 12, 64)}
+                 "ragged": (2, 77, 12, 64), "n64": (2, 64, 12, 64),
+                 "n128": (2, 128, 12, 64), "n129": (2, 129, 12, 64),
+                 "n8192": (1, 8192, 12, 64)}
 # Kernel 7: (B, grid, H, D). SAM ViT-H global and windowed blocks at 1024^2
 # (a 64x64 grid; 14x14 windows of the grid padded to 70, 25 per image), SAM
 # ViT-B's global blocks, a small ragged grid.
@@ -406,11 +435,68 @@ def device_phase() -> str:
     return card
 
 
+def sass_counts(lib: Path, ops=SASS_OPS) -> dict:
+    """{kernel function (mangled): {op: instructions}} in `lib`'s SASS, from
+    the cuobjdump beside nvcc."""
+    tool = Path(cuda_build.find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m[1]
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            for op in ops:
+                counts[fn][op] += len(re.findall(rf"\b{op}\b", line))
+    return counts
+
+
+def check_fwd_design(lib: Path) -> None:
+    """The bf16 D = 64 forward's instances (flash_fwd_sm90_kernel<false>
+    and <true>): their registers, spill stores and stack frame from the
+    -Xptxas -v log, and their HGMMA (wgmma) and UTMALDG (TMA load)
+    instructions from the SASS. Both counts must be above 0, and no
+    instance may spill or keep an array in local memory."""
+    log = lib.with_name(lib.name + ".log").read_text().splitlines()
+    found = 0
+    for i, line in enumerate(log):
+        if "Compiling entry" in line and FWD_DESIGN in line:
+            following = []
+            for x in log[i + 1:i + 6]:
+                if "Compiling entry" in x:
+                    break
+                following.append(x.strip())
+            report = " ".join(following)
+            spills = re.search(r"(\d+) bytes spill stores", report)
+            stack = re.search(r"(\d+) bytes stack frame", report)
+            regs = re.search(r"Used (\d+) registers", report)
+            say("build", f"{FWD_DESIGN}: {regs[1] if regs else '?'} "
+                         f"registers, {spills[1] if spills else '?'} bytes "
+                         f"spill stores, {stack[1] if stack else '?'} bytes "
+                         f"stack frame")
+            check(spills is not None and spills[1] == "0",
+                  f"{FWD_DESIGN} spills no registers")
+            check(stack is not None and stack[1] == "0",
+                  f"{FWD_DESIGN} keeps no array in local memory")
+            found += 1
+    check(found == 2, f"the -Xptxas -v log reports both {FWD_DESIGN} "
+                      f"instances (found {found})")
+    counts = {fn: c for fn, c in sass_counts(lib).items() if FWD_DESIGN in fn}
+    check(len(counts) == 2, f"the SASS holds both {FWD_DESIGN} instances")
+    for fn, c in counts.items():
+        say("build", f"{fn}: " + ", ".join(f"{c[op]} {op}" for op in SASS_OPS))
+        check(all(c[op] > 0 for op in SASS_OPS),
+              f"{fn} runs on wgmma (HGMMA) and TMA (UTMALDG)")
+
+
 def build_phase() -> None:
     t0 = time.perf_counter()
     sources = (attention.KERNEL_SOURCES + quant.KERNEL_SOURCES
                + layernorm.KERNEL_SOURCES + attn_sweep.KERNEL_SOURCES)
-    libs = list(cuda_build.build(sources).values())   # one nvcc each, at once
+    built = cuda_build.build(sources)                  # one nvcc each, at once
+    libs = list(built.values())
     for mod in (attention, quant, layernorm, attn_sweep):
         mod.build_kernels()
     say("build", f"{', '.join(lib.name for lib in libs)} ready in "
@@ -428,7 +514,7 @@ def build_phase() -> None:
                          f"spill stores {spills or 'none'} bytes")
         elif log.is_file():
             for line in log.read_text().splitlines():
-                m = re.search(r"((flash|relpos|window|int8|sweep)_[a-z_]+"
+                m = re.search(r"((flash|relpos|window|int8|sweep)_[a-z0-9_]+"
                               r"_kernel)"
                               r"(IL([bi])(\d+)E)?", line)
                 if "Compiling entry" in line and m:
@@ -439,6 +525,7 @@ def build_phase() -> None:
                                  f"{m[1]}{flag}")
                 elif "registers" in line or "spill" in line:
                     say("build", "  " + line.strip())
+    check_fwd_design(built["flash_attn_fwd.cu"])
 
 
 def qkv_views(b, n, h, d, seed, dtype=torch.bfloat16):
@@ -555,22 +642,30 @@ def kernel_phase() -> dict:
                 worst["bwd"] = max(worst["bwd"], check_close(
                     f"k4 {name} {gname}", g, w))
             del grad, want, want_o, want_lse
+    # Kernels 1 and 3 at fwd_probe.SHAPES: the wgmma design, the mma.sync
+    # design and SDPA in turns, by events and by device time.
+    fwd_rows = fwd_probe.rows()
+    for name, by_kind in fwd_rows.items():
+        for kind, r in by_kind.items():
+            say("kernel", fwd_probe.describe(name, kind, r))
+        check(by_kind["fwd"]["max_abs_err"] <= MAX_ERR,
+              f"k1/k3 {name}: out within {MAX_ERR} of the plain version")
+    for name in ("trunk", "eval_b8"):
+        r = fwd_rows[name]["fwd"]
+        check(r["device_ms"] < r["previous_device_ms"],
+              f"k1 {name}: the wgmma design's device time below the "
+              f"mma.sync design's")
     b, n, h, d = KERNEL_SHAPES["trunk"]
     q, k, v = qkv_views(b, n, h, d, seed=0)
     do = qkv_views(b, n, h, d, seed=100)[0]
-    out = {}
+    out = {kind: {key: val for key, val in fwd_rows["trunk"][kind].items()
+                  if key in FWD_KEYS} for kind in ("fwd", "lse")}
     with torch.no_grad():
         o, lse = attention.flash_attention_packed_lse(q, k, v)
-        qs, ks, vs = sdpa_views(q, k, v)
-        out["fwd"] = {
-            "ms": time_ms(lambda: attention.flash_attention_packed(q, k, v)),
-            "plain_ms": time_ms(lambda: attention.attention_ref(q, k, v)),
-            "library_ms": time_ms(
-                lambda: F.scaled_dot_product_attention(qs, ks, vs))}
-        out["lse"] = {
-            "ms": time_ms(lambda: attention.flash_attention_packed_lse(q, k, v)),
-            "plain_ms": time_ms(lambda: attention.attention_lse_ref(q, k, v)),
-            "library_ms": out["fwd"]["library_ms"]}
+        out["fwd"]["plain_ms"] = time_ms(
+            lambda: attention.attention_ref(q, k, v))
+        out["lse"]["plain_ms"] = time_ms(
+            lambda: attention.attention_lse_ref(q, k, v))
         bwd_ms = time_ms(
             lambda: attention.flash_attention_packed_bwd(q, k, v, o, lse, do))
         bwd_plain = time_ms(
@@ -587,6 +682,21 @@ def kernel_phase() -> dict:
                       f"{out[kind]['library_ms']:.4f} ms, bound "
                       f"{out[kind]['bound_ms']:.4f} ms "
                       f"({out[kind]['bound_by']})")
+    return out
+
+
+def design_times(label: str, fwd, previous, library) -> dict:
+    """The bf16 D = 64 forward's call beside the mma.sync design's on the
+    same views (fwd_probe.mma_fwd / mma_fwd_lse) and the library call:
+    events ms of the earlier design, and the profiler's device ms of all
+    three (the library's: every device op of its call), printed."""
+    out = {"previous_ms": time_ms(previous),
+           "device_ms": device_ms(fwd, fwd_probe.NEW_KERNEL),
+           "previous_device_ms": device_ms(previous, fwd_probe.OLD_KERNEL),
+           "library_device_ms": device_ms(library, "")}
+    say("kernel", f"{label}: device {out['device_ms']:.4f} ms, mma.sync "
+                  f"{out['previous_ms']:.4f} / {out['previous_device_ms']:.4f}"
+                  f" ms, SDPA device {out['library_device_ms']:.4f} ms")
     return out
 
 
@@ -643,6 +753,11 @@ def headmajor_kernel_phase() -> dict:
                 lambda: F.scaled_dot_product_attention(*sdpa_views(q, k, v)),
                 bound_ms(*shape, "fwd", dtype), plain_reps=5)
             if name == "trunk":
+                timed.update(design_times(
+                    label, lambda: attention.flash_attention(q, k, v),
+                    lambda: fwd_probe.mma_fwd(q, k, v),
+                    lambda: F.scaled_dot_product_attention(
+                        *sdpa_views(q, k, v))))
                 out["k2"] = timed
             del got, want
         for i, (name, shape) in enumerate(K56_SHAPES.items()):
@@ -678,6 +793,12 @@ def headmajor_kernel_phase() -> dict:
                 sdpa_bwd_ms(q, k, v, do), bound_ms(*shape, "bwd"),
                 plain_reps=5)
             if name == "trunk":
+                k5.update(design_times(
+                    f"k5 {name}",
+                    lambda: attention.flash_attention_fwd_lse(q, k, v),
+                    lambda: fwd_probe.mma_fwd_lse(q, k, v),
+                    lambda: F.scaled_dot_product_attention(
+                        *sdpa_views(q, k, v))))
                 out["k5"], out["k6"] = k5, k6
     for kind, err in worst.items():
         out[kind]["max_abs_err"] = err
@@ -2939,9 +3060,10 @@ def main() -> None:
             "library_ms")
     kernels = []
     for kind, (name, source, replaces) in meta.items():
+        design = DESIGN_KEYS if kind in ("fwd", "lse", "k2", "k5") else ()
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[kind],
-                        **{key: k[kind][key] for key in keys}})
+                        **{key: k[kind][key] for key in keys + design}})
     probe_lines = {"v2": ("kF32Stats", 53), "v3": ("kRecipMean", 84),
                    "v4": ("kBf16Squares", 124)}
     for variant, (inst, line) in probe_lines.items():

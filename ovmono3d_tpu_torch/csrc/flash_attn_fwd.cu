@@ -28,17 +28,49 @@
 // are not carried over.
 //
 // What bounds it on this card: the QK^T and PV products, 4*N^2*D flops per
-// (batch, head) -- 51.6 GFLOP per ViT-B/14 trunk layer at N = 4097, H = 12 --
-// against O(N*D) bytes of q/k/v/out traffic. The N x N logits never leave
-// the SM. bf16 runs on the tensor cores (989 TFLOP/s); f32 on the FP32 pipes
-// (67 TFLOP/s), since single-pass TF32 products would keep 10 mantissa bits.
+// (batch, head) -- 51.6 GFLOP per ViT-B/14 trunk layer at N = 4097, H = 12,
+// 0.052 ms at the bf16 tensor-core peak (989 TFLOP/s) -- against O(N*D)
+// bytes of q/k/v/out traffic. The N x N logits never leave the SM. At
+// D = 64 the softmax is as costly as the products: a 64 x 128 logit tile
+// takes 1 MFLOP of QK^T and 1 of PV, about 512 tensor-core cycles of an SM,
+// and 8192 exponentials, 512 cycles of the SM's 16 exp units, besides the
+// scale, max, sum and conversion on the FP32 pipes. So the products have to
+// run asynchronously beside the softmax of another tile, and the loads
+// beside both. The f32 instance runs on the FP32 pipes (67 TFLOP/s), since
+// single-pass TF32 products would keep 10 mantissa bits.
 //
-// bf16 design: one block of 4 warps per (64-row q tile, head, batch); each
-// warp owns 16 q rows and keeps its 16 x 64 logit tile in registers, turns
-// it into bf16 probabilities in place and feeds them back into the PV
-// product without a trip through shared memory. K and V stream through
-// shared memory in 64-key tiles, double-buffered with cp.async so the next
-// tile's loads overlap this tile's math. Both products are mma.sync
+// bf16 design at D = 64 (flash_fwd_sm90_kernel, the main path's instances):
+// a persistent grid of one block of three warpgroups an SM (384 threads at
+// 168 registers and 115.8 KB of shared memory leave no room for a second),
+// each block looping over work units of (128-row q tile, head, batch).
+// Warpgroup 0 is the producer: it gives its registers to the others
+// (setmaxnreg: 40 for it, 232 for each consumer thread) and one of its
+// threads issues every TMA load. Warpgroups 1 and 2 are consumers of 64 q
+// rows each. Q is loaded once a unit and released after the unit's last
+// QK^T, so the next unit's loads overlap this one's last PV and its
+// epilogue. K and V stream through a ring of three 128-key stages, K and V
+// each with a full and an empty mbarrier, so a stage's K is refilled as
+// soon as both consumers' QK^T products have read it, before their PV. The
+// loads use one 4-D tensor map per operand over the caller's view (dims D,
+// then H, N and B by ascending stride), a 64 x 128-row box and the 128-byte
+// swizzle; rows past N arrive as zeros (TMA's out-of-bounds fill). S = Q K^T
+// is wgmma m64n128k16 with both operands in shared memory; the softmax runs
+// in registers on S's accumulator layout; P is rounded to bf16 in registers
+// in wgmma's A-fragment layout and O += P V is wgmma m64n64k16 with V read
+// as an MN-major (transposed) operand. Each consumer issues tile i's QK^T
+// with tile i - 1's PV and runs tile i's softmax while that PV is in
+// flight; the two consumers run unsynchronised, so one's softmax overlaps
+// the other's products on the SM's tensor cores. Rows are written straight
+// from the O registers, scaled by 1/l.
+//
+// bf16 design at D = 32, and the D = 64 yardstick (flash_fwd_kernel, the
+// earlier mma.sync design; flash_attn_fwd_bf16_mma launches its D = 64
+// instances for timing beside the new design and nothing else): one block
+// of 4 warps per (64-row q tile, head, batch); each warp owns 16 q rows and
+// keeps its 16 x 64 logit tile in registers, turns it into bf16
+// probabilities in place and feeds them back into the PV product without a
+// trip through shared memory. K and V stream through shared memory in
+// 64-key tiles, double-buffered with cp.async. Both products are mma.sync
 // m16n8k16 (bf16 inputs, f32 accumulators); V's fragments come from
 // ldmatrix.trans. Shared-memory rows are padded by 16 bytes so the fragment
 // loads are free of bank conflicts.
@@ -55,17 +87,25 @@
 // three blocks an SM. Speed is later work.
 //
 // Softmax: the standard online softmax with a running row max, in base 2
-// (log2(e) folded into the scale, exp2f). It is exact for any logit range;
-// the TPU kernels' clamped single pass is exact only inside its window.
+// (log2(e) folded into the scale). It is exact for any logit range; the TPU
+// kernels' clamped single pass is exact only inside its window. P is rounded
+// to bf16 against the running max before PV, as the JAX kernel casts p to
+// the input dtype; the row sum l adds the unrounded f32 values.
 //
-// Ragged edges (N = 4097 = 64*64 + 1): rows past N load as zeros (cp.async
-// zero-fill), keys past N are set to -inf before the row max, and q rows past
-// N are not written.
+// Ragged edges (N = 4097 = 32*128 + 1): rows past N load as zeros (TMA's
+// out-of-bounds fill, cp.async's zero fill in the mma.sync design), keys
+// past N are set to -inf before the row max (on the last tile only), and q
+// rows past N are not written.
 //
-// Not yet: wgmma, TMA and warp specialisation; an f32 backward (later work).
+// Not yet: TMA multicast of K/V across a cluster, a third consumer
+// warpgroup (192-row q tiles, half the L2 traffic of K and V a row), part
+// of the exponentials on the FMA pipes; a wgmma design at D = 32 and for
+// the f32 instance.
 
 #include "flash_common.cuh"
+#include "sm90_common.cuh"
 
+#include <algorithm>
 #include <cmath>
 
 namespace {
@@ -392,6 +432,565 @@ __global__ void __launch_bounds__(kF32Threads)
   }
 }
 
+// ---- the bf16 D = 64 instances: wgmma, TMA and a producer warpgroup ----
+
+namespace hopper {
+
+constexpr int kD = 64;
+constexpr int kRows = 128;                  // q rows a block
+constexpr int kKeys = 128;                  // keys a K/V stage
+constexpr int kStages = 3;
+constexpr int kConsumers = 2;               // warpgroups of 64 q rows
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kTileBytes = kKeys * kD * 2;  // one 128 x 64 bf16 box
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;          // 128 * 40 + 256 * 232 <= 65536
+static_assert(kRows == kKeys, "one TMA box shape serves Q, K and V");
+static_assert(kD * 2 == 128, "a row is one 128-byte swizzle line");
+
+// Every tile is 16 KB, so each stays 1024-byte aligned (the swizzle atom)
+// when the struct is.
+struct Smem {
+  __nv_bfloat16 q[kRows * kD];
+  __nv_bfloat16 k[kStages][kKeys * kD];
+  __nv_bfloat16 v[kStages][kKeys * kD];
+  uint64_t q_full;
+  uint64_t q_empty;
+  uint64_t k_full[kStages];
+  uint64_t k_empty[kStages];
+  uint64_t v_full[kStages];
+  uint64_t v_empty[kStages];
+};
+constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;
+
+// Which of a tensor map's dims 1..3 hold the head, token and batch
+// coordinates (dim 0 is D).
+struct MapDims {
+  int h, n, b;
+};
+
+__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
+                                         const MapDims& md, uint64_t* bar,
+                                         int head, int row, int batch) {
+  const int c1 = md.h == 1 ? head : md.n == 1 ? row : batch;
+  const int c2 = md.h == 2 ? head : md.n == 2 ? row : batch;
+  const int c3 = md.h == 3 ? head : md.n == 3 ? row : batch;
+  sm90::tma_load_4d(dst, map, bar, 0, c1, c2, c3);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The descriptors of one tile's products, each pinned in its register: QK^T
+// takes four k-steps of 16 over D (a step moves both descriptors 32 bytes
+// along the swizzled 128-byte rows); PV eight k-steps of 16 keys (V's stage
+// is MN-major, rows are keys: a step moves 16 rows = 2048 bytes).
+struct Descs {
+  uint64_t q[kD / 16], k[kD / 16], v[kKeys / 16];
+};
+
+__device__ __forceinline__ void qk_descs(Descs& d, uint64_t desc_q,
+                                         const __nv_bfloat16* k_tile) {
+  const uint64_t desc_k = sm90::desc_sw128(k_tile, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    d.q[kk] = desc_q + 2 * kk;
+    d.k[kk] = desc_k + 2 * kk;
+  }
+  sm90::fence_operands(d.q);
+  sm90::fence_operands(d.k);
+}
+
+__device__ __forceinline__ void pv_descs(Descs& d,
+                                         const __nv_bfloat16* v_tile) {
+  const uint64_t desc_v = sm90::desc_sw128(v_tile, kTileBytes, 1024);
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    d.v[kk] = desc_v + kk * (16 * 128 >> 4);
+  }
+  sm90::fence_operands(d.v);
+}
+
+// S = Q K^T, one warpgroup: 64 rows x 128 keys (S is overwritten).
+__device__ __forceinline__ void qk(float (&s)[64], const Descs& d) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    sm90::wgmma_m64n128k16_ss(s, d.q[kk], d.k[kk], kk);
+  }
+}
+
+// O += P V, one warpgroup: P 64 x 128 from registers.
+__device__ __forceinline__ void pv(float (&o)[32],
+                                   const uint32_t (&p)[kKeys / 16][4],
+                                   const Descs& d) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    sm90::wgmma_m64n64k16_rs(o, p[kk], d.v[kk], 1);
+  }
+}
+
+__device__ __forceinline__ void fence_p(uint32_t (&p)[kKeys / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    sm90::fence_operands(p[kk]);
+  }
+}
+
+// The maximum (kMax) or the sum of r[0..16) as a tree of four levels, in
+// registers: short dependency chains where a loop would chain 16 steps.
+template <bool kMax>
+__device__ __forceinline__ float tree16(float (&r)[16]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    r[j] = kMax ? fmaxf(r[j], r[j + 8]) : r[j] + r[j + 8];
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    r[j] = kMax ? fmaxf(r[j], r[j + 4]) : r[j] + r[j + 4];
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    r[j] = kMax ? fmaxf(r[j], r[j + 2]) : r[j] + r[j + 2];
+  }
+  return kMax ? fmaxf(r[0], r[1]) : r[0] + r[1];
+}
+
+// The online softmax of one logit tile in place, rows g and g + 8 of the
+// thread's warp: keys at or past `valid` to -inf, the new running max (m,
+// raw logits), alpha = exp2((m_old - m_new) * scale) for O, S replaced by
+// P = exp2(S * scale - m * scale) in f32, and the row sums l rescaled and
+// increased by this tile's f32 probabilities.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], int valid,
+                                             int t, float scale_log2,
+                                             float& m0, float& m1, float& l0,
+                                             float& l1, float& alpha0,
+                                             float& alpha1) {
+  if (valid < kKeys) {
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (8 * j + 2 * t + e >= valid) {
+          s[4 * j + e] = -INFINITY;
+          s[4 * j + 2 + e] = -INFINITY;
+        }
+      }
+    }
+  }
+  // Row maxima as trees, then over the quad.
+  static_assert(kKeys / 8 == 16, "tree16 reduces a row's 16 pairs");
+  float r0[kKeys / 8];
+  float r1[kKeys / 8];
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j) {
+    r0[j] = fmaxf(s[4 * j], s[4 * j + 1]);
+    r1[j] = fmaxf(s[4 * j + 2], s[4 * j + 3]);
+  }
+  float mx0 = fmaxf(m0, tree16<true>(r0));
+  float mx1 = fmaxf(m1, tree16<true>(r1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  // Every tile holds a key < n, so mx0/mx1 are finite here and the first
+  // tile's alpha is exp2(-inf) = 0.
+  alpha0 = ex2((m0 - mx0) * scale_log2);
+  alpha1 = ex2((m1 - mx1) * scale_log2);
+  m0 = mx0;
+  m1 = mx1;
+  const float ms0 = mx0 * scale_log2;
+  const float ms1 = mx1 * scale_log2;
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j) {
+    s[4 * j] = ex2(fmaf(s[4 * j], scale_log2, -ms0));
+    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], scale_log2, -ms0));
+    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], scale_log2, -ms1));
+    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], scale_log2, -ms1));
+    r0[j] = s[4 * j] + s[4 * j + 1];
+    r1[j] = s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = l0 * alpha0 + tree16<false>(r0);    // row sums as trees too
+  l1 = l1 * alpha1 + tree16<false>(r1);
+}
+
+// P (f32, S's accumulator layout) rounded to bf16 A fragments for PV:
+// p[kk] covers keys 16 kk .. 16 kk + 15.
+__device__ __forceinline__ void pack_p(const float (&s)[64],
+                                       uint32_t (&p)[kKeys / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int j = 2 * kk + half;
+      p[kk][2 * half] = pack_bf16(s[4 * j], s[4 * j + 1]);          // row g
+      p[kk][2 * half + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);  // g + 8
+    }
+  }
+}
+
+__device__ __forceinline__ void rescale(float (&o)[32], float alpha0,
+                                        float alpha1) {
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    o[4 * j] *= alpha0;
+    o[4 * j + 1] *= alpha0;
+    o[4 * j + 2] *= alpha1;
+    o[4 * j + 3] *= alpha1;
+  }
+}
+
+// One consumer warpgroup: 64 q rows of each of the block's work units
+// (q tile, head, batch) against every K/V stage. Tile i's QK^T and tile
+// i - 1's PV go out in one batch and tile i's softmax runs while that PV is
+// in flight; P is packed and O rescaled once the PV has landed, so no
+// register of a product in flight is written. The two consumers run
+// unsynchronised, so one's softmax runs beside the other's products. The
+// K/V ring's position `c` runs on across units; Q is released after a
+// unit's last QK^T, so the producer loads the next unit's Q and first
+// stages during this one's last PV and epilogue.
+template <bool kWriteLse>
+__device__ __forceinline__ void consume(Smem& sm,
+                                        __nv_bfloat16* __restrict__ out,
+                                        float* __restrict__ lse, int n,
+                                        int heads, int q_tiles, int units,
+                                        float scale_log2) {
+  const int ctid = threadIdx.x - 128;
+  const int cw = ctid / 128;                // rows 64 cw .. 64 cw + 63
+  const int warp = (ctid % 128) / 32;
+  const int lane = ctid % 32;
+  const int t = lane & 3;
+  const int n_tiles = (n + kKeys - 1) / kKeys;
+
+  const uint64_t desc_q = sm90::desc_sw128(sm.q + cw * 64 * kD, 16, 1024);
+  float sacc[64];
+  uint32_t p[kKeys / 16][4];
+  Descs d;
+
+  int c = 0;                                // K/V tiles consumed so far
+  int i = 0;                                // units done
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+    const int q0 = (u % q_tiles) * kRows;
+    const int head = (u / q_tiles) % heads;
+    const int batch = u / (q_tiles * heads);
+    float o[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      o[j] = 0.f;
+    }
+    float m0 = -INFINITY;                   // running max of the raw logits,
+    float m1 = -INFINITY;                   // rows g and g + 8
+    float l0 = 0.f;                         // this thread's partial row sums
+    float l1 = 0.f;
+    float alpha0, alpha1;
+
+    sm90::mbar_wait(&sm.q_full, i & 1);
+    // Tile 0: S and its softmax; its PV goes out with tile 1's QK^T.
+    const int s0 = c % kStages;
+    sm90::mbar_wait(&sm.k_full[s0], (c / kStages) & 1);
+    qk_descs(d, desc_q, sm.k[s0]);
+    sm90::fence_operands(sacc);
+    sm90::wgmma_fence();
+    qk(sacc, d);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(sacc);
+    if (lane == 0) {
+      sm90::mbar_arrive(&sm.k_empty[s0]);   // this warp is done with K
+      if (n_tiles == 1) {
+        sm90::mbar_arrive(&sm.q_empty);     // and with Q
+      }
+    }
+    softmax_tile(sacc, n, t, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+    pack_p(sacc, p);
+    for (int it = 1; it < n_tiles; ++it) {
+      const int g = c + it;
+      const int s = g % kStages;
+      const int sp = (g - 1) % kStages;
+      sm90::mbar_wait(&sm.k_full[s], (g / kStages) & 1);
+      sm90::mbar_wait(&sm.v_full[sp], ((g - 1) / kStages) & 1);
+      qk_descs(d, desc_q, sm.k[s]);
+      pv_descs(d, sm.v[sp]);
+      sm90::fence_operands(sacc);
+      sm90::fence_operands(o);
+      fence_p(p);
+      sm90::wgmma_fence();
+      qk(sacc, d);
+      sm90::wgmma_commit();
+      pv(o, p, d);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();                // QK^T landed, PV in flight
+      sm90::fence_operands(sacc);
+      if (lane == 0) {
+        sm90::mbar_arrive(&sm.k_empty[s]);
+        if (it == n_tiles - 1) {
+          sm90::mbar_arrive(&sm.q_empty);
+        }
+      }
+      softmax_tile(sacc, n - it * kKeys, t, scale_log2, m0, m1, l0, l1,
+                   alpha0, alpha1);
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(o);
+      fence_p(p);
+      if (lane == 0) {
+        sm90::mbar_arrive(&sm.v_empty[sp]);
+      }
+      rescale(o, alpha0, alpha1);
+      pack_p(sacc, p);
+    }
+    const int gl = c + n_tiles - 1;
+    const int sl = gl % kStages;
+    sm90::mbar_wait(&sm.v_full[sl], (gl / kStages) & 1);
+    pv_descs(d, sm.v[sl]);
+    sm90::fence_operands(o);
+    fence_p(p);
+    sm90::wgmma_fence();
+    pv(o, p, d);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(o);
+    if (lane == 0) {
+      sm90::mbar_arrive(&sm.v_empty[sl]);
+    }
+    c += n_tiles;
+
+    // Row sums live split over the 4 threads of each row group.
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / l0;
+    const float inv1 = 1.f / l1;
+
+    const long long row_elems = static_cast<long long>(heads) * kD;
+    __nv_bfloat16* ob =
+        out + static_cast<long long>(batch) * n * row_elems + head * kD;
+    const int r0 = q0 + cw * 64 + warp * 16 + (lane >> 2);
+    const int r1 = r0 + 8;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (r0 < n) {
+        *reinterpret_cast<uint32_t*>(ob + r0 * row_elems + col) =
+            pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      }
+      if (r1 < n) {
+        *reinterpret_cast<uint32_t*>(ob + r1 * row_elems + col) =
+            pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+      }
+    }
+
+    if constexpr (kWriteLse) {
+      // log(sum_j exp(s_j)) = ln2 * (m * scale_log2 + log2(l)).
+      float* lb = lse + (static_cast<long long>(batch) * heads + head) * n;
+      if (t == 0 && r0 < n) {
+        lb[r0] = (m0 * scale_log2 + log2f(l0)) * kLn2;
+      }
+      if (t == 0 && r1 < n) {
+        lb[r1] = (m1 * scale_log2 + log2f(l1)) * kLn2;
+      }
+    }
+  }
+}
+
+// A persistent grid: block b takes the work units b, b + gridDim.x, ...
+// (unit = q tile + q_tiles * (head + heads * batch), so the blocks in
+// flight share a few heads' K and V in L2).
+template <bool kWriteLse>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const MapDims dq, const MapDims dk,
+                          const MapDims dv, __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int batch, int n,
+                          int heads, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  const int q_tiles = (n + kRows - 1) / kRows;
+  const int units = q_tiles * heads * batch;
+  const int n_tiles = (n + kKeys - 1) / kKeys;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&sm.q_full, 1);
+    sm90::mbar_init(&sm.q_empty, kConsumers * 4);        // one per warp
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&sm.k_full[s], 1);
+      sm90::mbar_init(&sm.v_full[s], 1);
+      sm90::mbar_init(&sm.k_empty[s], kConsumers * 4);
+      sm90::mbar_init(&sm.v_empty[s], kConsumers * 4);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // The producer warpgroup: one thread keeps the stages' loads in flight.
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      sm90::prefetch_tensormap(&tm_q);
+      sm90::prefetch_tensormap(&tm_k);
+      sm90::prefetch_tensormap(&tm_v);
+      int c = 0;                            // K/V tiles loaded so far
+      int i = 0;                            // units started
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+        const int q0 = (u % q_tiles) * kRows;
+        const int head = (u / q_tiles) % heads;
+        const int b = u / (q_tiles * heads);
+        // A fresh barrier passes a wait at parity 1: the first unit's Q
+        // and the first round of stages go in at once.
+        sm90::mbar_wait(&sm.q_empty, (i & 1) ^ 1);
+        sm90::mbar_expect_tx(&sm.q_full, kRows * kD * 2);
+        load_box(sm.q, &tm_q, dq, &sm.q_full, head, q0, b);
+        for (int it = 0; it < n_tiles; ++it, ++c) {
+          const int s = c % kStages;
+          const uint32_t parity = ((c / kStages) & 1) ^ 1;
+          sm90::mbar_wait(&sm.k_empty[s], parity);
+          sm90::mbar_expect_tx(&sm.k_full[s], kTileBytes);
+          load_box(sm.k[s], &tm_k, dk, &sm.k_full[s], head, it * kKeys, b);
+          sm90::mbar_wait(&sm.v_empty[s], parity);
+          sm90::mbar_expect_tx(&sm.v_full[s], kTileBytes);
+          load_box(sm.v[s], &tm_v, dv, &sm.v_full[s], head, it * kKeys, b);
+        }
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    consume<kWriteLse>(sm, out, lse, n, heads, q_tiles, units, scale_log2);
+  }
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled through the runtime (no -lcuda), or
+// null.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of one [B, N, H, 64] bf16 view: dims (D, then H, N and B
+// in ascending stride, dims of extent 1 last), a box of 64 x 128 tokens and
+// the 128-byte swizzle. Returns the driver's error code, 0 on success.
+int encode_view(CUtensorMap* map, MapDims* md, const void* base, int batch,
+                int n, int heads, const Strides& st) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) {
+    return static_cast<int>(cudaErrorSymbolNotFound);
+  }
+  struct Dim {
+    cuuint64_t size, stride;                // stride in bytes
+    int role;                               // 0 head, 1 token, 2 batch
+  };
+  Dim dims[3] = {{static_cast<cuuint64_t>(heads),
+                  static_cast<cuuint64_t>(st.h) * 2, 0},
+                 {static_cast<cuuint64_t>(n),
+                  static_cast<cuuint64_t>(st.n) * 2, 1},
+                 {static_cast<cuuint64_t>(batch),
+                  static_cast<cuuint64_t>(st.b) * 2, 2}};
+  const auto before = [](const Dim& a, const Dim& b) {
+    if ((a.size == 1) != (b.size == 1)) {
+      return b.size == 1;
+    }
+    return a.stride < b.stride;
+  };
+  for (int i = 1; i < 3; ++i) {
+    for (int j = i; j > 0 && before(dims[j], dims[j - 1]); --j) {
+      std::swap(dims[j], dims[j - 1]);
+    }
+  }
+  cuuint64_t gdim[4] = {kD, 1, 1, 1};
+  cuuint64_t gstride[3];
+  cuuint32_t box[4] = {kD, 1, 1, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  int pos[3];
+  cuuint64_t span = kD * 2;                 // bytes the dims so far cover
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i].size == 1) {
+      dims[i].stride = span;                // any stride serves extent 1
+    }
+    gdim[i + 1] = dims[i].size;
+    gstride[i] = dims[i].stride;
+    box[i + 1] = dims[i].role == 1 ? kRows : 1;
+    pos[dims[i].role] = i + 1;
+    span = std::max(span, dims[i].stride * dims[i].size);
+  }
+  *md = MapDims{pos[0], pos[1], pos[2]};
+  return static_cast<int>(encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), gdim,
+      gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+template <bool kWriteLse>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int batch, int n, int heads, const Strides& qs, const Strides& ks,
+           const Strides& vs, float scale, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  MapDims mq, mk, mv;
+  int rc = encode_view(&tq, &mq, q, batch, n, heads, qs);
+  if (rc == 0) {
+    rc = encode_view(&tk, &mk, k, batch, n, heads, ks);
+  }
+  if (rc == 0) {
+    rc = encode_view(&tv, &mv, v, batch, n, heads, vs);
+  }
+  if (rc != 0) {
+    return rc;
+  }
+  int device = 0;
+  int sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<kWriteLse>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+  }
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  // One block an SM (its shared memory and registers allow no second),
+  // each looping over work units.
+  const long long units = static_cast<long long>((n + kRows - 1) / kRows) *
+                          heads * batch;
+  if (units > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int grid = static_cast<int>(std::min<long long>(units, sms));
+  flash_fwd_sm90_kernel<kWriteLse><<<grid, kThreads, kSmemBytes, st>>>(
+      tq, tk, tv, mq, mk, mv, static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), batch, n, heads, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace hopper
+
 bool valid_shape(int batch, int n, int heads) {
   return n > 0 && batch > 0 && heads > 0 && batch <= 65535 && heads <= 65535;
 }
@@ -440,10 +1039,12 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q, k, v: [B, N, H, D] bf16, D in {32, 64}, with the given batch/token/head
-// strides (in elements, last stride 1, 16-byte aligned rows). out:
-// contiguous [B, N, H * D] bf16. lse: contiguous [B, H, N] f32 (natural
-// log), or null for the inference launch. Launches on `stream`; returns
-// cudaGetLastError() (or cudaErrorInvalidValue for a shape it does not take).
+// strides (in elements, last stride 1, 16-byte aligned pointer and strides).
+// out: contiguous [B, N, H * D] bf16. lse: contiguous [B, H, N] f32
+// (natural log), or null for the inference launch. D = 64 runs the wgmma +
+// TMA design, D = 32 the mma.sync one. Launches on `stream`; returns
+// cudaGetLastError(), the driver's code if a tensor map cannot be encoded,
+// or cudaErrorInvalidValue for a shape it does not take.
 extern "C" int flash_attn_fwd_bf16(
     const void* q, const void* k, const void* v, void* out, void* lse,
     int batch, int n, int heads, int head_dim, long long q_sb, long long q_sn,
@@ -456,14 +1057,34 @@ extern "C" int flash_attn_fwd_bf16(
   const auto st = static_cast<cudaStream_t>(stream);
   const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh};
   if (head_dim == 64) {
-    return launch_bf16<64>(q, k, v, out, lse, batch, n, heads, qs, ks, vs,
-                           scale, st);
+    return lse == nullptr
+               ? hopper::launch<false>(q, k, v, out, nullptr, batch, n, heads,
+                                       qs, ks, vs, scale, st)
+               : hopper::launch<true>(q, k, v, out, lse, batch, n, heads, qs,
+                                      ks, vs, scale, st);
   }
   if (head_dim == 32) {
     return launch_bf16<32>(q, k, v, out, lse, batch, n, heads, qs, ks, vs,
                            scale, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The earlier mma.sync design's D = 64 instances, with flash_attn_fwd_bf16's
+// arguments and contract (head_dim must be 64): a yardstick that the kernel
+// probe times beside the design above. No route of the port launches it.
+extern "C" int flash_attn_fwd_bf16_mma(
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int batch, int n, int heads, int head_dim, long long q_sb, long long q_sn,
+    long long q_sh, long long k_sb, long long k_sn, long long k_sh,
+    long long v_sb, long long v_sn, long long v_sh, float scale,
+    void* stream) {
+  if (!valid_shape(batch, n, heads) || head_dim != 64) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh};
+  return launch_bf16<64>(q, k, v, out, lse, batch, n, heads, qs, ks, vs, scale,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The f32 instance: q, k, v [B, N, H, D] f32, D in {32, 64}, strides as
@@ -490,3 +1111,4 @@ extern "C" int flash_attn_fwd_f32(
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
+

@@ -1,10 +1,14 @@
-// Building blocks shared by the flash-attention kernels (sm_90a): tile
-// geometry, cp.async copies, mma.sync m16n8k16 bf16 products with f32
-// accumulators, ldmatrix and fragment packing. Header-only, included by
-// flash_attn_fwd.cu, flash_attn_bwd.cu, relpos_flash_fwd.cu and
-// window_attn_fwd.cu. The tile helpers are templates over the head dim D (a
-// multiple of 16), which every caller names: 32 and 64 for the ViT
-// attention, 64 and 80 for the rel-pos kernel, 32 for the window kernel.
+// Building blocks of the mma.sync kernels (sm_90a): tile geometry,
+// cp.async copies, mma.sync m16n8k16 bf16 products with f32 accumulators,
+// ldmatrix and fragment packing. Header-only, included by
+// flash_attn_bwd.cu, relpos_flash_fwd.cu, window_attn_fwd.cu,
+// attn_sweep_fwd.cu and int8_gemm.cu, and by flash_attn_fwd.cu for its
+// D = 32 bf16 instances, the D = 64 mma.sync yardstick and the f32 instance
+// (its bf16 D = 64 instances are built from sm90_common.cuh; they take
+// pack_bf16, kLog2e, kLn2 and Strides from here). The tile helpers are
+// templates over the head dim D (a multiple of 16), which every caller
+// names: 32 and 64 for the ViT attention, 64 and 80 for the rel-pos
+// kernel, 32 for the window kernel.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -188,6 +188,10 @@ def _kernels() -> dict:
     fns = {
         "fwd": (libs["flash_attn_fwd.cu"].flash_attn_fwd_bf16,
                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + strided),
+        # The earlier mma.sync design of the bf16 D = 64 forward: a yardstick
+        # for probes.flash_fwd only; no route of this module launches it.
+        "fwd_mma": (libs["flash_attn_fwd.cu"].flash_attn_fwd_bf16_mma,
+                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + strided),
         "fwd_f32": (libs["flash_attn_fwd.cu"].flash_attn_fwd_f32,
                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + strided),
         "bwd": (libs["flash_attn_bwd.cu"].flash_attn_bwd_bf16,
@@ -221,7 +225,8 @@ def _layout_error(name: str, x: torch.Tensor, shape,
                 f"to q's {tuple(shape)}")
     if x.stride(-1) != 1:
         return f"{name} needs a unit stride over D"
-    # 16-byte rows: cp.async moves 8 bf16 or 4 f32 at a time.
+    # 16-byte rows: cp.async moves 8 bf16 or 4 f32 at a time, and TMA takes
+    # 16-byte aligned addresses and strides.
     per_copy = 16 // x.element_size()
     if x.data_ptr() % 16 or any(s % per_copy for s in x.stride()[:3]):
         return (f"{name}: pointer and batch/token/head strides must be "

@@ -119,9 +119,12 @@ def test_wrapper_rejects(bad, match):
 
 # On the card: the kernel against the plain version on the main path's
 # shapes (trunk, Depth-Pro's B=1 encoders and its 35-crop patch encoder,
-# small ragged) and at the tile edges (64 rows).
+# small ragged), at the 64-row tile edges of the D = 32 design and the
+# 128-row tile edges of the D = 64 one (one partial tile, one full tile, one
+# row past a tile), and long.
 CUDA_SHAPES = [(1, 4097, 12, 64), (1, 577, 16, 64), (35, 577, 16, 64),
-               (2, 77, 12, 64), (1, 1, 2, 64), (1, 64, 2, 64), (3, 65, 4, 64)]
+               (2, 77, 12, 64), (1, 1, 2, 64), (1, 64, 2, 64), (3, 65, 4, 64),
+               (2, 128, 12, 64), (2, 129, 12, 64), (1, 8192, 12, 64)]
 
 
 def _check_kernel(q, k, v):
@@ -149,14 +152,16 @@ def test_kernel_matches_plain_on_cuda(cuda_device, shape):
 
 @pytest.mark.cuda
 def test_kernel_takes_any_strides_on_cuda(cuda_device):
-    """Separate contiguous q/k/v, and a head-major [B, H, N, D] view."""
+    """Separate contiguous q/k/v, and head-major [B, H, N, D] views (the
+    second at Depth-Pro's width, a ragged last tile: 577 = 4 * 128 + 65)."""
     g = torch.Generator().manual_seed(4)
     q, k, v = (torch.randn(2, 200, 3, 64, generator=g).to(torch.bfloat16)
                .to(cuda_device) for _ in range(3))
     _check_kernel(q, k, v)
-    q, k, v = (torch.randn(2, 3, 200, 64, generator=g).to(torch.bfloat16)
-               .to(cuda_device).transpose(1, 2) for _ in range(3))
-    _check_kernel(q, k, v)
+    for b, h, n in ((2, 3, 200), (4, 16, 577)):
+        q, k, v = (torch.randn(b, h, n, 64, generator=g).to(torch.bfloat16)
+                   .to(cuda_device).transpose(1, 2) for _ in range(3))
+        _check_kernel(q, k, v)
 
 
 @pytest.mark.cuda

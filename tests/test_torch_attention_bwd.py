@@ -144,9 +144,12 @@ def test_bwd_wrapper_rejects(bad, match):
 
 
 # On the card: kernels 3 and 4 against the plain versions on the main path's
-# shapes (trunk, Depth-Pro, small ragged) and at the tile edges (64 rows).
+# shapes (trunk, Depth-Pro, small ragged), at the 64-row tile edges and at
+# kernel 3's 128-row ones (one partial tile, one full tile, one row past a
+# tile), and long.
 CUDA_SHAPES = [(1, 4097, 12, 64), (1, 577, 16, 64), (2, 77, 12, 64),
-               (1, 1, 2, 64), (1, 64, 2, 64), (3, 65, 4, 64)]
+               (1, 1, 2, 64), (1, 64, 2, 64), (3, 65, 4, 64),
+               (2, 128, 12, 64), (2, 129, 12, 64), (1, 8192, 12, 64)]
 
 
 def _close(got, want, what):
@@ -186,14 +189,17 @@ def test_kernels_3_4_match_plain_on_cuda(cuda_device, shape):
 
 @pytest.mark.cuda
 def test_kernels_3_4_take_any_strides_on_cuda(cuda_device):
-    """Separate contiguous q/k/v/do, and head-major [B, H, N, D] views."""
+    """Separate contiguous q/k/v/do, and head-major [B, H, N, D] views (the
+    second at Depth-Pro's width, a ragged last tile: 577 = 4 * 128 + 65)."""
     g = torch.Generator().manual_seed(4)
     q, k, v, do = (torch.randn(2, 200, 3, 64, generator=g).to(torch.bfloat16)
                    .to(cuda_device) for _ in range(4))
     _check_kernels(q, k, v, do)
-    q, k, v, do = (torch.randn(2, 3, 200, 64, generator=g).to(torch.bfloat16)
-                   .to(cuda_device).transpose(1, 2) for _ in range(4))
-    _check_kernels(q, k, v, do)
+    for b, h, n in ((2, 3, 200), (4, 16, 577)):
+        q, k, v, do = (torch.randn(b, h, n, 64, generator=g)
+                       .to(torch.bfloat16).to(cuda_device).transpose(1, 2)
+                       for _ in range(4))
+        _check_kernels(q, k, v, do)
 
 
 @pytest.mark.cuda
