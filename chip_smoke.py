@@ -37,10 +37,13 @@ profiles' tables):
   device  the card, its power limit, TF32 as PyTorch starts (the entry
           points that place a model on the card turn it off)
   build   nvcc builds (or loads) of the kernel libraries, in parallel;
-          the bf16 D = 64 forward's two instances (flash_fwd_sm90_kernel):
-          registers and spill stores from the -Xptxas -v log (no spills)
-          and their HGMMA and UTMALDG instructions in cuobjdump's SASS
-          (both above 0)
+          the wgmma + TMA designs' instances (the bf16 D = 64 forward's
+          flash_fwd_sm90_kernel<false / true> and backward's
+          flash_bwd_sm90_kernel<true / false>, its dk/dv and dq kernels):
+          registers, spill stores and stack frame from the -Xptxas -v log
+          (no spills, no stack frame), ptxas's C7513 lines printed, and
+          their HGMMA and UTMALDG instructions in cuobjdump's SASS (both
+          above 0)
   kernel  kernel 1 vs attention_ref, kernel 3 vs attention_lse_ref and
           kernel 4 vs attention_bwd_ref at the trunk, Depth-Pro's B=1 and
           35-crop shapes, a small ragged shape, the 128-row tile's edges
@@ -50,7 +53,15 @@ profiles' tables):
           Depth-Pro's patches, N = 8192): the wgmma design, the earlier
           mma.sync design and SDPA in turns, each by CUDA events and by the
           profiler's device time, the wgmma design's device time below the
-          mma.sync design's at the trunk and at B=8; then at the trunk
+          mma.sync design's at the trunk and at B=8; kernel 4's stats pass
+          (delta, lse2) vs attention_bwd_stats_ref at every shape above;
+          kernel 4 at its probe's four shapes (probes/flash_bwd.py: the
+          trunk, the B=8 train step, N = 8192, a ragged one): both designs
+          held to attention_bwd_ref under the relative limits, then the
+          wgmma design, the mma.sync design and SDPA's backward in turns by
+          events and by the device time of every device op of a call, the
+          wgmma design's below the mma.sync design's at the trunk and at
+          B=8; then at the trunk
           shape each kernel's time, its plain version's,
           F.scaled_dot_product_attention's forward or backward on the same
           views (a yardstick the port never calls) and the card's bound for
@@ -79,8 +90,8 @@ profiles' tables):
           32] (bf16, f32), kernels 5 and 6 vs the plain versions at the B=8
           train shape (the plain ones per image) and at [2, 150, 3, 32];
           each one's time, the plain version's, SDPA's and the bound (f32
-          on the FP32 pipes' 67 TFLOP/s); for kernels 2 and 5 at the trunk
-          also the device times of both designs and of SDPA
+          on the FP32 pipes' 67 TFLOP/s); for kernels 2, 5 and 6 at the
+          trunk also the device times of both designs and of SDPA
   slice   3 warm-up + 10 timed requests (B=1, 64 oracle boxes, as bench.py
           builds them): launches per forward, finite [1, 64, ...]
           detections, img/s, p50, peak memory; then the same model with
@@ -259,6 +270,7 @@ from ovmono3d_tpu_torch.ops import iou3d  # noqa: E402
 from ovmono3d_tpu_torch.ops import layernorm  # noqa: E402
 from ovmono3d_tpu_torch.ops import quant  # noqa: E402
 from ovmono3d_tpu_torch.probes import attn_sweep as sweep_probe  # noqa: E402
+from ovmono3d_tpu_torch.probes import flash_bwd as bwd_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import flash_fwd as fwd_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import card as card_name  # noqa: E402
 from ovmono3d_tpu_torch.probes import (  # noqa: E402
@@ -273,12 +285,16 @@ from ovmono3d_tpu_torch.train.optim import Optimizer  # noqa: E402
 from ovmono3d_tpu_torch.utils import cuda_build  # noqa: E402
 from ovmono3d_tpu_torch.utils import geometry as geom  # noqa: E402
 
-# The bf16 D = 64 forward's kernel (kernels 1, 2, 3, 5) and the SASS
-# instructions that show its design: wgmma and TMA loads.
-FWD_DESIGN, SASS_OPS = "flash_fwd_sm90_kernel", ("HGMMA", "UTMALDG")
-# The JSON entries of kernels 1, 2, 3 and 5 carry, besides every kernel's
-# keys, the mma.sync design's event time and the device times of both
-# designs and of SDPA (fwd_probe.rows, design_times).
+# The wgmma + TMA designs: (source, kernel template, instances) of the bf16
+# D = 64 forward (kernels 1, 2, 3, 5) and backward (4, 6: the dk/dv and dq
+# instances), and the SASS instructions that show the design: wgmma and TMA
+# loads.
+DESIGNS = (("flash_attn_fwd.cu", "flash_fwd_sm90_kernel", 2),
+           ("flash_attn_bwd.cu", "flash_bwd_sm90_kernel", 2))
+SASS_OPS = ("HGMMA", "UTMALDG")
+# The JSON entries of kernels 1-6 carry, besides every kernel's keys, the
+# mma.sync design's event time and the device times of both designs and of
+# SDPA (fwd_probe.rows, bwd_probe.rows, design_times).
 DESIGN_KEYS = ("previous_ms", "device_ms", "previous_device_ms",
                "library_device_ms")
 FWD_KEYS = ("ms", "library_ms", "bound_ms", "bound_by") + DESIGN_KEYS
@@ -453,16 +469,18 @@ def sass_counts(lib: Path, ops=SASS_OPS) -> dict:
     return counts
 
 
-def check_fwd_design(lib: Path) -> None:
-    """The bf16 D = 64 forward's instances (flash_fwd_sm90_kernel<false>
-    and <true>): their registers, spill stores and stack frame from the
+def check_design(lib: Path, design: str, instances: int) -> None:
+    """The instances of a wgmma + TMA design (`design`, a kernel template's
+    name): their registers, spill stores and stack frame from the
     -Xptxas -v log, and their HGMMA (wgmma) and UTMALDG (TMA load)
     instructions from the SASS. Both counts must be above 0, and no
-    instance may spill or keep an array in local memory."""
-    log = lib.with_name(lib.name + ".log").read_text().splitlines()
+    instance may spill or keep an array in local memory. ptxas's C7513
+    warnings (wgmma serialised) are printed."""
+    text = lib.with_name(lib.name + ".log").read_text()
+    log = text.splitlines()
     found = 0
     for i, line in enumerate(log):
-        if "Compiling entry" in line and FWD_DESIGN in line:
+        if "Compiling entry" in line and design in line:
             following = []
             for x in log[i + 1:i + 6]:
                 if "Compiling entry" in x:
@@ -472,19 +490,27 @@ def check_fwd_design(lib: Path) -> None:
             spills = re.search(r"(\d+) bytes spill stores", report)
             stack = re.search(r"(\d+) bytes stack frame", report)
             regs = re.search(r"Used (\d+) registers", report)
-            say("build", f"{FWD_DESIGN}: {regs[1] if regs else '?'} "
-                         f"registers, {spills[1] if spills else '?'} bytes "
-                         f"spill stores, {stack[1] if stack else '?'} bytes "
-                         f"stack frame")
+            m = re.search(rf"{design}IL([bi])(\d+)E", line)
+            name = design + (f"<{m[2]}>" if m and m[1] == "i" else
+                             f"<{'true' if m[2] == '1' else 'false'}>" if m
+                             else "")
+            say("build", f"{name}: {regs[1] if regs else '?'} registers, "
+                         f"{spills[1] if spills else '?'} bytes spill "
+                         f"stores, {stack[1] if stack else '?'} bytes stack "
+                         f"frame")
             check(spills is not None and spills[1] == "0",
-                  f"{FWD_DESIGN} spills no registers")
+                  f"{name} spills no registers")
             check(stack is not None and stack[1] == "0",
-                  f"{FWD_DESIGN} keeps no array in local memory")
+                  f"{name} keeps no array in local memory")
             found += 1
-    check(found == 2, f"the -Xptxas -v log reports both {FWD_DESIGN} "
-                      f"instances (found {found})")
-    counts = {fn: c for fn, c in sass_counts(lib).items() if FWD_DESIGN in fn}
-    check(len(counts) == 2, f"the SASS holds both {FWD_DESIGN} instances")
+    check(found == instances, f"the -Xptxas -v log reports {instances} "
+                              f"{design} instances (found {found})")
+    for line in log:
+        if "C7513" in line:
+            say("build", f"{lib.stem.rsplit('_', 1)[0][3:]}: {line.strip()}")
+    counts = {fn: c for fn, c in sass_counts(lib).items() if design in fn}
+    check(len(counts) == instances,
+          f"the SASS holds {instances} {design} instances")
     for fn, c in counts.items():
         say("build", f"{fn}: " + ", ".join(f"{c[op]} {op}" for op in SASS_OPS))
         check(all(c[op] > 0 for op in SASS_OPS),
@@ -525,7 +551,8 @@ def build_phase() -> None:
                                  f"{m[1]}{flag}")
                 elif "registers" in line or "spill" in line:
                     say("build", "  " + line.strip())
-    check_fwd_design(built["flash_attn_fwd.cu"])
+    for source, design, instances in DESIGNS:
+        check_design(built[source], design, instances)
 
 
 def qkv_views(b, n, h, d, seed, dtype=torch.bfloat16):
@@ -641,7 +668,16 @@ def kernel_phase() -> dict:
             for g, w, gname in zip(grad.unbind(2), want, ("dq", "dk", "dv")):
                 worst["bwd"] = max(worst["bwd"], check_close(
                     f"k4 {name} {gname}", g, w))
-            del grad, want, want_o, want_lse
+            # Kernel 4's stats pass alone against its plain version: delta
+            # summed in another order, lse2 the same f32 product.
+            stats = attention._bwd_stats(o, do, lse)
+            want_stats = attention.attention_bwd_stats_ref(
+                o, do, lse, n_pad=stats.shape[-1])
+            check_close(f"k4 {name} stats delta", stats[0], want_stats[0])
+            check(torch.allclose(stats[1], want_stats[1], rtol=1e-6,
+                                 atol=0), f"k4 {name}: lse2 and its +inf "
+                                          f"padding equal the plain version")
+            del grad, want, want_o, want_lse, stats, want_stats
     # Kernels 1 and 3 at fwd_probe.SHAPES: the wgmma design, the mma.sync
     # design and SDPA in turns, by events and by device time.
     fwd_rows = fwd_probe.rows()
@@ -654,6 +690,20 @@ def kernel_phase() -> dict:
         r = fwd_rows[name]["fwd"]
         check(r["device_ms"] < r["previous_device_ms"],
               f"k1 {name}: the wgmma design's device time below the "
+              f"mma.sync design's")
+    # Kernel 4 at bwd_probe.SHAPES: the same, against attention_bwd_ref.
+    bwd_rows = bwd_probe.rows()
+    for name, r in bwd_rows.items():
+        say("kernel", bwd_probe.describe(name, r))
+        for prefix, design in (("", "wgmma"), ("previous_", "mma.sync")):
+            check(r[prefix + "max_rel"] <= MAX_REL
+                  and r[prefix + "mean_rel"] <= MEAN_REL,
+                  f"k4 {name}: the {design} design within {MAX_REL} of max "
+                  f"|ref| and {MEAN_REL} of mean |ref|")
+    for name in ("trunk", "train_b8"):
+        r = bwd_rows[name]
+        check(r["device_ms"] < r["previous_device_ms"],
+              f"k4 {name}: the wgmma design's device time below the "
               f"mma.sync design's")
     b, n, h, d = KERNEL_SHAPES["trunk"]
     q, k, v = qkv_views(b, n, h, d, seed=0)
@@ -671,7 +721,8 @@ def kernel_phase() -> dict:
         bwd_plain = time_ms(
             lambda: attention.attention_bwd_ref(q, k, v, o, lse, do), reps=5)
     out["bwd"] = {"ms": bwd_ms, "plain_ms": bwd_plain,
-                  "library_ms": sdpa_bwd_ms(q, k, v, do)}
+                  "library_ms": sdpa_bwd_ms(q, k, v, do),
+                  **{key: bwd_rows["trunk"][key] for key in DESIGN_KEYS}}
     for kind in ("fwd", "lse", "bwd"):
         out[kind]["max_abs_err"] = worst[kind]
         out[kind]["bound_ms"], out[kind]["bound_by"] = bound_ms(b, n, h, d,
@@ -685,14 +736,17 @@ def kernel_phase() -> dict:
     return out
 
 
-def design_times(label: str, fwd, previous, library) -> dict:
-    """The bf16 D = 64 forward's call beside the mma.sync design's on the
-    same views (fwd_probe.mma_fwd / mma_fwd_lse) and the library call:
-    events ms of the earlier design, and the profiler's device ms of all
-    three (the library's: every device op of its call), printed."""
+def design_times(label: str, fwd, previous, library,
+                 matches=(fwd_probe.NEW_KERNEL, fwd_probe.OLD_KERNEL)
+                 ) -> dict:
+    """A bf16 D = 64 kernel's call beside the mma.sync design's on the same
+    views (fwd_probe.mma_fwd / mma_fwd_lse, bwd_probe.mma_bwd) and the
+    library call: events ms of the earlier design, and the profiler's
+    device ms of all three (of the kernels whose names hold `matches`; the
+    library's: every device op of its call), printed."""
     out = {"previous_ms": time_ms(previous),
-           "device_ms": device_ms(fwd, fwd_probe.NEW_KERNEL),
-           "previous_device_ms": device_ms(previous, fwd_probe.OLD_KERNEL),
+           "device_ms": device_ms(fwd, matches[0]),
+           "previous_device_ms": device_ms(previous, matches[1]),
            "library_device_ms": device_ms(library, "")}
     say("kernel", f"{label}: device {out['device_ms']:.4f} ms, mma.sync "
                   f"{out['previous_ms']:.4f} / {out['previous_device_ms']:.4f}"
@@ -799,6 +853,15 @@ def headmajor_kernel_phase() -> dict:
                     lambda: fwd_probe.mma_fwd_lse(q, k, v),
                     lambda: F.scaled_dot_product_attention(
                         *sdpa_views(q, k, v))))
+                # Every device op of each call: both designs' stats pass
+                # and SDPA's own.
+                k6.update(design_times(
+                    f"k6 {name}",
+                    lambda: attention.flash_attention_bwd(q, k, v, o, lse,
+                                                          do),
+                    lambda: bwd_probe.mma_bwd(q, k, v, o, lse, do,
+                                              packed=False),
+                    bwd_probe.sdpa_bwd(q, k, v, do), matches=("", "")))
                 out["k5"], out["k6"] = k5, k6
     for kind, err in worst.items():
         out[kind]["max_abs_err"] = err
@@ -3060,7 +3123,8 @@ def main() -> None:
             "library_ms")
     kernels = []
     for kind, (name, source, replaces) in meta.items():
-        design = DESIGN_KEYS if kind in ("fwd", "lse", "k2", "k5") else ()
+        design = (DESIGN_KEYS if kind in ("fwd", "lse", "k2", "k5", "bwd",
+                                          "k6") else ())
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[kind],
                         **{key: k[kind][key] for key in keys + design}})

@@ -463,20 +463,8 @@ struct Smem {
 };
 constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;
 
-// Which of a tensor map's dims 1..3 hold the head, token and batch
-// coordinates (dim 0 is D).
-struct MapDims {
-  int h, n, b;
-};
-
-__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
-                                         const MapDims& md, uint64_t* bar,
-                                         int head, int row, int batch) {
-  const int c1 = md.h == 1 ? head : md.n == 1 ? row : batch;
-  const int c2 = md.h == 2 ? head : md.n == 2 ? row : batch;
-  const int c3 = md.h == 3 ? head : md.n == 3 ? row : batch;
-  sm90::tma_load_4d(dst, map, bar, 0, c1, c2, c3);
-}
+using sm90::load_box;
+using sm90::MapDims;
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -864,114 +852,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled through the runtime (no -lcuda), or
-// null.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The tensor map of one [B, N, H, 64] bf16 view: dims (D, then H, N and B
-// in ascending stride, dims of extent 1 last), a box of 64 x 128 tokens and
-// the 128-byte swizzle. Returns the driver's error code, 0 on success.
-int encode_view(CUtensorMap* map, MapDims* md, const void* base, int batch,
-                int n, int heads, const Strides& st) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) {
-    return static_cast<int>(cudaErrorSymbolNotFound);
-  }
-  struct Dim {
-    cuuint64_t size, stride;                // stride in bytes
-    int role;                               // 0 head, 1 token, 2 batch
-  };
-  Dim dims[3] = {{static_cast<cuuint64_t>(heads),
-                  static_cast<cuuint64_t>(st.h) * 2, 0},
-                 {static_cast<cuuint64_t>(n),
-                  static_cast<cuuint64_t>(st.n) * 2, 1},
-                 {static_cast<cuuint64_t>(batch),
-                  static_cast<cuuint64_t>(st.b) * 2, 2}};
-  const auto before = [](const Dim& a, const Dim& b) {
-    if ((a.size == 1) != (b.size == 1)) {
-      return b.size == 1;
-    }
-    return a.stride < b.stride;
-  };
-  for (int i = 1; i < 3; ++i) {
-    for (int j = i; j > 0 && before(dims[j], dims[j - 1]); --j) {
-      std::swap(dims[j], dims[j - 1]);
-    }
-  }
-  cuuint64_t gdim[4] = {kD, 1, 1, 1};
-  cuuint64_t gstride[3];
-  cuuint32_t box[4] = {kD, 1, 1, 1};
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  int pos[3];
-  cuuint64_t span = kD * 2;                 // bytes the dims so far cover
-  for (int i = 0; i < 3; ++i) {
-    if (dims[i].size == 1) {
-      dims[i].stride = span;                // any stride serves extent 1
-    }
-    gdim[i + 1] = dims[i].size;
-    gstride[i] = dims[i].stride;
-    box[i + 1] = dims[i].role == 1 ? kRows : 1;
-    pos[dims[i].role] = i + 1;
-    span = std::max(span, dims[i].stride * dims[i].size);
-  }
-  *md = MapDims{pos[0], pos[1], pos[2]};
-  return static_cast<int>(encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), gdim,
-      gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
-}
-
 template <bool kWriteLse>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            int batch, int n, int heads, const Strides& qs, const Strides& ks,
            const Strides& vs, float scale, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
   MapDims mq, mk, mv;
-  int rc = encode_view(&tq, &mq, q, batch, n, heads, qs);
+  int rc = sm90::encode_view_d64(&tq, &mq, q, batch, n, heads, qs.b, qs.n,
+                                 qs.h, kRows);
   if (rc == 0) {
-    rc = encode_view(&tk, &mk, k, batch, n, heads, ks);
+    rc = sm90::encode_view_d64(&tk, &mk, k, batch, n, heads, ks.b, ks.n,
+                               ks.h, kKeys);
   }
   if (rc == 0) {
-    rc = encode_view(&tv, &mv, v, batch, n, heads, vs);
+    rc = sm90::encode_view_d64(&tv, &mv, v, batch, n, heads, vs.b, vs.n,
+                               vs.h, kKeys);
   }
   if (rc != 0) {
     return rc;
   }
-  int device = 0;
-  int sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
+  const int sms = sm90::sm_count();
+  if (sms <= 0) {
+    return static_cast<int>(cudaErrorInvalidDevice);
   }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<kWriteLse>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_sm90_kernel<kWriteLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }

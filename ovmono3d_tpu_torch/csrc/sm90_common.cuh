@@ -1,16 +1,19 @@
 // Hopper (sm_90a) building blocks as inline PTX: mbarriers, TMA tensor
-// loads, wgmma shared-memory descriptors and warpgroup products, and
-// register reallocation between warpgroups. Header-only, included by
-// flash_attn_fwd.cu. CUtensorMap and its enums come from <cuda.h> as types
-// only: the maps are encoded through the runtime's driver entry point, so
-// nothing links against libcuda.
+// loads and 1-D bulk copies, wgmma shared-memory descriptors and warpgroup
+// products, and register reallocation between warpgroups; and on the host,
+// the tensor maps of [B, N, H, 64] bf16 views. Header-only, included by
+// flash_attn_fwd.cu and flash_attn_bwd.cu. CUtensorMap and its enums come
+// from <cuda.h> as types only: the maps are encoded through the runtime's
+// driver entry point, so nothing links against libcuda.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
+#include <utility>
 
 namespace sm90 {
 
@@ -87,6 +90,33 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Copy `bytes` (a multiple of 16) from global `src` into shared `dst`, both
+// 16-byte aligned; completes `bytes` of `bar`'s transactions.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Which of a tensor map's dims 1..3 hold the head, token and batch
+// coordinates (dim 0 is D); encode_view_d64 fills it.
+struct MapDims {
+  int h, n, b;
+};
+
+// The box of `map` at (head, token row, batch) into `dst`.
+__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
+                                         const MapDims& md, uint64_t* bar,
+                                         int head, int row, int batch) {
+  const int c1 = md.h == 1 ? head : md.n == 1 ? row : batch;
+  const int c2 = md.h == 2 ? head : md.n == 2 ? row : batch;
+  const int c3 = md.h == 3 ? head : md.n == 3 ? row : batch;
+  tma_load_4d(dst, map, bar, 0, c1, c2, c3);
 }
 
 // ---- wgmma ----
@@ -184,6 +214,34 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64 x 64, f32) = (scale_d ? d : 0) + A B^T: A 64 x 16 and B 64 x 16,
+// both bf16 K-major in shared memory (wgmma_m64n128k16_ss over 64 columns;
+// the same accumulator layout, j < 8).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d (64 x 64, f32) = (scale_d ? d : 0) + A B: A 64 x 16 bf16 from registers
 // (a[0..3]: the m16n8k16 A fragment of the warp's 16 rows: (g, 2t), (g + 8,
 // 2t), (g, 2t + 8), (g + 8, 2t + 8), pairs packed low column first) and B
@@ -215,6 +273,33 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "r"(scale_d));
 }
 
+// d (64 x 64, f32) = (scale_d ? d : 0) + A B^T: A 64 x 16 bf16 from
+// registers (wgmma_m64n64k16_rs's fragment) and B 64 x 16 bf16 K-major in
+// shared memory (as wgmma_m64n64k16_ss's B).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_kmajor(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
 // ---- warpgroup register reallocation (all 4 warps of a warpgroup) ----
 
 template <int R>
@@ -225,6 +310,104 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ---- host: tensor maps ----
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled through the runtime (no -lcuda), or
+// null.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of one [B, N, H, 64] bf16 view with batch/token/head
+// strides sb, sn, sh (elements): dims (D, then H, N and B in ascending
+// stride, dims of extent 1 last), a box of 64 x `box_rows` tokens and the
+// 128-byte swizzle (a 64-element row is one 128-byte swizzle line). Rows
+// past N read as zeros. Returns the driver's error code, 0 on success.
+inline int encode_view_d64(CUtensorMap* map, MapDims* md, const void* base,
+                           int batch, int n, int heads, long long sb,
+                           long long sn, long long sh, int box_rows) {
+  constexpr int kD = 64;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) {
+    return static_cast<int>(cudaErrorSymbolNotFound);
+  }
+  struct Dim {
+    cuuint64_t size, stride;                // stride in bytes
+    int role;                               // 0 head, 1 token, 2 batch
+  };
+  Dim dims[3] = {{static_cast<cuuint64_t>(heads),
+                  static_cast<cuuint64_t>(sh) * 2, 0},
+                 {static_cast<cuuint64_t>(n),
+                  static_cast<cuuint64_t>(sn) * 2, 1},
+                 {static_cast<cuuint64_t>(batch),
+                  static_cast<cuuint64_t>(sb) * 2, 2}};
+  const auto before = [](const Dim& a, const Dim& b) {
+    if ((a.size == 1) != (b.size == 1)) {
+      return b.size == 1;
+    }
+    return a.stride < b.stride;
+  };
+  for (int i = 1; i < 3; ++i) {
+    for (int j = i; j > 0 && before(dims[j], dims[j - 1]); --j) {
+      std::swap(dims[j], dims[j - 1]);
+    }
+  }
+  cuuint64_t gdim[4] = {kD, 1, 1, 1};
+  cuuint64_t gstride[3];
+  cuuint32_t box[4] = {kD, 1, 1, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  int pos[3];
+  cuuint64_t span = kD * 2;                 // bytes the dims so far cover
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i].size == 1) {
+      dims[i].stride = span;                // any stride serves extent 1
+    }
+    gdim[i + 1] = dims[i].size;
+    gstride[i] = dims[i].stride;
+    box[i + 1] = dims[i].role == 1 ? static_cast<cuuint32_t>(box_rows) : 1;
+    pos[dims[i].role] = i + 1;
+    span = std::max(span, dims[i].stride * dims[i].size);
+  }
+  *md = MapDims{pos[0], pos[1], pos[2]};
+  return static_cast<int>(encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), gdim,
+      gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// The SM count of the current device, or -1.
+inline int sm_count() {
+  int device = 0;
+  int sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return sms;
 }
 
 }  // namespace sm90

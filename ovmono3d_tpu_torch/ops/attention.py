@@ -7,7 +7,11 @@ Counterpart of ovmono3d_tpu/ops/attention.py for the ViT trunks:
   CPU tensors run it, with autograd through the plain math.
 - `attention_lse_ref` / `attention_bwd_ref`: the plain forward with its row
   log-sum-exp and the explicit backward formula, in f32: the plain versions
-  of kernels 3 and 5 and of kernels 4 and 6. No model path calls them.
+  of kernels 3 and 5 and of kernels 4 and 6. `attention_bwd_delta_ref` /
+  `attention_bwd_stats_ref`: delta = rowsum(do * o) and the padded
+  (delta, lse * log2 e) scratch that kernels 4 and 6 write first, the plain
+  version of their stats pass (`_bwd_stats` launches it alone, for the
+  tests). No model path calls them.
 - Kernel wrappers, each launching a hand-written CUDA kernel (sm_90a) or
   raising, and counting its launches in `<wrapper>.launches` (the f32
   instance's in `<wrapper>.launches_f32`). The JAX package has a packed
@@ -30,7 +34,9 @@ Counterpart of ovmono3d_tpu/ops/attention.py for the ViT trunks:
     dk and dv into one packed gradient; `flash_attention_bwd` (kernel 6, the
     same source, replacing `_flash_bwd_fused_kernel` and the split
     `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel`): three separate
-    gradients; bf16.
+    gradients; bf16. Each launch computes delta in the same source (a stats
+    pass before the dk/dv and dq kernels); bf16 D = 64 runs the wgmma + TMA
+    design.
   The head-major wrappers (2, 5, 6) run their plain versions on CPU tensors;
   the packed ones refuse them.
 - `FlashAttentionQKV` (kernels 3 + 4) and `HeadMajorAttention` (kernels
@@ -146,11 +152,37 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(logits - lse.float()[..., None])
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    delta = torch.einsum("bqhd,bqhd->bhq", dof, of)
+    delta = attention_bwd_delta_ref(o, do)
     ds = p * (dp - delta[..., None])
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     return dq, dk, dv
+
+
+def attention_bwd_delta_ref(o: torch.Tensor,
+                            do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(do * o) in f32, [B, N, H, D] -> [B, H, N]: the JAX
+    package's delta (computed outside its Pallas kernels)."""
+    return torch.einsum("bqhd,bqhd->bhq", do.float(), o.float())
+
+
+def attention_bwd_stats_ref(o: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor,
+                            n_pad: int | None = None) -> torch.Tensor:
+    """The plain version of kernels 4 and 6's stats pass: f32 [2, B, H,
+    n_pad] holding delta = rowsum(do * o) and lse2 = lse * log2(e), and,
+    past N, delta = 0 and lse2 = +inf (a padded query row gets p = 0).
+    n_pad defaults to N; the kernel's is the last dim of `_bwd_stats`."""
+    b, n, h, _ = o.shape
+    n_pad = n if n_pad is None else n_pad
+    if n_pad < n:
+        raise ValueError(f"n_pad {n_pad} below N = {n}")
+    out = torch.zeros((2, b, h, n_pad), dtype=torch.float32,
+                      device=o.device)
+    out[1] = math.inf
+    out[0, ..., :n] = attention_bwd_delta_ref(o, do)
+    out[1, ..., :n] = lse.float() * (1.0 / math.log(2.0))
+    return out
 
 
 def _use_packed(n: int, h: int, d: int) -> bool:
@@ -195,8 +227,17 @@ def _kernels() -> dict:
         "fwd_f32": (libs["flash_attn_fwd.cu"].flash_attn_fwd_f32,
                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + strided),
         "bwd": (libs["flash_attn_bwd.cu"].flash_attn_bwd_bf16,
-                [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]),
+        "bwd_stats": (libs["flash_attn_bwd.cu"].flash_attn_bwd_stats_bf16,
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p] * 2),
+        # The earlier mma.sync design of the bf16 D = 64 backward: a
+        # yardstick for probes.flash_bwd only; no route of this module
+        # launches it.
+        "bwd_mma": (libs["flash_attn_bwd.cu"].flash_attn_bwd_bf16_mma,
+                    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]),
         "relpos": (libs["relpos_flash_fwd.cu"].relpos_flash_fwd_bf16,
                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + strided),
         "window": (libs["window_attn_fwd.cu"].window_attn_fwd_bf16,
@@ -205,7 +246,11 @@ def _kernels() -> dict:
     for fn, argtypes in fns.values():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return {name: fn for name, (fn, _) in fns.items()}
+    scratch = libs["flash_attn_bwd.cu"].flash_attn_bwd_scratch_floats
+    scratch.argtypes = [ctypes.c_int] * 3
+    scratch.restype = ctypes.c_longlong
+    return {"bwd_scratch": scratch,
+            **{name: fn for name, (fn, _) in fns.items()}}
 
 
 def build_kernels() -> None:
@@ -387,32 +432,81 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
 flash_attention_fwd_lse.launches = 0
 
 
-def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv) -> None:
-    """One launch of csrc/flash_attn_bwd.cu (the dk/dv and the dq kernels)
-    writing dq, dk and dv through their own strides. delta = rowsum(do * o)
-    is a small torch reduction here, as in the JAX package."""
-    b, n, h, d = q.shape
+def _check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
+    b, n, h, _ = q.shape
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, n)
             or not lse.is_contiguous()):
         raise ValueError(f"lse must be a contiguous [B, H, N] = {(b, h, n)} "
                          f"f32 tensor; got {lse.dtype} {tuple(lse.shape)}")
+
+
+def _check_same_device(x: torch.Tensor, name: str, q: torch.Tensor) -> None:
+    if x.device != q.device:
+        raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+
+
+def _bwd_scratch(q: torch.Tensor) -> torch.Tensor:
+    """The f32 scratch of the stats pass, flat: [2, B, H, n_pad] (delta,
+    lse2), sized by the library itself."""
+    b, n, h, _ = q.shape
+    floats = _kernels()["bwd_scratch"](b, n, h)
+    return torch.empty(floats, dtype=torch.float32, device=q.device)
+
+
+def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv) -> None:
+    """One launch of csrc/flash_attn_bwd.cu's flash_attn_bwd_bf16 (the
+    stats pass, then the dk/dv and the dq kernels) writing dq, dk and dv
+    through their own strides."""
+    b, n, h, d = q.shape
+    _check_lse(lse, q)
     check_kernel_inputs(q, k, v, ("o", o), ("do", do))
-    if lse.device != q.device:
-        raise ValueError(f"lse is on {lse.device}, q on {q.device}")
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    strides = [s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3]]
+    _check_same_device(lse, "lse", q)
+    scratch = _bwd_scratch(q)
+    strides = [s for x in (q, k, v, o, do, dq, dk, dv) for s in x.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernels()["bwd"](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, n, h, d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, n, h, d,
             (ctypes.c_longlong * len(strides))(*strides),
             1.0 / math.sqrt(d), stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_attn_bwd_bf16 launch failed with CUDA error {rc} "
             f"(B={b}, N={n}, H={h}, D={d})")
+
+
+def _bwd_stats(o: torch.Tensor, do: torch.Tensor,
+               lse: torch.Tensor) -> torch.Tensor:
+    """The stats pass of kernels 4 and 6 alone (csrc/flash_attn_bwd.cu's
+    flash_attn_bwd_stats_bf16): [2, B, H, n_pad] f32 as
+    `attention_bwd_stats_ref` lays it out, n_pad the library's. A hook for
+    the tests; the backward wrappers run the pass inside their own launch.
+    CPU tensors run `attention_bwd_stats_ref`."""
+    if o.device.type == "cpu":
+        return attention_bwd_stats_ref(o, do, lse)
+    b, n, h, d = o.shape
+    for name, x in (("o", o), ("do", do)):
+        err = _layout_error(name, x, o.shape)
+        if err:
+            raise ValueError(err)
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head dim {d}; the kernels take {_HEAD_DIMS}")
+    _check_lse(lse, o)
+    _check_same_device(do, "do", o)
+    _check_same_device(lse, "lse", o)
+    scratch = _bwd_scratch(o)
+    strides = [s for x in (o, do) for s in x.stride()[:3]]
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        rc = _kernels()["bwd_stats"](
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+            b, n, h, d, (ctypes.c_longlong * len(strides))(*strides), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attn_bwd_stats_bf16 launch failed with "
+                           f"CUDA error {rc} (B={b}, N={n}, H={h}, D={d})")
+    return scratch.view(2, b, h, -1)
 
 
 def flash_attention_packed_bwd(q: torch.Tensor, k: torch.Tensor,

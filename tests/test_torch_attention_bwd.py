@@ -1,7 +1,9 @@
 """The port's training attention: the plain forward-with-lse and backward
 against autograd and against the JAX package's TPU kernels (Pallas interpret
-mode), the wrappers' checks on the CPU, and on the card (marker `cuda`)
-kernels 3 and 4 and the autograd Function against the plain versions.
+mode), the backward's stats pass (delta, lse2) against the JAX package's,
+the wrappers' checks on the CPU, and on the card (marker `cuda`) kernels 3,
+4 and 6, the stats pass, the mma.sync yardstick and the autograd Function
+against the plain versions.
 
 JAX is imported inside the fixture that needs it, so the `cuda` tests also
 run where JAX is not installed:
@@ -16,6 +18,7 @@ import torch
 
 from ovmono3d_tpu_torch.models.vit import Block
 from ovmono3d_tpu_torch.ops import attention as tattn
+from ovmono3d_tpu_torch.probes import flash_bwd as bwd_probe
 
 torch.set_num_threads(2)
 
@@ -92,6 +95,111 @@ def test_refs_match_tpu_kernels_interpret(jattn):
     for g, w, name in zip(got, jgrads, ("dq", "dk", "dv")):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-4, err_msg=name)
+
+
+def _spy_pallas_calls(jattn, monkeypatch):
+    """Record the arguments of every Pallas kernel the JAX package calls
+    (run its wrappers under jax.disable_jit to see concrete arrays)."""
+    seen = []
+    orig = jattn.pl.pallas_call
+
+    def spy(*args, **kwargs):
+        kernel = orig(*args, **kwargs)
+
+        def call(*operands):
+            seen.append(operands)
+            return kernel(*operands)
+        return call
+
+    monkeypatch.setattr(jattn.pl, "pallas_call", spy)
+    return seen
+
+
+@pytest.mark.parametrize("shape", [(2, 150, 3, 32), (1, 77, 2, 64)])
+def test_stats_ref_matches_jax_package(jattn, monkeypatch, shape):
+    """attention_bwd_delta_ref and attention_bwd_stats_ref against the delta
+    and the padded lse that the JAX package's flash_attention_bwd hands its
+    split Pallas pair (recorded from the pallas_call operands, interpret
+    mode) at the JAX tests' shapes. The JAX lse is log2 of its softmax
+    denominator shifted by the clamp c = 50 and padded with 1e30; the
+    port's lse2 is log2 of the unshifted one, padded with +inf."""
+    import jax
+    import jax.numpy as jnp
+
+    b, n, h, d = shape
+    q, k, v, do = _arrays(b, n, h, d, seed=6)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    jo, jlse = jattn.flash_attention_fwd_lse(jq, jk, jv, block_q=64,
+                                             interpret=True)
+    seen = _spy_pallas_calls(jattn, monkeypatch)
+    with jax.disable_jit():
+        jattn.flash_attention_bwd(jq, jk, jv, jo, jlse, jdo, block_q=64,
+                                  block_k=64, fused=False, interpret=True)
+    # (q, k, v, do, lse, delta, mask) of the dq kernel, [b*h, 1, n_q].
+    jax_lse2, jax_delta = (np.asarray(seen[0][i])[:, 0].reshape(b, h, -1)
+                           for i in (4, 5))
+    o = torch.from_numpy(np.array(jo))
+    tdo = torch.from_numpy(do)
+    lse = torch.from_numpy(jax_lse2[..., :n] * math.log(2) + 50.0)
+    delta = tattn.attention_bwd_delta_ref(o, tdo)
+    # Both f32 sums of the same products, in another order.
+    np.testing.assert_allclose(delta.numpy(), jax_delta[..., :n], rtol=1e-5,
+                               atol=1e-5)
+    n_pad = jax_lse2.shape[-1]
+    assert n_pad > n
+    stats = tattn.attention_bwd_stats_ref(o, tdo, lse, n_pad=n_pad)
+    assert stats.shape == (2, b, h, n_pad) and stats.dtype == torch.float32
+    torch.testing.assert_close(stats[0, ..., :n], delta)
+    np.testing.assert_allclose(stats[1, ..., :n].numpy(),
+                               jax_lse2[..., :n] + 50.0 / math.log(2),
+                               rtol=1e-6, atol=1e-5)
+    assert (stats[0, ..., n:] == 0).all()
+    assert torch.isposinf(stats[1, ..., n:]).all()
+    assert (jax_delta[..., n:] == 0).all() and (jax_lse2[..., n:] >= 1e30).all()
+
+
+def test_bwd_stats_runs_plain_on_cpu_and_backs_the_backward_formula():
+    """The stats hook runs attention_bwd_stats_ref on CPU tensors; its lse2
+    rebuilds attention_bwd_ref's p."""
+    q, k, v, do = (torch.from_numpy(x) for x in _arrays(1, 40, 2, 32, seed=7))
+    o, lse = tattn.attention_lse_ref(q, k, v)
+    stats = tattn._bwd_stats(o, do, lse)
+    torch.testing.assert_close(stats, tattn.attention_bwd_stats_ref(o, do,
+                                                                   lse))
+    logits2 = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(32) / math.log(2)
+    p = torch.exp2(logits2 - stats[1, ..., :40, None])
+    torch.testing.assert_close(p.sum(-1), torch.ones(1, 2, 40), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_probe_bound_is_the_backward_flops():
+    """The backward probe's bound: 10 B H N^2 D flops at 989 TFLOP/s, 0.1303
+    ms at the LIFT trunk; its shapes are the ones the issue names."""
+    bound, by = bwd_probe.bound_ms((1, 4097, 12, 64))
+    assert by == "operations" and abs(bound - 0.13026) < 1e-4
+    assert set(bwd_probe.SHAPES) == {"trunk", "train_b8", "long", "ragged"}
+    with pytest.raises(ValueError, match="CUDA"):
+        q, k, v = _packed(1, 40, 2, 64).unbind(2)
+        bwd_probe.mma_bwd(q, k, v, q, torch.zeros(1, 2, 40), q)
+
+
+@pytest.mark.parametrize("n_pad", [None, 40, 128])
+def test_stats_ref_pads_past_n(n_pad):
+    """attention_bwd_stats_ref at N = 40: n_pad defaults to N; the rows past
+    N hold delta = 0 and lse2 = +inf, those before it the unpadded stats;
+    an n_pad below N is refused."""
+    o, do = (torch.from_numpy(x) for x in _arrays(2, 40, 3, 32, seed=8)[:2])
+    lse = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (2, 3, 40)).astype(np.float32))
+    stats = tattn.attention_bwd_stats_ref(o, do, lse, n_pad=n_pad)
+    assert stats.shape == (2, 2, 3, n_pad or 40)
+    torch.testing.assert_close(stats[0, ..., :40],
+                               tattn.attention_bwd_delta_ref(o, do))
+    torch.testing.assert_close(stats[1, ..., :40], lse / math.log(2))
+    assert (stats[0, ..., 40:] == 0).all()
+    assert torch.isposinf(stats[1, ..., 40:]).all()
+    with pytest.raises(ValueError, match="n_pad"):
+        tattn.attention_bwd_stats_ref(o, do, lse, n_pad=39)
 
 
 def test_dispatcher_cpu_autograd_runs_plain_path():
@@ -200,6 +308,87 @@ def test_kernels_3_4_take_any_strides_on_cuda(cuda_device):
                        .to(torch.bfloat16).to(cuda_device).transpose(1, 2)
                        for _ in range(4))
         _check_kernels(q, k, v, do)
+
+
+# Kernel 6 (and the stats pass, and the yardstick) at the wgmma design's
+# tile edges: 64-row stages, 128-row units; N = 4097 ends on a one-row tile.
+EDGE_NS = [64, 128, 129, 77, 4097]
+
+
+def _check_grads(grads, q, k, v, o, lse, do):
+    want = tattn.attention_bwd_ref(q, k, v, o, lse, do)
+    for g, w, name in zip(grads, want, ("dq", "dk", "dv")):
+        _close(g, w, name)
+
+
+def _headmajor(b, n, h, d, device, seed, layout=(0, 1, 2, 3)):
+    """q, k, v, do as [B, N, H, D] views of storage laid out in `layout`'s
+    order of the dims (B, N, H, D): (0, 1, 2, 3) is contiguous."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (b, n, h, d)
+    store = [shape[i] for i in layout]
+    back = [layout.index(i) for i in range(4)]
+    return [torch.randn(*store, generator=g).to(torch.bfloat16).to(device)
+            .permute(*back) for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_NS)
+def test_kernel_6_matches_plain_on_contiguous_storage(cuda_device, n):
+    b = 1 if n > 1000 else 2
+    q, k, v, do = _headmajor(b, n, 12, 64, cuda_device, seed=n)
+    o, lse = tattn.flash_attention_fwd_lse(q, k, v)
+    launches = tattn.flash_attention_bwd.launches
+    grads = tattn.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_bwd.launches == launches + 1
+    assert all(g.is_contiguous() for g in grads)
+    _check_grads(grads, q, k, v, o, lse, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(2, 1, 0, 3), (1, 2, 0, 3)])
+def test_kernel_6_takes_unsorted_strides(cuda_device, layout):
+    """Head-major views whose batch stride is the smallest or whose head
+    stride is the largest: the tensor maps sort the dims by stride."""
+    q, k, v, do = _headmajor(2, 129, 4, 64, cuda_device, seed=9,
+                             layout=layout)
+    o, lse = tattn.flash_attention_fwd_lse(q, k, v)
+    _check_grads(tattn.flash_attention_bwd(q, k, v, o, lse, do),
+                 q, k, v, o, lse, do)
+    _check_grads(tattn.flash_attention_packed_bwd(q, k, v, o, lse,
+                                                  do).unbind(2),
+                 q, k, v, o, lse, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_NS)
+def test_mma_yardstick_matches_plain_on_cuda(cuda_device, n):
+    q, k, v = _packed(1, n, 12, 64, device=cuda_device, seed=n).unbind(2)
+    do = _packed(1, n, 12, 64, device=cuda_device, seed=n + 1)[:, :, 0]
+    o, lse = tattn.flash_attention_packed_lse(q, k, v)
+    launches = tattn.flash_attention_packed_bwd.launches
+    grad = bwd_probe.mma_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_packed_bwd.launches == launches
+    _check_grads(grad.unbind(2), q, k, v, o, lse, do)
+    _check_grads(bwd_probe.mma_bwd(q, k, v, o, lse, do, packed=False),
+                 q, k, v, o, lse, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_NS)
+@pytest.mark.parametrize("d", [32, 64])
+def test_bwd_stats_kernel_matches_plain_on_cuda(cuda_device, n, d):
+    q, k, v = _packed(2, n, 3, d, device=cuda_device, seed=n).unbind(2)
+    do = _packed(2, n, 3, d, device=cuda_device, seed=n + 1)[:, :, 1]
+    o, lse = tattn.flash_attention_fwd_lse(q, k, v)
+    got = tattn._bwd_stats(o, do, lse)
+    assert got.shape[:3] == (2, 2, 3) and got.shape[-1] >= n
+    want = tattn.attention_bwd_stats_ref(o, do, lse, n_pad=got.shape[-1])
+    _close(got[0], want[0], "delta")
+    # lse2: the same f32 product; +inf past N on both.
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
 
 
 @pytest.mark.cuda
