@@ -38,12 +38,14 @@ profiles' tables):
           points that place a model on the card turn it off)
   build   nvcc builds (or loads) of the kernel libraries, in parallel;
           the wgmma + TMA designs' instances (the bf16 D = 64 forward's
-          flash_fwd_sm90_kernel<false / true> and backward's
-          flash_bwd_sm90_kernel<true / false>, its dk/dv and dq kernels):
-          registers, spill stores and stack frame from the -Xptxas -v log
-          (no spills, no stack frame), ptxas's C7513 lines printed, and
-          their HGMMA and UTMALDG instructions in cuobjdump's SASS (both
-          above 0)
+          flash_fwd_sm90_kernel<false / true>, the backward's
+          flash_bwd_sm90_kernel<true / false>, its dk/dv and dq kernels,
+          and the sweep's eight sweep_fwd_sm90_kernel<block_k, consumers,
+          f32 softmax>): registers, spill stores and stack frame from the
+          -Xptxas -v log (no spills, no stack frame), ptxas's C7513 lines
+          printed, and their HGMMA and UTMALDG instructions in cuobjdump's
+          SASS (both above 0); the f32 instance's two
+          flash_fwd_f32_kernel<D>: no spills, no stack frame
   kernel  kernel 1 vs attention_ref, kernel 3 vs attention_lse_ref and
           kernel 4 vs attention_bwd_ref at the trunk, Depth-Pro's B=1 and
           35-crop shapes, a small ragged shape, the 128-row tile's edges
@@ -85,13 +87,17 @@ profiles' tables):
           (yardsticks the port never calls), the activation's quantization
           and the bound; kernel 1's f32 instance vs f32 attention_ref at
           Depth-Pro's shapes and a ragged one (within F32_MAX_REL of max
-          |ref|), kernel 2 vs attention_ref at the trunk (bf16, f32), at
-          N = 8192 past the packed gate and at the JAX tests' [2, 150, 3,
-          32] (bf16, f32), kernels 5 and 6 vs the plain versions at the B=8
-          train shape (the plain ones per image) and at [2, 150, 3, 32];
-          each one's time, the plain version's, SDPA's and the bound (f32
-          on the FP32 pipes' 67 TFLOP/s); for kernels 2, 5 and 6 at the
-          trunk also the device times of both designs and of SDPA
+          |ref|), then through probes/flash_fwd_f32.py at those shapes and
+          the f32 trunk: its time and SDPA f32's in turns, by events and by
+          the profiler's device time, and its error again; kernel 2 vs
+          attention_ref at the trunk (bf16, f32), at N = 8192 past the
+          packed gate and at the JAX tests' [2, 150, 3, 32] (bf16, f32),
+          kernels 5 and 6 vs the plain versions at the B=8 train shape
+          (the plain ones per image) and at [2, 150, 3, 32]; each one's
+          time, the plain version's, SDPA's and the bound (f32 on the FP32
+          pipes' 67 TFLOP/s); for kernels 2, 5 and 6 at the trunk also the
+          device times of both designs and of SDPA, for kernels 2 and 5 at
+          [2, 150, 3, 32] the device times of the call and of SDPA
   slice   3 warm-up + 10 timed requests (B=1, 64 oracle boxes, as bench.py
           builds them): launches per forward, finite [1, 64, ...]
           detections, img/s, p50, peak memory; then the same model with
@@ -194,10 +200,12 @@ profiles' tables):
   sweep   kernel 11: each instance vs attn_sweep_ref at its block_k on
           peaked rows at a small ragged shape (the limit of
           probes.attn_sweep.error), two controls that must fail it (the
-          bf16 softmax against the f32 plain version, the mean of v), then
-          the probe counterpart (ovmono3d_tpu_torch.probes.attn_sweep) at
-          [1, 4097, 12, 64] with the counts at 0: each instance's time,
-          error on peaked rows, SDPA and bound
+          bf16 softmax against the f32 plain version, the mean of v), the
+          instances that differ only in block_q bit-identical, then the
+          probe counterpart (ovmono3d_tpu_torch.probes.attn_sweep) at
+          [1, 4097, 12, 64] with the counts at 0: each instance's time and
+          SDPA's in turns by events and by the profiler's device time,
+          error on peaked rows, the block_q identity, the bound
   eval    the flagship (seed 0, as the slice phase) on the eval CLI's two
           generated datasets (EVAL_IMAGES records each, random 640x480
           images made on the host) at batch EVAL_BATCH through
@@ -214,7 +222,9 @@ profiles' tables):
 Then a JSON line of the kernels (kernels 1, 2, 3 and 5 at the trunk shape
 also with previous_ms, device_ms, previous_device_ms and library_device_ms:
 the mma.sync design's event time and the device times of both designs and
-of SDPA), the card's name and power limit, and last
+of SDPA; kernel 1's f32 instance and kernel 11's instances with device_ms
+and library_device_ms, the f32 instance also device_ms_by_shape), the
+card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failure raises before that line and the
 exit code is not 0.
 """
@@ -272,9 +282,10 @@ from ovmono3d_tpu_torch.ops import quant  # noqa: E402
 from ovmono3d_tpu_torch.probes import attn_sweep as sweep_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import flash_bwd as bwd_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import flash_fwd as fwd_probe  # noqa: E402
+from ovmono3d_tpu_torch.probes import flash_fwd_f32 as f32_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import card as card_name  # noqa: E402
 from ovmono3d_tpu_torch.probes import (  # noqa: E402
-    bf16_ulp_diff, device_ms, time_ms)
+    bf16_ulp_diff, device_ms, in_turns, time_ms)
 from ovmono3d_tpu_torch.probes import layernorm as ln_probe  # noqa: E402
 from ovmono3d_tpu_torch.parallel.train_step import (  # noqa: E402
     create_train_state,
@@ -285,19 +296,27 @@ from ovmono3d_tpu_torch.train.optim import Optimizer  # noqa: E402
 from ovmono3d_tpu_torch.utils import cuda_build  # noqa: E402
 from ovmono3d_tpu_torch.utils import geometry as geom  # noqa: E402
 
-# The wgmma + TMA designs: (source, kernel template, instances) of the bf16
-# D = 64 forward (kernels 1, 2, 3, 5) and backward (4, 6: the dk/dv and dq
-# instances), and the SASS instructions that show the design: wgmma and TMA
-# loads.
-DESIGNS = (("flash_attn_fwd.cu", "flash_fwd_sm90_kernel", 2),
-           ("flash_attn_bwd.cu", "flash_bwd_sm90_kernel", 2))
+# The redesigned kernels: (source, kernel template, instances, SASS
+# instructions that show the design) of the bf16 D = 64 forward (kernels 1,
+# 2, 3, 5) and backward (4, 6: the dk/dv and dq instances) and the attention
+# sweep (11, eight instances), on wgmma and TMA loads, and of kernel 1's
+# f32 instance (FFMA; D 32 and 64).
 SASS_OPS = ("HGMMA", "UTMALDG")
+DESIGNS = (("flash_attn_fwd.cu", "flash_fwd_sm90_kernel", 2, SASS_OPS),
+           ("flash_attn_bwd.cu", "flash_bwd_sm90_kernel", 2, SASS_OPS),
+           ("attn_sweep_fwd.cu", "sweep_fwd_sm90_kernel", 8, SASS_OPS),
+           ("flash_attn_fwd.cu", "flash_fwd_f32_kernel", 2, ()))
 # The JSON entries of kernels 1-6 carry, besides every kernel's keys, the
 # mma.sync design's event time and the device times of both designs and of
 # SDPA (fwd_probe.rows, bwd_probe.rows, design_times).
 DESIGN_KEYS = ("previous_ms", "device_ms", "previous_device_ms",
                "library_device_ms")
 FWD_KEYS = ("ms", "library_ms", "bound_ms", "bound_by") + DESIGN_KEYS
+# The JSON entries of kernel 1's f32 instance and of kernel 11 carry the
+# profiler's device times of the kernel and of SDPA (f32_probe.rows,
+# sweep_probe.rows); the f32 entry also each f32 shape's.
+F32_KEYS = ("device_ms", "library_device_ms", "device_ms_by_shape")
+SWEEP_KEYS = ("device_ms", "library_device_ms")
 # Kernels 1, 3 and 4: (B, N, H, D). The LIFT trunk; Depth-Pro's image and
 # FOV encoders (B=1) and its patch encoder (the 35 pyramid crops in one
 # batch); a small ragged case; the 128-row tile's edges: one partial tile,
@@ -469,13 +488,25 @@ def sass_counts(lib: Path, ops=SASS_OPS) -> dict:
     return counts
 
 
-def check_design(lib: Path, design: str, instances: int) -> None:
-    """The instances of a wgmma + TMA design (`design`, a kernel template's
+def template_args(mangled: str, design: str) -> str:
+    """The integer and bool template arguments of `design` in a mangled
+    name, as "<64, 1, true>" ("" if none)."""
+    m = re.search(rf"{design}I((?:L[bi]\d+E)+)E", mangled)
+    if not m:
+        return ""
+    args = [("true" if val == "1" else "false") if kind == "b" else val
+            for kind, val in re.findall(r"L([bi])(\d+)E", m[1])]
+    return f"<{', '.join(args)}>"
+
+
+def check_design(lib: Path, design: str, instances: int, ops=SASS_OPS
+                 ) -> None:
+    """The instances of a redesigned kernel (`design`, a kernel template's
     name): their registers, spill stores and stack frame from the
-    -Xptxas -v log, and their HGMMA (wgmma) and UTMALDG (TMA load)
-    instructions from the SASS. Both counts must be above 0, and no
-    instance may spill or keep an array in local memory. ptxas's C7513
-    warnings (wgmma serialised) are printed."""
+    -Xptxas -v log and, for `ops` (wgmma + TMA designs: HGMMA and
+    UTMALDG), their count of those instructions in the SASS. Every count
+    must be above 0, and no instance may spill or keep an array in local
+    memory. ptxas's C7513 warnings (wgmma serialised) are printed."""
     text = lib.with_name(lib.name + ".log").read_text()
     log = text.splitlines()
     found = 0
@@ -490,10 +521,7 @@ def check_design(lib: Path, design: str, instances: int) -> None:
             spills = re.search(r"(\d+) bytes spill stores", report)
             stack = re.search(r"(\d+) bytes stack frame", report)
             regs = re.search(r"Used (\d+) registers", report)
-            m = re.search(rf"{design}IL([bi])(\d+)E", line)
-            name = design + (f"<{m[2]}>" if m and m[1] == "i" else
-                             f"<{'true' if m[2] == '1' else 'false'}>" if m
-                             else "")
+            name = design + template_args(line, design)
             say("build", f"{name}: {regs[1] if regs else '?'} registers, "
                          f"{spills[1] if spills else '?'} bytes spill "
                          f"stores, {stack[1] if stack else '?'} bytes stack "
@@ -508,12 +536,16 @@ def check_design(lib: Path, design: str, instances: int) -> None:
     for line in log:
         if "C7513" in line:
             say("build", f"{lib.stem.rsplit('_', 1)[0][3:]}: {line.strip()}")
-    counts = {fn: c for fn, c in sass_counts(lib).items() if design in fn}
+    if not ops:
+        return
+    counts = {fn: c for fn, c in sass_counts(lib, ops).items()
+              if design in fn}
     check(len(counts) == instances,
           f"the SASS holds {instances} {design} instances")
     for fn, c in counts.items():
-        say("build", f"{fn}: " + ", ".join(f"{c[op]} {op}" for op in SASS_OPS))
-        check(all(c[op] > 0 for op in SASS_OPS),
+        say("build", f"{design}{template_args(fn, design)}: "
+                     + ", ".join(f"{c[op]} {op}" for op in ops))
+        check(all(c[op] > 0 for op in ops),
               f"{fn} runs on wgmma (HGMMA) and TMA (UTMALDG)")
 
 
@@ -551,8 +583,8 @@ def build_phase() -> None:
                                  f"{m[1]}{flag}")
                 elif "registers" in line or "spill" in line:
                     say("build", "  " + line.strip())
-    for source, design, instances in DESIGNS:
-        check_design(built[source], design, instances)
+    for source, design, instances, ops in DESIGNS:
+        check_design(built[source], design, instances, ops)
 
 
 def qkv_views(b, n, h, d, seed, dtype=torch.bfloat16):
@@ -768,14 +800,27 @@ def timing(name: str, fwd, plain, library, bound: tuple[float, str],
     return out
 
 
+def small_device_times(label: str, fwd, library) -> None:
+    """The profiler's device time of every device op of a call of the
+    kernel's wrapper and of the library call, in turns, printed: at the
+    JAX tests' [2, 150, 3, 32] the events time the ctypes wrapper's host
+    time, not the kernel's."""
+    t = in_turns({"kernel": (fwd, ""), "library": (library, "")})
+    say("kernel", f"{label}: device {t['kernel'][1]:.4f} ms (events "
+                  f"{t['kernel'][0]:.4f}), SDPA device {t['library'][1]:.4f} "
+                  f"ms (events {t['library'][0]:.4f})")
+
+
 def headmajor_kernel_phase() -> dict:
     """The f32 instance of kernel 1 at F32_SHAPES against f32 attention_ref,
     kernel 2 at K2_SHAPES against attention_ref, kernels 5 and 6 at
     K56_SHAPES against attention_lse_ref / attention_bwd_ref (per image at
     B=8); then each one's times at its shapes, beside the plain version's,
     SDPA's on the same views (a yardstick the port never calls) and the
-    bound. Returns the JSON entries' numbers: kernel 1 f32 timed at
-    Depth-Pro's 35-crop shape, kernels 2, 5 and 6 at the B=1 trunk."""
+    bound; the f32 instance also by the profiler's device time beside
+    SDPA's at F32_SHAPES and the f32 trunk (f32_probe.rows). Returns the
+    JSON entries' numbers: kernel 1 f32 timed at Depth-Pro's 35-crop
+    shape, kernels 2, 5 and 6 at the B=1 trunk."""
     worst = {"fwd_f32": 0.0, "k2": 0.0, "k5": 0.0, "k6": 0.0}
     out = {}
     with torch.no_grad():
@@ -793,6 +838,22 @@ def headmajor_kernel_phase() -> dict:
             lambda: attention.attention_ref(q, k, v),
             lambda: F.scaled_dot_product_attention(*sdpa_views(q, k, v)),
             bound_ms(b, n, h, d, "fwd", torch.float32))
+        # By the profiler's device time, in turns with SDPA's f32 forward,
+        # at every f32 shape and the f32 trunk (kernel 2's f32 route).
+        f32_rows = f32_probe.rows({**F32_SHAPES,
+                                   "trunk": K2_SHAPES["trunk_f32"][0]})
+        for name, r in f32_rows.items():
+            say("kernel", "k1 f32 " + f32_probe.describe(name, r))
+            check(r["max_rel"] <= F32_MAX_REL,
+                  f"k1 f32 {name}: within {F32_MAX_REL} of max |ref|")
+        out["fwd_f32"].update(
+            device_ms=f32_rows["depth_pro_patches"]["device_ms"],
+            library_device_ms=f32_rows["depth_pro_patches"][
+                "library_device_ms"],
+            device_ms_by_shape={
+                name: {key: r[key] for key in (
+                    "shape", "device_ms", "library_device_ms", "bound_ms")}
+                for name, r in f32_rows.items()})
         for i, (name, (shape, dtype)) in enumerate(K2_SHAPES.items()):
             q, k, v = qkv_views(*shape, seed=300 + i, dtype=dtype)
             got = attention.flash_attention(q, k, v)
@@ -813,6 +874,11 @@ def headmajor_kernel_phase() -> dict:
                     lambda: F.scaled_dot_product_attention(
                         *sdpa_views(q, k, v))))
                 out["k2"] = timed
+            elif name.startswith("small"):
+                small_device_times(
+                    label, lambda: attention.flash_attention(q, k, v),
+                    lambda: F.scaled_dot_product_attention(
+                        *sdpa_views(q, k, v)))
             del got, want
         for i, (name, shape) in enumerate(K56_SHAPES.items()):
             q, k, v = qkv_views(*shape, seed=400 + i)
@@ -846,6 +912,12 @@ def headmajor_kernel_phase() -> dict:
                 lambda: attention.attention_bwd_ref(q, k, v, o, lse, do),
                 sdpa_bwd_ms(q, k, v, do), bound_ms(*shape, "bwd"),
                 plain_reps=5)
+            if name == "small":
+                small_device_times(
+                    f"k5 {name} {shape}",
+                    lambda: attention.flash_attention_fwd_lse(q, k, v),
+                    lambda: F.scaled_dot_product_attention(
+                        *sdpa_views(q, k, v)))
             if name == "trunk":
                 k5.update(design_times(
                     f"k5 {name}",
@@ -2749,15 +2821,17 @@ def sweep_kernel_phase() -> dict:
     """Kernel 11: every instance against attn_sweep_ref on peaked rows at a
     small ragged shape, and two controls that must fail the same limit (the
     bf16-softmax instance against the f32-softmax plain version; the mean
-    of v, what uniform weights give); then the probe's path at
-    [1, 4097, 12, 64] with the counts at 0: each instance's time, its error
-    against the plain version at its block_k, SDPA on the same views and
-    the bound."""
+    of v, what uniform weights give), the instances that differ only in
+    block_q bit-identical; then the probe's path at [1, 4097, 12, 64] with
+    the counts at 0: each instance's time by events and by the profiler's
+    device time in turns with SDPA's, its error against the plain version
+    at its block_k (and the block_q identity again), and the bound."""
     lim = (f"at most {sweep_probe.ULP_SHARE} of the elements more than one "
            f"bf16 ulp and none more than {sweep_probe.ATOL} apart")
     q, k, v = sweep_probe.checked_inputs(SWEEP_SMALL, seed=30)
+    outs = {}
     for bq, bk, f32 in attn_sweep.INSTANCES:
-        got = attn_sweep.attn_sweep(q, k, v, bq, bk, f32)
+        got = outs[(bq, bk, f32)] = attn_sweep.attn_sweep(q, k, v, bq, bk, f32)
         torch.cuda.synchronize()
         e = sweep_probe.error(got, attn_sweep.attn_sweep_ref(q, k, v, bk, f32))
         say("sweep", f"k11 bq{bq} bk{bk} f32={f32} at {SWEEP_SMALL}: "
@@ -2777,6 +2851,11 @@ def sweep_kernel_phase() -> dict:
         say("sweep", f"control, {what}: max_abs_err {e['max_abs_err']:.3e}, "
                      f"{e['share_beyond_ulp']:.3e} of the elements > 1 ulp")
         check(not e["ok"], f"control {what} fails {lim}")
+    for (bk, f32), same in sweep_probe.block_q_identical(outs).items():
+        say("sweep", f"k11 bk{bk} f32={f32} at {SWEEP_SMALL}: block_q 64 and "
+                     f"128 bit-identical: {same}")
+        check(same, f"k11 bk{bk} f32={f32}: outputs bit-identical across "
+                    f"block_q")
     attn_sweep.attn_sweep.launches = dict.fromkeys(attn_sweep.INSTANCES, 0)
     rows = sweep_probe.rows()
     launches = dict(attn_sweep.attn_sweep.launches)
@@ -2786,17 +2865,22 @@ def sweep_kernel_phase() -> dict:
         name = (f"bq{inst[0]} bk{inst[1]} "
                 f"{'f32' if inst[2] else 'bf16'} softmax")
         say("sweep", f"k11 {name} {list(sweep_probe.SHAPE)}: {r['ms']:.4f} "
-                     f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-                     f"SDPA {r['library_ms']:.4f} ms, plain "
-                     f"{r['plain_ms']:.4f} ms, max_abs_err "
+                     f"ms events / {r['device_ms']:.4f} ms device, bound "
+                     f"{r['bound_ms']:.4f} ms ({r['bound_by']}), SDPA "
+                     f"{r['library_ms']:.4f} / {r['library_device_ms']:.4f} "
+                     f"ms, plain {r['plain_ms']:.4f} ms, max_abs_err "
                      f"{r['max_abs_err']:.3e} on peaked rows "
-                     f"({r['share_beyond_ulp']:.3e} > 1 ulp); "
+                     f"({r['share_beyond_ulp']:.3e} > 1 ulp), bit-identical "
+                     f"across block_q {r['block_q_identical']}; "
                      f"{launches[inst]} launches")
         check(r["ok"], f"k11 {name} within {lim}")
+        check(r["block_q_identical"],
+              f"k11 {name}: bit-identical across block_q on peaked rows")
         check(launches[inst] > 0, f"k11 {name} launched on the probe path")
         out[inst] = {**{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms",
-                                          "max_abs_err")},
+                                          "max_abs_err", "device_ms",
+                                          "library_device_ms")},
                      "launches": launches[inst]}
     return out
 
@@ -3124,7 +3208,8 @@ def main() -> None:
     kernels = []
     for kind, (name, source, replaces) in meta.items():
         design = (DESIGN_KEYS if kind in ("fwd", "lse", "k2", "k5", "bwd",
-                                          "k6") else ())
+                                          "k6")
+                  else F32_KEYS if kind == "fwd_f32" else ())
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[kind],
                         **{key: k[kind][key] for key in keys + design}})
@@ -3143,7 +3228,7 @@ def main() -> None:
                         "route": "cuda", "source": src + "attn_sweep_fwd.cu",
                         "replaces": "tools/profile_attn_sweep.py:15",
                         "launches": r["launches"],
-                        **{key: r[key] for key in keys}})
+                        **{key: r[key] for key in keys + SWEEP_KEYS}})
     print(json.dumps({"kernels": kernels}), flush=True)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}", flush=True)

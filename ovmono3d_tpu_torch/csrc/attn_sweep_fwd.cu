@@ -18,304 +18,586 @@
 //     out = bf16(acc / max(l, 1e-30))
 //
 // With a bf16 softmax, p's rounding depends on the running max, and so on
-// the key block: the plain version (attn_sweep_ref) runs the same recurrence
-// over the same blocks. exp is expf, not exp2f with log2(e) folded into the
-// scale, so the rounding matches exp on f32.
+// the key block: the S tile is kBlockK keys wide, and the plain version
+// (attn_sweep_ref) runs the same recurrence over the same blocks. exp(x) is
+// ex2.approx(x log2 e) at the rounding points above, within a few parts in
+// a million of exp of the same argument. The q block only tiles the rows:
+// every row runs the same instructions in the same order whatever kBlockQ
+// is, so the outputs of two instances that differ only in kBlockQ are
+// bit-identical.
 //
 // What bounds it on this card: the QK^T and PV products, 4 N^2 D flops per
 // (batch, head): 0.0521 ms at the probe's [1, 4097, 12, 64] on the bf16
 // tensor cores, against ~25 MB of q, k, v and out (0.0075 ms at 3.35 TB/s).
+// As in kernel 1, the softmax at D = 64 costs about as much as the
+// products, and the sweep's costs more: a subtraction before each
+// exponential and, with a bf16 softmax, three more roundings a logit (two
+// values a conversion).
 //
-// The TPU variants hold the whole key set in VMEM (block_k 4352-4608); at
-// D = 64 that is 1.18 MB of K and V, against 227 KB of shared memory a
-// block here. So the instances sweep the tiles the card holds, on the
-// probe's two axes: kBlockQ in {64, 128} (4 or 8 warps, each owning 16 q
-// rows), kBlockK in {64, 128} (the S tile a warp keeps in registers: 32 or
-// 64 floats a thread) and the softmax in f32 or bf16. K and V tiles stream
-// through shared memory double-buffered with cp.async (16-byte copies into
-// rows padded to D + 8, conflict-free fragment loads); both products are
-// mma.sync m16n8k16 bf16 with f32 accumulators from flash_common.cuh, V's
-// fragments from ldmatrix.trans; P goes from the S registers into the PV
-// product without a trip through shared memory. q, k and v are read as
-// strided [B, N, H, D] views (no head-major copies); out is contiguous
-// [B, N, H, D]. Rows past N load as zeros and are not stored.
-//
-// Not yet: wgmma, TMA, warp specialisation (the fast-kernel work of kernel 1
-// applies here too).
+// Design (flash_fwd_sm90_kernel's, csrc/flash_attn_fwd.cu, on the blocks of
+// sm90_common.cuh): a persistent grid whose blocks loop over work units of
+// (kBlockQ-row q tile, head, batch). Warpgroup 0 is the producer: it gives
+// its registers to the others (setmaxnreg) and one of its threads issues
+// every TMA load: Q once a unit, K and V through a ring of kBlockK-key
+// stages, each with a full and an empty mbarrier. Each further warpgroup is
+// a consumer of 64 q rows: kBlockQ = 128 is two consumers on one K/V
+// stream, one block an SM; kBlockQ = 64 is one consumer, two blocks an SM,
+// each on its own units. A consumer first rounds its rows of Q to
+// q' = bf16(q * scale) in shared memory (then a proxy fence, so wgmma reads
+// the new values), then runs S = q' K^T as wgmma m64n{kBlockK}k16 with both
+// operands in shared memory, the sweep's softmax in registers on S's
+// accumulator layout, and O += P V as wgmma m64n64k16 with P rounded to
+// bf16 A fragments in registers and V read as an MN-major operand. Tile
+// i's QK^T goes out with tile i - 1's PV and tile i's softmax runs while
+// that PV is in flight; P is packed and O rescaled once the PV has landed.
+// The loads use one 4-D tensor map per operand over the caller's view (q, k
+// and v as strided [B, N, H, 64] views); rows past N arrive as zeros (TMA's
+// out-of-bounds fill) and take the -1e30 mask. out is a contiguous
+// [B, N, H, 64], written straight from the O registers.
 
 #include "flash_common.cuh"
+#include "sm90_common.cuh"
 
+#include <algorithm>
 #include <cmath>
 
 namespace {
 
-using namespace flash;
+using flash::pack_bf16;
+using flash::Strides;
+using sm90::load_box;
+using sm90::MapDims;
 
 constexpr int kD = 64;
-constexpr int kStride = kD + 8;            // padded smem row, elements
-constexpr int kChunks = kD / 8;            // 16-byte chunks a row
 constexpr float kNegInf = -1e30f;
+constexpr int kProducerRegs = 40;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Copy rows [row0, row0 + kRows) of one head into a padded smem tile; rows
-// at or past n arrive as zeros.
-template <int kRows, int kThreadsT>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* smem,
-                                          const __nv_bfloat16* base,
-                                          long long row_stride, int row0,
-                                          int n, int tid) {
-  static_assert(kRows * kChunks % kThreadsT == 0, "tile loads must divide");
-#pragma unroll
-  for (int i = 0; i < kRows * kChunks / kThreadsT; ++i) {
-    const int idx = tid + i * kThreadsT;
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    const int row = row0 + r;
-    const bool valid = row < n;
-    const __nv_bfloat16* src =
-        base + (valid ? static_cast<long long>(row) * row_stride + c : 0);
-    cp_async_16(smem + r * kStride + c, src, valid);
-  }
+// exp(x) as ex2.approx(x log2 e): the exponentials set the sweep's pace
+// (with expf every instance took ~25% longer), and the approximation moves
+// no instance past the limit its plain version holds it to (PERF.md).
+__device__ __forceinline__ float exp_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * flash::kLog2e));
+  return y;
 }
 
-template <int kBlockQ, int kBlockK>
-struct SweepSmem {
-  static constexpr int kQ = kBlockQ * kStride;
-  static constexpr int kKV = kBlockK * kStride;
-  static constexpr int kBytes = (kQ + 4 * kKV) * 2;   // q, 2 x (k, v)
+// a, b = bf16(a), bf16(b), with one conversion for the pair.
+__device__ __forceinline__ void round_bf16_pair(float& a, float& b) {
+  const uint32_t w = pack_bf16(a, b);
+  a = __uint_as_float(w << 16);
+  b = __uint_as_float(w & 0xffff0000u);
+}
+
+// The shape of one instance: kConsumers warpgroups of 64 q rows, kBlockK
+// keys a K/V stage.
+template <int kBlockK, int kConsumers>
+struct Cfg {
+  static constexpr int kBlockQ = 64 * kConsumers;
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kBlocksPerSm = kConsumers == 1 ? 2 : 1;
+  static constexpr int kStages = kBlockK == 128 ? 3 : 4;
+  static constexpr int kTileBytes = kBlockK * kD * 2;
+  // The registers the launch gives a thread, the producer's share, and
+  // what each consumer thread takes (setmaxnreg.inc waits forever past the
+  // block's allocation).
+  static constexpr int kLaunchRegs = 65536 / (kThreads * kBlocksPerSm);
+  static constexpr int kConsumerRegs = kConsumers == 1 ? 216 : 232;
+  static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <=
+                    kThreads * (kLaunchRegs / 8 * 8),
+                "the warpgroups ask for no more than the launch allocation");
+  struct Smem {
+    __nv_bfloat16 q[kBlockQ * kD];            // every tile is a multiple of
+    __nv_bfloat16 k[kStages][kBlockK * kD];   // 8 KB: each stays 1024-byte
+    __nv_bfloat16 v[kStages][kBlockK * kD];   // aligned (the swizzle atom)
+    uint64_t q_full;
+    uint64_t q_empty;
+    uint64_t k_full[kStages];
+    uint64_t k_empty[kStages];
+    uint64_t v_full[kStages];
+    uint64_t v_empty[kStages];
+  };
+  static constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;
 };
 
-template <int kBlockQ, int kBlockK, bool kSoftmaxF32>
-__global__ void __launch_bounds__(kBlockQ * 2)
-    sweep_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, int n, int heads,
-                     Strides qs, Strides ks, Strides vs, float scale) {
-  constexpr int kThreadsT = kBlockQ * 2;   // one warp per 16 q rows
-  constexpr int kNJ = kBlockK / 8;         // S column groups a warp holds
-  using Smem = SweepSmem<kBlockQ, kBlockK>;
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  __nv_bfloat16* sq = smem;
-  __nv_bfloat16* sk[2] = {smem + Smem::kQ, smem + Smem::kQ + Smem::kKV};
-  __nv_bfloat16* sv[2] = {smem + Smem::kQ + 2 * Smem::kKV,
-                          smem + Smem::kQ + 3 * Smem::kKV};
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int head = blockIdx.y;
-  const int batch = blockIdx.z;
-
-  const __nv_bfloat16* qb = q + batch * qs.b + head * qs.h;
-  const __nv_bfloat16* kb = k + batch * ks.b + head * ks.h;
-  const __nv_bfloat16* vb = v + batch * vs.b + head * vs.h;
-  const int n_tiles = (n + kBlockK - 1) / kBlockK;
-
-  load_rows<kBlockQ, kThreadsT>(sq, qb, qs.n, q0, n, tid);
-  load_rows<kBlockK, kThreadsT>(sk[0], kb, ks.n, 0, n, tid);
-  load_rows<kBlockK, kThreadsT>(sv[0], vb, vs.n, 0, n, tid);
-  cp_async_commit();
-
-  uint32_t qf[kD / 16][4];
-  float o[kD / 8][4] = {};
-  float m[2] = {kNegInf, kNegInf};         // running row max (rows g, g+8)
-  float l[2] = {0.f, 0.f};                 // this thread's partial row sums
-  // bf16(-1e30): the mask in the softmax dtype.
-  const float mask = kSoftmaxF32 ? kNegInf : round_bf16(kNegInf);
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int cur = it & 1;
-    if (it + 1 < n_tiles) {
-      load_rows<kBlockK, kThreadsT>(sk[cur ^ 1], kb, ks.n, (it + 1) * kBlockK,
-                                    n, tid);
-      load_rows<kBlockK, kThreadsT>(sv[cur ^ 1], vb, vs.n, (it + 1) * kBlockK,
-                                    n, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    if (it == 0) {
-      // q' = bf16(f32(q) * scale), as A fragments of this warp's 16 rows.
-      const __nv_bfloat16* w = sq + warp * 16 * kStride;
+// The maximum (kMax) or the sum of r[0..2W) as a tree, in registers: each
+// level folds the upper half onto the lower one (a level a template
+// instance, so every index is a constant and r stays in registers).
+template <bool kMax, int W, int N>
+__device__ __forceinline__ float tree(float (&r)[N]) {
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        const __nv_bfloat16* p = w + kk * 16 + 2 * t;
-        const __nv_bfloat16* src[4] = {p + g * kStride, p + (g + 8) * kStride,
-                                       p + g * kStride + 8,
-                                       p + (g + 8) * kStride + 8};
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float2 f = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(src[r]));
-          qf[kk][r] = pack_bf16(f.x * scale, f.y * scale);
-        }
-      }
-    }
-
-    // S = q' K^T for this warp's 16 rows and the tile's kBlockK keys.
-    float s[kNJ][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        const __nv_bfloat16* r = sk[cur] + (j * 8 + g) * kStride + kk * 16 +
-                                 2 * t;
-        mma_bf16(s[j], qf[kk], ld_u32(r), ld_u32(r + 8));
-      }
-    }
-
-    // Round to the softmax dtype, add the mask, take the new row max.
-    const int key0 = it * kBlockK;
-    float mx0 = kNegInf;
-    float mx1 = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = kSoftmaxF32 ? s[j][e] : round_bf16(s[j][e]);
-        if (key0 + j * 8 + 2 * t + (e & 1) >= n) {
-          x = kSoftmaxF32 ? x + mask : round_bf16(x + mask);
-        }
-        s[j][e] = x;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float m_new0 = fmaxf(m[0], mx0);
-    const float m_new1 = fmaxf(m[1], mx1);
-    const float alpha0 = expf(m[0] - m_new0);
-    const float alpha1 = expf(m[1] - m_new1);
-    m[0] = m_new0;
-    m[1] = m_new1;
-    const float mb0 = kSoftmaxF32 ? m_new0 : round_bf16(m_new0);
-    const float mb1 = kSoftmaxF32 ? m_new1 : round_bf16(m_new1);
-
-    // p = exp(s - m), in the softmax dtype; its f32 row sum.
-    float rs0 = 0.f;
-    float rs1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float mb = e < 2 ? mb0 : mb1;
-        float p = kSoftmaxF32 ? expf(s[j][e] - mb)
-                              : round_bf16(expf(round_bf16(s[j][e] - mb)));
-        s[j][e] = p;
-      }
-      rs0 += s[j][0] + s[j][1];
-      rs1 += s[j][2] + s[j][3];
-    }
-    l[0] = l[0] * alpha0 + rs0;
-    l[1] = l[1] * alpha1 + rs1;
-#pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn) {
-      o[dn][0] *= alpha0;
-      o[dn][1] *= alpha0;
-      o[dn][2] *= alpha1;
-      o[dn][3] *= alpha1;
-    }
-
-    // acc += bf16(p) V: P as bf16 A fragments over the tile's kBlockK keys.
-    const int mat = lane >> 3;
-    const int mrow = lane & 7;
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < kD / 16; ++dp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, sv[cur] + (kk * 16 + (mat & 1) * 8 + mrow) *
-                                           kStride +
-                                 dp * 16 + (mat >> 1) * 8);
-        mma_bf16(o[2 * dp], pf, b[0], b[1]);
-        mma_bf16(o[2 * dp + 1], pf, b[2], b[3]);
-      }
-    }
-    __syncthreads();   // the next iteration's loads overwrite this buffer
+  for (int j = 0; j < W; ++j) {
+    r[j] = kMax ? fmaxf(r[j], r[j + W]) : r[j] + r[j + W];
   }
+  if constexpr (W > 1) {
+    return tree<kMax, W / 2>(r);
+  } else {
+    return r[0];
+  }
+}
 
-  l[0] += __shfl_xor_sync(0xffffffffu, l[0], 1);
-  l[0] += __shfl_xor_sync(0xffffffffu, l[0], 2);
-  l[1] += __shfl_xor_sync(0xffffffffu, l[1], 1);
-  l[1] += __shfl_xor_sync(0xffffffffu, l[1], 2);
-  const float den0 = fmaxf(l[0], 1e-30f);
-  const float den1 = fmaxf(l[1], 1e-30f);
-
-  const long long row_elems = static_cast<long long>(heads) * kD;
-  __nv_bfloat16* ob =
-      out + static_cast<long long>(batch) * n * row_elems + head * kD;
-  const int r0 = q0 + warp * 16 + g;
-  const int r1 = r0 + 8;
+// q' = bf16(q * scale) in place over one consumer's 64 rows of Q (8 KB; the
+// swizzle only permutes 16-byte chunks, so the elementwise pass ignores
+// it), then a proxy fence and the warpgroup's barrier, so its wgmma reads
+// q'.
+__device__ __forceinline__ void scale_q(__nv_bfloat16* rows, float scale,
+                                        int ctid, int cw) {
+  uint4* p = reinterpret_cast<uint4*>(rows);
 #pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn) {
-    const int col = dn * 8 + 2 * t;
-    if (r0 < n) {
-      *reinterpret_cast<uint32_t*>(ob + r0 * row_elems + col) =
-          pack_bf16(o[dn][0] / den0, o[dn][1] / den0);
+  for (int i = 0; i < 64 * kD / 8 / 128; ++i) {
+    uint4 x = p[ctid + 128 * i];
+    uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+      w[e] = pack_bf16(f.x * scale, f.y * scale);
     }
-    if (r1 < n) {
-      *reinterpret_cast<uint32_t*>(ob + r1 * row_elems + col) =
-          pack_bf16(o[dn][2] / den1, o[dn][3] / den1);
+    p[ctid + 128 * i] = x;
+  }
+  sm90::fence_proxy_async();
+  sm90::named_barrier(1 + cw, 128);
+}
+
+// S = q' K^T over the stage's kBlockK keys (S is overwritten).
+template <int kBlockK>
+__device__ __forceinline__ void qk(float (&s)[kBlockK / 2],
+                                   const uint64_t (&dq)[kD / 16],
+                                   const uint64_t (&dk)[kD / 16]) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    if constexpr (kBlockK == 128) {
+      sm90::wgmma_m64n128k16_ss(s, dq[kk], dk[kk], kk);
+    } else {
+      sm90::wgmma_m64n64k16_ss(s, dq[kk], dk[kk], kk);
     }
   }
 }
 
-template <int kBlockQ, int kBlockK, bool kSoftmaxF32>
+// O += P V: P 64 x kBlockK bf16 from registers, V MN-major.
+template <int kBlockK>
+__device__ __forceinline__ void pv(float (&o)[32],
+                                   const uint32_t (&p)[kBlockK / 16][4],
+                                   const uint64_t (&dv)[kBlockK / 16]) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockK / 16; ++kk) {
+    sm90::wgmma_m64n64k16_rs(o, p[kk], dv[kk], 1);
+  }
+}
+
+template <int kBlockK>
+__device__ __forceinline__ void fence_p(uint32_t (&p)[kBlockK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockK / 16; ++kk) {
+    sm90::fence_operands(p[kk]);
+  }
+}
+
+// The sweep's softmax of one logit tile in place, rows g and g + 8 of the
+// thread's warp (s[4j + e]: row g for e < 2, g + 8 otherwise; key
+// 8j + 2t + (e & 1)): round to the softmax dtype, add the mask to keys at
+// or past `valid`, the new running max m, alpha = exp(m_old - m), S
+// replaced by p (bf16-rounded values for a bf16 softmax) and the row sums
+// l rescaled and increased by p.
+template <int kBlockK, bool kF32>
+__device__ __forceinline__ void softmax_tile(float (&s)[kBlockK / 2],
+                                             int valid, int t, float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& alpha0, float& alpha1) {
+  constexpr int kJ = kBlockK / 8;
+  if constexpr (!kF32) {
+#pragma unroll
+    for (int j = 0; j < 2 * kJ; ++j) {
+      round_bf16_pair(s[2 * j], s[2 * j + 1]);
+    }
+  }
+  if (valid < kBlockK) {
+    // bf16(-1e30): the mask in the softmax dtype.
+    const float mask = kF32 ? kNegInf : round_bf16(kNegInf);
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (8 * j + 2 * t + (e & 1) >= valid) {
+          const float x = s[4 * j + e] + mask;
+          s[4 * j + e] = kF32 ? x : round_bf16(x);
+        }
+      }
+    }
+  }
+  float r0[kJ];
+  float r1[kJ];
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    r0[j] = fmaxf(s[4 * j], s[4 * j + 1]);
+    r1[j] = fmaxf(s[4 * j + 2], s[4 * j + 3]);
+  }
+  float mx0 = tree<true, kJ / 2>(r0);
+  float mx1 = tree<true, kJ / 2>(r1);
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float m_new0 = fmaxf(m0, mx0);
+  const float m_new1 = fmaxf(m1, mx1);
+  alpha0 = exp_approx(m0 - m_new0);
+  alpha1 = exp_approx(m1 - m_new1);
+  m0 = m_new0;
+  m1 = m_new1;
+  const float mb0 = kF32 ? m_new0 : round_bf16(m_new0);
+  const float mb1 = kF32 ? m_new1 : round_bf16(m_new1);
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const float mb = e < 2 ? mb0 : mb1;
+      float x0 = s[4 * j + e] - mb;
+      float x1 = s[4 * j + e + 1] - mb;
+      if constexpr (!kF32) {
+        round_bf16_pair(x0, x1);
+      }
+      x0 = exp_approx(x0);
+      x1 = exp_approx(x1);
+      if constexpr (!kF32) {
+        round_bf16_pair(x0, x1);
+      }
+      s[4 * j + e] = x0;
+      s[4 * j + e + 1] = x1;
+    }
+    r0[j] = s[4 * j] + s[4 * j + 1];
+    r1[j] = s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = l0 * alpha0 + tree<false, kJ / 2>(r0);
+  l1 = l1 * alpha1 + tree<false, kJ / 2>(r1);
+}
+
+// p (S's accumulator layout) rounded to bf16 A fragments for PV: p[kk]
+// covers keys 16 kk .. 16 kk + 15.
+template <int kBlockK>
+__device__ __forceinline__ void pack_p(const float (&s)[kBlockK / 2],
+                                       uint32_t (&p)[kBlockK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockK / 16; ++kk) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int j = 2 * kk + half;
+      p[kk][2 * half] = pack_bf16(s[4 * j], s[4 * j + 1]);          // row g
+      p[kk][2 * half + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);  // g + 8
+    }
+  }
+}
+
+__device__ __forceinline__ void rescale(float (&o)[32], float alpha0,
+                                        float alpha1) {
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    o[4 * j] *= alpha0;
+    o[4 * j + 1] *= alpha0;
+    o[4 * j + 2] *= alpha1;
+    o[4 * j + 3] *= alpha1;
+  }
+}
+
+// One consumer warpgroup: its 64 q rows of each of the block's work units
+// against every K/V stage (flash_fwd_sm90_kernel's consumer loop with the
+// sweep's rounding points). The K/V ring's position `c` runs on across
+// units; Q is released after a unit's last QK^T.
+template <int kBlockK, int kConsumers, bool kF32>
+__device__ __forceinline__ void consume(
+    typename Cfg<kBlockK, kConsumers>::Smem& sm,
+    __nv_bfloat16* __restrict__ out, int n, int heads, int q_tiles,
+    int units, float scale) {
+  using C = Cfg<kBlockK, kConsumers>;
+  constexpr int kStages = C::kStages;
+  const int ctid = threadIdx.x - 128;
+  const int cw = ctid / 128;                // rows 64 cw .. 64 cw + 63
+  const int warp = (ctid % 128) / 32;
+  const int lane = ctid % 32;
+  const int t = lane & 3;
+  const int n_tiles = (n + kBlockK - 1) / kBlockK;
+
+  const uint64_t desc_q = sm90::desc_sw128(sm.q + cw * 64 * kD, 16, 1024);
+  float sacc[kBlockK / 2];
+  uint32_t p[kBlockK / 16][4];
+  uint64_t dq[kD / 16], dk[kD / 16], dv[kBlockK / 16];
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    dq[kk] = desc_q + 2 * kk;               // 32 bytes along the 128-byte rows
+  }
+  const auto k_descs = [&](const __nv_bfloat16* tile) {
+    const uint64_t base = sm90::desc_sw128(tile, 16, 1024);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      dk[kk] = base + 2 * kk;
+    }
+    sm90::fence_operands(dq);
+    sm90::fence_operands(dk);
+  };
+  const auto v_descs = [&](const __nv_bfloat16* tile) {
+    const uint64_t base = sm90::desc_sw128(tile, C::kTileBytes, 1024);
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk) {
+      dv[kk] = base + kk * (16 * 128 >> 4);  // 16 key rows a step
+    }
+    sm90::fence_operands(dv);
+  };
+
+  int c = 0;                                // K/V tiles consumed so far
+  int i = 0;                                // units done
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+    const int q0 = (u % q_tiles) * C::kBlockQ;
+    const int head = (u / q_tiles) % heads;
+    const int batch = u / (q_tiles * heads);
+    float o[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      o[j] = 0.f;
+    }
+    float m0 = kNegInf;                     // running row max, rows g, g + 8
+    float m1 = kNegInf;
+    float l0 = 0.f;                         // this thread's partial row sums
+    float l1 = 0.f;
+    float alpha0, alpha1;
+
+    sm90::mbar_wait(&sm.q_full, i & 1);
+    scale_q(sm.q + cw * 64 * kD, scale, ctid % 128, cw);
+    // Tile 0: S and its softmax; its PV goes out with tile 1's QK^T.
+    const int s0 = c % kStages;
+    sm90::mbar_wait(&sm.k_full[s0], (c / kStages) & 1);
+    k_descs(sm.k[s0]);
+    sm90::fence_operands(sacc);
+    sm90::wgmma_fence();
+    qk<kBlockK>(sacc, dq, dk);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(sacc);
+    if (lane == 0) {
+      sm90::mbar_arrive(&sm.k_empty[s0]);   // this warp is done with K
+      if (n_tiles == 1) {
+        sm90::mbar_arrive(&sm.q_empty);     // and with Q
+      }
+    }
+    softmax_tile<kBlockK, kF32>(sacc, n, t, m0, m1, l0, l1, alpha0, alpha1);
+    pack_p<kBlockK>(sacc, p);
+    for (int it = 1; it < n_tiles; ++it) {
+      const int g = c + it;
+      const int s = g % kStages;
+      const int sp = (g - 1) % kStages;
+      sm90::mbar_wait(&sm.k_full[s], (g / kStages) & 1);
+      sm90::mbar_wait(&sm.v_full[sp], ((g - 1) / kStages) & 1);
+      k_descs(sm.k[s]);
+      v_descs(sm.v[sp]);
+      sm90::fence_operands(sacc);
+      sm90::fence_operands(o);
+      fence_p<kBlockK>(p);
+      sm90::wgmma_fence();
+      qk<kBlockK>(sacc, dq, dk);
+      sm90::wgmma_commit();
+      pv<kBlockK>(o, p, dv);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();                // QK^T landed, PV in flight
+      sm90::fence_operands(sacc);
+      if (lane == 0) {
+        sm90::mbar_arrive(&sm.k_empty[s]);
+        if (it == n_tiles - 1) {
+          sm90::mbar_arrive(&sm.q_empty);
+        }
+      }
+      softmax_tile<kBlockK, kF32>(sacc, n - it * kBlockK, t, m0, m1, l0, l1,
+                                  alpha0, alpha1);
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(o);
+      fence_p<kBlockK>(p);
+      if (lane == 0) {
+        sm90::mbar_arrive(&sm.v_empty[sp]);
+      }
+      rescale(o, alpha0, alpha1);
+      pack_p<kBlockK>(sacc, p);
+    }
+    const int gl = c + n_tiles - 1;
+    const int sl = gl % kStages;
+    sm90::mbar_wait(&sm.v_full[sl], (gl / kStages) & 1);
+    v_descs(sm.v[sl]);
+    sm90::fence_operands(o);
+    fence_p<kBlockK>(p);
+    sm90::wgmma_fence();
+    pv<kBlockK>(o, p, dv);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(o);
+    if (lane == 0) {
+      sm90::mbar_arrive(&sm.v_empty[sl]);
+    }
+    c += n_tiles;
+
+    // Row sums live split over the 4 threads of each row group.
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float den0 = fmaxf(l0, 1e-30f);
+    const float den1 = fmaxf(l1, 1e-30f);
+
+    const long long row_elems = static_cast<long long>(heads) * kD;
+    __nv_bfloat16* ob =
+        out + static_cast<long long>(batch) * n * row_elems + head * kD;
+    const int r0 = q0 + cw * 64 + warp * 16 + (lane >> 2);
+    const int r1 = r0 + 8;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (r0 < n) {
+        *reinterpret_cast<uint32_t*>(ob + r0 * row_elems + col) =
+            pack_bf16(o[4 * j] / den0, o[4 * j + 1] / den0);
+      }
+      if (r1 < n) {
+        *reinterpret_cast<uint32_t*>(ob + r1 * row_elems + col) =
+            pack_bf16(o[4 * j + 2] / den1, o[4 * j + 3] / den1);
+      }
+    }
+  }
+}
+
+// A persistent grid: block b takes the work units b, b + gridDim.x, ...
+// (unit = q tile + q_tiles * (head + heads * batch)).
+template <int kBlockK, int kConsumers, bool kF32>
+__global__ void __launch_bounds__(Cfg<kBlockK, kConsumers>::kThreads,
+                                  Cfg<kBlockK, kConsumers>::kBlocksPerSm)
+    sweep_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const MapDims dq, const MapDims dk,
+                          const MapDims dv, __nv_bfloat16* __restrict__ out,
+                          int batch, int n, int heads, float scale) {
+  using C = Cfg<kBlockK, kConsumers>;
+  constexpr int kStages = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<typename C::Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  const int q_tiles = (n + C::kBlockQ - 1) / C::kBlockQ;
+  const int units = q_tiles * heads * batch;
+  const int n_tiles = (n + kBlockK - 1) / kBlockK;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&sm.q_full, 1);
+    sm90::mbar_init(&sm.q_empty, kConsumers * 4);        // one per warp
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&sm.k_full[s], 1);
+      sm90::mbar_init(&sm.v_full[s], 1);
+      sm90::mbar_init(&sm.k_empty[s], kConsumers * 4);
+      sm90::mbar_init(&sm.v_empty[s], kConsumers * 4);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // The producer warpgroup: one thread keeps the stages' loads in flight.
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      sm90::prefetch_tensormap(&tm_q);
+      sm90::prefetch_tensormap(&tm_k);
+      sm90::prefetch_tensormap(&tm_v);
+      int c = 0;                            // K/V tiles loaded so far
+      int i = 0;                            // units started
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+        const int q0 = (u % q_tiles) * C::kBlockQ;
+        const int head = (u / q_tiles) % heads;
+        const int b = u / (q_tiles * heads);
+        // A fresh barrier passes a wait at parity 1: the first unit's Q
+        // and the first round of stages go in at once.
+        sm90::mbar_wait(&sm.q_empty, (i & 1) ^ 1);
+        sm90::mbar_expect_tx(&sm.q_full, C::kBlockQ * kD * 2);
+        load_box(sm.q, &tm_q, dq, &sm.q_full, head, q0, b);
+        for (int it = 0; it < n_tiles; ++it, ++c) {
+          const int s = c % kStages;
+          const uint32_t parity = ((c / kStages) & 1) ^ 1;
+          sm90::mbar_wait(&sm.k_empty[s], parity);
+          sm90::mbar_expect_tx(&sm.k_full[s], C::kTileBytes);
+          load_box(sm.k[s], &tm_k, dk, &sm.k_full[s], head, it * kBlockK, b);
+          sm90::mbar_wait(&sm.v_empty[s], parity);
+          sm90::mbar_expect_tx(&sm.v_full[s], C::kTileBytes);
+          load_box(sm.v[s], &tm_v, dv, &sm.v_full[s], head, it * kBlockK, b);
+        }
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<C::kConsumerRegs>();
+    consume<kBlockK, kConsumers, kF32>(sm, out, n, heads, q_tiles, units,
+                                       scale);
+  }
+}
+
+template <int kBlockK, int kConsumers, bool kF32>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int n, int heads, const Strides& qs, const Strides& ks,
            const Strides& vs, float scale, cudaStream_t st) {
-  constexpr int kSmem = SweepSmem<kBlockQ, kBlockK>::kBytes;
-  auto* kernel = sweep_fwd_kernel<kBlockQ, kBlockK, kSoftmaxF32>;
+  using C = Cfg<kBlockK, kConsumers>;
+  CUtensorMap tq, tk, tv;
+  MapDims mq, mk, mv;
+  int rc = sm90::encode_view_d64(&tq, &mq, q, batch, n, heads, qs.b, qs.n,
+                                 qs.h, C::kBlockQ);
+  if (rc == 0) {
+    rc = sm90::encode_view_d64(&tk, &mk, k, batch, n, heads, ks.b, ks.n,
+                               ks.h, kBlockK);
+  }
+  if (rc == 0) {
+    rc = sm90::encode_view_d64(&tv, &mv, v, batch, n, heads, vs.b, vs.n,
+                               vs.h, kBlockK);
+  }
+  if (rc != 0) {
+    return rc;
+  }
+  const int sms = sm90::sm_count();
+  if (sms <= 0) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  auto* kernel = sweep_fwd_sm90_kernel<kBlockK, kConsumers, kF32>;
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
-  const dim3 grid((n + kBlockQ - 1) / kBlockQ, heads, batch);
-  kernel<<<grid, kBlockQ * 2, kSmem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      n, heads, qs, ks, vs, scale);
+  const long long units =
+      static_cast<long long>((n + C::kBlockQ - 1) / C::kBlockQ) * heads *
+      batch;
+  if (units > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int grid = static_cast<int>(
+      std::min<long long>(units, static_cast<long long>(sms) *
+                                     C::kBlocksPerSm));
+  kernel<<<grid, C::kThreads, C::kSmemBytes, st>>>(
+      tq, tk, tv, mq, mk, mv, static_cast<__nv_bfloat16*>(out), batch, n,
+      heads, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kBlockQ, int kBlockK>
+template <int kBlockK, int kConsumers>
 int launch_sm(bool softmax_f32, const void* q, const void* k, const void* v,
               void* out, int batch, int n, int heads, const Strides& qs,
               const Strides& ks, const Strides& vs, float scale,
               cudaStream_t st) {
   return softmax_f32
-             ? launch<kBlockQ, kBlockK, true>(q, k, v, out, batch, n, heads,
-                                              qs, ks, vs, scale, st)
-             : launch<kBlockQ, kBlockK, false>(q, k, v, out, batch, n, heads,
-                                               qs, ks, vs, scale, st);
+             ? launch<kBlockK, kConsumers, true>(q, k, v, out, batch, n, heads,
+                                                 qs, ks, vs, scale, st)
+             : launch<kBlockK, kConsumers, false>(q, k, v, out, batch, n,
+                                                  heads, qs, ks, vs, scale,
+                                                  st);
 }
 
 }  // namespace
 
 // q, k, v: [B, N, H, 64] bf16 with the given batch/token/head strides (in
-// elements, last stride 1, 16-byte aligned rows). out: contiguous
-// [B, N, H, 64] bf16. block_q and block_k in {64, 128}; softmax_f32 0 or 1;
-// scale = 1 / sqrt(D). Launches on `stream`; returns cudaGetLastError() (or
-// cudaErrorInvalidValue for a shape or instance it does not take).
+// elements, last stride 1, 16-byte aligned pointer and strides). out:
+// contiguous [B, N, H, 64] bf16. block_q and block_k in {64, 128};
+// softmax_f32 0 or 1; scale = 1 / sqrt(D). Launches on `stream`; returns
+// cudaGetLastError(), the driver's code if a tensor map cannot be encoded,
+// or cudaErrorInvalidValue for a shape or instance it does not take.
 extern "C" int attn_sweep_fwd_bf16(
     const void* q, const void* k, const void* v, void* out, int batch, int n,
     int heads, int head_dim, int block_q, int block_k, int softmax_f32,
@@ -330,20 +612,20 @@ extern "C" int attn_sweep_fwd_bf16(
   const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh};
   const bool f32 = softmax_f32 != 0;
   if (block_q == 64 && block_k == 64) {
-    return launch_sm<64, 64>(f32, q, k, v, out, batch, n, heads, qs, ks, vs,
-                             scale, st);
+    return launch_sm<64, 1>(f32, q, k, v, out, batch, n, heads, qs, ks, vs,
+                            scale, st);
   }
   if (block_q == 64 && block_k == 128) {
-    return launch_sm<64, 128>(f32, q, k, v, out, batch, n, heads, qs, ks, vs,
-                              scale, st);
+    return launch_sm<128, 1>(f32, q, k, v, out, batch, n, heads, qs, ks, vs,
+                             scale, st);
   }
   if (block_q == 128 && block_k == 64) {
-    return launch_sm<128, 64>(f32, q, k, v, out, batch, n, heads, qs, ks, vs,
-                              scale, st);
+    return launch_sm<64, 2>(f32, q, k, v, out, batch, n, heads, qs, ks, vs,
+                            scale, st);
   }
   if (block_q == 128 && block_k == 128) {
-    return launch_sm<128, 128>(f32, q, k, v, out, batch, n, heads, qs, ks, vs,
-                               scale, st);
+    return launch_sm<128, 2>(f32, q, k, v, out, batch, n, heads, qs, ks, vs,
+                             scale, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

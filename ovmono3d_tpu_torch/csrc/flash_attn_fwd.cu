@@ -76,15 +76,23 @@
 // loads are free of bank conflicts.
 //
 // f32 design (flash_fwd_f32_kernel): FFMA, exact f32 products as the JAX
-// kernel's f32 dots are. One block of 16 x 16 threads per (64-row q tile,
-// head, batch); thread (ty, tx) owns q rows 4ty..4ty+3 and, in each 64-key
-// tile, keys tx + 16j (j < 4), so the 16 threads of a row are one half-warp
-// and the row max and sum reduce with 4 shuffles. Q, K and V tiles and the
-// f32 probabilities P sit in shared memory with rows padded to D + 4 and
-// 68 floats, which keeps the float4 loads conflict-free; P stays f32 for PV,
-// as the JAX kernel casts p to the input dtype. One K/V buffer (cp.async,
-// 16 bytes = 4 floats a copy): ~70 KB of dynamic shared memory at D = 64,
-// three blocks an SM. Speed is later work.
+// kernel's f32 dots are (3xTF32 on the tensor cores would round each operand
+// to 11-bit pieces: another result). The FP32 pipes bound it (67 TFLOP/s:
+// 0.712 ms at Depth-Pro's [35, 577, 16, 64]), so the design keeps shared
+// memory below them: a block of 64 q rows and 64 keys a tile, each thread
+// an 8 x 4 tile of S (rows 8ty + i, keys tx + 16j) and the same 8 rows x
+// D/16 columns of O, so each Q (or P) float read from shared memory feeds
+// 4 FMAs and each K (or V) float 8, and a warp's two half-warps read their
+// Q and P rows from disjoint banks.
+// P goes through shared memory, written and read by the same warp; P stays
+// f32 for PV, as the JAX kernel casts p to the input dtype. K and V have
+// one buffer each, refilled by cp.async as soon as every warp is done with
+// it, so V's copies overlap QK^T and K's the previous tile's PV; ~70 KB of
+// shared memory at D = 64, three blocks an SM. On ragged edges
+// (N = 577 = 9 * 64 + 1) warps whose rows all lie past N skip the products
+// and the last key tile multiplies only the keys below N. (Measured and
+// dropped: two K/V stages at two blocks an SM, an 8 x 8 thread tile over
+// 128-row blocks, 32-row blocks for grids under two blocks an SM; PERF.md.)
 //
 // Softmax: the standard online softmax with a running row max, in base 2
 // (log2(e) folded into the scale). It is exact for any logit range; the TPU
@@ -99,8 +107,7 @@
 //
 // Not yet: TMA multicast of K/V across a cluster, a third consumer
 // warpgroup (192-row q tiles, half the L2 traffic of K and V a row), part
-// of the exponentials on the FMA pipes; a wgmma design at D = 32 and for
-// the f32 instance.
+// of the exponentials on the FMA pipes; a wgmma design at D = 32.
 
 #include "flash_common.cuh"
 #include "sm90_common.cuh"
@@ -250,187 +257,291 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- the f32 instance ----
 
-constexpr int kF32Threads = 256;            // 16 x 16
-constexpr int kPStride = kBlock + 4;        // P rows, in floats
+namespace f32 {
+
+constexpr int kKeys = 64;                   // keys a K/V stage
+constexpr int kPStride = kKeys + 4;         // P rows, in floats
+// Q's and P's 8-row groups start 16 floats past a multiple of 32: the two
+// half-warps of a warp read rows of two groups, which then fall in
+// disjoint banks (8 padded rows alone span a multiple of 32 floats).
+constexpr int kGroupPad = 16;
+
+// A block of 64 q rows: 8 row groups of 16 threads.
+constexpr int kRows = 64;
+constexpr int kThreads = kRows / 8 * 16;
 
 template <int D>
-struct F32Tile {
+struct Cfg {
   static constexpr int kStride = D + 4;     // floats; 16-byte rows
-  static constexpr int kElems = kBlock * kStride;
+  static constexpr int kCols = D / 16;      // O columns a thread owns
+  static constexpr int kQGroup = 8 * kStride + kGroupPad;
+  static constexpr int kPGroup = 8 * kPStride + kGroupPad;
+  static constexpr int kQ = kRows / 8 * kQGroup;
+  static constexpr int kKV = kKeys * kStride;
   static constexpr int kSmemBytes =
-      (3 * kElems + kBlock * kPStride) * static_cast<int>(sizeof(float));
+      (kQ + 2 * kKV + kRows / 8 * kPGroup) * static_cast<int>(sizeof(float));
 };
 
-// Copy rows [row0, row0 + 64) of one head (row stride `row_stride` floats)
-// into a padded smem tile, 4 floats a cp.async; rows at or past n arrive as
-// zeros.
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* smem, const float* base,
-                                              long long row_stride, int row0,
-                                              int n, int tid) {
+// Copy rows [row0, row0 + kN) of one head (row stride `row_stride` floats)
+// into a padded smem tile (rows of D + 4 floats, kPad more after every 8),
+// 4 floats a cp.async; rows at or past n arrive as zeros.
+template <int D, int kN, int kThreadsT, int kPad>
+__device__ __forceinline__ void load_rows(float* smem, const float* base,
+                                          long long row_stride, int row0,
+                                          int n, int tid) {
   constexpr int kChunks = D / 4;
-  constexpr int kIters = kBlock * kChunks / kF32Threads;
-  static_assert(kBlock * kChunks % kF32Threads == 0, "tile loads must divide");
+  static_assert(kN * kChunks % kThreadsT == 0, "tile loads must divide");
 #pragma unroll
-  for (int i = 0; i < kIters; ++i) {
-    const int idx = tid + i * kF32Threads;
+  for (int i = 0; i < kN * kChunks / kThreadsT; ++i) {
+    const int idx = tid + i * kThreadsT;
     const int r = idx / kChunks;
     const int c = (idx % kChunks) * 4;
     const int row = row0 + r;
     const bool valid = row < n;
     const float* src =
         base + (valid ? static_cast<long long>(row) * row_stride + c : 0);
-    cp_async_16(smem + r * F32Tile<D>::kStride + c, src, valid);
+    cp_async_16(smem + r * (D + 4) + r / 8 * kPad + c, src, valid);
   }
 }
 
-__device__ __forceinline__ float dot4(float acc, const float4& a,
-                                      const float4& b) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// S = Q K^T for the thread's rows 8ty + i and keys tx + 16j, j < kJ (the
+// last key tile computes only the key groups that hold a key below N).
+// Every 4-wide d step reads 8 + kJ float4 for 32 kJ FMAs.
+template <int D, int kJ>
+__device__ __forceinline__ void qk(float (&s)[8][4], const float* sq,
+                                   const float* sk) {
+  constexpr int kS = D + 4;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 qv[8];
+    float4 kv[kJ];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      qv[i] = *reinterpret_cast<const float4*>(sq + i * kS + d);
+    }
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      kv[j] = *reinterpret_cast<const float4*>(sk + 16 * j * kS + d);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+        s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+        s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+        s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+      }
+    }
+  }
 }
 
+// The kCols consecutive floats at p, as one vector load.
+template <int kCols>
+__device__ __forceinline__ void load_cols(float (&r)[kCols], const float* p) {
+  if constexpr (kCols == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    r[0] = x.x;
+    r[1] = x.y;
+    r[2] = x.z;
+    r[3] = x.w;
+  } else {
+    static_assert(kCols == 2, "D is 32 or 64");
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    r[0] = x.x;
+    r[1] = x.y;
+  }
+}
+
+// The online softmax of the thread's 8 rows x 4 keys of one tile in
+// base 2: keys at or past `valid` to -inf, the row max over the 16 threads
+// of the row group, O and the row sums l rescaled, P into the row group's
+// shared-memory rows (f32, as the JAX kernel casts p to the input dtype).
+template <int kCols>
+__device__ __forceinline__ void softmax_rows(float (&s)[8][4], float (&m)[8],
+                                             float (&l)[8],
+                                             float (&o)[8][kCols],
+                                             float* p_rows, int tx, int valid,
+                                             float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float mx = m[i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[i][j] = tx + 16 * j < valid ? s[i][j] * scale_log2 : -INFINITY;
+      mx = fmaxf(mx, s[i][j]);
+    }
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) {
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    }
+    // Every tile holds a key < n: mx is finite, exp2f(-inf - mx) = 0.
+    const float alpha = exp2f(m[i] - mx);
+    m[i] = mx;
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p = exp2f(s[i][j] - mx);
+      rs += p;
+      p_rows[i * kPStride + tx + 16 * j] = p;
+    }
+    l[i] = l[i] * alpha + rs;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      o[i][c] *= alpha;
+    }
+  }
+}
+
+// O += P V for the thread's 8 rows and kCols columns over the keys below N,
+// rounded up to 4 (P is 0 past N and V's rows there are zeros). Every
+// 4-key step reads 8 + 4 vectors for 32 kCols FMAs.
+template <int kS, int kCols>
+__device__ __forceinline__ void pv_rows(float (&o)[8][kCols],
+                                        const float* p_rows,
+                                        const float* v_cols, int valid) {
+  const int key_end = valid >= kKeys ? kKeys : (valid + 3) & ~3;
+#pragma unroll 2
+  for (int key = 0; key < key_end; key += 4) {
+    float4 pv[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      pv[i] = *reinterpret_cast<const float4*>(p_rows + i * kPStride + key);
+    }
+    float vr[4][kCols];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      load_cols<kCols>(vr[e], v_cols + (key + e) * kS);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        o[i][c] = fmaf(pv[i].x, vr[0][c], o[i][c]);
+        o[i][c] = fmaf(pv[i].y, vr[1][c], o[i][c]);
+        o[i][c] = fmaf(pv[i].z, vr[2][c], o[i][c]);
+        o[i][c] = fmaf(pv[i].w, vr[3][c], o[i][c]);
+      }
+    }
+  }
+}
+
+// FFMA, exact f32 products. Thread (ty, tx) of a block owns q rows
+// 8ty .. 8ty + 7 of its tile: in each 64-key tile the logits of keys
+// tx + 16j (j < 4), and O's columns kCols tx .. kCols tx + kCols - 1. The
+// 16 threads of a row group are one half-warp, so a row's max and sum
+// reduce with 4 shuffles, and the P rows a warp writes are the rows it
+// reads back for PV. K and V have one shared-memory buffer each, and each
+// is refilled as soon as every warp is done with it: tile i's V copies
+// (cp.async) go out at the barrier that opens tile i and land during its
+// QK^T and softmax, tile i + 1's K copies at the barrier before tile i's
+// PV and land during it. Two barriers a tile; ~70 KB of shared memory, so
+// three blocks an SM. Warps whose rows all lie past N
+// skip the products, and the last key tile computes and multiplies only
+// the keys below N (rounded up to 16 for QK^T, to 4 for PV).
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+__global__ void __launch_bounds__(kThreads, 3)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ out,
                          int n, int heads, Strides qs, Strides ks, Strides vs,
                          float scale_log2) {
-  constexpr int kS = F32Tile<D>::kStride;
-  constexpr int kCols = D / 16;             // O columns a thread owns
+  using C = Cfg<D>;
+  constexpr int kS = C::kStride;
+  constexpr int kCols = C::kCols;
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;
-  float* sk = sq + F32Tile<D>::kElems;
-  float* sv = sk + F32Tile<D>::kElems;
-  float* sp = sv + F32Tile<D>::kElems;
+  float* sk = sq + C::kQ;
+  float* sv = sk + C::kKV;
+  float* sp = sv + C::kKV;
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;                  // key / column lane of a row
-  const int ty = tid / 16;                  // row group: rows 4ty..4ty+3
-  const int q0 = blockIdx.x * kBlock;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int q0 = blockIdx.x * kRows;
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
+  // A warp's rows are 16 (tid / 32) .. 16 (tid / 32) + 15.
+  const bool active = q0 + 16 * (tid / 32) < n;
 
   const float* qb = q + batch * qs.b + head * qs.h;
   const float* kb = k + batch * ks.b + head * ks.h;
   const float* vb = v + batch * vs.b + head * vs.h;
-  const int n_tiles = (n + kBlock - 1) / kBlock;
+  const int n_tiles = (n + kKeys - 1) / kKeys;
 
-  load_tile_f32<D>(sq, qb, qs.n, q0, n, tid);
+  load_rows<D, kRows, kThreads, kGroupPad>(sq, qb, qs.n, q0, n, tid);
+  load_rows<D, kKeys, kThreads, 0>(sk, kb, ks.n, 0, n, tid);
+  cp_async_commit();
 
-  float o[4][kCols] = {};
-  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  float l[4] = {0.f, 0.f, 0.f, 0.f};        // this thread's partial row sums
+  float o[8][kCols] = {};
+  float m[8];
+  float l[8] = {};                          // this thread's partial row sums
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+  }
+  const float* q_rows = sq + ty * C::kQGroup;
+  float* p_rows = sp + ty * C::kPGroup;
+  const float* k_rows = sk + tx * kS;
+  const float* v_cols = sv + kCols * tx;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int key0 = it * kBlock;
-    __syncthreads();   // the previous tile's PV is done with sk, sv and sp
-    load_tile_f32<D>(sk, kb, ks.n, key0, n, tid);
-    load_tile_f32<D>(sv, vb, vs.n, key0, n, tid);
-    cp_async_commit();
+    const int valid = n - it * kKeys;      // keys of this tile below N
     cp_async_wait<0>();
-    __syncthreads();
-
-    // S = Q K^T: rows 4ty + i, keys tx + 16j.
-    float s[4][4] = {};
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4];
-      float4 kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = *reinterpret_cast<const float4*>(sq + (4 * ty + i) * kS + d);
-        kv[i] = *reinterpret_cast<const float4*>(sk + (tx + 16 * i) * kS + d);
+    __syncthreads();   // K of tile it has landed; every warp is done with V
+    load_rows<D, kKeys, kThreads, 0>(sv, vb, vs.n, it * kKeys, n, tid);
+    cp_async_commit();
+    if (active) {
+      float s[8][4] = {};
+      if (valid > 48) {
+        qk<D, 4>(s, q_rows, k_rows);
+      } else if (valid > 32) {
+        qk<D, 3>(s, q_rows, k_rows);
+      } else if (valid > 16) {
+        qk<D, 2>(s, q_rows, k_rows);
+      } else {
+        qk<D, 1>(s, q_rows, k_rows);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = dot4(s[i][j], qv[i], kv[j]);
-        }
-      }
+      softmax_rows(s, m, l, o, p_rows, tx, valid, scale_log2);
     }
-
-    // Scale into base 2, mask keys past n, online softmax; P into smem.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = key0 + tx + 16 * j < n ? s[i][j] * scale_log2 : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      // Every tile holds a key < n: mx is finite, exp2f(-inf - mx) = 0.
-      const float alpha = exp2f(m[i] - mx);
-      m[i] = mx;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(s[i][j] - mx);
-        rs += p;
-        sp[(4 * ty + i) * kPStride + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha + rs;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        o[i][c] *= alpha;
-      }
+    cp_async_wait<0>();
+    __syncthreads();   // V of tile it has landed; every warp is done with K
+    if (it + 1 < n_tiles) {
+      load_rows<D, kKeys, kThreads, 0>(sk, kb, ks.n, (it + 1) * kKeys, n,
+                                          tid);
+      cp_async_commit();
     }
-    __syncthreads();
-
-    // O += P V: rows 4ty + i, columns tx + 16c.
-#pragma unroll 2
-    for (int key = 0; key < kBlock; key += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = *reinterpret_cast<const float4*>(sp + (4 * ty + i) * kPStride +
-                                                 key);
-      }
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float* vc = sv + key * kS + tx + 16 * c;
-        const float v0 = vc[0];
-        const float v1 = vc[kS];
-        const float v2 = vc[2 * kS];
-        const float v3 = vc[3 * kS];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o[i][c] = fmaf(pv[i].x, v0, o[i][c]);
-          o[i][c] = fmaf(pv[i].y, v1, o[i][c]);
-          o[i][c] = fmaf(pv[i].z, v2, o[i][c]);
-          o[i][c] = fmaf(pv[i].w, v3, o[i][c]);
-        }
-      }
+    if (active) {
+      pv_rows<kS, kCols>(o, p_rows, v_cols, valid);
     }
   }
 
   const long long row_elems = static_cast<long long>(heads) * D;
-  float* ob = out + static_cast<long long>(batch) * n * row_elems + head * D;
+  float* ob = out + static_cast<long long>(batch) * n * row_elems + head * D +
+              kCols * tx;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 8; ++i) {
     float li = l[i];
 #pragma unroll
     for (int off = 1; off < 16; off <<= 1) {
       li += __shfl_xor_sync(0xffffffffu, li, off);
     }
-    const int row = q0 + 4 * ty + i;
+    const int row = q0 + 8 * ty + i;
     if (row < n) {
       const float inv = 1.f / li;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        ob[row * row_elems + tx + 16 * c] = o[i][c] * inv;
+      float* dst = ob + row * row_elems;
+      if constexpr (kCols == 4) {
+        *reinterpret_cast<float4*>(dst) = make_float4(
+            o[i][0] * inv, o[i][1] * inv, o[i][2] * inv, o[i][3] * inv);
+      } else {
+        *reinterpret_cast<float2*>(dst) =
+            make_float2(o[i][0] * inv, o[i][1] * inv);
       }
     }
   }
 }
+
+}  // namespace f32
 
 // ---- the bf16 D = 64 instances: wgmma, TMA and a producer warpgroup ----
 
@@ -927,15 +1038,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
                int batch, int n, int heads, const Strides& qs,
                const Strides& ks, const Strides& vs, float scale,
                cudaStream_t st) {
-  constexpr int kSmem = F32Tile<D>::kSmemBytes;
+  constexpr int kSmem = f32::Cfg<D>::kSmemBytes;
+  auto* kernel = f32::flash_fwd_f32_kernel<D>;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
-  const dim3 grid((n + kBlock - 1) / kBlock, heads, batch);
-  flash_fwd_f32_kernel<D><<<grid, kF32Threads, kSmem, st>>>(
+  const dim3 grid((n + f32::kRows - 1) / f32::kRows, heads, batch);
+  kernel<<<grid, f32::kThreads, kSmem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), n, heads, qs, ks,
       vs, scale * kLog2e);

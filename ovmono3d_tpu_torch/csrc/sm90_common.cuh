@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks as inline PTX: mbarriers, TMA tensor
 // loads and 1-D bulk copies, wgmma shared-memory descriptors and warpgroup
-// products, and register reallocation between warpgroups; and on the host,
-// the tensor maps of [B, N, H, 64] bf16 views. Header-only, included by
-// flash_attn_fwd.cu and flash_attn_bwd.cu. CUtensorMap and its enums come
+// products, proxy fences and named barriers, and register reallocation
+// between warpgroups; and on the host, the tensor maps of [B, N, H, 64]
+// bf16 views. Header-only, included by flash_attn_fwd.cu,
+// flash_attn_bwd.cu and attn_sweep_fwd.cu. CUtensorMap and its enums come
 // from <cuda.h> as types only: the maps are encoded through the runtime's
 // driver entry point, so nothing links against libcuda.
 #pragma once
@@ -298,6 +299,18 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_kmajor(
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
+}
+
+// Orders this thread's earlier shared-memory writes (generic proxy) before
+// later reads of the async proxy (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier of the `threads` threads (a multiple of 32) that use named
+// barrier `id` (1-15; 0 is __syncthreads's).
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- warpgroup register reallocation (all 4 warps of a warpgroup) ----

@@ -16,13 +16,17 @@ same recurrence over the same blocks:
   by exp(m_prev - m), l += sum(p) in f32, acc += bf16(p) v in f32; out =
   bf16(acc / max(l, 1e-30)).
 - `attn_sweep(q, k, v, block_q, block_k, softmax_f32)`: the kernel
-  (`csrc/attn_sweep_fwd.cu`) for CUDA tensors, one of `INSTANCES`; the
-  plain version for CPU tensors. bf16 [B, N, H, 64] strided views in, a
-  contiguous [B, N, H, 64] out. Forward only. Counts each launch in
-  `attn_sweep.launches[(block_q, block_k, softmax_f32)]`.
+  (`csrc/attn_sweep_fwd.cu`, wgmma + TMA with a producer warpgroup) for
+  CUDA tensors, one of `INSTANCES`; the plain version for CPU tensors.
+  bf16 [B, N, H, 64] strided views in, a contiguous [B, N, H, 64] out.
+  Forward only. Counts each launch in
+  `attn_sweep.launches[(block_q, block_k, softmax_f32)]`. block_q only
+  tiles the rows: two instances that differ in it give bit-identical
+  outputs. The kernel's exp is ex2.approx(x log2 e), within a few parts in
+  a million of the plain version's `torch.exp` of the same argument.
 
 The TPU variants hold the whole key set in VMEM (block_k 4352-4608); the
-card's shared memory holds 64- and 128-key tiles, so the instances sweep
+card's shared memory holds 64- and 128-key stages, so the instances sweep
 block_q and block_k over {64, 128} in both softmax modes.
 """
 from __future__ import annotations
@@ -72,17 +76,22 @@ def attn_sweep_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(in_dtype).permute(0, 2, 1, 3).contiguous()
 
 
-@functools.cache
-def _kernel():
-    from ovmono3d_tpu_torch.utils import cuda_build
-
-    fn = cuda_build.load(KERNEL_SOURCES)["attn_sweep_fwd.cu"] \
-        .attn_sweep_fwd_bf16
+def _bind(lib: ctypes.CDLL):
+    """The C entry attn_sweep_fwd_bf16 of a library built from
+    attn_sweep_fwd.cu, with its argument types."""
+    fn = lib.attn_sweep_fwd_bf16
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 9 + [ctypes.c_float,
                                                 ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _kernel():
+    from ovmono3d_tpu_torch.utils import cuda_build
+
+    return _bind(cuda_build.load(KERNEL_SOURCES)["attn_sweep_fwd.cu"])
 
 
 def build_kernels() -> None:
@@ -120,19 +129,26 @@ def attn_sweep(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attn_sweep_ref(q, k, v, block_k, softmax_f32)
     instance = (block_q, block_k, bool(softmax_f32))
+    out = _launch(_kernel(), q, k, v, instance)
+    attn_sweep.launches[instance] += 1
+    return out
+
+
+def _launch(fn, q, k, v, instance) -> torch.Tensor:
+    """One launch of the C entry `fn` at `instance`, after the checks."""
     _check(q, k, v, instance)
+    block_q, block_k, softmax_f32 = instance
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), b, n, h, d, block_q, block_k,
-                       int(softmax_f32), *strides, 1.0 / math.sqrt(d), stream)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                n, h, d, block_q, block_k, int(softmax_f32), *strides,
+                1.0 / math.sqrt(d), stream)
     if rc != 0:
         raise RuntimeError(f"attn_sweep_fwd_bf16 {instance} launch failed "
                            f"with CUDA error {rc} (B={b}, N={n}, H={h})")
-    attn_sweep.launches[instance] += 1
     return out
 
 

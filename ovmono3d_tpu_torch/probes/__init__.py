@@ -3,7 +3,9 @@ package's TPU probes tools/probe_layernorm.py and tools/profile_attn_sweep.py
 (`python -m ovmono3d_tpu_torch.probes.layernorm`, `... .attn_sweep`). Each
 times its kernels by CUDA events beside their bounds, their plain versions
 and a PyTorch call of the same function, and holds every kernel to its plain
-version; chip_smoke.py reads their rows."""
+version; chip_smoke.py reads their rows. The attention probes also time an
+earlier version of a kernel, built from a copy of its source that the
+caller names (--previous), in turns with the shipped one."""
 from __future__ import annotations
 
 import statistics
@@ -13,6 +15,7 @@ import torch
 # NVIDIA's H100 SXM data sheet, dense, at the full 700 W power limit.
 PEAK_BYTES = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12                      # the FP32 pipes, no tensor cores
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -53,6 +56,51 @@ def device_ms(fn, match: str, reps: int = 20, sessions: int = 3) -> float:
             return sum(us) / reps / 1e3
     raise RuntimeError(f"the profiler saw no kernel named *{match}* in "
                        f"{sessions} sessions")
+
+
+def in_turns(calls: dict, reps: int = 20) -> dict:
+    """{name: (event ms, device ms)} of each (fn, kernel-name match) in
+    `calls`, timed in turns: the order given, then reversed, averaged
+    (match "" counts every device op of a call)."""
+    acc = {name: [0.0, 0.0] for name in calls}
+    for order in (list(calls), list(reversed(calls))):
+        for name in order:
+            fn, match = calls[name]
+            acc[name][0] += time_ms(fn, reps) / 2
+            acc[name][1] += device_ms(fn, match, reps) / 2
+    return {name: tuple(v) for name, v in acc.items()}
+
+
+def repeated(calls: dict, repeats: int, reps: int = 20) -> dict:
+    """{name: [device ms of each repetition]}: in_turns `repeats` times,
+    the call timed first rotating from one repetition to the next."""
+    names = list(calls)
+    out = {name: [] for name in names}
+    for r in range(repeats):
+        shift = r % len(names)
+        order = names[shift:] + names[:shift]
+        for name, (_, dev) in in_turns({x: calls[x] for x in order},
+                                       reps).items():
+            out[name].append(dev)
+    return out
+
+
+def spread(ts: list) -> str:
+    """Each value, their median and their range, on one line."""
+    return (f"{' '.join(f'{t:.4f}' for t in ts)}; median "
+            f"{statistics.median(ts):.4f}, range {min(ts):.4f}-{max(ts):.4f}")
+
+
+def previous_library(source: str, csrc: str):
+    """The library built from the copy of `source` in the directory `csrc`:
+    an earlier version of a kernel, which a probe's --previous times beside
+    the shipped one (the copy is made outside the tree, for instance with
+    `git archive <commit> ovmono3d_tpu_torch/csrc`)."""
+    from pathlib import Path
+
+    from ovmono3d_tpu_torch.utils import cuda_build
+
+    return cuda_build.load([source], Path(csrc))[source]
 
 
 def bf16_ulp_diff(got: torch.Tensor, want: torch.Tensor) -> tuple[int, int]:

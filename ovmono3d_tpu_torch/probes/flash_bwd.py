@@ -39,7 +39,7 @@ import torch.nn.functional as F
 
 from ovmono3d_tpu_torch.ops import attention
 from ovmono3d_tpu_torch.probes import (PEAK_BF16_FLOPS, PEAK_BYTES, card,
-                                       device_ms, time_ms)
+                                       device_ms, in_turns, repeated, spread)
 
 # LIFT's trunk at B=1; the B=8 train step's trunk; kernel 6's sequence past
 # the packed gate; a small ragged case.
@@ -152,18 +152,6 @@ def max_errors(q, k, v, o, lse, do) -> dict:
     return worst
 
 
-def design_times(calls: dict, reps: int) -> dict:
-    """{name: (event ms, device ms)} of each callable in `calls`, timed in
-    turns: the order forward, then reversed, averaged. Device ms counts
-    every device op of a call."""
-    acc = {name: [0.0, 0.0] for name in calls}
-    for order in (list(calls), list(reversed(calls))):
-        for name in order:
-            acc[name][0] += time_ms(calls[name], reps) / 2
-            acc[name][1] += device_ms(calls[name], "", reps) / 2
-    return {name: tuple(v) for name, v in acc.items()}
-
-
 def rows(shapes=None, reps: int = 10) -> dict:
     """One row per shape: {ms, device_ms, previous_ms, previous_device_ms,
     library_ms, library_device_ms, stats_device_ms, dkdv_device_ms,
@@ -177,9 +165,10 @@ def rows(shapes=None, reps: int = 10) -> dict:
         with torch.no_grad():
             new = lambda: attention.flash_attention_packed_bwd(  # noqa: E731
                 q, k, v, o, lse, do)
-            t = design_times({"new": new,
-                              "old": lambda: mma_bwd(q, k, v, o, lse, do),
-                              "sdpa": sdpa_bwd(q, k, v, do)}, reps)
+            # Device ms of every device op of a call.
+            t = in_turns({"new": (new, ""),
+                          "old": (lambda: mma_bwd(q, k, v, o, lse, do), ""),
+                          "sdpa": (sdpa_bwd(q, k, v, do), "")}, reps)
             parts = {key: device_ms(new, match, reps) for key, match in (
                 ("stats_device_ms", STATS_KERNEL),
                 ("dkdv_device_ms", DKDV_KERNEL),
@@ -219,22 +208,14 @@ def describe(name: str, r: dict) -> str:
 
 def repeated_times(shape, repeats: int, reps: int = 10) -> dict:
     """{design: [device ms of each repetition]} for "new", "old" and
-    "sdpa": design_times `repeats` times on one set of inputs, the design
-    timed first rotating from one repetition to the next."""
+    "sdpa" on one set of inputs (`probes.repeated`)."""
     q, k, v, o, lse, do = inputs(shape)
-    out = {"new": [], "old": [], "sdpa": []}
     with torch.no_grad():
-        calls = {"new": lambda: attention.flash_attention_packed_bwd(
-                     q, k, v, o, lse, do),
-                 "old": lambda: mma_bwd(q, k, v, o, lse, do),
-                 "sdpa": sdpa_bwd(q, k, v, do)}
-        names = list(calls)
-        for r in range(repeats):
-            order = names[r % 3:] + names[:r % 3]
-            timed = design_times({name: calls[name] for name in order}, reps)
-            for name, (_, dev) in timed.items():
-                out[name].append(dev)
-    return out
+        return repeated({
+            "new": (lambda: attention.flash_attention_packed_bwd(
+                q, k, v, o, lse, do), ""),
+            "old": (lambda: mma_bwd(q, k, v, o, lse, do), ""),
+            "sdpa": (sdpa_bwd(q, k, v, do), "")}, repeats, reps)
 
 
 def main() -> None:
@@ -255,10 +236,8 @@ def main() -> None:
     for name, shape in shapes.items():
         times = repeated_times(shape, args.repeats)
         for design, ts in times.items():
-            print(f"{name} {list(shape)} {design}: device ms "
-                  f"{' '.join(f'{t:.4f}' for t in ts)}; median "
-                  f"{statistics.median(ts):.4f}, range {min(ts):.4f}-"
-                  f"{max(ts):.4f}", flush=True)
+            print(f"{name} {list(shape)} {design}: device ms {spread(ts)}",
+                  flush=True)
         ratio = [a / b for a, b in zip(times["new"], times["sdpa"])]
         print(f"{name} new / sdpa by repetition: "
               f"{' '.join(f'{x:.4f}' for x in ratio)}; median "

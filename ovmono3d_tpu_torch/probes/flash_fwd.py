@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from ovmono3d_tpu_torch.ops import attention
 from ovmono3d_tpu_torch.probes import (PEAK_BF16_FLOPS, PEAK_BYTES, card,
-                                       device_ms, time_ms)
+                                       in_turns)
 
 # LIFT serving's trunk; an evaluation batch (and the B=8 train step's
 # trunk, kernel 3's shape); bf16 Depth-Pro's 35 patch crops; kernel 2's
@@ -108,18 +108,6 @@ def max_errors(q, k, v) -> dict:
     return err
 
 
-def _times(calls: dict, reps: int) -> dict:
-    """{name: (event ms, device ms)} of each (fn, kernel-name match) in
-    `calls`, timed in turns: the order forward, then reversed, averaged."""
-    acc = {name: [0.0, 0.0] for name in calls}
-    for order in (list(calls), list(reversed(calls))):
-        for name in order:
-            fn, match = calls[name]
-            acc[name][0] += time_ms(fn, reps) / 2
-            acc[name][1] += device_ms(fn, match, reps) / 2
-    return {name: tuple(v) for name, v in acc.items()}
-
-
 def rows(shapes=None, reps: int = 20) -> dict:
     """One row per (shape, instance): {"fwd" | "lse": {ms, device_ms,
     previous_ms, previous_device_ms, library_ms, library_device_ms,
@@ -131,7 +119,7 @@ def rows(shapes=None, reps: int = 20) -> dict:
         err = max_errors(q, k, v)
         qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
         with torch.no_grad():
-            t = _times({
+            t = in_turns({
                 "fwd": (lambda: attention.flash_attention_packed(q, k, v),
                         NEW_KERNEL),
                 "lse": (lambda: attention.flash_attention_packed_lse(q, k, v),

@@ -8,6 +8,10 @@ hash of its source, of every header in `csrc/` and of the flags, so a changed
 file builds anew and an unchanged one is loaded as it is. The sources use a
 plain C interface (no PyTorch headers), which keeps a build to seconds.
 
+`csrc` names another directory of sources where a probe builds an earlier
+version of a kernel beside the shipped one (its `--previous`); its
+libraries go to the same build directory, told apart by the hash.
+
 The port therefore runs from a source checkout (or an editable install,
 `pip install -e .[torch]`): a wheel carries no `.cu` files and has no
 checkout to build into.
@@ -45,29 +49,29 @@ def find_nvcc() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
-    """Where the library built from `source` (a file name under csrc/)
+def library_path(source: str, csrc: Path = CSRC) -> Path:
+    """Where the library built from `source` (a file name under `csrc`)
     lives."""
-    if not CSRC.is_dir():
+    if not csrc.is_dir():
         raise RuntimeError(
-            f"no kernel sources at {CSRC}: the port's CUDA kernels build from "
+            f"no kernel sources at {csrc}: the port's CUDA kernels build from "
             "a source checkout (or an editable install)")
     h = hashlib.sha256()
-    for path in [CSRC / source, *sorted(CSRC.glob("*.cuh"))]:
+    for path in [csrc / source, *sorted(csrc.glob("*.cuh"))]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(sources: list[str]) -> dict[str, Path]:
+def build(sources: list[str], csrc: Path = CSRC) -> dict[str, Path]:
     """Compile every source not built yet, one nvcc each, all in parallel.
 
     The compiler's resource report (-Xptxas -v: registers, shared memory,
     spills) is kept beside each library as `<lib>.log`. Returns
     {source: library path}.
     """
-    out = {src: library_path(src) for src in sources}
+    out = {src: library_path(src, csrc) for src in sources}
     todo = {src: lib for src, lib in out.items() if not lib.is_file()}
     if not todo:
         return out
@@ -76,7 +80,7 @@ def build(sources: list[str]) -> dict[str, Path]:
     procs = {}
     for src, lib in todo.items():
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(csrc / src)]
         procs[src] = (cmd, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -94,6 +98,7 @@ def build(sources: list[str]) -> dict[str, Path]:
     return out
 
 
-def load(sources: list[str]) -> dict[str, ctypes.CDLL]:
+def load(sources: list[str], csrc: Path = CSRC) -> dict[str, ctypes.CDLL]:
     """Build what is missing, then dlopen each library: {source: CDLL}."""
-    return {src: ctypes.CDLL(str(lib)) for src, lib in build(sources).items()}
+    return {src: ctypes.CDLL(str(lib))
+            for src, lib in build(sources, Path(csrc)).items()}

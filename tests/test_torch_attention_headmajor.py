@@ -357,6 +357,28 @@ def test_kernel1_f32_matches_plain_on_cuda(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 577])
+def test_f32_instance_edges_on_cuda(cuda_device, n, d):
+    """The f32 instance at the 64-key tile's and 8-row group's edges, on
+    packed views (token stride 3 H D) and on head-major views of a
+    [B, H, N, D] tensor (kernel 2's route), against f32 attention_ref, at a
+    small and at Depth-Pro's patch-encoder batch and heads."""
+    for b, h in ((2, 3), (35, 16)):
+        q, k, v = _views(b, n, h, d, dtype=torch.float32,
+                         device=cuda_device, seed=n + d)
+        _close(tattn.flash_attention_packed(q, k, v),
+               tattn.attention_ref(q, k, v), f"packed {b, n, h, d}", True)
+        qh, kh, vh = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                      for x in (q, k, v))
+        assert qh.stride(2) == n * d
+        _close(tattn.flash_attention(qh, kh, vh),
+               tattn.attention_ref(qh, kh, vh), f"head-major {b, n, h, d}",
+               True)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_f32_kernel_is_not_tf32_on_cuda(cuda_device):
     """Logits of a few hundred: TF32 products (10-bit mantissas) would move
     them by ~0.1 and the probabilities by ~10%; the f32 instance stays

@@ -149,6 +149,26 @@ def test_instances_are_the_sweep():
                                                  (128, 64), (128, 128)}
 
 
+def test_previous_source_builds_apart(tmp_path):
+    """A probe's --previous copy of the sources builds into its own
+    library: the path follows the source and header contents, not the
+    directory (an identical copy reuses the shipped library)."""
+    from ovmono3d_tpu_torch.utils import cuda_build
+
+    src = "attn_sweep_fwd.cu"
+    copy = tmp_path / "csrc"
+    copy.mkdir()
+    for f in [cuda_build.CSRC / src, *cuda_build.CSRC.glob("*.cuh")]:
+        (copy / f.name).write_bytes(f.read_bytes())
+    shipped = cuda_build.library_path(src)
+    assert cuda_build.library_path(src, copy) == shipped
+    (copy / src).write_text((copy / src).read_text() + "\n// earlier\n")
+    other = cuda_build.library_path(src, copy)
+    assert other != shipped and other.parent == shipped.parent
+    with pytest.raises(RuntimeError, match="no kernel sources"):
+        cuda_build.library_path(src, tmp_path / "missing")
+
+
 @pytest.mark.parametrize("bad,match", [
     ("instance", "instances are"),
     ("dtype", "takes bfloat16"),
@@ -186,3 +206,37 @@ def test_kernel_matches_plain_on_cuda(cuda_device, instance):
         # The control: the same output against the f32-softmax plain version.
         e = sweep_probe.error(got, tsweep.attn_sweep_ref(q, k, v, bk, True))
         assert not e["ok"], e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softmax_f32", [True, False], ids=["f32", "bf16"])
+@pytest.mark.parametrize("block_k", [64, 128])
+@pytest.mark.parametrize("n", [1, 64, 129, 333, 4097])
+def test_outputs_do_not_depend_on_block_q_on_cuda(cuda_device, n, block_k,
+                                                  softmax_f32):
+    """block_q only tiles the rows: the two instances at one block_k and
+    softmax give bit-identical outputs, within the limit of the plain
+    version."""
+    q, k, v = sweep_probe.checked_inputs((2, n, 3, 64), seed=17 + n,
+                                         device=cuda_device)
+    got = {bq: tsweep.attn_sweep(q, k, v, bq, block_k, softmax_f32)
+           for bq in (64, 128)}
+    torch.cuda.synchronize()
+    assert torch.equal(got[64], got[128])
+    _within(got[64], tsweep.attn_sweep_ref(q, k, v, block_k, softmax_f32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", tsweep.INSTANCES,
+                         ids=[f"bq{a}_bk{b}_{'f32' if c else 'bf16'}"
+                              for a, b, c in tsweep.INSTANCES])
+def test_kernel_takes_head_major_views_on_cuda(cuda_device, instance):
+    """q, k, v as [B, N, H, D] views of [B, H, N, D] tensors (head stride
+    N D): the tensor maps follow the strides."""
+    bq, bk, f32 = instance
+    q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+               for x in sweep_probe.checked_inputs((2, 200, 3, 64), seed=19,
+                                                   device=cuda_device))
+    got = tsweep.attn_sweep(q, k, v, bq, bk, f32)
+    torch.cuda.synchronize()
+    _within(got, tsweep.attn_sweep_ref(q, k, v, bk, f32))
