@@ -19,6 +19,8 @@ of the JAX package's LayerNorm and attention-sweep probes. Holds every CUDA
 kernel on those paths against its plain PyTorch version.
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
+    python3 chip_smoke.py --previous DIR   # kernels 7 and 10 also beside
+                                           # the designs in DIR's sources
 
 Kernels: 1 = the inference flash-attention forward, 3 = the training
 forward that also writes the row log-sum-exp, 4 = the attention backward,
@@ -40,12 +42,16 @@ profiles' tables):
           the wgmma + TMA designs' instances (the bf16 D = 64 forward's
           flash_fwd_sm90_kernel<false / true>, the backward's
           flash_bwd_sm90_kernel<true / false>, its dk/dv and dq kernels,
-          and the sweep's eight sweep_fwd_sm90_kernel<block_k, consumers,
-          f32 softmax>): registers, spill stores and stack frame from the
+          the sweep's eight sweep_fwd_sm90_kernel<block_k, consumers,
+          f32 softmax> and the rel-pos forward's relpos_fwd_sm90_kernel<64
+          / 80>): registers, spill stores and stack frame from the
           -Xptxas -v log (no spills, no stack frame), ptxas's C7513 lines
           printed, and their HGMMA and UTMALDG instructions in cuobjdump's
-          SASS (both above 0); the f32 instance's two
-          flash_fwd_f32_kernel<D>: no spills, no stack frame
+          SASS (both above 0); the int8 product's three
+          int8_gemm_sm90_kernel<mode>: the same, with IGMMA
+          (s8 wgmma) for HGMMA; the f32 instance's two
+          flash_fwd_f32_kernel<D> and the int8 path's two
+          quantize_rows_kernel<T>: no spills, no stack frame
   kernel  kernel 1 vs attention_ref, kernel 3 vs attention_lse_ref and
           kernel 4 vs attention_bwd_ref at the trunk, Depth-Pro's B=1 and
           35-crop shapes, a small ragged shape, the 128-row tile's edges
@@ -69,23 +75,31 @@ profiles' tables):
           views (a yardstick the port never calls) and the card's bound for
           the work; kernel 7 vs rel_pos_attention_ref at
           SAM-H global and windowed, SAM-B global and a small ragged grid
-          (rel-pos tables ~N(0, 0.1^2)), then at SAM-H's global and
-          windowed shapes its time, the plain version's, SDPA's with the
-          [B, H, N, N] bias built from qrh/qrw inside the timed call (a
-          yardstick the port never calls) and the bound; kernel 8 vs
+          (rel-pos tables ~N(0, 0.1^2)), then through probes/relpos.py at
+          SAM-H's global and windowed shapes: the kernel, its earlier design
+          (with --previous; its device time must be above the new one's)
+          and SDPA with the [B, H, N, N] bias built from qrh/qrw inside the
+          timed call (a yardstick the port never calls) in turns, by events
+          and by the profiler's device time, the plain version's time and
+          the bound; kernel 8 vs
           window_attention_ref at Swin-B's four stage shapes at 896^2, with
           the shifted blocks' region ids and without (bias ~N(0, 1)), and at
           a small map (N = 64) with a bias of std 30 (one-hot softmax), then
           at stages 0 and 2 its time, the plain version's, SDPA's with the
           [BW, H, N, N] bias and mask built inside the timed call and the
           bound; kernel 10 at every product shape of the int8 paths
-          (INT8_SHAPES) and a ragged one: the int32 accumulator equal to
-          int8_mm_ref, the bf16 dequantized product within 1 bf16 ulp of
-          dequantize_ref (activations ~N(0, 1) bf16, weights ~N(0, 0.02^2),
-          quantized), then at LIFT's and SAM-H's fc1 its time, the plain
-          version's, torch._int_mm + the same epilogue and bf16 F.linear
-          (yardsticks the port never calls), the activation's quantization
-          and the bound; kernel 1's f32 instance vs f32 attention_ref at
+          (INT8_SHAPES), a ragged one and two K tails: the int32
+          accumulator equal to int8_mm_ref, the bf16
+          dequantized product within 1 bf16 ulp of dequantize_ref
+          (activations ~N(0, 1) bf16, weights ~N(0, 0.02^2), quantized),
+          and the activation's quantization kernel equal to quantize_int8;
+          then through probes/int8_gemm.py at LIFT's four products, SAM-H's
+          fc1 and Depth-Pro's patch qkv: the product, the quantization
+          kernel, the earlier design (with --previous; its device time must
+          be above the new one's), torch._int_mm alone and with the same
+          epilogue, and bf16 F.linear (yardsticks the port never calls) in
+          turns, by events and by device time, with the plain version's
+          time and the bounds; kernel 1's f32 instance vs f32 attention_ref at
           Depth-Pro's shapes and a ragged one (within F32_MAX_REL of max
           |ref|), then through probes/flash_fwd_f32.py at those shapes and
           the f32 trunk: its time and SDPA f32's in turns, by events and by
@@ -173,14 +187,16 @@ profiles' tables):
   quant   the W8A8 int8 serving option: the flagship with quant="int8"
           (seed 0, weights as the slice phase) serves bench.py's request
           (OVMONO3D_QUANT=int8): 3 warm-up + 10 timed (img/s, p50, peak
-          memory, 48 kernel-10 and 12 kernel-1 launches per request), a
+          memory, 48 kernel-10, 48 quantization and 12 kernel-1 launches
+          per request), a
           profile of 5; its trunk's last_feat against the same weights with
           quant="none" within the JAX package's limits (relative Frobenius <
           QUANT_REL, cosine > QUANT_COS; corners3d printed unchecked); then
           GEO with quant="int8" and gelu="tanh" in SAM ViT-H's and
           Depth-Pro's trunks (tools/bench_geo_models.py --quant int8 --gelu
           tanh; weights as the geo phase): 2 warm-up + 3 timed images (img/s,
-          p50, ms per stage, peak memory, 416 kernel-10 launches per image),
+          p50, ms per stage, peak memory, 416 kernel-10 and 416
+          quantization launches per image),
           a profile of 2, and one image against the bf16 + erf trunks of the
           same weights: SAM embedding and inverse depth within GEO_QUANT_REL
           / GEO_QUANT_COS (int8 + erf, mask logits and boxes printed beside)
@@ -222,7 +238,10 @@ profiles' tables):
 Then a JSON line of the kernels (kernels 1, 2, 3 and 5 at the trunk shape
 also with previous_ms, device_ms, previous_device_ms and library_device_ms:
 the mma.sync design's event time and the device times of both designs and
-of SDPA; kernel 1's f32 instance and kernel 11's instances with device_ms
+of SDPA; kernel 7 at SAM-H global and kernel 10 at LIFT fc1 with
+device_ms, previous_device_ms (the design in --previous DIR, null without
+it) and library_device_ms; kernel 10's quantization in its own entry with
+device_ms; kernel 1's f32 instance and kernel 11's instances with device_ms
 and library_device_ms, the f32 instance also device_ms_by_shape), the
 card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failure raises before that line and the
@@ -283,6 +302,8 @@ from ovmono3d_tpu_torch.probes import attn_sweep as sweep_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import flash_bwd as bwd_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import flash_fwd as fwd_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import flash_fwd_f32 as f32_probe  # noqa: E402
+from ovmono3d_tpu_torch.probes import int8_gemm as int8_probe  # noqa: E402
+from ovmono3d_tpu_torch.probes import relpos as relpos_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import card as card_name  # noqa: E402
 from ovmono3d_tpu_torch.probes import (  # noqa: E402
     bf16_ulp_diff, device_ms, in_turns, time_ms)
@@ -298,14 +319,21 @@ from ovmono3d_tpu_torch.utils import geometry as geom  # noqa: E402
 
 # The redesigned kernels: (source, kernel template, instances, SASS
 # instructions that show the design) of the bf16 D = 64 forward (kernels 1,
-# 2, 3, 5) and backward (4, 6: the dk/dv and dq instances) and the attention
-# sweep (11, eight instances), on wgmma and TMA loads, and of kernel 1's
-# f32 instance (FFMA; D 32 and 64).
+# 2, 3, 5) and backward (4, 6: the dk/dv and dq instances), the attention
+# sweep (11, eight instances) and the rel-pos forward (7, D 64 and 80), on
+# wgmma and TMA loads; the int8 product (10: raw, bf16 and f32) on s8 wgmma
+# (IGMMA) and TMA loads; and kernel 1's
+# f32 instance (FFMA; D 32 and 64) and the int8 path's quantization (bf16
+# and f32 inputs).
 SASS_OPS = ("HGMMA", "UTMALDG")
 DESIGNS = (("flash_attn_fwd.cu", "flash_fwd_sm90_kernel", 2, SASS_OPS),
            ("flash_attn_bwd.cu", "flash_bwd_sm90_kernel", 2, SASS_OPS),
            ("attn_sweep_fwd.cu", "sweep_fwd_sm90_kernel", 8, SASS_OPS),
-           ("flash_attn_fwd.cu", "flash_fwd_f32_kernel", 2, ()))
+           ("relpos_flash_fwd.cu", "relpos_fwd_sm90_kernel", 2, SASS_OPS),
+           ("int8_gemm.cu", "int8_gemm_sm90_kernel", 3,
+            ("IGMMA", "UTMALDG")),
+           ("flash_attn_fwd.cu", "flash_fwd_f32_kernel", 2, ()),
+           ("int8_gemm.cu", "quantize_rows_kernel", 2, ()))
 # The JSON entries of kernels 1-6 carry, besides every kernel's keys, the
 # mma.sync design's event time and the device times of both designs and of
 # SDPA (fwd_probe.rows, bwd_probe.rows, design_times).
@@ -317,6 +345,11 @@ FWD_KEYS = ("ms", "library_ms", "bound_ms", "bound_by") + DESIGN_KEYS
 # sweep_probe.rows); the f32 entry also each f32 shape's.
 F32_KEYS = ("device_ms", "library_device_ms", "device_ms_by_shape")
 SWEEP_KEYS = ("device_ms", "library_device_ms")
+# The JSON entries of kernels 7 and 10 carry the profiler's device times of
+# the kernel, of its earlier design (built from the copy of the sources
+# that --previous names; null without it) and of the library call
+# (relpos_probe.rows, int8_probe.rows).
+PREVIOUS_KEYS = ("device_ms", "previous_device_ms", "library_device_ms")
 # Kernels 1, 3 and 4: (B, N, H, D). The LIFT trunk; Depth-Pro's image and
 # FOV encoders (B=1) and its patch encoder (the 35 pyramid crops in one
 # batch); a small ragged case; the 128-row tile's edges: one partial tile,
@@ -383,7 +416,7 @@ OV_H, OV_W, OV_WARMUP, OV_TIMED = 480, 640, 2, 5
 # image: the LIFT trunk (DINOv2 ViT-B/14 at 896^2, 4097 tokens), SAM ViT-H at
 # 1024^2 (4096 tokens in global blocks, 25 windows of 196 in windowed ones),
 # Depth-Pro's ViT-L/16 patch encoder (35 crops of 577 tokens) and its image
-# and FOV encoders (577); a small ragged case.
+# and FOV encoders (577); a small ragged case and two K tails.
 INT8_SHAPES = {
     "lift_qkv": (4097, 768, 2304), "lift_proj": (4097, 768, 768),
     "lift_fc1": (4097, 768, 3072), "lift_fc2": (4097, 3072, 768),
@@ -397,6 +430,8 @@ INT8_SHAPES = {
     "dp_image_qkv": (577, 1024, 3072), "dp_image_proj": (577, 1024, 1024),
     "dp_image_fc1": (577, 1024, 4096), "dp_image_fc2": (577, 4096, 1024),
     "ragged": (77, 64, 200),
+    # K tails: a partial 128-byte k stage, R = 4097, M no multiple of a tile
+    "tail_k96": (4097, 96, 328), "tail_k160": (4097, 160, 200),
 }
 # Kernel-10 launches per image: 4 products in each block of the trunks.
 LIFT_INT8_LAUNCHES, GEO_INT8_LAUNCHES = 12 * 4, 32 * 4 + 3 * 24 * 4
@@ -572,8 +607,8 @@ def build_phase() -> None:
                          f"spill stores {spills or 'none'} bytes")
         elif log.is_file():
             for line in log.read_text().splitlines():
-                m = re.search(r"((flash|relpos|window|int8|sweep)_[a-z0-9_]+"
-                              r"_kernel)"
+                m = re.search(r"((flash|relpos|window|int8|sweep|quantize)"
+                              r"_[a-z0-9_]+_kernel)"
                               r"(IL([bi])(\d+)E)?", line)
                 if "Compiling entry" in line and m:
                     flag = "" if m[4] is None else (
@@ -940,46 +975,18 @@ def headmajor_kernel_phase() -> dict:
     return out
 
 
-def relpos_inputs(b, grid, h, d, seed):
-    """Kernel 7's inputs as the encoder makes them: q/k/v views of one qkv
-    tensor, tables Rh/Rw gathered to the grid at REL_POS_STD, and the bias
-    factors."""
-    q, k, v = qkv_views(b, grid[0] * grid[1], h, d, seed)
-    g = torch.Generator(device="cuda").manual_seed(1000 + seed)
-    rh, rw = (torch.randn(n, n, d, device="cuda", generator=g) * REL_POS_STD
-              for n in grid)
-    return q, k, v, rh, rw, *attention.rel_pos_factors(q, rh, rw, grid)
-
-
-def relpos_bound_ms(b, grid, h, d) -> tuple[float, str]:
-    """Kernel 7's bound: 4 B H N^2 D flops; q, k, v, out in bf16 and qrh,
-    qrw in f32, each moved once."""
-    n = grid[0] * grid[1]
-    flops = 4 * b * h * n * n * d
-    nbytes = 4 * b * n * h * d * 2 + b * n * h * (grid[0] + grid[1]) * 4
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-def sdpa_with_bias(q, k, v, qrh, qrw):
-    """The same function as one PyTorch call: SDPA with the [B, H, N, N]
-    bias expanded from qrh/qrw (inside the call, as the kernel does)."""
-    b, n, h, _ = q.shape
-    bias = (qrh.permute(0, 2, 1, 3)[..., :, None]
-            + qrw.permute(0, 2, 1, 3)[..., None, :]).reshape(b, h, n, n)
-    return F.scaled_dot_product_attention(*sdpa_views(q, k, v),
-                                          attn_mask=bias.to(q.dtype))
-
-
-def relpos_kernel_phase() -> dict:
-    """Kernel 7 against rel_pos_attention_ref at the four shapes, then its
-    time at SAM-H's global and windowed shapes. Returns the global shape's
-    numbers (the JSON line's) with the worst error over all shapes."""
+def relpos_kernel_phase(previous: str | None) -> dict:
+    """Kernel 7 against rel_pos_attention_ref at the four shapes, then
+    through probes/relpos.py at SAM-H's global and windowed shapes: the
+    kernel, its earlier design (with --previous) and SDPA with the bias in
+    turns, by events and by the profiler's device time, with the bound; the
+    new design's device time below the earlier one's at both. Returns the
+    global shape's numbers (the JSON line's) with the worst error over all
+    shapes."""
     worst = 0.0
     with torch.no_grad():
         for i, (name, (b, grid, h, d)) in enumerate(RELPOS_SHAPES.items()):
-            q, k, v, rh, rw, qrh, qrw = relpos_inputs(b, grid, h, d, i)
+            q, k, v, rh, rw, qrh, qrw = relpos_probe.inputs(b, grid, h, d, i)
             got = attention.rel_pos_flash_attention(q, k, v, qrh, qrw, grid)
             torch.cuda.synchronize()
             bias = (qrh[..., :, None] + qrw[..., None, :]).float()
@@ -989,24 +996,19 @@ def relpos_kernel_phase() -> dict:
                 attention.rel_pos_attention_ref(q, k, v, rh, rw, grid),
                 absolute=True))
             del got, bias
-        out = {}
-        for name in ("sam_h_global", "sam_h_window"):
-            b, grid, h, d = RELPOS_SHAPES[name]
-            q, k, v, rh, rw, qrh, qrw = relpos_inputs(b, grid, h, d, 0)
-            t = {"ms": time_ms(lambda: attention.rel_pos_flash_attention(
-                     q, k, v, qrh, qrw, grid)),
-                 "plain_ms": time_ms(lambda: attention.rel_pos_attention_ref(
-                     q, k, v, rh, rw, grid), reps=5),
-                 "library_ms": time_ms(
-                     lambda: sdpa_with_bias(q, k, v, qrh, qrw))}
-            t["bound_ms"], t["bound_by"] = relpos_bound_ms(b, grid, h, d)
-            say("kernel", f"k7 {name} {(b, grid, h, d)}, median of timed "
-                          f"calls: kernel {t['ms']:.4f} ms, plain "
-                          f"{t['plain_ms']:.4f} ms, SDPA with bias "
-                          f"{t['library_ms']:.4f} ms, bound "
-                          f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
-            out[name] = t
-    return {**out["sam_h_global"], "max_abs_err": worst}
+    rows = relpos_probe.rows(previous=previous)
+    for name, r in rows.items():
+        say("kernel", "k7 " + relpos_probe.describe(name, r))
+        check(r["ok"], f"k7 {name}: within the probe's limits of the plain "
+                       f"version")
+        if previous is not None:
+            check(r["previous_ok"]
+                  and r["device_ms"] < r["previous_device_ms"],
+                  f"k7 {name}: the earlier design within the limits and the "
+                  f"wgmma design's device time below it")
+    out = dict(rows["sam_h_global"])
+    out.setdefault("previous_device_ms", None)
+    return {**out, "max_abs_err": worst}
 
 
 def window_inputs(bw, n, h, seed, shifted, bias_std=1.0):
@@ -1097,93 +1099,58 @@ def window_kernel_phase() -> dict:
     return {**out["stage0"], "max_abs_err": worst}
 
 
-def int8_operands(rows, depth, cols, seed):
-    """Kernel 10's inputs as QDense makes them: activations ~N(0, 1) in bf16
-    quantized per row, weights ~N(0, 0.02^2) quantized per output channel,
-    and the bf16 operands they came from; a bias ~N(0, 1)."""
-    g = torch.Generator(device="cuda").manual_seed(4000 + seed)
-    x = torch.randn(rows, depth, device="cuda", generator=g).bfloat16()
-    w = torch.randn(cols, depth, device="cuda", generator=g) * 0.02
-    bias = torch.randn(cols, device="cuda", generator=g)
-    xq, x_scale = quant.quantize_int8(x, -1)
-    wq, w_scale = quant.quantize_int8(w, -1)
-    return xq, x_scale, wq, w_scale.reshape(-1), bias, x, w.bfloat16()
-
-
-def int8_bound_ms(rows, depth, cols) -> tuple[float, str]:
-    """Kernel 10's bound (the dequantizing instance the path runs): 2 R K M
-    int8 operations; xq and wq (int8), the scales and the bias (f32) read
-    once, the bf16 output written once."""
-    ops = 2 * rows * depth * cols
-    nbytes = (rows + cols) * depth + 4 * (rows + 2 * cols) + 2 * rows * cols
-    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-def int8_kernel_phase() -> dict:
+def int8_kernel_phase(previous: str | None) -> dict:
     """Kernel 10 against its plain version at every INT8_SHAPES shape: the
-    int32 accumulator exact (torch.equal with int8_mm_ref) and the bf16
-    dequantized product within 1 bf16 ulp of dequantize_ref; then at LIFT's
-    and SAM-H's fc1 the times of the kernel, its plain version,
-    torch._int_mm (cuBLASLt) with the same epilogue in torch, and bf16
-    F.linear at the same shape (the product the int8 path replaces; both
-    yardsticks the port never calls), and the bound. Returns LIFT fc1's
-    numbers (the JSON line's) with the worst error over all shapes."""
+    int32 accumulator exact (torch.equal with
+    int8_mm_ref) and the bf16 dequantized product within 1 bf16 ulp of
+    dequantize_ref; the activation's quantization kernel equal to
+    quantize_int8. Then probes/int8_gemm.py at its shapes (LIFT's four
+    products, SAM-H's fc1, Depth-Pro's patch qkv): the product, the
+    quantization kernel, the earlier design (with --previous),
+    torch._int_mm alone and with the same epilogue in torch ops, and bf16
+    F.linear (yardsticks the port never calls) in turns, by events and by
+    the profiler's device time, with the bounds; the new design's device
+    time below the earlier one's at every shape. Returns LIFT fc1's numbers
+    for the product and the quantization (the JSON line's) with the worst
+    error over all shapes."""
     worst, worst_ulp = 0.0, 0
     with torch.no_grad():
         for i, (name, (r, k, m)) in enumerate(INT8_SHAPES.items()):
-            xq, x_scale, wq, w_scale, bias, _, _ = int8_operands(r, k, m, i)
-            acc = quant.int8_gemm(xq, wq)
+            op = int8_probe.operands(r, k, m, seed=i)
+            c = int8_probe.check(op)
             torch.cuda.synchronize()
-            want_acc = quant.int8_mm_ref(xq, wq)
-            check(torch.equal(acc, want_acc),
-                  f"k10 {name} raw: int32 accumulator equal to int8_mm_ref")
-            got = quant.int8_gemm(xq, wq, x_scale, w_scale, bias)
-            torch.cuda.synchronize()
-            want = quant.dequantize_ref(want_acc, x_scale, w_scale, bias,
-                                        torch.bfloat16)
-            err = (got.float() - want.float()).abs().max().item()
-            ulps = int((got.view(torch.int16).int()
-                        - want.view(torch.int16).int()).abs().max())
-            n_diff = int((got != want).sum())
-            say("kernel", f"k10 {name} [{r}, {k}] x [{m}, {k}]: raw equal; "
-                          f"dequant bf16 max_abs_err {err:.3e}, max "
-                          f"{ulps} bf16 ulp, {n_diff} of {r * m} differ; "
-                          f"max |ref| {want.float().abs().max().item():.3e}; "
-                          f"|acc| max {want_acc.abs().max().item()}")
-            check(ulps <= 1, f"k10 {name}: dequant within 1 bf16 ulp")
-            worst, worst_ulp = max(worst, err), max(worst_ulp, ulps)
-            del acc, want_acc, got, want
-        out = {}
-        for name in ("lift_fc1", "sam_h_fc1"):
-            r, k, m = INT8_SHAPES[name]
-            xq, x_scale, wq, w_scale, bias, x, w = int8_operands(r, k, m, 0)
-            wq_t, bias_b = wq.T, bias.bfloat16()
-            t = {"ms": time_ms(lambda: quant.int8_gemm(xq, wq, x_scale,
-                                                       w_scale, bias)),
-                 "plain_ms": time_ms(lambda: quant.dequantize_ref(
-                     quant.int8_mm_ref(xq, wq), x_scale, w_scale, bias,
-                     torch.bfloat16), reps=5),
-                 "library_ms": time_ms(lambda: quant.dequantize_ref(
-                     torch._int_mm(xq, wq_t), x_scale, w_scale, bias,
-                     torch.bfloat16)),
-                 "int_mm_alone_ms": time_ms(lambda: torch._int_mm(xq, wq_t)),
-                 "bf16_linear_ms": time_ms(lambda: F.linear(x, w, bias_b)),
-                 "act_quant_ms": time_ms(lambda: quant.quantize_int8(x, -1))}
-            t["bound_ms"], t["bound_by"] = int8_bound_ms(r, k, m)
-            rate = 2 * r * k * m / t["ms"] / 1e9
-            say("kernel", f"k10 {name} [{r}, {k}] x [{m}, {k}], median of "
-                          f"timed calls: kernel {t['ms']:.4f} ms ({rate:.1f} "
-                          f"TOPS, {rate / PEAK_INT8_OPS * 1e12:.1%} of the "
-                          f"int8 peak), plain {t['plain_ms']:.4f} ms, "
-                          f"torch._int_mm + epilogue {t['library_ms']:.4f} ms "
-                          f"(_int_mm alone {t['int_mm_alone_ms']:.4f}), bf16 "
-                          f"F.linear {t['bf16_linear_ms']:.4f} ms, the "
-                          f"activation's quantization {t['act_quant_ms']:.4f} "
-                          f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
-            out[name] = t
-    return {**out["lift_fc1"], "max_abs_err": worst}
+            say("kernel", f"k10 {name} [{r}, {k}] x [{m}, {k}]: raw equal "
+                          f"{c['raw_equal']}, dequant max {c['ulps']} bf16 "
+                          f"ulp (max_abs_err {c['max_abs_err']:.3e}); "
+                          f"quantization equal {c['quant_equal']}")
+            check(c["raw_equal"] and c["ulps"] <= 1,
+                  f"k10 {name}: raw equal to int8_mm_ref, dequant within 1 "
+                  f"bf16 ulp")
+            worst = max(worst, c["max_abs_err"])
+            worst_ulp = max(worst_ulp, c["ulps"])
+            check(c["quant_equal"], f"k10 {name}: the quantization kernel "
+                                    f"equal to quantize_int8")
+            del op
+    rows = int8_probe.rows(previous=previous)
+    for name, r in rows.items():
+        say("kernel", "k10 " + int8_probe.describe(name, r))
+        check(r["raw_equal"] and r["ulps"] <= 1 and r["quant_equal"],
+              f"k10 {name}: the probe's checks")
+        if previous is not None:
+            check(r["previous_ulps"] <= 1
+                  and r["device_ms"] < r["previous_device_ms"],
+                  f"k10 {name}: the earlier design within 1 ulp and the "
+                  f"wgmma design's device time below it")
+    r = rows["lift_fc1"]
+    gemm = {key: r.get(key) for key in (
+        "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+        "previous_device_ms", "bound_ms", "bound_by")}
+    quantize = {"ms": r["quant_ms"], "device_ms": r["quant_device_ms"],
+                "plain_ms": r["quant_plain_ms"], "library_ms": None,
+                "bound_ms": r["quant_bound_ms"], "bound_by": "bytes",
+                "max_abs_err": 0.0}
+    return {**gemm, "max_abs_err": worst, "max_ulps": worst_ulp,
+            "quantize": quantize}
 
 
 def bench_inputs():
@@ -2482,6 +2449,7 @@ def set_serving(module, quant_mode: str, gelu: str) -> None:
 def reset_counts() -> None:
     reset_attention_counts()
     quant.int8_gemm.launches = 0
+    quant.quantize_rows.launches = 0
 
 
 def rel_cos(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -2495,7 +2463,8 @@ def quant_phase() -> dict:
     """The W8A8 int8 serving option at full width: oracle LIFT as bench.py
     builds it with OVMONO3D_QUANT=int8, then GEO with int8 and tanh-GELU
     trunks as tools/bench_geo_models.py --quant int8 --gelu tanh builds
-    them. Returns the launches of kernels 10, 1 and 7 in the timed runs."""
+    them. Returns the launches of kernels 10, 1 and 7 and of the
+    quantization in the timed runs."""
     t0 = time.perf_counter()
     cfg = flagship_config(S)
     cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
@@ -2513,10 +2482,13 @@ def quant_phase() -> dict:
         reset_counts()
         dets, lats = serve(model, images[QUANT_WARMUP:], inputs)
         out = {"int8": quant.int8_gemm.launches,
+               "quant": quant.quantize_rows.launches,
                "fwd": attention.flash_attention_packed.launches}
         peak = torch.cuda.max_memory_allocated()
-    check(out["int8"] == LIFT_INT8_LAUNCHES * QUANT_TIMED,
-          f"{out['int8']} kernel-10 launches for {QUANT_TIMED} LIFT requests "
+    check(out["int8"] == LIFT_INT8_LAUNCHES * QUANT_TIMED
+          and out["quant"] == out["int8"],
+          f"{out['int8']} kernel-10 launches and {out['quant']} of the "
+          f"quantization for {QUANT_TIMED} LIFT requests "
           f"({LIFT_INT8_LAUNCHES} each)")
     check(out["fwd"] == 12 * QUANT_TIMED,
           f"{out['fwd']} kernel-1 launches for {QUANT_TIMED} LIFT requests")
@@ -2551,13 +2523,15 @@ def quant_phase() -> dict:
     reset_counts()
     preds, lats = serve_geo(models, requests[GEO_QUANT_WARMUP:])
     geo_out = {"int8": quant.int8_gemm.launches,
+               "quant": quant.quantize_rows.launches,
                "fwd": attention.flash_attention_packed.launches,
                "relpos": attention.rel_pos_flash_attention.launches}
     peak = torch.cuda.max_memory_allocated()
     n = GEO_QUANT_TIMED
-    check(geo_out["int8"] == GEO_INT8_LAUNCHES * n,
-          f"{geo_out['int8']} kernel-10 launches for {n} GEO images "
-          f"({GEO_INT8_LAUNCHES} each)")
+    check(geo_out["int8"] == GEO_INT8_LAUNCHES * n
+          and geo_out["quant"] == geo_out["int8"],
+          f"{geo_out['int8']} kernel-10 launches and {geo_out['quant']} of "
+          f"the quantization for {n} GEO images ({GEO_INT8_LAUNCHES} each)")
     check(geo_out["fwd"] == 72 * n and geo_out["relpos"] == 32 * n,
           f"kernel-1 / kernel-7 launches {geo_out['fwd']} / "
           f"{geo_out['relpos']} for {n} GEO images")
@@ -3133,13 +3107,24 @@ def iou3d_card_vs_cpu(names) -> None:
 
 
 def main() -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--previous", metavar="DIR",
+        help="a directory holding the earlier relpos_flash_fwd.cu and "
+             "int8_gemm.cu (and their headers), for instance the parent "
+             "commit's ovmono3d_tpu_torch/csrc unpacked outside the tree: "
+             "kernels 7 and 10 are timed beside them")
+    args = parser.parse_args()
     t_start = time.perf_counter()
     card = device_phase()
     build_phase()
     k = kernel_phase()
-    k["relpos"] = relpos_kernel_phase()
+    k["relpos"] = relpos_kernel_phase(args.previous)
     k["window"] = window_kernel_phase()
-    k["int8"] = int8_kernel_phase()
+    k["int8"] = int8_kernel_phase(args.previous)
+    k["quant"] = k["int8"].pop("quantize")
     k.update(headmajor_kernel_phase())
     k.update(ln_kernel_phase())
     ln = ln_paths()
@@ -3175,6 +3160,7 @@ def main() -> None:
                 "relpos": geo_launches["relpos"] + q_launches["relpos"]
                 + f32_launches["relpos"],
                 "window": ov_launches["window"], "int8": q_launches["int8"],
+                "quant": q_launches["quant"],
                 "fwd_f32": f32_launches["fwd_f32"], **hm_launches,
                 "k9": ln["k9_launches"]}
     src = "ovmono3d_tpu_torch/csrc/"
@@ -3191,6 +3177,8 @@ def main() -> None:
                    "ovmono3d_tpu/ops/attention.py:1474"),
         "int8": ("int8_gemm_s8", src + "int8_gemm.cu",
                  "tools/probe_int8_pallas.py:38"),
+        "quant": ("int8_quantize_rows (kernel 10's activation)",
+                  src + "int8_gemm.cu", "ovmono3d_tpu/ops/quant.py:55"),
         "fwd_f32": ("flash_attn_fwd_f32", src + "flash_attn_fwd.cu",
                     "ovmono3d_tpu/ops/attention.py:238"),
         "k2": ("flash_attn_fwd_bf16 head-major (flash_attention)",
@@ -3209,7 +3197,9 @@ def main() -> None:
     for kind, (name, source, replaces) in meta.items():
         design = (DESIGN_KEYS if kind in ("fwd", "lse", "k2", "k5", "bwd",
                                           "k6")
-                  else F32_KEYS if kind == "fwd_f32" else ())
+                  else F32_KEYS if kind == "fwd_f32"
+                  else PREVIOUS_KEYS if kind in ("relpos", "int8")
+                  else ("device_ms",) if kind == "quant" else ())
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[kind],
                         **{key: k[kind][key] for key in keys + design}})

@@ -411,6 +411,8 @@ int launch_stats(const void* o, const void* dout, const void* lse,
 
 namespace hopper {
 
+using sm90::ex2;
+
 constexpr int kD = 64;
 constexpr int kRows = 64;                   // a box, a consumer's rows, a stage
 constexpr int kConsumers = 2;               // warpgroups of 64 fixed rows
@@ -456,12 +458,6 @@ struct Args {
   Strides ds_st, p_st;
   float scale, scale_log2;
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ void fence_frags(uint32_t (&f)[4][4]) {
 #pragma unroll

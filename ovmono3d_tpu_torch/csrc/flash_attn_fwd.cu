@@ -574,14 +574,9 @@ struct Smem {
 };
 constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;
 
+using sm90::ex2;
 using sm90::load_box;
 using sm90::MapDims;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // The descriptors of one tile's products, each pinned in its register: QK^T
 // takes four k-steps of 16 over D (a step moves both descriptors 32 bytes

@@ -61,7 +61,8 @@ Decomposed relative-position attention (the SAM image encoder's blocks):
   package's `_rel_pos_attention_fast(..., clamp=None)`;
 - `rel_pos_flash_attention` (`csrc/relpos_flash_fwd.cu`, counted in
   `rel_pos_flash_attention.launches`), replacing the TPU kernel
-  `_relpos_flash_kernel`: inference only, bf16, head dim 64 or 80;
+  `_relpos_flash_kernel`: inference only, bf16, head dim 64 or 80, a
+  grid of gh + gw <= 128 (wgmma + TMA, as kernel 1);
 - `rel_pos_attention`: its dispatcher. f32 inputs (on any device) and CPU
   tensors go to the plain version; CUDA bf16 goes to the kernel, with the
   bias factors qrh/qrw computed outside it in f32 (`rel_pos_factors`), and
@@ -104,6 +105,7 @@ KERNEL_SOURCES = ["flash_attn_fwd.cu", "flash_attn_bwd.cu",
 _HEAD_DIMS = (32, 64)      # csrc/flash_attn_{fwd,bwd}.cu instances
 _FWD_DTYPES = (torch.bfloat16, torch.float32)
 _REL_POS_HEAD_DIMS = (64, 80)
+_REL_POS_MAX_BIAS = 128      # csrc/relpos_flash_fwd.cu kMaxBias: gh + gw
 _WINDOW_HEAD_DIM = 32
 _WINDOW_MAX_TOKENS = 1024   # csrc/window_attn_fwd.cu kMaxTokens
 _F32_NO_GRAD = ("f32 attention with a gradient on CUDA: the training "
@@ -682,6 +684,9 @@ def check_rel_pos_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in _REL_POS_HEAD_DIMS:
         raise ValueError(f"head dim {d}; the kernel takes "
                          f"{_REL_POS_HEAD_DIMS}")
+    if h + w > _REL_POS_MAX_BIAS:
+        raise ValueError(f"grid {grid_hw}: the kernel keeps gh + gw <= "
+                         f"{_REL_POS_MAX_BIAS} bias terms a row")
     for name, x, width in (("qrh", qrh, h), ("qrw", qrw, w)):
         if (x.dtype != torch.float32 or tuple(x.shape) != (b, n, heads, width)
                 or not x.is_contiguous()):

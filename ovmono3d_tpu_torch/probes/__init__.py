@@ -1,11 +1,13 @@
 """Probes of single kernels on the card: the port's counterparts of the JAX
-package's TPU probes tools/probe_layernorm.py and tools/profile_attn_sweep.py
-(`python -m ovmono3d_tpu_torch.probes.layernorm`, `... .attn_sweep`). Each
+package's TPU probes tools/probe_layernorm.py, tools/profile_attn_sweep.py
+and tools/probe_int8_pallas.py (`python -m
+ovmono3d_tpu_torch.probes.layernorm`, `... .attn_sweep`, `... .int8_gemm`),
+and of the attention kernels' designs (`... .flash_fwd`, `... .relpos`). Each
 times its kernels by CUDA events beside their bounds, their plain versions
 and a PyTorch call of the same function, and holds every kernel to its plain
-version; chip_smoke.py reads their rows. The attention probes also time an
-earlier version of a kernel, built from a copy of its source that the
-caller names (--previous), in turns with the shipped one."""
+version; chip_smoke.py reads their rows. Most also time an earlier
+version of a kernel, built from a copy of its source that the caller names
+(--previous), in turns with the shipped one."""
 from __future__ import annotations
 
 import statistics
@@ -15,6 +17,7 @@ import torch
 # NVIDIA's H100 SXM data sheet, dense, at the full 700 W power limit.
 PEAK_BYTES = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12                      # the FP32 pipes, no tensor cores
 
 

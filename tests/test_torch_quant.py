@@ -35,6 +35,9 @@ CUDA_SHAPES = {
     "sam_h_fc2": (4096, 5120, 1280),
     "depth_pro_patch_fc1": (20195, 1024, 4096),
     "depth_pro_image_fc2": (577, 4096, 1024), "ragged": (77, 64, 200),
+    # K tails (a partial 128-byte k stage) with R = 4097 and M no multiple
+    # of the 256-column tile.
+    "tail_k96": (4097, 96, 328), "tail_k160": (4097, 160, 200),
 }
 
 
@@ -467,6 +470,9 @@ _BAD = {
                        .view(8, 64)), "16-byte"),
     "scale_needs_grad": (dict(x_scale=torch.ones(8, requires_grad=True)),
                          "SERVING-only"),
+    "out_row": (dict(wq=torch.zeros(12, 64, dtype=torch.int8),
+                     w_scale=torch.ones(12), bias=torch.zeros(12)),
+                "multiple of 16 bytes"),
     "cpu": ({}, "CUDA device"),
 }
 
@@ -483,14 +489,50 @@ def test_gemm_wrapper_rejects(case):
     assert tq.int8_gemm.launches == launches
 
 
+_QUANT_BAD = {
+    "f16": (torch.zeros(8, 64, dtype=torch.float16), "bfloat16 or float32"),
+    "3d": (torch.zeros(2, 8, 64, dtype=torch.bfloat16), "2-D"),
+    "strided_k": (torch.zeros(8, 128, dtype=torch.bfloat16)[:, ::2],
+                  "unit stride"),
+    "k_not_32": (torch.zeros(8, 48, dtype=torch.bfloat16), "multiple of 32"),
+    "empty": (torch.zeros(0, 64, dtype=torch.bfloat16), "empty"),
+    "row_stride": (torch.zeros(8, 68, dtype=torch.bfloat16)[:, :64],
+                   "16-byte"),
+    "unaligned": (torch.zeros(8 * 64 + 1, dtype=torch.float32)[1:]
+                  .view(8, 64), "16-byte"),
+    "needs_grad": (torch.zeros(8, 64, requires_grad=True), "SERVING-only"),
+    "cpu": (torch.zeros(8, 64, dtype=torch.bfloat16), "CUDA device"),
+}
+
+
+@pytest.mark.parametrize("case", list(_QUANT_BAD))
+def test_quantize_wrapper_rejects(case):
+    x, match = _QUANT_BAD[case]
+    calls, launches = tq._kernel.cache_info()[:2], tq.quantize_rows.launches
+    with pytest.raises(ValueError, match=match):
+        tq.quantize_rows(x)
+    assert tq._kernel.cache_info()[:2] == calls
+    assert tq.quantize_rows.launches == launches
+
+
+def test_weight_map_refuses_what_the_kernel_does_not_take():
+    calls = tq._kernel.cache_info()[:2]
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tq.weight_map(torch.zeros(16, 48, dtype=torch.int8))
+    with pytest.raises(ValueError, match="CUDA device"):
+        tq.weight_map(torch.zeros(16, 64, dtype=torch.int8))
+    assert tq._kernel.cache_info()[:2] == calls
+
+
 def test_int8_matmul_cpu_runs_the_plain_version():
     xq, x_scale, wq, w_scale, bias = _operands(6, 64, 24, seed=11)
     x = torch.randn(2, 3, 64, dtype=torch.bfloat16)
-    launches = tq.int8_gemm.launches
+    launches = tq.int8_gemm.launches, tq.quantize_rows.launches
     got = tq.int8_matmul(x, wq, w_scale, bias, torch.bfloat16)
     assert torch.equal(got, tq.int8_matmul_ref(x, wq, w_scale, bias,
                                                torch.bfloat16))
-    assert got.shape == (2, 3, 24) and tq.int8_gemm.launches == launches
+    assert got.shape == (2, 3, 24)
+    assert (tq.int8_gemm.launches, tq.quantize_rows.launches) == launches
 
 
 def test_geo_cli_synthetic_with_tanh_gelu(tmp_path, capsys):
@@ -575,15 +617,76 @@ def test_kernel_dequant_matches_plain_on_cuda(cuda_device, name, out_dtype):
 
 
 @pytest.mark.cuda
-def test_qdense_int8_on_cuda_launches_the_kernel(cuda_device):
-    fc = tq.QDense(768, 3072, quant="int8", device=cuda_device)
+@pytest.mark.parametrize("name", ["ragged", "tail_k96", "tail_k160",
+                                  "lift_fc1"])
+def test_kernel_reuses_the_weight_map_on_cuda(cuda_device, name):
+    """The weight's tensor map encoded once and reused, as QDense does: raw
+    equal, bf16 within one ulp (expected equal)."""
+    rows, depth, cols = CUDA_SHAPES[name]
+    xq, x_scale, wq, w_scale, bias = _operands(rows, depth, cols, seed=14,
+                                               device=cuda_device)
+    w_map = tq.weight_map(wq)
+    acc = tq.int8_mm_ref(xq, wq)
+    raw = tq.int8_gemm(xq, wq, w_map=w_map)
+    got = tq.int8_gemm(xq, wq, x_scale, w_scale, bias, w_map=w_map)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, acc)
+    want = tq.dequantize_ref(acc, x_scale, w_scale, bias, torch.bfloat16)
+    ulps = (got.view(torch.int16).long() - want.view(torch.int16).long())
+    assert int(ulps.abs().max()) <= 1
+
+
+def _quant_input(rows, depth, dtype, device):
+    """Rows of different ranges, an all-zero row, and a row whose absmax is
+    254 (scale exactly 2) holding odd integers, each x / scale a tie at .5
+    that rounds to even."""
+    x = torch.from_numpy(_scaled_normal((rows, depth), 15)).to(dtype)
+    x[3] = 0
+    x[5] = torch.arange(depth) % 128 * 2 - 127
+    x[5, 0] = 254
+    return x.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(4097, 768), (77, 96), (9, 5120)])
+def test_quantize_kernel_is_exact_on_cuda(cuda_device, dtype, shape):
+    x = _quant_input(*shape, dtype, cuda_device)
+    before = tq.quantize_rows.launches
+    xq, x_scale = tq.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert tq.quantize_rows.launches == before + 1
+    want_q, want_s = tq.quantize_int8(x, -1)
+    assert torch.equal(x_scale, want_s) and torch.equal(xq, want_q)
+    assert x_scale[5].item() == 2.0 and int(xq[3].abs().max()) == 0
+    # the ties: odd / 2 rounds to the even neighbour
+    ties = x[5, 1:].float() / 2
+    assert torch.equal(xq[5, 1:].float(), ties.round())
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_takes_a_row_stride_on_cuda(cuda_device):
+    x = torch.randn(50, 160, device=cuda_device,
+                    dtype=torch.bfloat16)[:, :96]
+    xq, x_scale = tq.quantize_rows(x)
+    want_q, want_s = tq.quantize_int8(x, -1)
+    assert torch.equal(xq, want_q) and torch.equal(x_scale, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_qdense_int8_on_cuda_launches_the_kernel(cuda_device, dtype):
+    """QDense on the card: the quantization kernel and the product, once
+    each a call, equal to the plain W8A8 product (bf16 and an f32 trunk)."""
+    fc = tq.QDense(768, 3072, dtype=dtype, quant="int8", device=cuda_device)
     fc.init_lecun(torch.Generator(device=cuda_device).manual_seed(0))
-    x = torch.randn(2, 300, 768, device=cuda_device, dtype=torch.bfloat16)
-    before = tq.int8_gemm.launches
+    x = torch.randn(2, 300, 768, device=cuda_device, dtype=dtype)
+    before = tq.int8_gemm.launches, tq.quantize_rows.launches
     with torch.inference_mode():
         got = fc(x)
     torch.cuda.synchronize()
-    assert tq.int8_gemm.launches == before + 1
+    assert tq.int8_gemm.launches == before[0] + 1
+    assert tq.quantize_rows.launches == before[1] + 1
     wq, w_scale = fc.quantized_weight()
     assert torch.equal(got, tq.int8_matmul_ref(x, wq, w_scale, fc.bias,
-                                               torch.bfloat16))
+                                               dtype))

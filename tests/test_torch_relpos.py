@@ -158,7 +158,7 @@ def test_wrapper_takes_the_encoders_strided_views():
     ("dtype", "bfloat16"), ("head_dim", "head dim"), ("stride", "unit stride"),
     ("grad", "inference-only"), ("shape", "shape"), ("align", "aligned"),
     ("grid", "tokens"), ("qrh_dtype", "qrh"), ("qrw_shape", "qrw"),
-    ("qrh_strided", "qrh"),
+    ("qrh_strided", "qrh"), ("bias_terms", "gh \\+ gw"),
 ])
 def test_wrapper_rejects(bad, match):
     grid = (5, 8)
@@ -186,6 +186,10 @@ def test_wrapper_rejects(bad, match):
         qrw = qrw[..., :7].contiguous()
     elif bad == "qrh_strided":
         qrh = qrh.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "bias_terms":
+        grid = (3, 126)                     # 129 bias terms a row
+        q, k, v, rh, rw = _packed(1, grid, 2, 64)
+        qrh, qrw = tattn.rel_pos_factors(q, rh, rw, grid)
     with pytest.raises(ValueError, match=match):
         tattn.rel_pos_flash_attention(q, k, v, qrh, qrw, grid)
 
@@ -195,7 +199,11 @@ def test_wrapper_rejects(bad, match):
 # at the tile edges.
 CUDA_SHAPES = [(1, (64, 64), 16, 80), (25, (14, 14), 16, 80),
                (1, (64, 64), 12, 64), (2, (6, 10), 12, 64),
-               (1, (1, 1), 2, 80), (1, (8, 8), 2, 64), (3, (5, 13), 4, 80)]
+               (1, (1, 1), 2, 80), (1, (8, 8), 2, 64), (3, (5, 13), 4, 80),
+               # the 128-row tile's edges (one full tile, one row past it)
+               # and the largest bias table (gh + gw = 128)
+               (2, (8, 16), 4, 80), (2, (3, 43), 4, 64),
+               (1, (2, 126), 2, 80), (25, (14, 14), 16, 64)]
 
 
 def check_kernel(q, k, v, rh, rw, grid, absolute=True):
