@@ -19,8 +19,9 @@ of the JAX package's LayerNorm and attention-sweep probes. Holds every CUDA
 kernel on those paths against its plain PyTorch version.
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
-    python3 chip_smoke.py --previous DIR   # kernels 7 and 10 also beside
-                                           # the designs in DIR's sources
+    python3 chip_smoke.py --previous DIR   # kernels 7, 8 and 10 also
+                                           # beside the designs in DIR's
+                                           # sources (those that differ)
 
 Kernels: 1 = the inference flash-attention forward, 3 = the training
 forward that also writes the row log-sum-exp, 4 = the attention backward,
@@ -43,8 +44,9 @@ profiles' tables):
           flash_fwd_sm90_kernel<false / true>, the backward's
           flash_bwd_sm90_kernel<true / false>, its dk/dv and dq kernels,
           the sweep's eight sweep_fwd_sm90_kernel<block_k, consumers,
-          f32 softmax> and the rel-pos forward's relpos_fwd_sm90_kernel<64
-          / 80>): registers, spill stores and stack frame from the
+          f32 softmax>, the rel-pos forward's relpos_fwd_sm90_kernel<64
+          / 80> and the window forward's window_fwd_sm90_kernel<false /
+          true>): registers, spill stores and stack frame from the
           -Xptxas -v log (no spills, no stack frame), ptxas's C7513 lines
           printed, and their HGMMA and UTMALDG instructions in cuobjdump's
           SASS (both above 0); the int8 product's three
@@ -83,11 +85,17 @@ profiles' tables):
           and by the profiler's device time, the plain version's time and
           the bound; kernel 8 vs
           window_attention_ref at Swin-B's four stage shapes at 896^2, with
-          the shifted blocks' region ids and without (bias ~N(0, 1)), and at
-          a small map (N = 64) with a bias of std 30 (one-hot softmax), then
-          at stages 0 and 2 its time, the plain version's, SDPA's with the
-          [BW, H, N, N] bias and mask built inside the timed call and the
-          bound; kernel 10 at every product shape of the int8 paths
+          the shifted blocks' region ids and without (bias ~N(0, 1)), at the
+          windows of maps smaller than the window (N = 121, 64, 49, 16, 1)
+          and N = 144 with a bias of std 30 (one-hot softmax) and random
+          ids, and at N = 196 (the mma.sync instance), then through
+          probes/window.py at all four stages, shifted and unshifted: the
+          wgmma design, its earlier design (with --previous; its device time
+          must be above the new one's) and SDPA with the [BW, H, N, N] bias
+          and mask built inside the timed call (below the new one's at
+          stages 0 and 2) in turns, by events and by the profiler's device
+          time, the plain version's time and the bound; kernel 10 at every
+          product shape of the int8 paths
           (INT8_SHAPES), a ragged one and two K tails: the int32
           accumulator equal to int8_mm_ref, the bf16
           dequantized product within 1 bf16 ulp of dequantize_ref
@@ -183,7 +191,8 @@ profiles' tables):
           (a guard of the model), with plain bf16 vs f32 probabilities
           printed beside, and pred_logits, pred_boxes and the lifted corners
           printed unchecked (top-900 selection and NMS flip on rounding); a
-          profile of 3 images
+          profile of 3 images, with --previous also with kernel 8's earlier
+          design in every Swin block and then the shipped one again
   quant   the W8A8 int8 serving option: the flagship with quant="int8"
           (seed 0, weights as the slice phase) serves bench.py's request
           (OVMONO3D_QUANT=int8): 3 warm-up + 10 timed (img/s, p50, peak
@@ -238,7 +247,8 @@ profiles' tables):
 Then a JSON line of the kernels (kernels 1, 2, 3 and 5 at the trunk shape
 also with previous_ms, device_ms, previous_device_ms and library_device_ms:
 the mma.sync design's event time and the device times of both designs and
-of SDPA; kernel 7 at SAM-H global and kernel 10 at LIFT fc1 with
+of SDPA; kernel 7 at SAM-H global, kernel 8 at stage 0 shifted and kernel
+10 at LIFT fc1 with
 device_ms, previous_device_ms (the design in --previous DIR, null without
 it) and library_device_ms; kernel 10's quantization in its own entry with
 device_ms; kernel 1's f32 instance and kernel 11's instances with device_ms
@@ -281,7 +291,6 @@ from ovmono3d_tpu_torch.evaluation.helper import (  # noqa: E402
 )
 from ovmono3d_tpu_torch.geo import cli as geo  # noqa: E402
 from ovmono3d_tpu_torch.models import rcnn3d  # noqa: E402
-from ovmono3d_tpu_torch.models.gdino import swin  # noqa: E402
 from ovmono3d_tpu_torch.models.depth import DepthPro  # noqa: E402
 from ovmono3d_tpu_torch.models.gdino.tokenizer import (  # noqa: E402
     BertTokenizer,
@@ -304,6 +313,7 @@ from ovmono3d_tpu_torch.probes import flash_fwd as fwd_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import flash_fwd_f32 as f32_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import int8_gemm as int8_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import relpos as relpos_probe  # noqa: E402
+from ovmono3d_tpu_torch.probes import window as window_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import card as card_name  # noqa: E402
 from ovmono3d_tpu_torch.probes import (  # noqa: E402
     bf16_ulp_diff, device_ms, in_turns, time_ms)
@@ -330,6 +340,7 @@ DESIGNS = (("flash_attn_fwd.cu", "flash_fwd_sm90_kernel", 2, SASS_OPS),
            ("flash_attn_bwd.cu", "flash_bwd_sm90_kernel", 2, SASS_OPS),
            ("attn_sweep_fwd.cu", "sweep_fwd_sm90_kernel", 8, SASS_OPS),
            ("relpos_flash_fwd.cu", "relpos_fwd_sm90_kernel", 2, SASS_OPS),
+           ("window_attn_fwd.cu", "window_fwd_sm90_kernel", 2, SASS_OPS),
            ("int8_gemm.cu", "int8_gemm_sm90_kernel", 3,
             ("IGMMA", "UTMALDG")),
            ("flash_attn_fwd.cu", "flash_fwd_f32_kernel", 2, ()),
@@ -406,11 +417,11 @@ GEO_F32_REL = 1e-4
 HEADMAJOR_TIMED, HEADMAJOR_STEPS = 3, 2
 GEO_DEPTH_BIAS = 0.5   # the depth head's output bias in the geo phase
 # Kernel 8: (BW, N, H) of Swin-B's four stages at 896^2 (patch grid 224,
-# window 12: 19^2, 10^2, 5^2 and 3^2 windows, D = 32), and a small map's
-# single 8x8 window (N = 64), 4 images of it.
-WINDOW_SHAPES = {"stage0": (361, 144, 4), "stage1": (100, 144, 8),
-                 "stage2": (25, 144, 16), "stage3": (9, 144, 32)}
-WINDOW_SMALL, WINDOW_SMALL_BIAS_STD = (4, 64, 4), 30.0
+# window 12: 19^2, 10^2, 5^2 and 3^2 windows, D = 32); the windows of maps
+# smaller than the window (w^2 tokens) and a full one, 4 of each, with a
+# bias of std 30.
+WINDOW_SHAPES = window_probe.STAGES
+WINDOW_SMALL_TOKENS, WINDOW_SMALL_BIAS_STD = (144, 121, 64, 49, 16, 1), 30.0
 OV_H, OV_W, OV_WARMUP, OV_TIMED = 480, 640, 2, 5
 # Kernel 10: (rows R, K, M) of every product of the int8 serving paths, per
 # image: the LIFT trunk (DINOv2 ViT-B/14 at 896^2, 4097 tokens), SAM ViT-H at
@@ -505,22 +516,37 @@ def device_phase() -> str:
     return card
 
 
-def sass_counts(lib: Path, ops=SASS_OPS) -> dict:
-    """{kernel function (mangled): {op: instructions}} in `lib`'s SASS, from
-    the cuobjdump beside nvcc."""
+def sass_functions(lib: Path) -> dict:
+    """{kernel function (mangled): its SASS lines} in `lib`, from the
+    cuobjdump beside nvcc."""
     tool = Path(cuda_build.find_nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    counts, fn = {}, None
+    out, fn = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m[1]
-            counts[fn] = dict.fromkeys(ops, 0)
+            out[fn] = []
         elif fn is not None:
-            for op in ops:
-                counts[fn][op] += len(re.findall(rf"\b{op}\b", line))
-    return counts
+            out[fn].append(line)
+    return out
+
+
+def machine_code(lib: Path) -> list:
+    """The instructions of each kernel function in `lib`, one string a
+    function, sorted: the functions' names are left out, as the names of an
+    anonymous namespace differ from one source file to another."""
+    return sorted("\n".join(line for line in lines
+                            if re.match(r"\s*/\*", line))
+                  for lines in sass_functions(lib).values())
+
+
+def sass_counts(lib: Path, ops=SASS_OPS) -> dict:
+    """{kernel function (mangled): {op: instructions}} in `lib`'s SASS."""
+    return {fn: {op: sum(len(re.findall(rf"\b{op}\b", line))
+                         for line in lines) for op in ops}
+            for fn, lines in sass_functions(lib).items()}
 
 
 def template_args(mangled: str, design: str) -> str:
@@ -975,6 +1001,48 @@ def headmajor_kernel_phase() -> dict:
     return out
 
 
+def kernel_sources(csrc: Path, source: str) -> dict:
+    """{file name: bytes, or None where missing} of `source` in the
+    directory `csrc` and of every header it includes from there, followed
+    through the headers' own includes."""
+    out: dict = {}
+    todo = [source]
+    while todo:
+        name = todo.pop()
+        if name in out:
+            continue
+        path = csrc / name
+        out[name] = path.read_bytes() if path.is_file() else None
+        if out[name] is not None:
+            todo += [m.decode() for m in
+                     re.findall(rb'#include "([^"]+)"', out[name])]
+    return out
+
+
+def earlier_design(previous: str | None, source: str) -> str | None:
+    """`previous` when the library built from that directory's copy of
+    `source` (with the headers it includes from there) holds other machine
+    code than the shipped one: a kernel's earlier design, timed beside it.
+    Where the sources are the shipped ones, or differ only where no kernel
+    of `source` changes (a header gaining functions it does not call),
+    there is no earlier design to compare, and that kernel is timed alone."""
+    if previous is None:
+        return None
+    if (kernel_sources(Path(previous), source)
+            == kernel_sources(cuda_build.CSRC, source)):
+        say("kernel", f"{source} and its headers in {previous} are the "
+                      f"shipped ones: no earlier design to time beside it")
+        return None
+    libs = [cuda_build.build([source], csrc)[source]
+            for csrc in (Path(previous), cuda_build.CSRC)]
+    if machine_code(libs[0]) == machine_code(libs[1]):
+        say("kernel", f"{source} in {previous} differs from the shipped one "
+                      f"(or a header it includes does) but builds to the same "
+                      f"SASS: no earlier design to time beside it")
+        return None
+    return previous
+
+
 def relpos_kernel_phase(previous: str | None) -> dict:
     """Kernel 7 against rel_pos_attention_ref at the four shapes, then
     through probes/relpos.py at SAM-H's global and windowed shapes: the
@@ -996,6 +1064,7 @@ def relpos_kernel_phase(previous: str | None) -> dict:
                 attention.rel_pos_attention_ref(q, k, v, rh, rw, grid),
                 absolute=True))
             del got, bias
+    previous = earlier_design(previous, "relpos_flash_fwd.cu")
     rows = relpos_probe.rows(previous=previous)
     for name, r in rows.items():
         say("kernel", "k7 " + relpos_probe.describe(name, r))
@@ -1011,92 +1080,64 @@ def relpos_kernel_phase(previous: str | None) -> dict:
     return {**out, "max_abs_err": worst}
 
 
-def window_inputs(bw, n, h, seed, shifted, bias_std=1.0):
-    """Kernel 8's inputs as a Swin block makes them: q/k/v views of one qkv
-    tensor, an f32 bias [H, N, N] and, for a shifted block, the region ids
-    of one image's sqrt(BW) x sqrt(BW) windows (a shift of half the
-    window)."""
-    q, k, v = qkv_views(bw, n, h, 32, seed)
-    g = torch.Generator(device="cuda").manual_seed(2000 + seed)
-    bias = torch.randn(h, n, n, device="cuda", generator=g) * bias_std
-    ids = None
-    if shifted:
-        side, win = math.isqrt(bw), math.isqrt(n)
-        ids = swin._region_ids(side * win, side * win, win, win // 2,
-                               q.device)
-    return q, k, v, bias, ids
-
-
-def window_bound_ms(bw, n, h, d, nw) -> tuple[float, str]:
-    """Kernel 8's bound: 4 BW H N^2 D flops; q, k, v, out in bf16, the bias
-    in f32 and the ids in int32, each moved once."""
-    flops = 4 * bw * h * n * n * d
-    nbytes = 4 * bw * n * h * d * 2 + h * n * n * 4 + nw * n * 4
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-def sdpa_window(q, k, v, bias, ids):
-    """The same function as one PyTorch call: SDPA with the [BW, H, N, N]
-    bias and shift mask built inside the call, as the kernel does."""
-    bw, n, h, _ = q.shape
-    mask = bias[None].expand(bw, h, n, n)
-    if ids is not None:
-        nw = ids.shape[0]
-        shift = torch.where(ids[:, :, None] == ids[:, None, :], 0.0, -1e9)
-        mask = (mask.reshape(bw // nw, nw, h, n, n)
-                + shift[None, :, None]).reshape(bw, h, n, n)
-    return F.scaled_dot_product_attention(*sdpa_views(q, k, v),
-                                          attn_mask=mask.to(q.dtype))
-
-
-def window_kernel_phase() -> dict:
+def window_kernel_phase(previous: str | None) -> dict:
     """Kernel 8 against window_attention_ref at Swin-B's stage shapes, with
-    and without region ids, and at a small map with a one-hot softmax; then
-    its times at stages 0 and 2 (shifted blocks). Returns stage 0's numbers
-    (the JSON line's) with the worst error over all cases."""
+    and without region ids; at the windows of a map smaller than Swin's
+    (N = w^2 < 144) and at N = 144 with a bias of std 30 (one-hot rows), with
+    random ids; and past 144 tokens (the mma.sync instance). Then through
+    probes/window.py at all four stages, shifted and unshifted: the kernel,
+    its earlier design (with --previous) and SDPA with the bias and mask in
+    turns, by events and by the profiler's device time, with the bound; the
+    new design's device time below the earlier one's everywhere and below
+    SDPA's at stages 0 and 2. Returns stage 0's shifted numbers (the JSON
+    line's) with the worst error over all cases."""
     worst = 0.0
     cases = [(name, shape, shifted, 1.0)
              for name, shape in WINDOW_SHAPES.items()
              for shifted in (True, False)]
-    cases.append(("small_map", WINDOW_SMALL, True, WINDOW_SMALL_BIAS_STD))
+    cases += [(f"small_map_n{n}", (4, n, 4), True, WINDOW_SMALL_BIAS_STD)
+              for n in WINDOW_SMALL_TOKENS]
+    cases += [("n196", (4, 196, 4), True, 1.0),
+              ("n196", (4, 196, 4), False, 1.0)]
     with torch.no_grad():
         for i, (name, (bw, n, h), shifted, std) in enumerate(cases):
-            q, k, v, bias, ids = window_inputs(bw, n, h, i, shifted, std)
-            if name == "small_map":
-                g = torch.Generator(device="cuda").manual_seed(3000)
-                ids = torch.randint(0, 3, (bw, n), device="cuda",
-                                    generator=g, dtype=torch.int32)
+            small = name.startswith("small_map")
+            q, k, v, bias, ids = window_probe.inputs(
+                bw, n, h, i, shifted and not small and n == 144, std)
+            if small or n != 144:
+                g = torch.Generator(device="cuda").manual_seed(3000 + i)
+                ids = (torch.randint(0, 3, (bw // 2, n), device="cuda",
+                                     generator=g, dtype=torch.int32)
+                       if shifted else None)
             got = attention.window_flash_attention(q, k, v, bias, ids)
             torch.cuda.synchronize()
             # A one-hot softmax returns single entries of v (up to ~5),
             # where a bf16 ulp exceeds the absolute limit: relative only.
             worst = max(worst, check_close(
-                f"k8 {name} {(bw, n, h, 32)} ids={ids is not None} out "
-                f"(bias std {std})", got,
+                f"k8 {name} {(bw, n, h, 32)} ids={ids is not None} "
+                f"{attention.window_kernel_instance(n)} out (bias std "
+                f"{std})", got,
                 attention.window_attention_ref(q, k, v, bias, ids),
-                absolute=name != "small_map"))
+                absolute=not small))
             del got
-        out = {}
-        for name in ("stage0", "stage2"):
-            bw, n, h = WINDOW_SHAPES[name]
-            q, k, v, bias, ids = window_inputs(bw, n, h, 0, True)
-            t = {"ms": time_ms(lambda: attention.window_flash_attention(
-                     q, k, v, bias, ids)),
-                 "plain_ms": time_ms(lambda: attention.window_attention_ref(
-                     q, k, v, bias, ids), reps=5),
-                 "library_ms": time_ms(
-                     lambda: sdpa_window(q, k, v, bias, ids))}
-            t["bound_ms"], t["bound_by"] = window_bound_ms(bw, n, h, 32,
-                                                           ids.shape[0])
-            say("kernel", f"k8 {name} {(bw, n, h, 32)} shifted, median of "
-                          f"timed calls: kernel {t['ms']:.4f} ms, plain "
-                          f"{t['plain_ms']:.4f} ms, SDPA with bias and mask "
-                          f"{t['library_ms']:.4f} ms, bound "
-                          f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
-            out[name] = t
-    return {**out["stage0"], "max_abs_err": worst}
+    previous = earlier_design(previous, "window_attn_fwd.cu")
+    rows = window_probe.rows(previous=previous)
+    for name, r in rows.items():
+        say("kernel", "k8 " + window_probe.describe(name, r))
+        check(r["ok"], f"k8 {name}: within the probe's limits of the plain "
+                       f"version")
+        if previous is not None:
+            check(r["previous_ok"]
+                  and r["device_ms"] < r["previous_device_ms"],
+                  f"k8 {name}: the earlier design within the limits and the "
+                  f"wgmma design's device time below it")
+        if name.startswith(("stage0", "stage2")):
+            check(r["device_ms"] < r["library_device_ms"],
+                  f"k8 {name}: device time below SDPA with the bias and "
+                  f"mask")
+    out = dict(rows["stage0_shifted"])
+    out.setdefault("previous_device_ms", None)
+    return {**out, "max_abs_err": worst}
 
 
 def int8_kernel_phase(previous: str | None) -> dict:
@@ -1131,6 +1172,7 @@ def int8_kernel_phase(previous: str | None) -> dict:
             check(c["quant_equal"], f"k10 {name}: the quantization kernel "
                                     f"equal to quantize_int8")
             del op
+    previous = earlier_design(previous, "int8_gemm.cu")
     rows = int8_probe.rows(previous=previous)
     for name, r in rows.items():
         say("kernel", "k10 " + int8_probe.describe(name, r))
@@ -1290,11 +1332,12 @@ def profile_phase(model, images, inputs, p50_ms: float) -> None:
 
 
 def device_profile(phase: str, run, n: int, p50_ms: float,
-                   per: str = "step", repeat: int | None = None) -> None:
+                   per: str = "step", repeat: int | None = None) -> float:
     """torch.profiler over `run` (one call covers n items, or n calls of
     one item each when repeat is None). Device time is summed over the
     device's own events; each is put under the aten op that launched it, or
-    under its own name when no aten op did (the ctypes-launched kernels)."""
+    under its own name when no aten op did (the ctypes-launched kernels).
+    Returns the device's busy ms per item."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1331,6 +1374,7 @@ def device_profile(phase: str, run, n: int, p50_ms: float,
     for key, us in sorted(by_op.items(), key=lambda kv: -kv[1])[:12]:
         ms = us / 1e3 / n
         say(phase, f"  {ms:8.3f} ms/{per} {ms / busy:6.1%}  {key[:90]}")
+    return busy
 
 
 def attention_f32_probs(q, k, v):
@@ -2265,9 +2309,12 @@ def _window_f32(qkv, bias, ids):
                                           ids).to(qkv.dtype)
 
 
-def ovlift_phase() -> dict:
+def ovlift_phase(previous: str | None) -> dict:
     """Open-vocabulary OVMono3D-LIFT serving at full width; returns the
-    launches of kernels 8 and 1 in the timed images."""
+    launches of kernels 8 and 1 in the timed images. With --previous, the
+    profile of the same images is taken again with the earlier design of
+    kernel 8 (from DIR's window_attn_fwd.cu) in every Swin block, then with
+    the shipped one once more."""
     t0 = time.perf_counter()
     names, tok = category_tokenizer()
     pipe = OVMono3DLift.build(Config(model=flagship_config(S)), tok,
@@ -2317,10 +2364,25 @@ def ovlift_phase() -> dict:
                   f"{n_valid:.1f} valid of 300 slots; peak memory {peak} "
                   "bytes; ms per image by stage (synchronised): "
                   + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    profiled = images[OV_WARMUP:OV_WARMUP + 3]
     with torch.inference_mode():
-        device_profile("ovlift", lambda: serve_ov(
-            pipe, images[OV_WARMUP:OV_WARMUP + 3], K, names), 3, p50,
-            per="image", repeat=1)
+        busy = device_profile("ovlift", lambda: serve_ov(
+            pipe, profiled, K, names), 3, p50, per="image", repeat=1)
+    previous = earlier_design(previous, "window_attn_fwd.cu")
+    if previous is not None:
+        prev = window_probe.previous_window(previous)
+        busy = [busy]
+        for fn in (lambda qkv, bias, ids: prev(*qkv.unbind(2), bias, ids),
+                   attention.window_attention):
+            set_window_attention(pipe, fn)
+            with torch.inference_mode():
+                serve_ov(pipe, profiled[:1], K, names)
+                busy.append(device_profile("ovlift", lambda: serve_ov(
+                    pipe, profiled, K, names), 3, p50, per="image",
+                    repeat=1))
+        say("ovlift", f"device ms per image with kernel 8, its earlier "
+                      f"design, kernel 8 again: {busy[0]:.3f}, {busy[1]:.3f}, "
+                      f"{busy[2]:.3f}")
     gdino_breakdown(pipe, images[OV_WARMUP], K, names)
     check_no_sync(pipe, images[OV_WARMUP], K, names)
     compare_ovlift(pipe, images[OV_WARMUP], K, names)
@@ -3112,17 +3174,18 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--previous", metavar="DIR",
-        help="a directory holding the earlier relpos_flash_fwd.cu and "
-             "int8_gemm.cu (and their headers), for instance the parent "
-             "commit's ovmono3d_tpu_torch/csrc unpacked outside the tree: "
-             "kernels 7 and 10 are timed beside them")
+        help="a directory holding the earlier relpos_flash_fwd.cu, "
+             "window_attn_fwd.cu and int8_gemm.cu (and their headers), for "
+             "instance the parent commit's ovmono3d_tpu_torch/csrc unpacked "
+             "outside the tree: kernels 7, 8 and 10 are timed beside them "
+             "(each whose copy there differs from the shipped source)")
     args = parser.parse_args()
     t_start = time.perf_counter()
     card = device_phase()
     build_phase()
     k = kernel_phase()
     k["relpos"] = relpos_kernel_phase(args.previous)
-    k["window"] = window_kernel_phase()
+    k["window"] = window_kernel_phase(args.previous)
     k["int8"] = int8_kernel_phase(args.previous)
     k["quant"] = k["int8"].pop("quantize")
     k.update(headmajor_kernel_phase())
@@ -3147,7 +3210,7 @@ def main() -> None:
     f32_launches = geo_f32_phase()
     gc.collect()
     torch.cuda.empty_cache()
-    ov_launches = ovlift_phase()
+    ov_launches = ovlift_phase(args.previous)
     gc.collect()
     torch.cuda.empty_cache()
     q_launches = quant_phase()
@@ -3173,7 +3236,9 @@ def main() -> None:
                 "ovmono3d_tpu/ops/attention.py:691"),
         "relpos": ("relpos_flash_fwd_bf16", src + "relpos_flash_fwd.cu",
                    "ovmono3d_tpu/ops/attention.py:277"),
-        "window": ("window_attn_fwd_bf16", src + "window_attn_fwd.cu",
+        "window": ("window_attn_fwd_bf16 (window_fwd_sm90_kernel<masked> "
+                   "for N <= 144; the mma.sync window_fwd_kernel past 144)",
+                   src + "window_attn_fwd.cu",
                    "ovmono3d_tpu/ops/attention.py:1474"),
         "int8": ("int8_gemm_s8", src + "int8_gemm.cu",
                  "tools/probe_int8_pallas.py:38"),
@@ -3198,7 +3263,7 @@ def main() -> None:
         design = (DESIGN_KEYS if kind in ("fwd", "lse", "k2", "k5", "bwd",
                                           "k6")
                   else F32_KEYS if kind == "fwd_f32"
-                  else PREVIOUS_KEYS if kind in ("relpos", "int8")
+                  else PREVIOUS_KEYS if kind in ("relpos", "window", "int8")
                   else ("device_ms",) if kind == "quant" else ())
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[kind],

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks as inline PTX: mbarriers, TMA tensor
-// loads and 1-D bulk copies, wgmma shared-memory descriptors (128- and
-// 32-byte swizzles) and warpgroup products (bf16 -> f32, s8 -> s32), proxy
-// fences and named barriers, and register reallocation between
-// warpgroups; and on the host, the tensor maps of [B, N, H, cols] bf16
-// views and of 2-D matrices. Header-only, included by
-// flash_attn_fwd.cu, flash_attn_bwd.cu, attn_sweep_fwd.cu,
-// relpos_flash_fwd.cu and int8_gemm.cu. CUtensorMap and its enums come
+// loads and 1-D bulk copies, cp.async copies that arrive on an mbarrier,
+// wgmma shared-memory descriptors (128- and 32-byte swizzles) and
+// warpgroup products (bf16 -> f32, s8 -> s32), proxy fences and named
+// barriers, and register reallocation between warpgroups; and on the host,
+// the tensor maps of [B, N, H, cols] bf16 views and of 2-D matrices.
+// Header-only, included by flash_attn_fwd.cu, flash_attn_bwd.cu,
+// attn_sweep_fwd.cu, relpos_flash_fwd.cu, window_attn_fwd.cu and
+// int8_gemm.cu. CUtensorMap and its enums come
 // from <cuda.h> as types only: the maps are encoded through the runtime's
 // driver entry point, so nothing links against libcuda.
 #pragma once
@@ -120,6 +121,26 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       : "memory");
 }
 
+// Copy the box at `src` in shared memory into the tensor of `map` at
+// (c0, c1, c2, c3), innermost first; as tma_store_2d.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Wait until at most N of this thread's bulk groups are still in flight
+// (their writes done).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -142,6 +163,37 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// ---- cp.async with an mbarrier ----
+
+// Copy 16 bytes (both addresses 16-byte aligned) or 4 bytes from global
+// `src` to shared `dst` asynchronously (no registers held for the data).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread has issued so far
+// has landed (the arrival counts in the barrier's expected count).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until every cp.async this thread has issued has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Which of a tensor map's dims 1..3 hold the head, token and batch
 // coordinates (dim 0 is D); encode_view_d64 fills it.
 struct MapDims {
@@ -158,6 +210,18 @@ __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
   const int c2 = md.h == 2 ? head : md.n == 2 ? row : batch;
   const int c3 = md.h == 3 ? head : md.n == 3 ? row : batch;
   tma_load_4d(dst, map, bar, col, c1, c2, c3);
+}
+
+// The box at `src` into the tensor of `map` at (head, token row, batch),
+// from column `col`; as load_box.
+__device__ __forceinline__ void store_box(const CUtensorMap* map,
+                                          const MapDims& md, const void* src,
+                                          int head, int row, int batch,
+                                          int col = 0) {
+  const int c1 = md.h == 1 ? head : md.n == 1 ? row : batch;
+  const int c2 = md.h == 2 ? head : md.n == 2 ? row : batch;
+  const int c3 = md.h == 3 ? head : md.n == 3 ? row : batch;
+  tma_store_4d(map, src, col, c1, c2, c3);
 }
 
 // ---- wgmma ----
@@ -387,6 +451,47 @@ __device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40],
         "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
+}
+
+// d (64 x 144, f32) = (scale_d ? d : 0) + A B^T: A 64 x 16 and B 144 x 16,
+// both bf16 K-major in shared memory (wgmma_m64n128k16_ss over 144 columns;
+// the same accumulator layout, j < 18).
+__device__ __forceinline__ void wgmma_m64n144k16_ss(float (&d)[72],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %74, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71},"
+      " %72, %73, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // d (64 x 256, s32) = (scale_d ? d : 0) + A B^T: A 64 x 32 and B 256 x 32,

@@ -74,7 +74,9 @@ Swin window attention (GroundingDINO's image trunk):
   package's `window_attention_xla(..., clamp_c=None)`;
 - `window_flash_attention` (`csrc/window_attn_fwd.cu`, counted in
   `window_flash_attention.launches`), replacing the TPU kernel
-  `_window_kernel`: inference only, bf16, head dim 32;
+  `_window_kernel`: inference only, bf16, head dim 32; windows of up to 144
+  tokens (every Swin-B stage) run the wgmma + TMA design, larger ones (up
+  to 1024) the earlier mma.sync one (`window_kernel_instance`);
 - `window_attention`: its dispatcher. f32 inputs (on any device) and CPU
   tensors go to the plain version; CUDA bf16 goes to the kernel, and raises
   when a gradient is needed (the JAX window attention is forward-only: the
@@ -108,6 +110,7 @@ _REL_POS_HEAD_DIMS = (64, 80)
 _REL_POS_MAX_BIAS = 128      # csrc/relpos_flash_fwd.cu kMaxBias: gh + gw
 _WINDOW_HEAD_DIM = 32
 _WINDOW_MAX_TOKENS = 1024   # csrc/window_attn_fwd.cu kMaxTokens
+_WINDOW_SM90_TOKENS = 144   # csrc/window_attn_fwd.cu w90::kN
 _F32_NO_GRAD = ("f32 attention with a gradient on CUDA: the training "
                 "kernels (3-6) take bfloat16 only; their f32 instance is "
                 "ROADMAP queue 2 item 7")
@@ -815,6 +818,17 @@ def check_window_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"all its tensors on one CUDA device")
 
 
+def window_kernel_instance(n: int) -> str:
+    """The kernel that window_attn_fwd_bf16 runs for windows of n tokens
+    (the C entry chooses by n alone): the wgmma + TMA design up to 144
+    tokens, the mma.sync one past that."""
+    if not 0 < n <= _WINDOW_MAX_TOKENS:
+        raise ValueError(f"{n} tokens a window; the kernel takes 1 to "
+                         f"{_WINDOW_MAX_TOKENS}")
+    return ("window_fwd_sm90_kernel" if n <= _WINDOW_SM90_TOKENS
+            else "window_fwd_kernel")
+
+
 def window_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor,
                            ids: torch.Tensor | None = None) -> torch.Tensor:
@@ -838,7 +852,8 @@ def window_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(
             f"window_attn_fwd_bf16 launch failed with CUDA error {rc} "
-            f"(BW={bw}, N={n}, H={h}, D={d}, ids={ids is not None})")
+            f"(BW={bw}, N={n}, H={h}, D={d}, ids={ids is not None}, "
+            f"{window_kernel_instance(n)})")
     window_flash_attention.launches += 1
     return out
 

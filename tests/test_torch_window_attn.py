@@ -158,6 +158,96 @@ def test_wrapper_rejects(bad, match):
         tattn.window_flash_attention(q, k, v, bias, ids)
 
 
+@pytest.mark.parametrize("n,instance", [
+    (1, "window_fwd_sm90_kernel"), (49, "window_fwd_sm90_kernel"),
+    (121, "window_fwd_sm90_kernel"), (144, "window_fwd_sm90_kernel"),
+    (145, "window_fwd_kernel"), (196, "window_fwd_kernel"),
+    (1024, "window_fwd_kernel")])
+def test_kernel_instance_by_tokens(n, instance):
+    """The C entry runs the wgmma + TMA design for every window Swin makes
+    (144 tokens, or w^2 for a map smaller than the window) and the earlier
+    mma.sync one past 144, up to the 1024 it always took."""
+    assert tattn.window_kernel_instance(n) == instance
+
+
+@pytest.mark.parametrize("n", [0, 1025])
+def test_kernel_instance_refuses_what_the_entry_refuses(n):
+    with pytest.raises(ValueError, match="tokens a window"):
+        tattn.window_kernel_instance(n)
+
+
+@pytest.mark.parametrize("n", [1, 16, 49, 121, 196])
+def test_wrapper_takes_small_and_large_windows(n):
+    """Windows of w^2 < 144 tokens (a map smaller than Swin's window) and
+    past 144 pass every layout check on the Swin strided views; only the
+    device is refused on the CPU."""
+    q, k, v, bias, ids = _packed(4, n, 2, nw=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.window_flash_attention(q, k, v, bias, ids)
+
+
+@pytest.mark.parametrize("shifted", [True, False],
+                         ids=["shifted", "unshifted"])
+def test_probe_yardstick_computes_the_same_function(shifted):
+    """probes/window.py's SDPA yardstick (bias and mask built in the call)
+    and its region ids, in f32 on the CPU, against the plain version."""
+    from ovmono3d_tpu_torch.probes import window as wprobe
+
+    q, k, v, bias, ids = wprobe.inputs(4, 16, 2, 0, shifted, device="cpu")
+    assert (ids is not None) == shifted
+    if shifted:
+        assert ids.shape == (4, 16) and ids.dtype == torch.int32
+    q, k, v = (x.float() for x in (q, k, v))
+    got = wprobe.sdpa_window(q, k, v, bias, ids)
+    want = tattn.window_attention_ref(q, k, v, bias, ids)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("none", "CUDA"), ("dtype", "bfloat16"), ("head_dim", "head dim")])
+def test_probe_previous_runs_the_wrappers_own_code(monkeypatch, bad, match):
+    """probes/window.py's earlier design runs window_flash_attention's own
+    code (its checks and launch) on the other library's C entry, with the
+    shipped entry's argument types, and counts no shipped launch."""
+    import types
+
+    from ovmono3d_tpu_torch.probes import window as wprobe
+
+    shipped = types.SimpleNamespace(argtypes=["shipped"], restype="int")
+    earlier = types.SimpleNamespace(argtypes=None, restype=None)
+    monkeypatch.setattr(tattn, "_kernels", lambda: {"window": shipped})
+    monkeypatch.setattr(wprobe, "previous_library", lambda source, csrc:
+                        types.SimpleNamespace(window_attn_fwd_bf16=earlier))
+    prev = wprobe.previous_window("DIR")
+    assert prev.__code__ is tattn.window_flash_attention.__code__
+    assert prev.__globals__["_kernels"]()["window"] is earlier
+    assert (earlier.argtypes, earlier.restype) == (["shipped"], "int")
+    q, k, v, bias, ids = _packed(4, 144, 2, nw=2)
+    if bad == "dtype":
+        q = q.float()
+    elif bad == "head_dim":
+        q, k, v = (x[..., :16] for x in (q, k, v))
+    launches = tattn.window_flash_attention.launches
+    for fn in (prev, tattn.window_flash_attention):
+        with pytest.raises(ValueError, match=match):
+            fn(q, k, v, bias, ids)
+    assert tattn.window_flash_attention.launches == launches
+
+
+def test_probe_bounds():
+    """Kernel 8's bound at Swin-B's stages: bytes (q, k, v, out in bf16, the
+    bias in f32, the ids in int32), 0.0161 ms at stage 0 shifted."""
+    from ovmono3d_tpu_torch.probes import window as wprobe
+
+    ms, by = wprobe.bound_ms(361, 144, 4, nw=361)
+    assert by == "bytes"
+    assert ms == pytest.approx((4 * 361 * 144 * 4 * 32 * 2 + 4 * 144 * 144
+                                * 4 + 361 * 144 * 4) / 3.35e12 * 1e3)
+    assert ms == pytest.approx(0.0161, abs=1e-4)
+    assert set(wprobe.SHAPES) == {f"stage{i}{s}" for i in range(4)
+                                  for s in ("", "_shifted")}
+
+
 def test_dispatcher_cpu_runs_with_autograd():
     """On the CPU the plain path runs with autograd; a gradient through the
     CUDA path raises (forward-only, as the JAX package's)."""
@@ -168,10 +258,10 @@ def test_dispatcher_cpu_runs_with_autograd():
 
 
 # On the card: kernel 8 against the plain version at the four Swin-B stage
-# shapes at 896^2 (with and without ids), a small map (N = 64) and the tile
-# edges.
+# shapes at 896^2 (with and without ids), a small map (N = 64), a single
+# token and windows just past 64 and 144 tokens.
 CUDA_SHAPES = [(361, 144, 4), (100, 144, 8), (25, 144, 16), (9, 144, 32),
-               (2, 64, 4), (3, 9, 2), (1, 1, 1), (2, 65, 3)]
+               (2, 64, 4), (3, 9, 2), (1, 1, 1), (2, 65, 3), (2, 145, 3)]
 
 
 def check_kernel(q, k, v, bias, ids, absolute=True):
@@ -202,13 +292,34 @@ def test_kernel_matches_plain_on_cuda(cuda_device, shape, with_ids):
 
 @pytest.mark.cuda
 def test_kernel_is_exact_for_large_bias_on_cuda(cuda_device):
-    """A bias of std ~30: the softmax is one-hot, the online softmax stays
-    finite and matches the plain version. Outputs are single entries of v,
+    """A bias of std ~30: the softmax is one-hot, stays finite and matches
+    the plain version. Outputs are single entries of v,
     up to ~5, where one bf16 ulp (2^-5) is above the absolute limit: the
     relative limits hold it."""
     q, k, v, bias, ids = _packed(4, 64, 4, device=cuda_device, seed=5,
                                  bias_std=30.0, nw=4)
     check_kernel(q, k, v, bias, ids, absolute=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ids", [True, False], ids=["ids", "no_ids"])
+@pytest.mark.parametrize("n", [144, 121, 64, 49, 16, 1])
+def test_kernel_small_maps_large_bias_on_cuda(cuda_device, n, with_ids):
+    """The wgmma design at every window size Swin gives (144, or w^2 for a
+    map smaller than the window) with a bias of std 30 (one-hot rows):
+    keys past N padded to 144 and masked, rows past N not stored."""
+    q, k, v, bias, ids = _packed(6, n, 4, device=cuda_device, seed=n,
+                                 bias_std=30.0, nw=3 if with_ids else None)
+    check_kernel(q, k, v, bias, ids, absolute=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ids", [True, False], ids=["ids", "no_ids"])
+def test_kernel_past_144_tokens_on_cuda(cuda_device, with_ids):
+    """N = 196 (14 x 14 windows) runs the earlier mma.sync design."""
+    assert tattn.window_kernel_instance(196) == "window_fwd_kernel"
+    check_kernel(*_packed(8, 196, 4, device=cuda_device, seed=196,
+                          nw=4 if with_ids else None))
 
 
 @pytest.mark.cuda
