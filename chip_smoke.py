@@ -9,7 +9,8 @@ boxes (SAM ViT-H at 1024^2, SAM's mask decoder, Depth-Pro at 1536^2 and the
 box fit); and open-vocabulary OVMono3D-LIFT serving (GroundingDINO Swin-B +
 BERT-base + deformable DETR on the 896^2 canvas, then the flagship cube
 model on its boxes); and the W8A8 int8 serving option of the ViT trunks
-(oracle LIFT, and GEO with the tanh-GELU epilogue too). Besides, GEO in the
+(oracle LIFT, and GEO with the tanh-GELU epilogue too); open-vocabulary
+streams, batch detection and the dataset CLIs. Besides, GEO in the
 JAX GEO CLI's default configuration (Depth-Pro in f32), and LIFT serving and
 training under OVMONO3D_PACKED_ATTN=0 (the head-major attention family);
 the Omni3D evaluation of the flagship (oracle and learned 2D, AP2D / AP3D
@@ -193,6 +194,29 @@ profiles' tables):
           printed unchecked (top-900 selection and NMS flip on rounding); a
           profile of 3 images, with --previous also with kernel 8's earlier
           design in every Swin block and then the shipped one again
+  stream  on the ovlift phase's pipeline: predict_stream (chunk 8) and
+          per-image predict (results copied to the host) over the same 16
+          640x480 images: img/s, the stream's per-image latency, 24 kernel-8
+          and 12 kernel-1 launches an image and no other attention kernel in
+          both, finite [300, ...] detections, the boxes' deviation and the
+          slots whose validity changes (the stream rounds its canvas to
+          uint8); one chunk of each profiled in turns (device ms an image,
+          idle share against each one's wall time an image); the stream
+          under the card's synchronisation check (at most one a chunk); 3
+          images at resize scale 1 held to predict within STREAM_TOL; the
+          same for detect_2d_stream on a detector-only pipeline (the same
+          GroundingDINO, the longest side to DETECT_SIDE); BATCH_N canvases
+          through detect_open_vocabulary_batch over BATCH_N + 1 entries of
+          the device (per-image detection within STREAM_TOL) and in one
+          batch (timed; each image's Swin features within OVLIFT_MAX_REL /
+          OVLIFT_MEAN_REL of the image alone, detections printed
+          unchecked); then the dataset CLIs under build/stream_phase:
+          eval.oracle2d --synthetic (its JSONs through merge_oracle2d),
+          geo.cli --config-file --eval on tests/fixtures/tiny_omni3d.py's
+          set (SAM ViT-B, f32 Depth-Pro: 12 kernel-7 and 72 f32 kernel-1
+          launches an image, ms by stage) and geo.eval_cli printing the same
+          AP table, eval.cli --dump-predictions (the flagship) and
+          eval.predictions on the dump (the same AP2D and AP3D, to 1e-6)
   quant   the W8A8 int8 serving option: the flagship with quant="int8"
           (seed 0, weights as the slice phase) serves bench.py's request
           (OVMONO3D_QUANT=int8): 3 warm-up + 10 timed (img/s, p50, peak
@@ -262,14 +286,18 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import importlib.util
+import io
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -283,13 +311,26 @@ from ovmono3d_tpu_torch.config import (  # noqa: E402
     SolverConfig,
     flagship_config,
 )
-from ovmono3d_tpu_torch.data.build import build_test_iterator  # noqa: E402
-from ovmono3d_tpu_torch.data.synthetic import synthetic_datasets  # noqa: E402
+from ovmono3d_tpu_torch.data.build import (  # noqa: E402
+    build_test_iterator,
+    write_png,
+)
+from ovmono3d_tpu_torch.data.datasets import merge_oracle2d  # noqa: E402
+from ovmono3d_tpu_torch.data.synthetic import (  # noqa: E402
+    synthetic_datasets,
+    synthetic_records,
+)
 from ovmono3d_tpu_torch.eval import cli as eval_cli  # noqa: E402
+from ovmono3d_tpu_torch.eval import oracle2d, predictions  # noqa: E402
 from ovmono3d_tpu_torch.evaluation.helper import (  # noqa: E402
     Omni3DEvaluationHelper,
 )
 from ovmono3d_tpu_torch.geo import cli as geo  # noqa: E402
+from ovmono3d_tpu_torch.geo import eval_cli as geo_eval_cli  # noqa: E402
+from ovmono3d_tpu_torch.models.gdino.inference import (  # noqa: E402
+    build_text_inputs,
+    postprocess_grounding,
+)
 from ovmono3d_tpu_torch.models import rcnn3d  # noqa: E402
 from ovmono3d_tpu_torch.models.depth import DepthPro  # noqa: E402
 from ovmono3d_tpu_torch.models.gdino.tokenizer import (  # noqa: E402
@@ -318,11 +359,15 @@ from ovmono3d_tpu_torch.probes import card as card_name  # noqa: E402
 from ovmono3d_tpu_torch.probes import (  # noqa: E402
     bf16_ulp_diff, device_ms, in_turns, time_ms)
 from ovmono3d_tpu_torch.probes import layernorm as ln_probe  # noqa: E402
+from ovmono3d_tpu_torch.parallel import serve as serve_batch  # noqa: E402
 from ovmono3d_tpu_torch.parallel.train_step import (  # noqa: E402
     create_train_state,
     make_train_step,
 )
-from ovmono3d_tpu_torch.structures import GroundTruth  # noqa: E402
+from ovmono3d_tpu_torch.structures import (  # noqa: E402
+    Detections,
+    GroundTruth,
+)
 from ovmono3d_tpu_torch.train.optim import Optimizer  # noqa: E402
 from ovmono3d_tpu_torch.utils import cuda_build  # noqa: E402
 from ovmono3d_tpu_torch.utils import geometry as geom  # noqa: E402
@@ -423,6 +468,17 @@ GEO_DEPTH_BIAS = 0.5   # the depth head's output bias in the geo phase
 WINDOW_SHAPES = window_probe.STAGES
 WINDOW_SMALL_TOKENS, WINDOW_SMALL_BIAS_STD = (144, 121, 64, 49, 16, 1), 30.0
 OV_H, OV_W, OV_WARMUP, OV_TIMED = 480, 640, 2, 5
+# The stream phase: predict_stream's chunk and the OV_H x OV_W images it and
+# per-image predict serve; sizes at resize scale 1 under the flagship's rule
+# (shortest edge 532, longest at most 896) and under the detector-only
+# pipeline's (longest side to DETECT_SIDE, build_2d_only's default canvas),
+# where the stream is held to per-image serving within STREAM_TOL; the batch
+# detection's N.
+STREAM_CHUNK, STREAM_IMAGES, STREAM_TOL = 8, 16, 1e-5
+STREAM_SCALE1 = ((532, 709), (532, 896), (700, 532))
+DETECT_SIDE = 800
+DETECT_SCALE1 = ((600, 800), (800, 576), (800, 800))
+BATCH_N = 5
 # Kernel 10: (rows R, K, M) of every product of the int8 serving paths, per
 # image: the LIFT trunk (DINOv2 ViT-B/14 at 896^2, 4097 tokens), SAM ViT-H at
 # 1024^2 (4096 tokens in global blocks, 25 windows of 196 in windowed ones),
@@ -2309,9 +2365,10 @@ def _window_f32(qkv, bias, ids):
                                           ids).to(qkv.dtype)
 
 
-def ovlift_phase(previous: str | None) -> dict:
+def ovlift_phase(previous: str | None) -> tuple:
     """Open-vocabulary OVMono3D-LIFT serving at full width; returns the
-    launches of kernels 8 and 1 in the timed images. With --previous, the
+    launches of kernels 8 and 1 in the timed images, the pipeline and the
+    prompt's names (the stream phase serves with them). With --previous, the
     profile of the same images is taken again with the earlier design of
     kernel 8 (from DIR's window_attn_fwd.cu) in every Swin block, then with
     the shipped one once more."""
@@ -2386,7 +2443,7 @@ def ovlift_phase(previous: str | None) -> dict:
     gdino_breakdown(pipe, images[OV_WARMUP], K, names)
     check_no_sync(pipe, images[OV_WARMUP], K, names)
     compare_ovlift(pipe, images[OV_WARMUP], K, names)
-    return launches
+    return launches, pipe, names
 
 
 def gdino_breakdown(pipe, image, K, names) -> None:
@@ -2495,6 +2552,400 @@ def compare_ovlift(pipe, image, K, names) -> None:
                   "stages (ms): " + ", ".join(
                       f"{k} {v:.3f}" for k, v in p_tr["ms"].items()))
     check(not failed, f"Swin kernel vs plain within limits: {failed} not")
+
+
+def path_counts() -> dict:
+    """The launches of the kernels the stream phase's paths run."""
+    return {"window": attention.window_flash_attention.launches,
+            "relpos": attention.rel_pos_flash_attention.launches,
+            **attention_counts()}
+
+
+def reset_path_counts() -> None:
+    reset_attention_counts()
+    attention.window_flash_attention.launches = 0
+
+
+def check_path_counts(path: str, want: dict) -> dict:
+    """Every counter of path_counts() at `want`'s value (0 where it names
+    none); returns the counts."""
+    got = path_counts()
+    say("stream", f"{path}: launches " + ", ".join(
+        f"{k} {v}" for k, v in got.items() if v))
+    for key, n in got.items():
+        check(n == want.get(key, 0),
+              f"{path}: {n} launches of {key}, {want.get(key, 0)} expected")
+    return got
+
+
+def random_images(shapes, seed: int) -> list[np.ndarray]:
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, 256, (h, w, 3), generator=g,
+                          dtype=torch.uint8).numpy() for h, w in shapes]
+
+
+def max_field_diff(a, b) -> float:
+    """Largest |a - b| over every field of two Detections (or dicts) in
+    host memory; inf when their valid slots differ."""
+    a, b = dict(a.items()), dict(b.items())
+    if not np.array_equal(np.asarray(a["valid"]), np.asarray(b["valid"])):
+        return math.inf
+    return max(float(np.abs(np.asarray(a[k], np.float64)
+                            - np.asarray(b[k], np.float64)).max())
+               for k in a)
+
+
+def stream_vs_per_image(name, got: list, want: list) -> None:
+    """Held within STREAM_TOL, image by image (a stream at scale 1, where
+    its uint8 canvas holds the image's own pixels; a batch of one image a
+    forward)."""
+    diffs = [max_field_diff(g, w) for g, w in zip(got, want)]
+    valid = sum(int(np.asarray(dict(g.items())["valid"]).sum()) for g in got)
+    say("stream", f"{name} vs per-image: max |diff| over every "
+                  f"field {max(diffs):.3e} (limit {STREAM_TOL}), {valid} "
+                  "valid slots")
+    check(len(got) == len(want) and max(diffs) <= STREAM_TOL,
+          f"{name} equals per-image serving")
+
+
+def box_deviation(got: list, want: list) -> tuple[float, int]:
+    """Max |box diff| over slots valid in both, and the slots whose valid
+    flag differs, between two lists of detections."""
+    dev, changed = 0.0, 0
+    for g, w in zip(got, want):
+        g, w = dict(g.items()), dict(w.items())
+        gv, wv = np.asarray(g["valid"]), np.asarray(w["valid"])
+        both = gv & wv
+        if both.any():
+            dev = max(dev, float(np.abs(np.asarray(g["boxes"])[both]
+                                        - np.asarray(w["boxes"])[both]).max()))
+        changed += int((gv != wv).sum())
+    return dev, changed
+
+
+def stream_phase(pipe: OVMono3DLift, names: list[str]) -> dict:
+    """The serving and dataset paths built on the ovlift phase's pipeline
+    (its weights, tokenizer and 50 names); returns their launches of
+    kernels 1 (bf16 and f32), 7 and 8, each path's read with the counts at
+    0 just before it."""
+    t_phase = time.perf_counter()
+    dev = pipe.device
+    totals = {"fwd": 0, "window": 0, "relpos": 0, "fwd_f32": 0}
+
+    def add(counts):
+        totals["fwd"] += counts["flash_attention_packed"]
+        totals["fwd_f32"] += counts["flash_attention_packed_f32"]
+        totals["window"] += counts["window"]
+        totals["relpos"] += counts["relpos"]
+
+    K = default_focal_K(OV_H, OV_W)
+    images = ov_requests(STREAM_IMAGES, seed=6)
+    items = [(image, K) for image in images]
+    chunk = STREAM_CHUNK
+    list(pipe.predict_stream(iter(items[:chunk]), names, chunk=chunk))
+    torch.cuda.synchronize()
+    # predict_stream: the images' in-times as the stream takes them.
+    t_in: list[float] = []
+
+    def taken():
+        for item in items:
+            t_in.append(time.perf_counter())
+            yield item
+
+    reset_path_counts()
+    stream, lat = [], []
+    t0 = time.perf_counter()
+    for i, det in enumerate(pipe.predict_stream(taken(), names, chunk=chunk)):
+        lat.append(time.perf_counter() - t_in[i])
+        stream.append(det)
+    stream_s = time.perf_counter() - t0
+    n = len(stream)
+    add(check_path_counts("predict_stream", {
+        "window": 24 * n, "flash_attention_packed": 12 * n}))
+    for det in stream:
+        check_ov_detections(det, len(names))
+    reset_path_counts()
+    per_image, plats = [], []
+    t0 = time.perf_counter()
+    for image in images:
+        t1 = time.perf_counter()
+        det = pipe.predict(image, K, names)
+        per_image.append(Detections(**{k: v.cpu() for k, v in det.items()}))
+        plats.append(time.perf_counter() - t1)
+    predict_s = time.perf_counter() - t0
+    check_path_counts("per-image predict", {
+        "window": 24 * n, "flash_attention_packed": 12 * n})
+    box_dev, changed = box_deviation(stream, per_image)
+    say("stream", f"predict_stream (chunk {chunk}) over {n} images of "
+                  f"{OV_W}x{OV_H}: {n / stream_s:.3f} img/s, per-image "
+                  f"latency in the stream p50 "
+                  f"{statistics.median(lat) * 1e3:.3f} ms (max "
+                  f"{max(lat) * 1e3:.3f}); per-image predict over the same "
+                  f"images: {n / predict_s:.3f} img/s, p50 "
+                  f"{statistics.median(plats) * 1e3:.3f} ms; per image "
+                  "24 kernel-8 and 12 kernel-1 launches in both; stream vs "
+                  f"predict at scale "
+                  f"{pipe._gdino_content_geometry(OV_H, OV_W)[2]:.4f} (the "
+                  f"stream's canvas rounded to uint8): boxes max |diff| "
+                  f"{box_dev:.3e} px over slots valid in both, {changed} "
+                  "slots "
+                  f"changed validity of {n * stream[0].valid.shape[0]}")
+    # One chunk of each profiled, in turns (stream, predict, predict,
+    # stream): a profile of this run has once read every kernel 0.37x as
+    # long as the others did.
+    runs = {"stream": (lambda: list(pipe.predict_stream(
+                iter(items[:chunk]), names, chunk=chunk)), stream_s / n),
+            "predict": (lambda: [pipe.predict(image, K, names).valid.cpu()
+                                 for image in images[:chunk]], predict_s / n)}
+    busy: dict = {"stream": [], "predict": []}
+    with torch.inference_mode():
+        for key in ("stream", "predict", "predict", "stream"):
+            fn, wall = runs[key]
+            busy[key].append(device_profile("stream", fn, chunk, wall * 1e3,
+                                            per="image", repeat=1))
+    def idle(b: float, key: str) -> str:
+        return f"{b:.3f} ({max(0.0, 1 - b / (runs[key][1] * 1e3)):.1%})"
+
+    say("stream", "device ms per image and idle share against each one's "
+                  "wall time per image, in turns: " + "; ".join(
+                      f"{key} " + ", ".join(idle(b, key) for b in busy[key])
+                      for key in busy))
+    stream_syncs(pipe.predict_stream(iter(items), names, chunk=chunk),
+                 n // chunk, "predict_stream")
+    scale1 = [(image, default_focal_K(*image.shape[:2]))
+              for image in random_images(STREAM_SCALE1, 7)]
+    stream_vs_per_image(
+        "predict_stream (chunk 2) at scale 1",
+        list(pipe.predict_stream(iter(scale1), names, chunk=2)),
+        [Detections(**{k: v.cpu() for k, v in pipe.predict(i, k_, names)
+                       .items()}) for i, k_ in scale1])
+
+    # detect_2d_stream on a detector-only pipeline (build_2d_only's form,
+    # the ovlift phase's GroundingDINO).
+    pipe2d = OVMono3DLift(None, None, pipe.gdino, pipe.tokenizer,
+                          gdino_size=DETECT_SIDE)
+    list(pipe2d.detect_2d_stream(iter(images[:chunk]), names, chunk=chunk))
+    torch.cuda.synchronize()
+    reset_path_counts()
+    t0 = time.perf_counter()
+    dets = list(pipe2d.detect_2d_stream(iter(images), names, chunk=chunk))
+    detect_s = time.perf_counter() - t0
+    add(check_path_counts("detect_2d_stream", {"window": 24 * n}))
+    t0 = time.perf_counter()
+    want = [pipe2d.detect_2d(image, names) for image in images]
+    detect_1_s = time.perf_counter() - t0
+    box_dev, changed = box_deviation(dets, want)
+    slots = min(pipe2d.detect_topk, pipe.gdino.num_queries)
+    check(all(d["boxes"].shape == (slots, 4) and np.isfinite(d["boxes"]).all()
+              for d in dets), f"detect_2d_stream: finite [{slots}, 4] boxes")
+    say("stream", f"detect_2d_stream over {n} images on the {DETECT_SIDE}^2 "
+                  f"canvas: {n / detect_s:.3f} img/s; per-image detect_2d "
+                  f"{n / detect_1_s:.3f} img/s; boxes max |diff| "
+                  f"{box_dev:.3e} "
+                  f"px, {changed} slots changed validity")
+    stream_syncs(pipe2d.detect_2d_stream(iter(images), names, chunk=chunk),
+                 n // chunk, "detect_2d_stream")
+    scale1 = random_images(DETECT_SCALE1, 8)
+    stream_vs_per_image(
+        "detect_2d_stream (chunk 2) at scale 1",
+        list(pipe2d.detect_2d_stream(iter(scale1), names, chunk=2)),
+        [pipe2d.detect_2d(image, names) for image in scale1])
+
+    # detect_open_vocabulary_batch, N = BATCH_N: over BATCH_N + 1 entries
+    # of the device (one image a forward, one zero image of padding) it is
+    # per-image detection exactly; over [device] one batch of BATCH_N, whose
+    # products round otherwise than B = 1's (held by Swin's features: the
+    # top-900 selection and NMS of random weights flip on rounding).
+    canvases = torch.cat([pipe2d._prep_gdino_image(image)[0]
+                          for image in images[:BATCH_N]]).cpu()
+    text = build_text_inputs(pipe.tokenizer, names,
+                             max_len=pipe.gdino.max_text_len)
+    t = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in text.items()}
+    ones = []
+    with torch.inference_mode():
+        for i in range(BATCH_N):
+            out = pipe.gdino(canvases[i:i + 1].to(dev), t["input_ids"],
+                             t["text_mask"], t["text_self_mask"],
+                             t["position_ids"])
+            ones.append(dict(zip(("boxes", "scores", "classes", "valid"), (
+                x.cpu().numpy() for x in postprocess_grounding(
+                    out["pred_logits"][0], out["pred_boxes"][0],
+                    t["span_matrix"], t["span_valid"], (DETECT_SIDE,) * 2,
+                    topk=100)))))
+    reset_path_counts()
+    split = serve_batch.detect_open_vocabulary_batch(
+        pipe.gdino, canvases, pipe.tokenizer, names, [dev] * (BATCH_N + 1))
+    add(check_path_counts(f"detect_open_vocabulary_batch over {BATCH_N + 1} "
+                          "devices", {"window": 24 * (BATCH_N + 1)}))
+    stream_vs_per_image(
+        f"detect_open_vocabulary_batch over [{dev}] x {BATCH_N + 1}",
+        [{k: v[i] for k, v in split.items()} for i in range(BATCH_N)], ones)
+    run = serve_batch.make_gdino_serving_fn(pipe.gdino, [dev])
+    serve_batch.detect_open_vocabulary_batch(
+        pipe.gdino, canvases, pipe.tokenizer, names, [dev], run=run)
+    reset_path_counts()
+    t0 = time.perf_counter()
+    batch = serve_batch.detect_open_vocabulary_batch(
+        pipe.gdino, canvases, pipe.tokenizer, names, [dev], run=run)
+    batch_s = time.perf_counter() - t0
+    add(check_path_counts("detect_open_vocabulary_batch", {"window": 24}))
+    box_dev, changed = box_deviation(
+        [{k: v[i] for k, v in batch.items()} for i in range(BATCH_N)], ones)
+    gd = pipe.gdino
+    with torch.inference_mode():
+        x = canvases.to(dev)
+        feats = gd.backbone(x, gd.backbone.rel_biases())
+        worst = {}
+        for i in range(BATCH_N):
+            one = gd.backbone(x[i:i + 1], gd.backbone.rel_biases())
+            for key, f in one.items():
+                d = (feats[key][i:i + 1].float() - f.float()).abs()
+                worst[key] = max(worst.get(key, (0.0, 0.0)), (
+                    d.max().item() / f.float().abs().max().item(),
+                    d.mean().item() / f.float().abs().mean().item()))
+    say("stream", f"detect_open_vocabulary_batch over [{dev}], one batch of "
+                  f"{BATCH_N}: {batch_s * 1e3:.3f} ms "
+                  f"({BATCH_N / batch_s:.3f} img/s); Swin's features against each image alone, max / "
+                  "mean |diff| relative: " + ", ".join(
+                      f"{k} {mx:.3e} / {mn:.3e}" for k, (mx, mn) in
+                      worst.items())
+                  + f" (limits {OVLIFT_MAX_REL} / {OVLIFT_MEAN_REL}); "
+                  f"unchecked: boxes max |diff| {box_dev:.3e} px over slots "
+                  f"valid in both, {changed} slots changed validity")
+    check(all(mx <= OVLIFT_MAX_REL and mn <= OVLIFT_MEAN_REL
+              for mx, mn in worst.values()),
+          "the batch's Swin features match each image's alone")
+
+    # The dataset CLIs on the card, over files under build/.
+    work = Path(__file__).resolve().parent / "build" / "stream_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    reset_path_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        paths = oracle2d.main(["--synthetic", "--device", str(dev),
+                               "--output-dir", str(work / "oracle2d")])
+    add(check_path_counts("eval.oracle2d --synthetic", {"window": 24 * 8}))
+    for name, seed in (("synthetic_a", 7), ("synthetic_b", 11)):
+        dets = json.loads(paths[name].read_text())
+        recs = merge_oracle2d(synthetic_records(4, Config().model.num_classes,
+                                                seed=seed), paths[name])
+        check(sum(len(r["oracle2d"]) for r in recs) == len(dets) > 0,
+              f"{name}'s {len(dets)} detections round-trip through "
+              "merge_oracle2d")
+    say("stream", f"eval.oracle2d --synthetic: 8 images in "
+                  f"{time.perf_counter() - t0:.1f} s (the build included); "
+                  + printed.getvalue().strip().replace("\n", "; "))
+    data = tiny_omni3d(work / "tiny_omni3d")
+    config = str(Path(__file__).resolve().parent / "configs"
+                 / "OVMono3D_dinov2_SFP.yaml")
+    overrides = [f"datasets.data_root={data['root']}",
+                 "datasets.category_names=chair,cup"]
+    geo_argv = ["--config-file", config, "--device", str(dev),
+                "--output-dir", str(work / "geo"),
+                *overrides, "datasets.test_novel=TinyDS_test",
+                "datasets.oracle2d_files.target_aware.novel.TinyDS_test="
+                f"{data['oracle']}"]
+    reset_path_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        res = geo.main(geo_argv + ["--eval"])["TinyDS_test"]
+    geo_s = time.perf_counter() - t0
+    m = res["images"]
+    add(check_path_counts("geo.cli --config-file --eval", {
+        "relpos": 12 * m, "flash_attention_packed_f32": 72 * m}))
+    table = printed.getvalue()
+    table = table[table.index("== OVMono3D-GEO =="):]
+    with contextlib.redirect_stdout(io.StringIO()) as again:
+        res_again = geo_eval_cli.main(geo_argv)["TinyDS_test"]
+    check(m == 4 and table in again.getvalue()
+          and same_result(res_again["eval"], res["eval"]),
+          "geo.eval_cli (--eval-only) prints the same AP table")
+    say("stream", f"geo.cli --config-file --eval (SAM vit_b, f32 "
+                  f"Depth-Pro) over {m} images of the tiny Omni3D set in "
+                  f"{geo_s:.1f} s (the build included); ms an image by "
+                  "stage: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                        res["stage_ms"].items())
+                  + f"; 12 kernel-7 and 72 f32 kernel-1 launches an image; "
+                  f"AP3D {res['eval']['overall']['AP3D']:.4f}, AP2D "
+                  f"{res['eval']['overall']['AP2D']:.4f}; --eval-only "
+                  "printed the same table")
+    reset_path_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = eval_cli.main([
+            "--config-file", config, "--device", str(dev), "--batch-size", "4",
+            "--dump-predictions", str(work / "preds"), *overrides,
+            "model.num_classes=2", "datasets.test_base=TinyDS_test",
+            "test.cat_mode=base", "test.oracle2d=true",
+            "datasets.oracle2d_files.target_aware.base.TinyDS_test="
+            f"{data['oracle']}"])
+        offline = predictions.main([
+            "--predictions", str(work / "preds_TinyDS_test.json"),
+            "--dataset-json", str(data["root"] / "Omni3D"
+                                  / "TinyDS_test.json"),
+            "--categories", "chair,cup", "--device", str(dev)])
+    add(check_path_counts("eval.cli --dump-predictions",
+                          {"flash_attention_packed": 12}))
+    want = summary["datasets"]["TinyDS_test"]
+    got = offline["overall"]
+    say("stream", f"eval.cli (the flagship, 4 images) then "
+                  f"eval.predictions on its dump: AP2D {got['AP2D']:.4f} / "
+                  f"{want['AP2D']:.4f}, AP3D {got['AP3D']:.4f} / "
+                  f"{want['AP3D']:.4f}")
+    check(all(abs(got[k] - want[k]) <= 1e-6 for k in ("AP2D", "AP3D")),
+          "eval.predictions gives eval.cli's AP (to 1e-6)")
+    shutil.rmtree(work, ignore_errors=True)
+    say("stream", f"phase done in {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+def same_result(a, b) -> bool:
+    """Two evaluation results equal, NaN equal to NaN."""
+    return (json.dumps(a, sort_keys=True, default=float)
+            == json.dumps(b, sort_keys=True, default=float))
+
+
+def stream_syncs(stream, n_chunks: int, what: str) -> None:
+    """Consume `stream` with the card's synchronisation check on: at most
+    one host synchronisation a chunk (its read-back) may warn."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            n = len(list(stream))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    say("stream", f"{what} over {n} images in {n_chunks} chunks: "
+                  f"{len(syncs)} host synchronisations"
+                  + (f"; first: {syncs[0][:200]}" if syncs else ""))
+    check(len(syncs) <= n_chunks,
+          f"{what}: no host synchronisation but one a chunk")
+
+
+def tiny_omni3d(root: Path) -> dict:
+    """tests/fixtures/tiny_omni3d.py's dataset under `root`. The fixture
+    writes its images with cv2.imwrite (BGR in), which the card's machine
+    lacks: the port's PNG writer stands in for that one call."""
+    spec = importlib.util.spec_from_file_location(
+        "tiny_omni3d", Path(__file__).resolve().parent / "tests" / "fixtures"
+        / "tiny_omni3d.py")
+    fixture = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixture)
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = types.SimpleNamespace(
+        imwrite=lambda path, bgr: write_png(path, bgr[..., ::-1]) or True)
+    try:
+        return fixture.build_dataset(root)
+    finally:
+        if saved is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
 
 
 def set_serving(module, quant_mode: str, gelu: str) -> None:
@@ -3210,7 +3661,9 @@ def main() -> None:
     f32_launches = geo_f32_phase()
     gc.collect()
     torch.cuda.empty_cache()
-    ov_launches = ovlift_phase(args.previous)
+    ov_launches, pipe, names = ovlift_phase(args.previous)
+    st_launches = stream_phase(pipe, names)
+    del pipe
     gc.collect()
     torch.cuda.empty_cache()
     q_launches = quant_phase()
@@ -3218,13 +3671,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     eval_launches = eval_phase()
     launches = {"fwd": launches + geo_launches["fwd"] + ov_launches["fwd"]
-                + q_launches["fwd"] + eval_launches,
+                + q_launches["fwd"] + eval_launches + st_launches["fwd"],
                 "lse": train_launches["lse"], "bwd": train_launches["bwd"],
                 "relpos": geo_launches["relpos"] + q_launches["relpos"]
-                + f32_launches["relpos"],
-                "window": ov_launches["window"], "int8": q_launches["int8"],
-                "quant": q_launches["quant"],
-                "fwd_f32": f32_launches["fwd_f32"], **hm_launches,
+                + f32_launches["relpos"] + st_launches["relpos"],
+                "window": ov_launches["window"] + st_launches["window"],
+                "int8": q_launches["int8"], "quant": q_launches["quant"],
+                "fwd_f32": f32_launches["fwd_f32"] + st_launches["fwd_f32"],
+                **hm_launches,
                 "k9": ln["k9_launches"]}
     src = "ovmono3d_tpu_torch/csrc/"
     meta = {

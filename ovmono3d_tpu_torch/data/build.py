@@ -11,7 +11,8 @@ loader that needs neither cv2 nor PIL.
   uint8, or None when the file is missing (a zero image, as in the JAX
   package). The machine with the card has no cv2 and no PIL, so 8-bit PNG
   (the format the repository's fixtures write) is decoded here with zlib and
-  numpy (`read_png`); any other format raises, naming it.
+  numpy (`read_png`); any other format raises, naming it. `write_png` writes
+  it, for test data made where cv2 is missing.
 """
 from __future__ import annotations
 
@@ -128,6 +129,26 @@ def read_png(path) -> np.ndarray:
     if ch < 3:
         pix = np.repeat(pix[..., :1], 3, axis=-1)
     return np.ascontiguousarray(pix[..., :3])
+
+
+def write_png(path, rgb: np.ndarray) -> None:
+    """[H, W, 3] uint8 RGB as an 8-bit RGB PNG (every scanline unfiltered),
+    the format `read_png` reads: for writing test data where cv2 is
+    missing."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    h, w, _ = rgb.shape
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           rgb.reshape(h, w * 3)], axis=1)
+    Path(path).write_bytes(
+        _PNG_MAGIC + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
+                                                0))
+        + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+        + chunk(b"IEND", b""))
 
 
 def default_image_loader(data_root: str):

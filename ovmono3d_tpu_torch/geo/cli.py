@@ -1,36 +1,53 @@
 """OVMono3D-GEO in PyTorch: zero-shot 3D boxes from SAM masks and Depth-Pro
 metric depth, one per 2D box.
 
-Counterpart of tools/ovmono3d_geo.py. Per image: Depth-Pro metric depth at
-1536^2 resized back to the image; the SAM image embedding of the image
-placed top-left on a 1024^2 canvas; for every 2D box scoring at least 0.30
-(the highest-scoring `max_instances`), SAM's largest mask (index 2), cropped
-to the canvas's content and resized to the image; then the GEO box fit
-(geo/pipeline.py). Fits with no usable pixel are dropped.
+Counterpart of tools/ovmono3d_geo.py and tools/eval_ovmono3d_geo.py. Per
+image: Depth-Pro metric depth at 1536^2 resized back to the image; the SAM
+image embedding of the image placed top-left on a 1024^2 canvas; for every
+2D box scoring at least 0.30 (the highest-scoring `--max-instances`), SAM's
+largest mask (index 2), cropped to the canvas's content and resized to the
+image; then the GEO box fit (geo/pipeline.py). Fits with no usable pixel are
+dropped.
 
     python -m ovmono3d_tpu_torch.geo.cli --synthetic [--device cpu] \
         [--gelu tanh]
+    python -m ovmono3d_tpu_torch.geo.cli --config-file configs/... --eval \
+        [--max-instances 16] [--output-dir output/geo] [key=value ...]
+    python -m ovmono3d_tpu_torch.geo.eval_cli --config-file configs/... \
+        [key=value ...]          # --eval-only: the written predictions
 
 `--synthetic` checks the geometry end to end without models: exact masks
-and depth maps of known boxes must give back their front faces. The
-dataset and evaluation flags (`--config-file`, `--eval`, `--eval-only`)
-wait for the data pipeline and the Omni3D evaluator (ROADMAP queue 1
-items 3-5). Entry points run on the card unless given a CPU device.
-Depth-Pro runs in f32 unless `--depth-bf16` is given, as in the JAX CLI;
-on the card its f32 attention is kernel 1's f32 instance. Released SAM and
-Depth-Pro weights are not loaded yet (ROADMAP queue 1 item 8): weights are
-drawn from a seed.
+and depth maps of known boxes must give back their front faces. With
+`--config-file`, GEO runs over each dataset of `datasets.test_novel` (else
+`datasets.test`) on its oracle 2D boxes (`datasets.oracle2d_files`'s novel
+entry, merged by `data.datasets.merge_oracle2d`) and writes
+`geo_predictions_<dataset>.pkl` ({image_id: [box, ...]}) to `--output-dir`;
+`--eval` evaluates them against the ground truth with every category novel,
+and `--eval-only` evaluates pickles written before without running the
+models. Entry points run on the card unless given a CPU device. Depth-Pro
+runs in f32 unless `--depth-bf16` is given, as in the JAX CLI; on the card
+its f32 attention is kernel 1's f32 instance, and SAM's is kernel 7.
+Released SAM and Depth-Pro weights are not loaded yet (ROADMAP queue 1 item
+8): weights are drawn from a seed.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import logging
 import pickle
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ovmono3d_tpu_torch.config import load_config, oracle2d_file
+from ovmono3d_tpu_torch.data.build import default_image_loader
+from ovmono3d_tpu_torch.data.datasets import (filter_settings_from_cfg,
+                                              get_dataset, merge_oracle2d,
+                                              simple_register)
+from ovmono3d_tpu_torch.eval.cli import _np_cuboid_corners, _record_gt
+from ovmono3d_tpu_torch.evaluation.helper import Omni3DEvaluationHelper
 from ovmono3d_tpu_torch.geo.pipeline import fit_box_from_mask_depth
 from ovmono3d_tpu_torch.models.backbones import SAM_ARCHS, VIT_PRESETS
 from ovmono3d_tpu_torch.models.depth import DepthPro, metric_depth
@@ -40,12 +57,21 @@ from ovmono3d_tpu_torch.utils.device import (device_constant, disable_tf32,
                                              resolve_device)
 from ovmono3d_tpu_torch.utils.image import resize_bilinear
 from ovmono3d_tpu_torch.utils.stages import Stages
+from ovmono3d_tpu_torch.vis.logperf import print_ap_summary
+
+logger = logging.getLogger("ovmono3d.geo")
 
 SCORE_THRESHOLD = 0.30          # reference ovmono3d_geo.py:274
 S_SAM, S_DEPTH = 1024, 1536     # SAM's canvas; Depth-Pro's fixed input
 PIXEL_MEAN = (0.485, 0.456, 0.406)
 PIXEL_STD = (0.229, 0.224, 0.225)
 MASK_INDEX = 2                  # SAM's largest candidate (reference L309)
+_NOT_PORTED = {
+    "sam_ckpt": "--sam-ckpt (released SAM weights): the converters are "
+                "ROADMAP queue 1 item 8",
+    "depth_ckpt": "--depth-ckpt (released Depth-Pro weights): the converters "
+                  "are ROADMAP queue 1 item 8",
+}
 
 
 @dataclasses.dataclass
@@ -96,6 +122,14 @@ def _normalize(img: torch.Tensor) -> torch.Tensor:
             / device_constant(PIXEL_STD, img.device))
 
 
+def kept_detections(dets: list[dict], max_instances: int) -> list[dict]:
+    """The boxes GEO fits: those scoring at least SCORE_THRESHOLD, best
+    first, at most `max_instances` (the threshold comes first, as the
+    reference's ovmono3d_geo.py:274 filters every box)."""
+    return sorted((d for d in dets if d["score"] >= SCORE_THRESHOLD),
+                  key=lambda d: -d["score"])[:max_instances]
+
+
 def predict_image(models: GeoModels, image, K, dets: list[dict],
                   trace: dict | None = None) -> list[dict]:
     """GEO boxes for one image (tools/ovmono3d_geo.py:340-400).
@@ -114,8 +148,7 @@ def predict_image(models: GeoModels, image, K, dets: list[dict],
     H, W = img.shape[:2]
     Kt = torch.as_tensor(K, dtype=torch.float32, device=dev)
     Sd, Ss = models.depth_size, models.sam_size
-    kept = sorted((d for d in dets if d["score"] >= SCORE_THRESHOLD),
-                  key=lambda d: -d["score"])[:models.max_instances]
+    kept = kept_detections(dets, models.max_instances)
     with torch.inference_mode():
         # Depth-Pro metric depth, with the known focal length, back at the
         # image's resolution.
@@ -211,11 +244,65 @@ def synthetic_check(device=None) -> tuple[bool, float, float, list[dict]]:
     return ok, max(errs_c), max(errs_d), preds
 
 
+def predict_dataset(models: GeoModels, records: list[dict], image_loader,
+                    stage_ms: dict | None = None) -> dict:
+    """GEO boxes of every record whose image loads, on its oracle 2D boxes
+    (`oracle2d`): {image_id: predict_image's list}. Given a dict
+    `stage_ms`, adds each stage's milliseconds (synchronised) to it."""
+    preds_all = {}
+    for rec in records:
+        image = image_loader(rec)
+        if image is None:
+            continue
+        trace: dict | None = {} if stage_ms is not None else None
+        preds_all[rec["image_id"]] = predict_image(
+            models, image, np.asarray(rec["K"], np.float32),
+            rec.get("oracle2d", []), trace=trace)
+        for stage, ms in (trace or {}).get("ms", {}).items():
+            stage_ms[stage] = stage_ms.get(stage, 0.0) + ms
+    return preds_all
+
+
+def evaluate_geo_predictions(records: list[dict], preds_all: dict,
+                             class_names: list[str], device=None) -> dict:
+    """Omni3D evaluation of GEO boxes with every category novel
+    (tools/ovmono3d_geo.py `evaluate_geo_predictions`, the reference's
+    eval_ovmono3d_geo.py:62-134); prints the overall table and returns the
+    helper's `summarize_all()`. The 3D IoU runs on `device` (CUDA unless
+    given)."""
+    helper = Omni3DEvaluationHelper(
+        len(class_names), class_names, novel_categories=set(class_names),
+        device=resolve_device(device))
+    for rec in records:
+        preds = preds_all.get(rec["image_id"], [])
+        n = len(preds)
+        center = np.asarray([p["center_cam"] for p in preds],
+                            np.float32).reshape(n, 3)
+        dims = np.asarray([p["dimensions"] for p in preds],
+                          np.float32).reshape(n, 3)
+        pose = np.asarray([p["pose"] for p in preds],
+                          np.float32).reshape(n, 3, 3)
+        helper.add_image("geo", _record_gt(rec), {
+            "classes": np.asarray([p["category_id"] for p in preds],
+                                  np.int64),
+            "scores": np.asarray([p["score"] for p in preds], float),
+            "boxes2d": np.asarray([p["bbox2d"] for p in preds],
+                                  float).reshape(n, 4),
+            "corners3d": (_np_cuboid_corners(center, dims, pose) if n
+                          else np.zeros((0, 8, 3), np.float32)),
+            "center": center, "dims": dims, "pose": pose})
+    res = helper.summarize_all()
+    print_ap_summary(res["overall"], title="OVMono3D-GEO")
+    return res
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config-file", default=None)
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--output-dir", default="output/geo")
+    ap.add_argument("--max-instances", type=int, default=16,
+                    help="at most this many boxes an image, best first")
     ap.add_argument("--sam-arch", default="vit_b", choices=tuple(SAM_ARCHS),
                     help="SAM encoder size (the reference uses vit_h)")
     ap.add_argument("--depth-bf16", action="store_true",
@@ -225,19 +312,33 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="the GELU of SAM's and Depth-Pro's ViT MLPs: exact "
                          "erf (the released models' op) or the approximate "
                          "tanh serving epilogue (not bit-identical)")
-    ap.add_argument("--eval", action="store_true")
-    ap.add_argument("--eval-only", action="store_true")
+    ap.add_argument("--eval", action="store_true",
+                    help="evaluate the written predictions against the "
+                         "ground truth")
+    ap.add_argument("--eval-only", action="store_true",
+                    help="evaluate geo_predictions_<dataset>.pkl written "
+                         "before, without running the models")
     ap.add_argument("--device", default=None,
                     help="torch device; CUDA unless given (e.g. cpu)")
+    ap.add_argument("--sam-ckpt", default=None, help="not ported yet")
+    ap.add_argument("--depth-ckpt", default=None, help="not ported yet")
+    ap.add_argument("opts", nargs="*", default=[])
     args = ap.parse_args(argv)
     if args.eval_only and args.synthetic:
         ap.error("--eval-only evaluates written predictions; it cannot be "
                  "combined with --synthetic")
+    for key, why in _NOT_PORTED.items():
+        if getattr(args, key):
+            raise NotImplementedError(why)
     return args
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict | None:
+    """Run the CLI. Over datasets it returns {dataset: {"images": n,
+    "stage_ms": mean synchronised ms an image by stage (none with
+    --eval-only), "eval": the evaluation (None without --eval)}}."""
     args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
     out_dir = Path(args.output_dir)
     if args.synthetic:
         ok, err_c, err_d, preds = synthetic_check(args.device)
@@ -250,11 +351,47 @@ def main(argv=None) -> None:
         print(f"GEO synthetic self-check: {'PASS' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(1)
-        return
-    raise NotImplementedError(
-        "GEO over a dataset (--config-file, --eval, --eval-only): the Omni3D "
-        "data pipeline and evaluator are ROADMAP queue 1 items 3-5; "
-        "predict_image runs one image")
+        return None
+    cfg = load_config(args.config_file, overrides=args.opts)
+    class_names = list(cfg.datasets.category_names)
+    fs = filter_settings_from_cfg(cfg)
+    cat_map = {n: i for i, n in enumerate(class_names)}
+    models = None
+    if not args.eval_only:
+        models = build_geo_models(args.sam_arch, args.depth_bf16,
+                                  args.device, gelu=args.gelu)
+        models.max_instances = args.max_instances
+        out_dir.mkdir(parents=True, exist_ok=True)
+    image_loader = default_image_loader(cfg.datasets.data_root)
+    results = {}
+    for name in cfg.datasets.test_novel or cfg.datasets.test:
+        simple_register(name, Path(cfg.datasets.data_root) / "Omni3D"
+                        / f"{name}.json", fs, cat_map)
+        records = get_dataset(name)
+        path = out_dir / f"geo_predictions_{name}.pkl"
+        stage_ms: dict = {}
+        if args.eval_only:
+            with open(path, "rb") as fh:
+                preds_all = pickle.load(fh)
+            logger.info("evaluating %s (%d images)", path, len(preds_all))
+        else:
+            # GEO runs on the novel split (reference ovmono3d_geo.py:261-264).
+            oracle_path = oracle2d_file(cfg.datasets, name, "novel")
+            if oracle_path:
+                records = merge_oracle2d(records, oracle_path)
+            preds_all = predict_dataset(models, records, image_loader,
+                                        stage_ms)
+            with open(path, "wb") as fh:
+                pickle.dump(preds_all, fh)
+            logger.info("%s: %d images -> %s", name, len(preds_all), path)
+        n = len(preds_all)
+        results[name] = {
+            "images": n,
+            "stage_ms": {k: v / n for k, v in stage_ms.items()} if n else {},
+            "eval": (evaluate_geo_predictions(records, preds_all, class_names,
+                                              args.device)
+                     if args.eval or args.eval_only else None)}
+    return results
 
 
 if __name__ == "__main__":

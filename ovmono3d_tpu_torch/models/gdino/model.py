@@ -133,18 +133,22 @@ class GroundingDINO(nn.Module):
     def forward(self, images: torch.Tensor, input_ids: torch.Tensor,
                 text_mask: torch.Tensor,
                 text_self_mask: torch.Tensor | None = None,
-                text_position_ids: torch.Tensor | None = None) -> dict:
+                text_position_ids: torch.Tensor | None = None,
+                rel_biases: dict[str, torch.Tensor] | None = None) -> dict:
         """images [B, H, W, 3] normalized, H and W multiples of 32. Returns
         {"pred_logits": [B, Q, max_text_len] raw, "pred_boxes": [B, Q, 4]}.
-        Without gradients the Swin biases come from the trunk's cache."""
+        `rel_biases` are the Swin biases (`backbone.rel_biases()`, on the
+        images' device); None takes them from the trunk's cache without
+        gradients, and expands them in the forward with gradients."""
         b = images.shape[0]
         dev = images.device
         c = self.hidden_dim
         txt = self.encode_text(input_ids, text_mask, text_self_mask,
                                text_position_ids)
         t = txt.shape[1]
-        rel = None if torch.is_grad_enabled() else self.backbone.rel_biases()
-        feats = self.backbone(images, rel)
+        if rel_biases is None and not torch.is_grad_enabled():
+            rel_biases = self.backbone.rel_biases()
+        feats = self.backbone(images, rel_biases)
         srcs = [getattr(self, f"input_proj_norm{i}")(
                     getattr(self, f"input_proj{i}")(feats[key]))
                 for i, key in enumerate(("s1", "s2", "s3"))]

@@ -22,12 +22,20 @@ reference's empty-Instances fallback).
 
 Resizing is F.interpolate bilinear (half-pixel, no antialias), cv2's
 INTER_LINEAR. Entry points run on the card unless given a CPU device.
-Streaming (`predict_stream`, `detect_2d_stream`), the multi-card serve and
-loading released GroundingDINO weights are not ported yet (ROADMAP).
+
+`predict_stream` and `detect_2d_stream` serve a sequence of images in
+chunks, with one chunk in flight (`_stream_drive`): the host stages the next
+chunk's images in page-locked memory while the card runs the current one,
+uploads and reads back without waiting, and resizes on the card into uint8
+canvases, as the JAX streams quantize theirs. `predict_stream(devices=...)`
+splits each chunk over several devices (`parallel/serve.py`). Loading
+released GroundingDINO weights is not ported yet (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
@@ -40,8 +48,9 @@ from ovmono3d_tpu_torch.models.gdino.tokenizer import BertTokenizer
 from ovmono3d_tpu_torch.models.layers import init_seeded
 from ovmono3d_tpu_torch.models.rcnn3d import RCNN3D, build_model
 from ovmono3d_tpu_torch.structures import Detections
-from ovmono3d_tpu_torch.utils.device import (device_constant, disable_tf32,
-                                             resolve_device)
+from ovmono3d_tpu_torch.utils.device import (HostCopy, device_constant,
+                                             disable_tf32, resolve_device,
+                                             staged, to_device_async)
 from ovmono3d_tpu_torch.utils.image import (resize_bilinear,
                                             resize_shortest_edge)
 from ovmono3d_tpu_torch.utils.stages import Stages
@@ -86,6 +95,9 @@ class OVMono3DLift:
     # keeps them all, roi_heads_gdino.py:252-257), so the final ranking is on
     # the fused score.
     detect_topk: int = 300
+    # {devices: (weights' stamp, pipelines)}: `replicas`' copies.
+    _replicas: dict = dataclasses.field(default_factory=dict, init=False,
+                                        repr=False, compare=False)
 
     @classmethod
     def build(cls, cfg: Config, tokenizer: BertTokenizer,
@@ -120,6 +132,29 @@ class OVMono3DLift:
     @property
     def device(self) -> torch.device:
         return self.gdino.level_embed.device
+
+    def replicas(self, devices) -> list["OVMono3DLift"]:
+        """This pipeline on each of `devices`: itself where its models are,
+        else a copy of both models on that device. The copies are made once
+        and kept until a weight of the models changes (its storage or, in
+        place, its version)."""
+        devices = tuple(resolve_device(d) for d in devices)
+        modules = [m for m in (self.gdino, self.rcnn) if m is not None]
+        stamp = tuple((t.data_ptr(), t._version) for t in itertools.chain(
+            *(m.parameters() for m in modules),
+            *(m.buffers() for m in modules)))
+        cached = self._replicas.get(devices)
+        if cached is None or cached[0] != stamp:
+            def on(dev):
+                if dev == self.device:
+                    return self
+                return dataclasses.replace(
+                    self, gdino=copy.deepcopy(self.gdino).to(dev),
+                    rcnn=(None if self.rcnn is None
+                          else copy.deepcopy(self.rcnn).to(dev)))
+            cached = (stamp, [on(d) for d in devices])
+            self._replicas[devices] = cached
+        return cached[1]
 
     # -- host preparation ---------------------------------------------------
 
@@ -188,7 +223,7 @@ class OVMono3DLift:
     def _text_device_inputs(self, categories: list[str]) -> dict:
         """The prompt tokenized at max_text_len, cut to the smallest power of
         two >= its length from 32 up (the reference runs the caption's own
-        length), on the device."""
+        length), uploaded without a host synchronisation."""
         full = self.gdino.max_text_len
         text = build_text_inputs(self.tokenizer, categories, max_len=full,
                                  max_phrases=max(64, len(categories)))
@@ -203,7 +238,7 @@ class OVMono3DLift:
                "position_ids": text["position_ids"][:, :T],
                "span_matrix": text["span_matrix"],
                "span_valid": text["span_valid"]}
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+        return {k: to_device_async(staged(v), self.device)
                 for k, v in cut.items()}
 
     # -- device stages --------------------------------------------------------
@@ -286,8 +321,9 @@ class OVMono3DLift:
         """Everything `run` needs on the device: the cube model's canvas
         (uploaded and resized here), its content size and ratio, K, the
         prompt's tensors and, when the detector does not share the canvas,
-        its own tensor. Uploads end here: each one synchronises the host
-        with the card. `stages` marks "canvas" and "text"."""
+        its own tensor. Uploads end here: the image's, K's and the
+        content size's synchronise the host with the card (the prompt's do
+        not). `stages` marks "canvas" and "text"."""
         stages = stages or Stages(None, self.device)
         dev = self.device
         canvas, (nh, nw), scale = self._prep_lift_canvas(image)
@@ -327,6 +363,135 @@ class OVMono3DLift:
                              det2d, req["box_scale"], req["depth"])
             stages.mark("lift")
         return det
+
+    # -- streams --------------------------------------------------------------
+
+    def _stream_canvas(self, image: torch.Tensor, side: int,
+                       hw: tuple[int, int]) -> torch.Tensor:
+        """A stream's uint8 canvas [side, side, 3]: `image` (on the device)
+        resized to hw = (nh, nw), rounded half to even and clipped to 0..255
+        (the JAX streams' np.clip(np.rint(...))), top-left on zeros."""
+        canvas = torch.zeros(side, side, 3, dtype=torch.uint8,
+                             device=image.device)
+        resized = resize_bilinear(image.float(), hw).round().clamp(0, 255)
+        canvas[:hw[0], :hw[1]] = resized.to(torch.uint8)
+        return canvas
+
+    @staticmethod
+    def _stream_drive(items, prep, dispatch, emit, chunk: int):
+        """The streams' chunk loop (JAX `_stream_drive`): prep(item) -> a
+        row of host values; dispatch(rows) -> a handle on a chunk's work,
+        enqueued on the device without waiting; emit(handle) -> its
+        results, one per row. Exactly one chunk is in flight: while the
+        device runs chunk i the host preps chunk i+1, dispatches it, and
+        only then reads chunk i. A partial last chunk is dispatched with its
+        own rows, unpadded."""
+        rows: list = []
+        pending = None
+        for item in items:
+            rows.append(prep(item))
+            if len(rows) == chunk:
+                done, pending = pending, dispatch(rows)
+                rows = []
+                if done is not None:
+                    yield from emit(done)
+        if rows:
+            done, pending = pending, dispatch(rows)
+            if done is not None:
+                yield from emit(done)
+        if pending is not None:
+            yield from emit(pending)
+
+    def detect_2d_stream(self, images, categories: list[str],
+                         chunk: int = 8):
+        """Open-vocabulary 2D detection over a sequence of images: yields
+        `detect_2d`-shaped numpy dicts, boxes in original pixels. The
+        prompt is tokenized once; each chunk's images are staged in
+        page-locked memory, uploaded without waiting, resized on the card
+        into uint8 canvases of the detector's side, detected one by one and
+        read back behind an event (the canvases normalized together, then
+        detected one by one). Serves `build_2d_only` pipelines. With no
+        categories it is per-image `detect_2d`, as in the JAX package."""
+        if not categories:
+            for image in images:
+                yield self.detect_2d(image, [])
+            return
+        text = self._text_device_inputs(categories)
+        dev, side = self.device, self.gdino_size
+
+        def prep(image):
+            nh, nw, scale = self._gdino_content_geometry(*image.shape[:2])
+            return staged(image), (nh, nw), scale
+
+        def dispatch(rows):
+            hws = to_device_async(staged(np.array(
+                [hw for _, hw, _ in rows], np.int32)), dev)
+            with torch.inference_mode():
+                tensors = self._gdino_normalize(torch.stack([
+                    self._stream_canvas(to_device_async(image, dev), side, hw)
+                    for image, hw, _ in rows]).float(), hws)
+                outs = [self._detect(tensors[i:i + 1], text)
+                        for i in range(len(rows))]
+            return HostCopy([{k: torch.stack([o[k] for o in outs])
+                              for k in outs[0]}]), [r[2] for r in rows]
+
+        def emit(handle):
+            copied, scales = handle
+            host = copied.wait()
+            for i, scale in enumerate(scales):
+                out = {k: v[i].numpy() for k, v in host.items()}
+                out["boxes"] = out["boxes"] / scale
+                yield out
+
+        yield from self._stream_drive(images, prep, dispatch, emit, chunk)
+
+    def predict_stream(self, items, categories: list[str], chunk: int = 8,
+                       devices=None):
+        """Prompts -> 3D cuboids over a sequence of (image, K) pairs: yields
+        one Detections in host memory per image (`detect_topk` slots, boxes
+        in original pixels). The prompt is tokenized once; each chunk's
+        images and K / content-size / ratio rows are staged in page-locked
+        memory and uploaded without waiting; the card resizes each image
+        into a uint8 canvas (as the JAX stream quantizes it, so the stream
+        equals per-image `predict` only at resize scale 1), normalizes the
+        chunk's canvases for the detector together and runs `run` on each;
+        the chunk is read back behind an event. With
+        `devices` (a list; `chunk` a multiple of its length) device d takes
+        the chunk's d-th share, on its own copy of the models
+        (`parallel.serve.make_lift_stream_fn`). Non-fusable configurations
+        and empty prompts are per-image `predict`, as in the JAX package;
+        depth prompts are not taken (use `predict`)."""
+        if not (categories and self._fusable()):
+            for image, K in items:
+                det = self.predict(image, K, categories)
+                yield Detections(**{k: v.cpu() for k, v in det.items()})
+            return
+        from ovmono3d_tpu_torch.parallel.serve import make_lift_stream_fn
+
+        devices = [self.device] if devices is None else list(devices)
+        if chunk % len(devices):
+            raise ValueError(f"chunk {chunk} is not a multiple of the "
+                             f"{len(devices)} devices")
+        run = make_lift_stream_fn(self, devices, chunk // len(devices))
+        text = self._text_device_inputs(categories)
+        side = self.cfg.model.backbone.square_pad
+
+        def prep(item):
+            image, K = item
+            nh, nw, scale = resize_shortest_edge(
+                image.shape[:2], self.cfg.input.min_size_test,
+                min(self.cfg.input.max_size_test, side))
+            return (staged(image), np.asarray(K, np.float32), (nh, nw),
+                    np.float32(1.0 / scale))
+
+        def emit(copied):
+            host = copied.wait()
+            for i in range(next(iter(host.values())).shape[0]):
+                yield Detections(**{k: v[i] for k, v in host.items()})
+
+        yield from self._stream_drive(items, prep,
+                                      lambda rows: run(rows, text), emit,
+                                      chunk)
 
     def predict(self, image, K, categories: list[str], depth=None,
                 trace: dict | None = None) -> Detections:

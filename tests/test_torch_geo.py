@@ -1,26 +1,39 @@
 """The port's GEO pipeline against the JAX package: the box fit and its
-density filter, the synthetic scene and self-check, and one image through
-`predict_image` at tiny models against the same composition of JAX modules
-(CPU)."""
+density filter, the synthetic scene and self-check, one image through
+`predict_image` at tiny models against the same composition of JAX modules,
+and the CLI over the tiny Omni3D fixture (`--config-file --eval`,
+`--eval-only`, `geo.eval_cli`, `--max-instances`) against the JAX tool's
+evaluation and box selection (CPU)."""
+import contextlib
+import dataclasses
+import io
+import json
+import pickle
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from ovmono3d_tpu import config as jcfg
+from ovmono3d_tpu.data import datasets as jdatasets
 from ovmono3d_tpu.geo import pipeline as jgeo
 from ovmono3d_tpu.models.depth import DepthPro as JaxDepthPro
 from ovmono3d_tpu.models.depth import metric_depth as jax_metric_depth
 from ovmono3d_tpu.models.sam import SamSegmenter as JaxSamSegmenter
 from ovmono3d_tpu.models.vit import VisionTransformer as JaxViT
-from ovmono3d_tpu_torch.geo import cli
+from ovmono3d_tpu_torch.geo import cli, eval_cli
 from ovmono3d_tpu_torch.geo import pipeline as tgeo
 from ovmono3d_tpu_torch.models.depth import DepthPro
 from ovmono3d_tpu_torch.models.sam import SamSegmenter
 from ovmono3d_tpu_torch.models.vit import VisionTransformer
 from ovmono3d_tpu_torch.utils.flax_bridge import load_flax_params
+from fixtures.tiny_omni3d import build_dataset
 from test_geo import _render_box_depth
 from test_torch_depth import TINY, depth_params
+from test_torch_eval import _same
 from test_torch_sam import SAM_KW, rel_pos_filled
 from tools import ovmono3d_geo as jax_cli
 
@@ -129,11 +142,10 @@ def test_synthetic_self_check_passes(tmp_path, capsys):
     assert (tmp_path / "geo_predictions_synthetic.pkl").is_file()
 
 
-@pytest.mark.parametrize("argv", [["--config-file", "x.yaml"], ["--eval"],
-                                  ["--eval-only"]])
-def test_cli_dataset_flags_raise(argv):
-    with pytest.raises(NotImplementedError, match="queue 1 items 3-5"):
-        cli.main(argv + ["--device", "cpu", "--depth-bf16"])
+@pytest.mark.parametrize("flag", ["--sam-ckpt", "--depth-ckpt"])
+def test_cli_checkpoint_flags_refuse(flag):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        cli.main(["--synthetic", "--device", "cpu", flag, "x.pth"])
 
 
 def test_entry_points_default_to_cuda():
@@ -200,8 +212,9 @@ def jax_predict(jmods, image, K, dets):
 
 
 @pytest.fixture(scope="module")
-def geo_pair():
-    rng = np.random.default_rng(5)
+def geo_models():
+    """The tiny SAM encoder, SAM decoder and Depth-Pro in f32 in both
+    packages, the same weights: (JAX (module, params) pairs, GeoModels)."""
     sam = JaxViT(dtype=jnp.float32, **SAM_KW)
     p_sam = rel_pos_filled(jax.jit(sam.init)(
         jax.random.PRNGKey(0), jnp.zeros((1, S_SAM, S_SAM, 3))))
@@ -220,6 +233,13 @@ def geo_pair():
     for port, params in ((models.sam_encoder, p_sam),
                          (models.segmenter, p_seg), (models.depth, p_dp)):
         load_flax_params(port, params)
+    return ((sam, p_sam), (seg, p_seg), (dp, p_dp)), models
+
+
+@pytest.fixture(scope="module")
+def geo_pair(geo_models):
+    jmods, models = geo_models
+    rng = np.random.default_rng(5)
     image = rng.integers(0, 256, size=(40, 56, 3), dtype=np.uint8)
     K = np.array([[60.0, 0, 28.0], [0, 60.0, 20.0], [0, 0, 1]], np.float32)
     dets = [{"bbox2d": b, "score": s, "category_id": i}
@@ -229,8 +249,7 @@ def geo_pair():
                 ([30.0, 12.0, 45.0, 30.0], 0.4)])]
     trace: dict = {}
     got = cli.predict_image(models, image, K, dets, trace=trace)
-    want = jax_predict(((sam, p_sam), (seg, p_seg), (dp, p_dp)), image, K,
-                       dets)
+    want = jax_predict(jmods, image, K, dets)
     return got, trace, want
 
 
@@ -259,3 +278,119 @@ def test_predict_image_matches_jax(geo_pair):
         np.testing.assert_allclose(g["center_cam"], w["center"], atol=1e-4)
         np.testing.assert_allclose(g["dimensions"], w["dims"], atol=1e-4)
         np.testing.assert_allclose(g["pose"], w["pose"], atol=1e-3)
+
+
+# -- the CLI over a dataset on the tiny Omni3D fixture ---------------------
+
+REPO = Path(__file__).resolve().parents[1]
+GEO_CLASSES = ["chair", "cup"]
+
+
+def _dataset_argv(tinyds, out_dir):
+    return ["--config-file",
+            str(REPO / "configs" / "OVMono3D_dinov2_SFP.yaml"),
+            "--device", "cpu", "--output-dir", str(out_dir),
+            f"datasets.data_root={tinyds['root']}",
+            "datasets.test_novel=TinyDS_test",
+            f"datasets.category_names={','.join(GEO_CLASSES)}",
+            "datasets.oracle2d_files.target_aware.novel.TinyDS_test="
+            f"{tinyds['oracle']}"]
+
+
+def _run(fn, *args):
+    """fn(*args) and what it printed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = fn(*args)
+    return res, out.getvalue()
+
+
+@pytest.fixture(scope="module")
+def geo_dataset_run(geo_models, tmp_path_factory):
+    """`geo.cli --config-file --eval` over the fixture's test split with the
+    tiny models (in place of `build_geo_models`' full-size ones): (fixture,
+    output dir, the CLI's result, what it printed)."""
+    _, models = geo_models
+    tinyds = build_dataset(tmp_path_factory.mktemp("tiny_omni3d"))
+    out_dir = tmp_path_factory.mktemp("geo")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cli, "build_geo_models",
+                   lambda *a, **k: dataclasses.replace(models))
+        res, printed = _run(cli.main, _dataset_argv(tinyds, out_dir)
+                            + ["--eval"])
+    return tinyds, out_dir, res, printed
+
+
+def test_cli_dataset_eval_matches_jax_evaluation(geo_dataset_run):
+    """The CLI's predictions for the 4 test images, evaluated by the JAX
+    tool's `evaluate_geo_predictions` on the same records: the same result
+    (to 1e-6) and the same printed table."""
+    tinyds, out_dir, res, printed = geo_dataset_run
+    with open(out_dir / "geo_predictions_TinyDS_test.pkl", "rb") as fh:
+        preds_all = pickle.load(fh)
+    assert sorted(preds_all) == [100, 101, 102, 103]
+    assert sum(len(v) for v in preds_all.values()) > 0
+    run = res["TinyDS_test"]
+    assert run["images"] == 4
+    assert set(run["stage_ms"]) == {"depth", "sam_encoder", "segment", "fit"}
+    argv = _dataset_argv(tinyds, out_dir)
+    jc = jcfg.load_config(argv[1], overrides=argv[6:])
+    cat_map = {n: i for i, n in enumerate(GEO_CLASSES)}
+    jdatasets.simple_register("TinyDS_test", tinyds["root"] / "Omni3D"
+                              / "TinyDS_test.json",
+                              jdatasets.filter_settings_from_cfg(jc), cat_map)
+    records = jdatasets.get_dataset("TinyDS_test")
+    want, want_printed = _run(jax_cli.evaluate_geo_predictions, records,
+                              preds_all, GEO_CLASSES)
+    _same(run["eval"], want)
+    assert "== OVMono3D-GEO ==" in printed and want_printed in printed
+
+
+def test_cli_eval_only_reproduces_the_table(geo_dataset_run, monkeypatch):
+    """`--eval-only` (and `geo.eval_cli`, which adds it) evaluates the
+    written pickle without building the models: the same result and
+    table."""
+    tinyds, out_dir, res, printed = geo_dataset_run
+    monkeypatch.setattr(cli, "build_geo_models", None)
+    table = printed[printed.index("== OVMono3D-GEO =="):]
+    for main, extra in ((cli.main, ["--eval-only"]), (eval_cli.main, [])):
+        again, again_printed = _run(main, _dataset_argv(tinyds, out_dir)
+                                    + extra)
+        _same(again["TinyDS_test"]["eval"], res["TinyDS_test"]["eval"])
+        assert again["TinyDS_test"]["stage_ms"] == {}
+        assert table in again_printed
+
+
+def test_cli_max_instances_and_threshold_keep_the_jax_loops_boxes(
+        geo_models, geo_dataset_run, tmp_path):
+    """The boxes fitted: at or above 0.30, best first, at most
+    --max-instances, as tools/ovmono3d_geo.py's loop takes them (copied
+    below) on random scores; and through the CLI with --max-instances 1,
+    every image's prediction is its best oracle box."""
+    rng = np.random.default_rng(3)
+    for k in (0, 1, 3, 16):
+        dets = [{"bbox2d": rng.random(4).tolist(), "score": float(s),
+                 "category_id": i}
+                for i, s in enumerate(rng.choice([0.1, 0.29, 0.3, 0.5, 0.9],
+                                                 size=12))]
+        want = sorted((d for d in dets
+                       if d["score"] >= jax_cli.SCORE_THRESHOLD),
+                      key=lambda d: -d["score"])[:k]
+        assert cli.kept_detections(dets, k) == want
+    _, models = geo_models
+    tinyds = geo_dataset_run[0]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cli, "build_geo_models",
+                   lambda *a, **k: dataclasses.replace(models))
+        _run(cli.main, _dataset_argv(tinyds, tmp_path)
+             + ["--max-instances", "1"])
+    with open(tmp_path / "geo_predictions_TinyDS_test.pkl", "rb") as fh:
+        preds_all = pickle.load(fh)
+    oracle = json.loads(Path(tinyds["oracle"]).read_text())
+    for image_id, preds in preds_all.items():
+        assert len(preds) <= 1
+        best = max((d for d in oracle if d["image_id"] == image_id),
+                   key=lambda d: d["score"])
+        for p in preds:
+            x, y, w, h = best["bbox"]
+            np.testing.assert_allclose(p["bbox2d"], [x, y, x + w, y + h])
