@@ -16,8 +16,10 @@ training under OVMONO3D_PACKED_ATTN=0 (the head-major attention family);
 the Omni3D evaluation of the flagship (oracle and learned 2D, AP2D / AP3D
 with the exact 3D IoU on the card); and the entry points of the kernels no
 model path reaches: the differentiable fused LayerNorm and the counterparts
-of the JAX package's LayerNorm and attention-sweep probes. Holds every CUDA
-kernel on those paths against its plain PyTorch version.
+of the JAX package's LayerNorm and attention-sweep probes; and the rest of
+training: remat under each policy, gradient accumulation, and the train CLI
+(frozen and unfrozen, resumed, --eval-only, in a one-process NCCL group).
+Holds every CUDA kernel on those paths against its plain PyTorch version.
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
     python3 chip_smoke.py --previous DIR   # kernels 7, 8 and 10 also
@@ -268,6 +270,40 @@ profiles' tables):
           fields within 2e-2; GT as the prediction gives AP2D = AP3D = 100
           on the card; pairwise_iou3d on the card within EVAL_IOU_ATOL of
           the CPU
+  remat   the flagship unfrozen at 896^2, B=REMAT_B, 16 GT slots, SGD,
+          under no remat and the policies full, dots and dots_attn
+          (models/vit.py): each one's p50 ms/step of REMAT_TIMED after
+          REMAT_WARMUP, device ms of one profiled step, peak memory and
+          kernel-3 / kernel-4 launches a step (12 / 12 with none and
+          dots_attn, 24 / 12 with full and dots: checked); one step's trunk
+          gradients under each policy against no remat's on the same batch
+          and draws (bit-identity printed; else held to TRAIN_GRAD_REL);
+          B=REMAT_B_FULL (the default solver.ims_per_batch) under dots_attn
+          for one step after one warm-up (running out of memory fails): ms
+          and peak memory; under dots_attn, grad_accum_steps=REMAT_ACCUM
+          micro-steps of REMAT_B against one REMAT_B_FULL step on the same
+          images and draws (one batch four times, so every micro-batch
+          normalizes its losses alike), and on REMAT_ACCUM distinct
+          micro-batches against one plain update on the mean of their
+          gradients taken alone: each parameter's update within
+          TRAIN_GRAD_REL both times; the distinct micro-batches against
+          one step on their images printed unchecked
+  traincli  ovmono3d_tpu_torch.train.cli in-process with the shipped
+          configs/OVMono3D_dinov2_SFP.yaml (trunk frozen), --synthetic,
+          B=TRAINCLI_B, under build/traincli: 16 steps with --profile,
+          test.eval_period=16, vis_period=8, solver.checkpoint_period=8
+          (12 kernel-1 launches a step and an eval batch, no kernel 3 or 4,
+          none skipped, finite in-train AP2D / AP3D, metrics.jsonl, the TB
+          events read back with the port's reader, the panels' PNGs at steps
+          8 and 16, the profiler trace); --resume to step 20 (4 steps ran:
+          48 kernel-1 launches); --eval-only on model_final.pt (finite AP);
+          4 steps with the trunk unfrozen (12 kernel-3 and 12 kernel-4
+          launches a step); with cuDNN's deterministic algorithms, 4 steps
+          without a group and 4 in a one-process NCCL group (MASTER_ADDR / MASTER_PORT /
+          RANK / WORLD_SIZE set here): the parameters bit for bit equal;
+          the CLI's loop body
+          (next batch, page-locked upload, step) timed over
+          TRAINCLI_RATE_STEPS steps (img/s) and profiled over 2 (idle share)
 Then a JSON line of the kernels (kernels 1, 2, 3 and 5 at the trunk shape
 also with previous_ms, device_ms, previous_device_ms and library_device_ms:
 the mma.sync design's event time and the device times of both designs and
@@ -293,6 +329,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -342,6 +379,7 @@ from ovmono3d_tpu_torch.models.ovmono3d import (  # noqa: E402
 )
 from ovmono3d_tpu_torch.models.rcnn3d import build_model  # noqa: E402
 from ovmono3d_tpu_torch.models.vit import GELUS, Mlp  # noqa: E402
+from ovmono3d_tpu_torch.models.vit import remat_context  # noqa: E402
 from ovmono3d_tpu_torch.ops.boxes import uniform_draws  # noqa: E402
 from ovmono3d_tpu_torch.ops import attention  # noqa: E402
 from ovmono3d_tpu_torch.ops import attn_sweep  # noqa: E402
@@ -368,7 +406,8 @@ from ovmono3d_tpu_torch.structures import (  # noqa: E402
     Detections,
     GroundTruth,
 )
-from ovmono3d_tpu_torch.train.optim import Optimizer  # noqa: E402
+from ovmono3d_tpu_torch.train.optim import (  # noqa: E402
+    Optimizer, with_grad_accum)
 from ovmono3d_tpu_torch.utils import cuda_build  # noqa: E402
 from ovmono3d_tpu_torch.utils import geometry as geom  # noqa: E402
 
@@ -454,6 +493,17 @@ WARMUP, TIMED, PLAIN_TIMED = 3, 10, 3
 S, N_BOXES = 896, 64
 TRAIN_B, TRAIN_GT, TRAIN_WARMUP, TRAIN_TIMED = 8, 16, 2, 5
 TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-2, 5e-2
+# The remat phase: the unfrozen flagship at B=REMAT_B under each policy
+# (None: no remat), B=REMAT_B_FULL (the default solver.ims_per_batch) under
+# dots_attn, and REMAT_ACCUM micro-steps of REMAT_B against one
+# REMAT_B_FULL step.
+REMAT_B, REMAT_B_FULL, REMAT_ACCUM = 8, 32, 4
+REMAT_WARMUP, REMAT_TIMED = 2, 3
+REMAT_POLICIES = (None, "full", "dots", "dots_attn")
+# The traincli phase: the train CLI's batch, its first run's steps, the
+# resumed run's end, and the steps its loop body is timed over.
+TRAINCLI_B, TRAINCLI_ITERS, TRAINCLI_RESUMED = 8, 16, 20
+TRAINCLI_RATE_STEPS = 5
 GEO_H, GEO_W, GEO_BOXES, GEO_WARMUP, GEO_TIMED = 512, 704, 8, 2, 5
 GEO_MAX_REL, GEO_MEAN_REL = 1e-1, 2e-2
 GEO_F32_WARMUP, GEO_F32_TIMED = 2, 3
@@ -3619,6 +3669,391 @@ def iou3d_card_vs_cpu(names) -> None:
                                 f"of the CPU")
 
 
+def set_remat(model, policy: str | None) -> None:
+    """Checkpoint the trunk's blocks under `policy` (None: no remat), as
+    BackboneConfig.remat / remat_policy build it."""
+    vit = model.backbone.vit
+    vit.remat = policy is not None
+    vit.remat_context = remat_context(policy or "dots_attn")
+
+
+def updates(model, init: dict) -> dict:
+    return {n: p.detach() - init[n] for n, p in model.named_parameters()}
+
+
+def worst_rel(got: dict, want: dict) -> tuple[str, float]:
+    """The entry whose ||got - want|| / ||want|| is largest."""
+    rel = {n: float((got[n].float() - w.float()).norm()
+                    / w.float().norm().clamp(min=1e-30))
+           for n, w in want.items()}
+    name = max(rel, key=rel.get)
+    return name, rel[name]
+
+
+def tile(batch: dict, k: int) -> dict:
+    """`batch` (and its draws) repeated k times along the batch."""
+    return {key: ({d: v.repeat(k, *[1] * (v.dim() - 1)) for d, v in val.items()}
+                  if key == "draws" else
+                  val.repeat(k, *[1] * (val.dim() - 1)))
+            for key, val in batch.items()}
+
+
+def micro(batch: dict, i: int, n: int) -> dict:
+    """The i-th of n micro-batches of `batch` (and of its draws)."""
+    s = slice(i * n, (i + 1) * n)
+    return {key: ({d: v[s] for d, v in val.items()} if key == "draws"
+                  else val[s]) for key, val in batch.items()}
+
+
+def one_update(model, init: dict, batch: dict, k: int) -> dict:
+    """From `init`, k SGD micro-steps of `with_grad_accum` over k equal
+    slices of `batch` (one plain step for k = 1); the parameters' update."""
+    model.load_state_dict(init)
+    opt = with_grad_accum(Optimizer(SolverConfig(), model), k)
+    state = create_train_state(model, opt, seed=0)
+    step = make_train_step(model, opt, model.cfg.stabilize)
+    n = batch["image"].shape[0] // k
+    for i in range(k):
+        state, metrics = step(state, micro(batch, i, n))
+        check_losses(metrics, f"k={k} micro-step {i}")
+    check(int(opt.count) == 1 and int(state.skipped) == 0,
+          f"one update from {k} micro-steps, none skipped")
+    return updates(model, init)
+
+
+def mean_gradient_update(model, init: dict, batch: dict, k: int) -> dict:
+    """From `init`, one plain SGD update on the mean of the gradients of k
+    equal slices of `batch`, each computed alone: what k micro-steps of
+    `with_grad_accum` must give. The parameters' update."""
+    model.load_state_dict(init)
+    opt = Optimizer(SolverConfig(), model)
+    n = batch["image"].shape[0] // k
+    total = [torch.zeros_like(p) for p in opt.params]
+    for i in range(k):
+        mb = micro(batch, i, n)
+        losses = model.compute_losses(mb["image"], mb["K"], mb["im_hw"],
+                                      mb["im_scale_ratio"], batch_gt(mb),
+                                      draws=mb["draws"])
+        check_losses(losses, f"micro-batch {i} alone")
+        grads = torch.autograd.grad(sum(losses.values()), opt.params,
+                                    allow_unused=True)
+        for t, g in zip(total, grads):
+            if g is not None:
+                t.add_(g)
+    with torch.no_grad():
+        opt.step([t / k for t in total])
+    check(int(opt.count) == 1, "one plain update")
+    return updates(model, init)
+
+
+def remat_phase() -> dict:
+    """The flagship unfrozen at 896^2, B=REMAT_B, under no remat and each
+    remat policy; B=REMAT_B_FULL under dots_attn; gradient accumulation
+    against one step of the whole batch. Returns the kernel 3 and 4
+    launches of the timed steps."""
+    t0 = time.perf_counter()
+    _, model = train_model()
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    params0 = {n: init[n] for n, _ in model.named_parameters()}
+    n_blocks = len(model.backbone.vit.blocks())
+    batch = synthetic_batch(REMAT_B, TRAIN_GT, seed=1)
+    draws = sampling_draws(model, batch, seed=4)
+    say("remat", f"flagship unfrozen built in {time.perf_counter() - t0:.1f}"
+                 f" s; B={REMAT_B}, {TRAIN_GT} GT slots, SGD")
+    launches = {"lse": 0, "bwd": 0, "fwd": 0}
+    grads = {}
+    for policy in REMAT_POLICIES:
+        name = policy or "none"
+        set_remat(model, policy)
+        model.load_state_dict(init)
+        _, grads[name] = trunk_loss_and_grads(model, batch, draws)
+        opt = Optimizer(SolverConfig(), model)
+        state = create_train_state(model, opt, seed=0)
+        step = make_train_step(model, opt, model.cfg.stabilize)
+        for _ in range(REMAT_WARMUP):
+            state, metrics = step(state, batch)
+            check_losses(metrics, f"{name} warm-up step")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_attention_counts()
+        lats = []
+        for _ in range(REMAT_TIMED):
+            t1 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            lats.append(time.perf_counter() - t1)
+            check_losses(metrics, f"{name} timed step")
+        lse = attention.flash_attention_packed_lse.launches
+        bwd = attention.flash_attention_packed_bwd.launches
+        launches["lse"] += lse
+        launches["bwd"] += bwd
+        launches["fwd"] += attention.flash_attention_packed.launches
+        peak = torch.cuda.max_memory_allocated()
+        check(int(state.skipped) == 0, f"{name}: no step skipped")
+        per_step = (lse // REMAT_TIMED, bwd // REMAT_TIMED)
+        want = (n_blocks * (2 if policy in ("full", "dots") else 1), n_blocks)
+        check(per_step == want and lse % REMAT_TIMED == 0,
+              f"{name}: kernel 3 / 4 launches a step {per_step}, want {want}")
+        p50 = statistics.median(lats) * 1e3
+        busy = device_profile("remat", lambda: step(state, batch), 1, p50)
+        say("remat", f"policy {name}: p50 {p50:.3f} ms/step of "
+                     f"{REMAT_TIMED} (after {REMAT_WARMUP} warm-up), device "
+                     f"{busy:.3f} ms a step, peak memory {peak} bytes "
+                     f"({peak / 2**30:.2f} GiB), {per_step[0]} kernel-3 and "
+                     f"{per_step[1]} kernel-4 launches a step")
+    for name in ("full", "dots", "dots_attn"):
+        same = all(torch.equal(grads[name][n], g)
+                   for n, g in grads["none"].items())
+        worst, rel = worst_rel(grads[name], grads["none"])
+        say("remat", f"trunk gradients under {name} against no remat, same "
+                     f"batch and draws: bit-identical {same}; largest "
+                     f"relative difference {rel:.3e} ({worst}; limit "
+                     f"{TRAIN_GRAD_REL})")
+        check(same or rel <= TRAIN_GRAD_REL,
+              f"{name}: trunk gradients within {TRAIN_GRAD_REL}")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The config's batch under dots_attn: running out of memory fails.
+    big = synthetic_batch(REMAT_B_FULL, TRAIN_GT, seed=2)
+    set_remat(model, "dots_attn")
+    model.load_state_dict(init)
+    opt = Optimizer(SolverConfig(), model)
+    state = create_train_state(model, opt, seed=0)
+    step = make_train_step(model, opt, model.cfg.stabilize)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    try:
+        for _ in range(2):                     # one warm-up, one timed
+            t1 = time.perf_counter()
+            state, metrics = step(state, big)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+    except torch.cuda.OutOfMemoryError as err:
+        check(False, f"B={REMAT_B_FULL} fits under dots_attn: {err}")
+    check_losses(metrics, f"B={REMAT_B_FULL} step")
+    say("remat", f"B={REMAT_B_FULL} under dots_attn: {ms[1]:.3f} ms for one "
+                 f"step after one warm-up ({ms[0]:.3f}), "
+                 f"{REMAT_B_FULL * 1e3 / ms[1]:.3f} img/s, peak memory "
+                 f"{torch.cuda.max_memory_allocated()} bytes")
+    del state, step, opt
+
+    # Accumulation under dots_attn. On REMAT_ACCUM distinct micro-batches
+    # of REMAT_B: the accumulated update against one plain update on the
+    # mean of their gradients, each taken alone (optax.MultiSteps' update;
+    # a micro-step dropped or counted twice is off by a quarter of the
+    # update). Against one step of their REMAT_B_FULL images, on the same
+    # images and draws: each micro-batch normalizes its losses by its own
+    # counts, so the two are the same update when every micro-batch's
+    # counts are equal, which the checked batch (one B=REMAT_B batch four
+    # times) makes so; the distinct images' difference is printed.
+    base = dict(batch, draws=draws)
+    acc = one_update(model, init, tile(base, REMAT_ACCUM), REMAT_ACCUM)
+    whole = one_update(model, init, tile(base, REMAT_ACCUM), 1)
+    worst, rel = worst_rel(acc, whole)
+    say("remat", f"grad_accum_steps={REMAT_ACCUM} x B={REMAT_B} against one "
+                 f"B={REMAT_B_FULL} step (the same {REMAT_B} images and "
+                 f"draws four times, under dots_attn): largest relative "
+                 f"difference of a parameter's update {rel:.3e} ({worst}; "
+                 f"limit {TRAIN_GRAD_REL})")
+    check(rel <= TRAIN_GRAD_REL, "accumulated update within the limit")
+    other = dict(big, draws=sampling_draws(model, big, seed=5))
+    acc = one_update(model, init, other, REMAT_ACCUM)
+    mean = mean_gradient_update(model, init, other, REMAT_ACCUM)
+    worst, rel = worst_rel(acc, mean)
+    say("remat", f"grad_accum_steps={REMAT_ACCUM} on {REMAT_ACCUM} distinct "
+                 f"micro-batches of {REMAT_B} against one update on the mean "
+                 f"of their gradients: largest relative difference of a "
+                 f"parameter's update {rel:.3e} ({worst}; limit "
+                 f"{TRAIN_GRAD_REL})")
+    check(rel <= TRAIN_GRAD_REL,
+          "accumulated update on distinct micro-batches within the limit")
+    whole = one_update(model, init, other, 1)
+    worst, rel = worst_rel(acc, whole)
+    say("remat", f"the same against one B={REMAT_B_FULL} step on their "
+                 f"images (each micro-batch its own loss normalizers; "
+                 f"printed, unchecked): largest relative difference "
+                 f"{rel:.3e} ({worst})")
+    set_remat(model, None)
+    return launches
+
+
+def cli_rate(run, steps: int) -> None:
+    """img/s of the train CLI's own step and data path (the iterator, the
+    page-locked upload, the step) over `steps` steps after 2 warm-up, and
+    its device idle share in one profile of 2 steps."""
+    data = run.make_data_iter()
+    state = run.state
+    for _ in range(2):
+        state, _ = run.step_fn(state, next(data))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = run.step_fn(state, next(data))
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t1) / steps
+    check_losses(metrics, "train CLI step")
+    say("traincli", f"{steps} steps of the CLI's loop body (next batch, "
+                    f"upload, step; synchronised at the end): "
+                    f"{per_step * 1e3:.3f} ms a step, "
+                    f"{run.batch_size / per_step:.3f} img/s")
+
+    def two():
+        nonlocal state
+        for _ in range(2):
+            state, _ = run.step_fn(state, next(data))
+
+    device_profile("traincli", two, 2, per_step * 1e3, repeat=1)
+    run.close()
+
+
+def differing(a: Path, b: Path) -> list[str]:
+    """The model tensors of a/model_final.pt and b/model_final.pt that are
+    not bit-identical."""
+    ma = torch.load(a / "model_final.pt", weights_only=True)["model"]
+    mb = torch.load(b / "model_final.pt", weights_only=True)["model"]
+    return [n for n, v in ma.items() if not torch.equal(v, mb[n])]
+
+
+def traincli_phase() -> dict:
+    """python -m ovmono3d_tpu_torch.train.cli in-process with the shipped
+    flagship config (trunk frozen) on --synthetic data, resumed, evaluated
+    with --eval-only, unfrozen, and under a one-process NCCL group; returns
+    the attention launches of its runs."""
+    from ovmono3d_tpu_torch.train import cli as train_cli
+    from ovmono3d_tpu_torch.train import tb_writer
+
+    root = Path(__file__).resolve().parent
+    out = root / "build" / "traincli"
+    shutil.rmtree(out, ignore_errors=True)
+    # The shipped config names Objectron's 9 categories for its 50-class
+    # head; the generated records use all 50, so the evaluations name them
+    # by number.
+    config = root / "configs" / "OVMono3D_dinov2_SFP.yaml"
+    base = ["--config-file", str(config), "--synthetic", "--batch-size",
+            str(TRAINCLI_B)]
+    names = "datasets.category_names=[]"
+    launches = {"fwd": 0, "lse": 0, "bwd": 0}
+
+    def run_cli(argv: list[str], what: str):
+        reset_attention_counts()
+        t1 = time.perf_counter()
+        res = train_cli.main(argv)
+        torch.cuda.synchronize()
+        counts = attention_counts()
+        for key, wrapper in (("fwd", "flash_attention_packed"),
+                             ("lse", "flash_attention_packed_lse"),
+                             ("bwd", "flash_attention_packed_bwd")):
+            launches[key] += counts[wrapper]
+        say("traincli", f"{what}: {time.perf_counter() - t1:.1f} s; kernel "
+                        f"1 / 3 / 4 launches "
+                        f"{counts['flash_attention_packed']} / "
+                        f"{counts['flash_attention_packed_lse']} / "
+                        f"{counts['flash_attention_packed_bwd']}")
+        return res, counts
+
+    main_out = out / "frozen"
+    opts = [f"output_dir={main_out}", "test.eval_period=16", "vis_period=8",
+            "solver.checkpoint_period=8", names]
+    res, counts = run_cli([*base, "--max-iter", str(TRAINCLI_ITERS),
+                           "--profile", *opts], "16 steps, frozen trunk")
+    eval_batches = -(-16 // TRAINCLI_B)          # 16 generated records
+    want = 12 * (TRAINCLI_ITERS + eval_batches)
+    check(counts["flash_attention_packed"] == want,
+          f"12 kernel-1 launches a step and an eval batch ({want})")
+    check(counts["flash_attention_packed_lse"] == 0
+          and counts["flash_attention_packed_bwd"] == 0,
+          "no kernel 3 or 4 with the trunk frozen")
+    check(res["step"] == TRAINCLI_ITERS and res["skipped"] == 0,
+          f"{TRAINCLI_ITERS} steps, none skipped: {res['step']}, "
+          f"{res['skipped']}")
+    (ev,) = res["evals"]
+    check(all(math.isfinite(ev[k]) for k in ("AP2D", "AP3D")),
+          "finite in-train AP2D and AP3D")
+    say("traincli", f"in-train eval at step 16: AP2D {ev['AP2D']:.2f}, "
+                    f"AP3D {ev['AP3D']:.2f}")
+    lines = (main_out / "metrics.jsonl").read_text().splitlines()
+    (events,) = list((main_out / "tb").glob("events.out.tfevents.*"))
+    scalars = tb_writer.read_events(events)
+    images = tb_writer.read_image_events(events)
+    check(bool(lines) and bool(scalars), "metrics.jsonl and TB scalars")
+    check([s for s, _ in images] == [8, 16], f"TB images at steps 8 and 16: "
+                                            f"{[s for s, _ in images]}")
+    for s in (8, 16):
+        check((main_out / "vis" / f"train_{s:07d}.png").exists(),
+              f"vis PNG of step {s}")
+    trace = main_out / "profile" / "trace_10-15.json"
+    check(trace.exists(), "the profiler trace of steps 11-15")
+    say("traincli", f"metrics.jsonl {len(lines)} lines, TB {len(scalars)} "
+                    f"scalar and {len(images)} image events, vis PNGs, "
+                    f"trace {trace.stat().st_size} bytes")
+
+    res, counts = run_cli([*base, "--max-iter", str(TRAINCLI_RESUMED),
+                           "--resume", *opts], "--resume to 20")
+    ran = TRAINCLI_RESUMED - TRAINCLI_ITERS
+    check(res["step"] == TRAINCLI_RESUMED
+          and counts["flash_attention_packed"] == 12 * ran,
+          f"the resumed run started at step {TRAINCLI_ITERS} "
+          f"({counts['flash_attention_packed']} kernel-1 launches)")
+    reset_attention_counts()
+    summary = train_cli.main(["--eval-only", *base, "--checkpoint",
+                              str(main_out / "model_final.pt"), *opts])
+    launches["fwd"] += attention.flash_attention_packed.launches
+    overall = summary["overall"]
+    check(all(math.isfinite(overall[k]) for k in ("AP2D", "AP3D")),
+          "--eval-only: finite AP2D and AP3D")
+    say("traincli", f"--eval-only on model_final.pt: AP2D "
+                    f"{overall['AP2D']:.2f}, AP3D {overall['AP3D']:.2f}")
+
+    res, counts = run_cli(
+        [*base, "--max-iter", "4", f"output_dir={out / 'unfrozen'}",
+         "model.backbone.freeze=false", "test.eval_period=0", "vis_period=0",
+         names],
+        "4 steps, trunk unfrozen")
+    check(counts["flash_attention_packed_lse"] == 48
+          and counts["flash_attention_packed_bwd"] == 48
+          and counts["flash_attention_packed"] == 0,
+          "12 kernel-3 and 12 kernel-4 launches a step, no kernel 1")
+
+    # A one-process NCCL group against no group: bit for bit. cuDNN's
+    # default weight-gradient algorithms do not repeat from run to run (the
+    # pyramid's convolution parameters differed between two runs without a
+    # group), so the pair takes its deterministic ones.
+    plain = [*base, "--max-iter", "4", "--no-tensorboard",
+             "test.eval_period=0", "vis_period=0", names]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.backends.cudnn.deterministic = True
+    try:
+        run_cli([*plain, f"output_dir={out / 'alone'}"], "4 steps, no group")
+        with switched(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0"):
+            res, _ = run_cli([*plain, f"output_dir={out / 'group'}"],
+                             "4 steps in a one-process NCCL group")
+            check(res["world_size"] == 1
+                  and torch.distributed.get_backend() == "nccl",
+                  "the run joined an NCCL group")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    differ = differing(out / "alone", out / "group")
+    say("traincli", f"parameters after 4 steps, NCCL group of one against no "
+                    f"group (deterministic cuDNN): {len(differ)} tensors "
+                    f"differ {differ[:3]}")
+    check(not differ, "the NCCL group's run equals the run without a group")
+
+    run = train_cli.build_run(train_cli.parse_args(
+        [*plain, f"output_dir={out / 'rate'}"]))
+    reset_attention_counts()
+    cli_rate(run, TRAINCLI_RATE_STEPS)
+    launches["fwd"] += attention.flash_attention_packed.launches
+    return launches
+
+
 def main() -> None:
     import argparse
 
@@ -3670,9 +4105,19 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     eval_launches = eval_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat_launches = remat_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_launches = traincli_phase()
     launches = {"fwd": launches + geo_launches["fwd"] + ov_launches["fwd"]
-                + q_launches["fwd"] + eval_launches + st_launches["fwd"],
-                "lse": train_launches["lse"], "bwd": train_launches["bwd"],
+                + q_launches["fwd"] + eval_launches + st_launches["fwd"]
+                + remat_launches["fwd"] + cli_launches["fwd"],
+                "lse": train_launches["lse"] + remat_launches["lse"]
+                + cli_launches["lse"],
+                "bwd": train_launches["bwd"] + remat_launches["bwd"]
+                + cli_launches["bwd"],
                 "relpos": geo_launches["relpos"] + q_launches["relpos"]
                 + f32_launches["relpos"] + st_launches["relpos"],
                 "window": ov_launches["window"] + st_launches["window"],

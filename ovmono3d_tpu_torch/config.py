@@ -5,9 +5,9 @@ Same names and defaults as ovmono3d_tpu/config.py (a test holds them field
 by field against the JAX dataclasses), and `load_config` / `oracle2d_file`
 are copies of its functions: every file under configs/ loads to the same
 values in both packages. The port carries the fields its paths read and the
-ones the shipped YAML files set; the JAX package's TPU options (the remat
-policy, the attention backend) and gradient accumulation have no field
-here, and a YAML file that sets them is refused as an unknown key.
+ones the shipped YAML files set, the remat policy and gradient accumulation
+among them; the JAX package's attention-backend switch has no field here,
+and a YAML file that sets it is refused as an unknown key.
 """
 from __future__ import annotations
 
@@ -29,7 +29,10 @@ class BackboneConfig:
     use_depth_fusion: bool = True
     layerscale: bool = True
     freeze: bool = True             # requires_grad=False on the ViT trunk
-    remat: bool = False             # activation checkpointing: queued
+    remat: bool = False             # checkpoint the trunk's plain blocks
+    remat_policy: str = "dots_attn"  # full | dots | dots_attn: what a
+                                    # rematerialized block keeps for its
+                                    # backward (models/vit.py)
     out_channels: int = 256         # SFP channels
     scale_factors: tuple[float, ...] = (2.0, 1.0, 0.5)
     square_pad: int = 896           # fixed input side
@@ -150,6 +153,10 @@ class SolverConfig:
     clip_gradients: float = 0.0
     checkpoint_period: int = 9999
     max_training_attempts: int = 10
+    # k micro-steps an optimizer update, the mean of their gradients
+    # (train/optim.py with_grad_accum); the LR schedule counts updates,
+    # max_iter counts micro-steps.
+    grad_accum_steps: int = 1
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,14 @@
-"""The test side of the data pipeline (counterpart of the test half of
-ovmono3d_tpu/data/build.py): sequential fixed-shape batches and an image
-loader that needs neither cv2 nor PIL.
+"""The data pipeline (counterpart of ovmono3d_tpu/data/build.py):
+weighted training streams and sequential test batches of fixed shape, and
+an image loader that needs neither cv2 nor PIL.
 
+- `build_train_iterator`: an endless weighted shuffle of training batches
+  (images without a non-ignored annotation dropped first; dataset-balance
+  and LVIS repeat-factor weights, `dataset_balance_weights` and
+  `repeat_factors_from_category_frequency`; a seeded TRAIN_SET_PERCENTAGE
+  subsample, `subsample_records`), mapped and stacked by producer threads
+  with the JAX package's random streams. Its batches come in a fixed order
+  whatever the threads' timing: producer t makes batches t, t + T, ...
 - `build_test_iterator`: each record once, in order (InferenceSampler
   semantics), mapped by `data/mapper.py` and stacked; the last chunk is
   padded by repeating its final record. The JAX package's optional native
@@ -11,13 +18,20 @@ loader that needs neither cv2 nor PIL.
   uint8, or None when the file is missing (a zero image, as in the JAX
   package). The machine with the card has no cv2 and no PIL, so 8-bit PNG
   (the format the repository's fixtures write) is decoded here with zlib and
-  numpy (`read_png`); any other format raises, naming it. `write_png` writes
-  it, for test data made where cv2 is missing.
+  numpy (`read_png`); any other format raises, naming it. `encode_png` /
+  `write_png` write it (test data, the training panels of train/metrics.py
+  and their TensorBoard images) where cv2 is missing.
 """
 from __future__ import annotations
 
+import itertools
+import logging
+import math
+import queue
 import struct
+import threading
 import zlib
+from collections import Counter
 from pathlib import Path
 from typing import Iterator
 
@@ -26,8 +40,148 @@ import numpy as np
 from ovmono3d_tpu_torch.config import Config
 from ovmono3d_tpu_torch.data.mapper import batch_examples, map_example
 
+logger = logging.getLogger(__name__)
+
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # grey, RGB, grey + alpha, RGBA
+
+
+def _categories(rec: dict) -> set:
+    return {a["category_id"] for a in rec.get("annotations", [])
+            if a["category_id"] >= 0}
+
+
+def repeat_factors_from_category_frequency(records: list[dict],
+                                           repeat_thresh: float
+                                           ) -> np.ndarray:
+    """LVIS repeat factors: r(img) = max over its categories of
+    max(1, sqrt(t / f_c)), f_c the fraction of images holding category c
+    (reference build.py:166-211)."""
+    counts: Counter = Counter()
+    for rec in records:
+        counts.update(_categories(rec))
+    total = max(len(records), 1)
+    freq = {c: n / total for c, n in counts.items()}
+    rep = np.ones(len(records))
+    for i, rec in enumerate(records):
+        cats = _categories(rec)
+        if cats:
+            rep[i] = max(max(1.0, math.sqrt(repeat_thresh / freq[c]))
+                         for c in cats)
+    return rep
+
+
+def dataset_balance_weights(sources: list) -> np.ndarray:
+    """Per-image dataset-balancing weights (BALANCE_DATASETS, reference
+    build.py:105-128): each source gets 1 - count / total, normalised so
+    the largest source's weight is 1; one source is left unweighted.
+    `sources` are the images' dataset sources (two splits of one dataset
+    are one source), not the per-JSON dataset ids."""
+    counts = Counter(sources)
+    if len(counts) <= 1:
+        return np.ones(len(sources))
+    total = sum(counts.values())
+    w = {d: 1.0 - c / total for d, c in counts.items()}
+    mn = min(w.values())
+    return np.array([w[d] / mn for d in sources])
+
+
+def subsample_records(records: list[dict], percentage: float) -> list[dict]:
+    """A seeded uniform TRAIN_SET_PERCENTAGE subsample in record order, not
+    a prefix, which would drop whole sources (reference build.py:30-34,
+    92-93)."""
+    if percentage >= 1.0:
+        return records
+    keep = int(len(records) * percentage)
+    idx = np.random.RandomState(42).permutation(len(records))[:keep]
+    return [records[i] for i in np.sort(idx)]
+
+
+def build_train_iterator(cfg: Config, records: list[dict], batch_size: int,
+                         image_loader=None, max_gt: int = 64, seed: int = 0,
+                         num_threads: int = 4, prefetch: int = 4
+                         ) -> Iterator[dict]:
+    """An endless weighted shuffle of fixed-shape training batches (numpy,
+    the model's keyword names).
+
+    Producer thread t draws batch indices from np.random.RandomState(seed +
+    1 + 7919 t) with `choice(..., p=weights)` and maps each example with a
+    RandomState seeded from that stream (flip, train scale), the JAX
+    package's streams; the batches are taken from the threads in turn, so
+    the sequence depends on the seed alone (with num_threads=1 it is the JAX
+    iterator's). A data-parallel run gives each process its own seed (the
+    train CLI adds the rank). Up to `prefetch` batches wait. A producer's
+    error is raised by the iterator; closing it stops the producers."""
+    records = subsample_records(records, cfg.input.train_set_percentage)
+    if cfg.datasets.filter_empty_annotations:
+        kept = [r for r in records
+                if any(a.get("category_id", -1) >= 0
+                       for a in r.get("annotations", []))]
+        if len(kept) != len(records):
+            logger.info("filtered %d empty-annotation images (%d left)",
+                        len(records) - len(kept), len(kept))
+        records = kept
+    if not records:
+        raise ValueError("no training record with a non-ignored annotation")
+
+    weights = np.ones(len(records))
+    if cfg.datasets.balance_datasets:
+        weights *= dataset_balance_weights(
+            [r.get("source", r.get("dataset_id", 0)) for r in records])
+    if cfg.datasets.repeat_threshold > 0:
+        weights *= repeat_factors_from_category_frequency(
+            records, cfg.datasets.repeat_threshold)
+    weights = weights / weights.sum()
+    return _train_batches(cfg, records, weights, batch_size, image_loader,
+                          max_gt, seed, num_threads, prefetch)
+
+
+def _train_batches(cfg, records, weights, batch_size, image_loader, max_gt,
+                   seed, num_threads, prefetch) -> Iterator[dict]:
+    stop = threading.Event()
+    outs = [queue.Queue(maxsize=max(1, -(-prefetch // num_threads)))
+            for _ in range(num_threads)]
+
+    def put(out: queue.Queue, item) -> None:
+        while not stop.is_set():
+            try:
+                out.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def producer(tid: int) -> None:
+        # One RandomState a thread: np.random.RandomState is not
+        # thread-safe.
+        local = np.random.RandomState(seed + 1 + tid * 7919)
+        try:
+            while not stop.is_set():
+                idx = local.choice(len(records), size=batch_size, p=weights)
+                examples = []
+                for i in idx:
+                    rng = np.random.RandomState(local.randint(2**31))
+                    rec = records[i]
+                    image = (image_loader(rec) if image_loader is not None
+                             else None)
+                    examples.append(map_example(rec, cfg, image=image,
+                                                is_train=True, max_gt=max_gt,
+                                                rng=rng))
+                put(outs[tid], _to_model_batch(batch_examples(examples)))
+        except Exception as e:              # raised again by the consumer
+            put(outs[tid], e)
+
+    threads = [threading.Thread(target=producer, args=(t,), daemon=True)
+               for t in range(num_threads)]
+    for t in threads:
+        t.start()
+    try:
+        for i in itertools.count():
+            item = outs[i % num_threads].get()
+            if isinstance(item, Exception):
+                raise item
+            yield item
+    finally:
+        stop.set()
 
 
 def build_test_iterator(cfg: Config, records: list[dict], batch_size: int = 1,
@@ -131,10 +285,9 @@ def read_png(path) -> np.ndarray:
     return np.ascontiguousarray(pix[..., :3])
 
 
-def write_png(path, rgb: np.ndarray) -> None:
-    """[H, W, 3] uint8 RGB as an 8-bit RGB PNG (every scanline unfiltered),
-    the format `read_png` reads: for writing test data where cv2 is
-    missing."""
+def encode_png(rgb: np.ndarray) -> bytes:
+    """[H, W, 3] uint8 RGB as the bytes of an 8-bit RGB PNG (every scanline
+    unfiltered), the format `read_png` reads."""
     rgb = np.ascontiguousarray(rgb, np.uint8)
     h, w, _ = rgb.shape
 
@@ -144,11 +297,15 @@ def write_png(path, rgb: np.ndarray) -> None:
 
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
                            rgb.reshape(h, w * 3)], axis=1)
-    Path(path).write_bytes(
-        _PNG_MAGIC + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
-                                                0))
-        + chunk(b"IDAT", zlib.compress(rows.tobytes()))
-        + chunk(b"IEND", b""))
+    return (_PNG_MAGIC
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path, rgb: np.ndarray) -> None:
+    """`encode_png` to a file: for writing images where cv2 is missing."""
+    Path(path).write_bytes(encode_png(rgb))
 
 
 def default_image_loader(data_root: str):

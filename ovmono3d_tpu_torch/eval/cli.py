@@ -19,6 +19,14 @@ oracle slots and the model detects its own 2D boxes).
 Weights are the seeded init (`seed`) unless `--checkpoint` names a training
 checkpoint of the port (`train/checkpoint.py`).
 
+`--data-parallel` joins the process group that torchrun (or any launcher
+setting MASTER_ADDR, MASTER_PORT, RANK and WORLD_SIZE) describes: each
+process evaluates its share of every dataset's images (`process_shard`) on
+the card of its LOCAL_RANK, and the predictions are gathered back into the
+records' order on every process (`gather_objects`), so the tables are those
+of one process; rank 0 prints them and writes the dumps. Without a group it
+is one process, as without the flag.
+
 Runs on CUDA unless `--device` names another device.
 """
 from __future__ import annotations
@@ -27,6 +35,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import time
 from pathlib import Path
 
@@ -44,6 +53,8 @@ from ovmono3d_tpu_torch.data.synthetic import (synthetic_datasets,
                                                synthetic_records)
 from ovmono3d_tpu_torch.evaluation.helper import Omni3DEvaluationHelper
 from ovmono3d_tpu_torch.models.rcnn3d import build_model
+from ovmono3d_tpu_torch.parallel.mesh import (gather_objects, init_multihost,
+                                              process_shard, rank)
 from ovmono3d_tpu_torch.utils.device import resolve_device
 from ovmono3d_tpu_torch.utils.geometry import CORNER_SIGNS
 from ovmono3d_tpu_torch.utils.priors import compute_priors
@@ -58,8 +69,6 @@ _ORACLE_KEYS = ("oracle_boxes", "oracle_classes", "oracle_scores",
 _NOT_PORTED = {
     "rcnn_ckpt": "--rcnn-ckpt (a released checkpoint): the converters are "
                  "ROADMAP queue 1 item 8",
-    "data_parallel": "--data-parallel: data-parallel evaluation is ROADMAP "
-                     "queue 1 item 6 (DDP)",
     "vis_dir": "--vis-dir: the visualisation is ROADMAP queue 1 item 10",
 }
 
@@ -85,7 +94,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="torch device; CUDA unless given (e.g. cpu)")
     ap.add_argument("--rcnn-ckpt", default=None, help="not ported yet")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="not ported yet")
+                    help="evaluate over the processes of a torchrun group")
     ap.add_argument("--vis-dir", default=None, help="not ported yet")
     ap.add_argument("opts", nargs="*", default=[])
     args = ap.parse_args(argv)
@@ -115,16 +124,23 @@ def evaluate_dataset(cfg, model, records, image_loader, batch_size, helper,
     """Inference over `records`, accumulated into the shared `helper`. The
     data timer covers loading and mapping a batch on the host, the compute
     timer its upload, the model and the copy of the detections back.
-    Returns {"images", "data_s", "compute_s", "batch_ms": [...]}."""
+    Under a process group each process runs its share of the records
+    (`process_shard`), and every process's helper receives all of them in
+    the records' order (`gather_objects`); rank 0 writes the dump. Returns
+    {"images" (this process's), "data_s", "compute_s", "batch_ms": [...]}.
+    """
     device = next(model.parameters()).device
     eval_prox = "Objectron" in dataset_name or "SUNRGBD" in dataset_name
     if run is None:
         run = make_run_fn(model)
     stats = {"images": 0, "data_s": 0.0, "compute_s": 0.0, "batch_ms": []}
-    dumped = []
+    collected, dumped = [], []
+    # Each record's place in `records`, to restore the order after the
+    # gather.
+    order = process_shard(list(range(len(records))))
     # Oracle slots hold the whole 100-detection protocol.
     it = iter(build_test_iterator(
-        cfg, records, batch_size, image_loader,
+        cfg, process_shard(records), batch_size, image_loader,
         max_oracle=max(64, cfg.test.detections_per_image)))
     while True:
         t0 = time.perf_counter()
@@ -153,20 +169,25 @@ def evaluate_dataset(cfg, model, records, image_loader, batch_size, helper,
                 "pose": det["pose"][bi][valid],
                 "center_2d": det["center_2d"][bi][valid],
             }
-            helper.add_image(dataset_name, _record_gt(rec), pred,
-                             eval_prox=eval_prox)
+            place = order[stats["images"] + bi]
+            collected.append((place, _record_gt(rec), pred))
             if dump_path is not None:
-                dumped.append(_dump_entry(rec, pred))
+                dumped.append((place, _dump_entry(rec, pred)))
         stats["images"] += len(chunk)
     if stats["images"]:
         logger.info("%s: %d images; compute %.3f s (%.4f s/img); data "
                     "%.3f s", dataset_name, stats["images"],
                     stats["compute_s"], stats["compute_s"] / stats["images"],
                     stats["data_s"])
+    for _, gt, pred in sorted(gather_objects(collected), key=lambda x: x[0]):
+        helper.add_image(dataset_name, gt, pred, eval_prox=eval_prox)
     if dump_path is not None:
-        Path(dump_path).parent.mkdir(parents=True, exist_ok=True)
-        with open(dump_path, "w") as fh:
-            json.dump(dumped, fh)
+        dumped = [d for _, d in sorted(gather_objects(dumped),
+                                       key=lambda x: x[0])]
+        if rank() == 0:
+            Path(dump_path).parent.mkdir(parents=True, exist_ok=True)
+            with open(dump_path, "w") as fh:
+                json.dump(dumped, fh)
     return stats
 
 
@@ -320,6 +341,11 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     device = resolve_device(args.device)
+    if (args.data_parallel and init_multihost(device=device)
+            and device.type == "cuda"):
+        device = torch.device("cuda", int(os.environ.get(
+            "LOCAL_RANK", rank() % torch.cuda.device_count())))
+        torch.cuda.set_device(device)
     cfg = load_config(args.config_file, overrides=args.opts)
     if args.category_meta:
         class_names = load_category_meta(args.category_meta)["thing_classes"]
@@ -355,6 +381,8 @@ def main(argv=None) -> dict:
             run=run)
 
     summary = helper.summarize_all()
+    if rank() != 0:
+        return summary
     for name, res in summary["datasets"].items():
         print_ap_summary(res, title=name)
         print_ap_per_category(helper.ev3d[name].per_category_ap(),

@@ -2,11 +2,12 @@
 
 Only the DINOv2 ViT + Simple Feature Pyramid family is ported as a detector
 backbone; the other families raise NotImplementedError naming their ROADMAP
-slice. `VIT_PRESETS["sam"]` and `SAM_ARCHS` describe SAM's image encoder,
+items. `VIT_PRESETS["sam"]` and `SAM_ARCHS` describe SAM's image encoder,
 which the GEO pipeline builds on its own (geo/cli.py).
 """
 from __future__ import annotations
 
+import logging
 from typing import Any
 
 import torch
@@ -46,15 +47,15 @@ class ViTSFPBackbone(nn.Module):
         super().__init__()
         if cfg.name != "dinov2":
             raise NotImplementedError(
-                f"backbone {cfg.name!r}: ROADMAP slices 6-7 (only dinov2 is "
-                "ported)")
+                f"backbone {cfg.name!r}: ROADMAP queue 1 items 8 and 9 (only "
+                "dinov2 is ported)")
         self.vit = VisionTransformer(
             patch_size=cfg.patch_size, embed_dim=cfg.embed_dim,
             depth=cfg.depth, num_heads=cfg.num_heads,
             pretrain_grid=cfg.pretrain_grid, layerscale=cfg.layerscale,
             use_depth_fusion=cfg.use_depth_fusion,
-            dtype=dtype, device=device, remat=cfg.remat, quant=cfg.quant,
-            gelu=cfg.gelu)
+            dtype=dtype, device=device, remat=cfg.remat,
+            remat_policy=cfg.remat_policy, quant=cfg.quant, gelu=cfg.gelu)
         self.sfp = SimpleFeaturePyramid(
             cfg.embed_dim, cfg.out_channels, cfg.scale_factors,
             trunk_stride=cfg.patch_size, dtype=dtype, device=device)
@@ -77,4 +78,10 @@ class ViTSFPBackbone(nn.Module):
 
 
 def build_backbone(cfg: BackboneConfig, device=None) -> ViTSFPBackbone:
+    preset = VIT_PRESETS.get(cfg.name, {})
+    if cfg.remat and (preset.get("window_size") or preset.get("use_rel_pos")):
+        logging.getLogger("ovmono3d").warning(
+            "backbone.remat only wraps plain (non-windowed, non-rel-pos)"
+            " ViT blocks; '%s' keeps its windowed/rel-pos blocks "
+            "un-rematerialized", cfg.name)
     return ViTSFPBackbone(cfg, device=device)

@@ -368,20 +368,28 @@ def decode_cube(cfg, outputs: dict, src_boxes: torch.Tensor,
     }
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _count(n: torch.Tensor, count_reduce=None) -> torch.Tensor:
+    """A loss normalizer: this process's count, or the whole batch's
+    through `count_reduce` (compute_losses)."""
+    return n if count_reduce is None else count_reduce(n)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor,
+                count_reduce=None) -> torch.Tensor:
     """Mean over slots where mask > 0 and the value is finite
-    (safely_reduce_losses, roi_heads.py:956-964)."""
+    (safely_reduce_losses, roi_heads.py:956-964); the count over the whole
+    batch with `count_reduce`."""
     finite = torch.isfinite(x)
     w = mask.to(x.dtype) * finite.to(x.dtype)
     x = torch.where(finite, x, torch.zeros_like(x))
-    return (x * w).sum() / w.sum().clamp(min=1.0)
+    return (x * w).sum() / _count(w.sum(), count_reduce).clamp(min=1.0)
 
 
 def box_head_losses(box_cfg, num_classes: int, scores_logits: torch.Tensor,
                     box_deltas: torch.Tensor, flat_classes: torch.Tensor,
                     flat_valid: torch.Tensor, flat_fg: torch.Tensor,
                     flat_boxes: torch.Tensor,
-                    matched_gt_boxes: torch.Tensor):
+                    matched_gt_boxes: torch.Tensor, count_reduce=None):
     """Fast R-CNN box-head losses (reference fast_rcnn.py:145-260).
 
     loss_cls: softmax cross-entropy over the valid sampled proposals, mean.
@@ -391,7 +399,7 @@ def box_head_losses(box_cfg, num_classes: int, scores_logits: torch.Tensor,
     """
     log_probs = F.log_softmax(scores_logits, dim=-1)
     ce = -log_probs.gather(-1, flat_classes[:, None].long())[:, 0]
-    loss_cls = masked_mean(ce, flat_valid)
+    loss_cls = masked_mean(ce, flat_valid, count_reduce)
     reg_targets = box_ops.get_deltas(flat_boxes, matched_gt_boxes,
                                      box_cfg.bbox_reg_weights)
     n = flat_classes.shape[0]
@@ -402,15 +410,16 @@ def box_head_losses(box_cfg, num_classes: int, scores_logits: torch.Tensor,
         pred_reg = box_deltas.reshape(n, num_classes, 4).gather(
             1, cls_for_reg[:, None, None].expand(n, 1, 4))[:, 0]
     reg_loss = smooth_l1(pred_reg, reg_targets, box_cfg.smooth_l1_beta).sum(-1)
-    loss_reg = ((reg_loss * flat_fg.float()).sum()
-                / flat_valid.sum().float().clamp(min=1.0))
+    n_valid = _count(flat_valid.sum().float(), count_reduce)
+    loss_reg = (reg_loss * flat_fg.float()).sum() / n_valid.clamp(min=1.0)
     return loss_cls, loss_reg
 
 
 def cube_losses(cfg, dec: dict, gt_boxes3d: torch.Tensor,
                 gt_poses: torch.Tensor, K_scaled: torch.Tensor,
                 fg_mask: torch.Tensor,
-                src_boxes: torch.Tensor | None = None) -> dict:
+                src_boxes: torch.Tensor | None = None,
+                count_reduce=None) -> dict:
     """Cube losses, fixed-shape, masked-mean reduced over foreground slots.
 
     Disentangled corner losses (roi_heads.py:551-627) by default, with the
@@ -509,10 +518,11 @@ def cube_losses(cfg, dec: dict, gt_boxes3d: torch.Tensor,
     uncert_sf = 1.0
     if cfg.use_confidence > 0 and dec["uncert"] is not None:
         uncert_sf = SQRT_2 * torch.exp(-dec["uncert"])
-        out["loss_uncert"] = cfg.use_confidence * masked_mean(dec["uncert"],
-                                                              fg_mask)
+        out["loss_uncert"] = cfg.use_confidence * masked_mean(
+            dec["uncert"], fg_mask, count_reduce)
     for k, v in losses.items():
-        out[k] = masked_mean(v * uncert_sf, fg_mask) * weights[k] * cfg.loss_w_3d
+        out[k] = (masked_mean(v * uncert_sf, fg_mask, count_reduce)
+                  * weights[k] * cfg.loss_w_3d)
     return out
 
 
@@ -706,12 +716,20 @@ class RCNN3D(nn.Module):
 
     def compute_losses(self, image, K, im_hw, im_scale_ratio,
                        gt: GroundTruth, generator: torch.Generator | None = None,
-                       draws: dict | None = None, depth=None) -> dict:
+                       draws: dict | None = None, depth=None,
+                       count_reduce=None) -> dict:
         """Full training forward -> loss dict (the JAX package's
         RCNN3D.compute_losses). The sampling uniforms are `draws`
         ({"anchor": [B, 2, R], "proposal": [B, 2, P]}: R anchors over all
         levels, P = post_nms_topk_train + M proposals), or are drawn from
-        `generator` on the image's device."""
+        `generator` on the image's device.
+
+        `count_reduce` (a no-grad sum of a count tensor over a process
+        group) makes every loss normalizer a count over the whole batch
+        that the group shares: the masked means' slot counts, the box
+        regression's valid proposals and the RPN's sample count. Each
+        process's losses are then its share of the global batch's, as in
+        the JAX package's one program over a sharded batch."""
         rpn_cfg = self.cfg.rpn
         box_cfg = self.cfg.roi_box
         b = image.shape[0]
@@ -731,6 +749,9 @@ class RCNN3D(nn.Module):
             draws=draws["anchor"])
         fg_f = fg_mask.float()
         normalizer = rpn_cfg.batch_size_per_image * b
+        if count_reduce is not None:
+            normalizer = count_reduce(torch.full(
+                (), float(normalizer), device=image.device))
         bce = F.binary_cross_entropy_with_logits(logits, iou_targets,
                                                  reduction="none")
         loss_rpn_cls = (bce * iou_targets * fg_f).sum() / normalizer
@@ -770,7 +791,7 @@ class RCNN3D(nn.Module):
         losses["box/cls"], losses["box/reg"] = box_head_losses(
             box_cfg, self.cfg.num_classes, scores_logits, box_deltas,
             sampled["classes"].reshape(b * s), sampled["valid"].reshape(b * s),
-            flat_fg, flat_boxes, matched_gt_boxes)
+            flat_fg, flat_boxes, matched_gt_boxes, count_reduce)
 
         # Cube head on the sampled foreground (roi_heads.py:329-793).
         dec, Kb = self._run_cube(feats, sampled["boxes"],
@@ -784,7 +805,8 @@ class RCNN3D(nn.Module):
             gt.poses, 1, gt_idx[..., None, None].expand(b, s, 3, 3)
         ).reshape(b * s, 3, 3)
         cube = cube_losses(self.cfg.cube, dec_flat, gt_boxes3d, gt_poses, Kb,
-                           flat_fg.float(), src_boxes=flat_boxes)
+                           flat_fg.float(), src_boxes=flat_boxes,
+                           count_reduce=count_reduce)
         losses.update({f"cube/{k}": v for k, v in cube.items()})
         return losses
 

@@ -28,29 +28,39 @@ card; SERVING-only, it raises when autograd would need it), and
 `gelu="tanh"` the MLPs' approximate GELU. The defaults ("none", "erf") are
 the released models' ops.
 
-Training: when the trunk needs gradients, attention runs through an
-autograd Function of ops/attention.py: kernels 3 and 4 (packed), or the
-head-major 5 and 6 for shapes the packed gate refuses and under
+Training: when the trunk needs gradients, attention runs through
+ops/attention.py's `train_attention` operator: kernels 3 and 4 (packed), or
+the head-major 5 and 6 for shapes the packed gate refuses and under
 OVMONO3D_PACKED_ATTN=0 or OVMONO3D_PACKED_BWD=0; bf16 only (an f32 trunk
 with gradients raises on the card). Under no_grad / inference_mode it runs
 the inference kernels. Freezing the trunk (`BackboneConfig.freeze`) is done by
 `build_model`, which sets requires_grad=False on this module's parameters.
+`remat` checkpoints each plain block (`torch.utils.checkpoint`, the JAX
+package's nn.remat) under `remat_policy`, which says what a block keeps for
+its backward (`remat_context`): "full" only its input, "dots" also the
+outputs of its dense products with no batch dimensions (qkv, proj, fc1,
+fc2), "dots_attn" those and the attention's out and lse, so the backward
+runs no attention forward again. Windowed and rel-pos blocks are not
+wrapped, as in the JAX package.
 
 Submodules carry the JAX package's parameter names (`block0.attn.qkv`,
 `block0.attn.rel_pos_h`, `neck_conv1`, `norm`, ...) so utils/flax_bridge.py
 maps the two trees mechanically. Options still to port raise
-NotImplementedError naming their ROADMAP item: the CLIP and MAE trunks'
-`pre_ln` and `pos_sincos`, the size-based position-table resize of the
-non-DINOv2 trunks (a grid other than the pretraining grid; SAM at 1024^2
-and Depth-Pro at 384^2 need none), and remat.
+NotImplementedError naming their ROADMAP item (queue 1 item 9): the CLIP
+and MAE trunks' `pre_ln` and `pos_sincos`, and the size-based
+position-table resize of the non-DINOv2 trunks (a grid other than the
+pretraining grid; SAM at 1024^2 and Depth-Pro at 384^2 need none).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ovmono3d_tpu_torch.models.layers import conv_norm_pair, lecun_normal_
 from ovmono3d_tpu_torch.ops.attention import (dot_product_attention,
@@ -60,6 +70,35 @@ from ovmono3d_tpu_torch.ops.quant import QDense
 # DINOv2 interpolate_pos_encoding's scale-factor offset (the JAX package's
 # "dinov2" preset, pos_interp_offset=0.1).
 DINOV2_POS_OFFSET = 0.1
+
+
+REMAT_POLICIES = ("full", "dots", "dots_attn")
+# The dense products with no batch dimensions: F.linear on the blocks'
+# [B, N, C] activations dispatches one of these (qkv, proj, fc1, fc2), what
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable keeps.
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def remat_context(policy: str):
+    """The `context_fn` of torch.utils.checkpoint for a remat policy: None
+    for "full" (a block keeps only its input and runs its whole forward
+    again in the backward), else a selective-checkpoint context that keeps
+    the outputs of `_DOT_OPS` ("dots") and also those of the attention's
+    `train_attention` operator ("dots_attn") and recomputes the rest."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy={policy!r}; expected one of "
+                         f"{REMAT_POLICIES}")
+    if policy == "full":
+        return None
+    kept = set(_DOT_OPS)
+    if policy == "dots_attn":
+        kept.add(torch.ops.ovmono3d.train_attention.default)
+
+    def keep(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in kept
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, keep)
 
 
 class PatchEmbed(nn.Module):
@@ -295,7 +334,8 @@ def resize_pos_embed(pos_embed: torch.Tensor, grid_hw: tuple[int, int],
     itself took 4.6 ms per call, more than the attention of all 12 ViT-B
     blocks at 896^2. The other trunks' size-based mapping
     (`interpolate_offset` 0) is not ported: at a grid other than the
-    pretraining grid it raises (ROADMAP slice 7). Returns [1, 1 + h*w, C].
+    pretraining grid it raises (ROADMAP queue 1 item 9). Returns
+    [1, 1 + h*w, C].
     """
     cls_pe, patch_pe = pos_embed[:, :1], pos_embed[:, 1:]
     g = int(round(math.sqrt(patch_pe.shape[1])))
@@ -305,7 +345,8 @@ def resize_pos_embed(pos_embed: torch.Tensor, grid_hw: tuple[int, int],
         if interpolate_offset != DINOV2_POS_OFFSET:
             raise NotImplementedError(
                 f"position table of grid {g} at grid {grid_hw} with the "
-                "size-based mapping (CLIP/MAE/SAM/MiDaS): ROADMAP slice 7")
+                "size-based mapping (CLIP/MAE/SAM/MiDaS): ROADMAP queue 1 "
+                "item 9")
         wy = _bicubic_matrix(g, h, pos_embed.device)
         wx = _bicubic_matrix(g, w, pos_embed.device)
         x = torch.einsum("hg,gkc->hkc", wy, patch_pe.reshape(g, g, c))
@@ -330,17 +371,18 @@ class VisionTransformer(nn.Module):
                  use_rel_pos: bool = False, neck_channels: int = 0,
                  out_layers=(), final_norm: bool = False,
                  pre_ln: bool = False, pos_sincos: bool = False,
-                 remat: bool = False, quant: str = "none",
-                 gelu: str = "erf"):
+                 remat: bool = False, remat_policy: str = "dots_attn",
+                 quant: str = "none", gelu: str = "erf"):
         super().__init__()
         unported = [
-            (pre_ln, "pre_ln (CLIP trunk): ROADMAP slice 7"),
-            (pos_sincos, "pos_sincos (MAE trunk): ROADMAP slice 7"),
-            (remat, "remat (queued with training): ROADMAP slice 3"),
+            (pre_ln, "pre_ln (CLIP trunk): ROADMAP queue 1 item 9"),
+            (pos_sincos, "pos_sincos (MAE trunk): ROADMAP queue 1 item 9"),
         ]
         for asked, what in unported:
             if asked:
                 raise NotImplementedError(what)
+        self.remat = remat
+        self.remat_context = remat_context(remat_policy)
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.dtype = dtype
@@ -403,6 +445,11 @@ class VisionTransformer(nn.Module):
             if blk.window > 0 and p:
                 # Prefix tokens bypass a windowed block.
                 x = torch.cat([x[:, :p], blk(x[:, p:], (h, w))], dim=1)
+            elif (self.remat and torch.is_grad_enabled() and blk.window == 0
+                  and not blk.attn.use_rel_pos):
+                x = checkpoint(blk, x, (h, w), use_reentrant=False,
+                               **({} if self.remat_context is None else
+                                  {"context_fn": self.remat_context}))
             else:
                 x = blk(x, (h, w))
             if i == self.depth - 1 and self.depth_fusion is not None:

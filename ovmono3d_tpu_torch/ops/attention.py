@@ -4,7 +4,7 @@ Counterpart of ovmono3d_tpu/ops/attention.py for the ViT trunks:
 
 - `attention_ref`: the plain forward, the same math as `attention_xla`
   (f32 logits, f32 softmax, probabilities cast to v's dtype before PV).
-  CPU tensors run it, with autograd through the plain math.
+  CPU tensors run it when no gradient is needed.
 - `attention_lse_ref` / `attention_bwd_ref`: the plain forward with its row
   log-sum-exp and the explicit backward formula, in f32: the plain versions
   of kernels 3 and 5 and of kernels 4 and 6. `attention_bwd_delta_ref` /
@@ -39,18 +39,23 @@ Counterpart of ovmono3d_tpu/ops/attention.py for the ViT trunks:
     design.
   The head-major wrappers (2, 5, 6) run their plain versions on CPU tensors;
   the packed ones refuse them.
-- `FlashAttentionQKV` (kernels 3 + 4) and `HeadMajorAttention` (kernels
-  5 + 6): autograd Functions over the packed qkv tensor, the JAX package's
-  `_attn_fwd` / `_attn_bwd` with its packed and head-major residuals.
+- `train_attention` (`torch.ops.ovmono3d.train_attention`): the training
+  forward over the packed qkv tensor as one operator with its autograd
+  formula, the JAX package's `_attn_fwd` / `_attn_bwd` with its packed and
+  head-major residuals: kernels 3 + 4 or 5 + 6 on CUDA,
+  `attention_ref` with its lse + `attention_bwd_ref` on the CPU. Being one
+  operator, a selective checkpoint policy can keep its out and lse (the JAX
+  package's `checkpoint_name` tags, models/vit.py's "dots_attn").
 - `dot_product_attention`: the dispatcher, routing as the JAX package's
   `_attention_autoselect` does through copies of its gates `_use_packed`
   and `_packed_bwd_wins` and their switches OVMONO3D_PACKED_ATTN and
-  OVMONO3D_PACKED_BWD. CPU tensors go to `attention_ref`. On CUDA without a
-  gradient: kernel 1 where `_use_packed` holds, else kernel 2; with one:
-  `FlashAttentionQKV` where `_use_packed` and `_packed_bwd_wins` hold, else
-  `HeadMajorAttention`. Two deliberate differences: past N = 6144 the JAX
-  package differentiates `attention_xla`, and `HeadMajorAttention` gives
-  the same gradient without its [B, H, N, N] tensors; and the JAX kernels'
+  OVMONO3D_PACKED_BWD. With a gradient: `train_attention` (on CUDA the
+  packed pair 3 + 4 where `_use_packed` and `_packed_bwd_wins` hold, else
+  the head-major 5 + 6). Without one: CPU tensors go to `attention_ref`; on
+  CUDA kernel 1 where `_use_packed` holds, else kernel 2. Two deliberate
+  differences: past N = 6144 the JAX package differentiates
+  `attention_xla`, and kernels 5 + 6 give the same gradient without its
+  [B, H, N, N] tensors; and the JAX kernels'
   clamped softmax (OVMONO3D_ATTN_CLAMP) has no counterpart, since these
   kernels are exact for every logit. f32 with a gradient, and head dims
   other than 32 and 64, raise. Nothing falls back.
@@ -307,8 +312,7 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if forward_only and x.requires_grad and torch.is_grad_enabled():
             raise ValueError(
                 f"{wrapper} is forward-only; dot_product_attention runs the "
-                f"backward kernels through FlashAttentionQKV or "
-                f"HeadMajorAttention")
+                f"backward kernels through train_attention")
     if q.shape[-1] not in _HEAD_DIMS:
         raise ValueError(f"head dim {q.shape[-1]}; the kernels take "
                          f"{_HEAD_DIMS}: other head dims are ROADMAP queue 2 "
@@ -565,62 +569,90 @@ def _contiguous_do(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return dout.contiguous() if _layout_error("do", dout, out.shape) else dout
 
 
-class FlashAttentionQKV(torch.autograd.Function):
-    """Attention over the packed qkv tensor [B, N, 3, H, D] -> [B, N, H, D]:
-    kernel 3 forward, saving (qkv, out, lse); kernel 4 backward, returning
-    the gradient of qkv in one buffer."""
+@torch.library.custom_op("ovmono3d::train_attention", mutates_args=())
+def train_attention(qkv: torch.Tensor, packed: bool
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward over the packed qkv tensor [B, N, 3, H, D]:
+    out [B, N, H, D] in qkv's dtype and lse [B, H, N] f32 (natural log).
 
-    @staticmethod
-    def forward(ctx, qkv: torch.Tensor) -> torch.Tensor:
-        out, lse = flash_attention_packed_lse(*qkv.unbind(2))
-        ctx.save_for_backward(qkv, out, lse)
-        return out
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dout: torch.Tensor) -> torch.Tensor:
-        qkv, out, lse = ctx.saved_tensors
-        return flash_attention_packed_bwd(*qkv.unbind(2), out, lse,
-                                          _contiguous_do(dout, out))
+    One operator (`torch.ops.ovmono3d.train_attention`), so a selective
+    checkpoint policy can name it and keep its outputs (models/vit.py's
+    "dots_attn", the JAX package's checkpoint_name tags on the flash
+    forward's out and lse). On CUDA it launches kernel 3 (`packed`) or the
+    head-major kernel 5; on the CPU it is `attention_ref` with the rows'
+    lse (`attention_lse_ref`'s), and `_train_attention_cpu.runs` counts its
+    runs. Its backward is kernel 4 (`packed`) or 6 on CUDA and
+    `attention_bwd_ref` on the CPU."""
+    raise NotImplementedError(f"no training attention on {qkv.device}")
 
 
-class HeadMajorAttention(torch.autograd.Function):
-    """Attention over the packed qkv tensor [B, N, 3, H, D] -> [B, N, H, D]
-    through the head-major pair: kernel 5 forward, saving (qkv, out, lse);
-    kernel 6 backward, whose dq, dk and dv are stacked into the gradient of
-    qkv (one copy the packed pair does not make)."""
+@train_attention.register_kernel("cpu")
+def _train_attention_cpu(qkv: torch.Tensor, packed: bool):
+    # attention_ref's math (probabilities in v's dtype before PV, as the JAX
+    # package's attention_xla that its CPU training differentiates), with
+    # the row log-sum-exp of the same logits.
+    _train_attention_cpu.runs += 1
+    q, k, v = qkv.unbind(2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (
+        1.0 / math.sqrt(q.shape[-1]))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+    return out.to(q.dtype), torch.logsumexp(logits, dim=-1)
 
-    @staticmethod
-    def forward(ctx, qkv: torch.Tensor) -> torch.Tensor:
-        out, lse = flash_attention_fwd_lse(*qkv.unbind(2))
-        ctx.save_for_backward(qkv, out, lse)
-        return out
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dout: torch.Tensor) -> torch.Tensor:
-        qkv, out, lse = ctx.saved_tensors
-        return torch.stack(flash_attention_bwd(
-            *qkv.unbind(2), out, lse, _contiguous_do(dout, out)), dim=2)
+_train_attention_cpu.runs = 0
+
+
+@train_attention.register_kernel("cuda")
+def _train_attention_cuda(qkv: torch.Tensor, packed: bool):
+    if packed:
+        return flash_attention_packed_lse(*qkv.unbind(2))
+    return flash_attention_fwd_lse(*qkv.unbind(2))
+
+
+def _train_attention_setup(ctx, inputs, output) -> None:
+    qkv, packed = inputs
+    out, lse = output
+    ctx.packed = packed
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(qkv, out, lse)
+
+
+def _train_attention_bwd(ctx, dout: torch.Tensor, _dlse):
+    """The gradient of qkv, [B, N, 3, H, D] in qkv's dtype."""
+    qkv, out, lse = ctx.saved_tensors
+    q, k, v = qkv.unbind(2)
+    if qkv.device.type == "cpu":
+        grads = attention_bwd_ref(q, k, v, out, lse, dout)
+        return torch.stack(grads, dim=2).to(qkv.dtype), None
+    do = _contiguous_do(dout, out)
+    if ctx.packed:
+        return flash_attention_packed_bwd(q, k, v, out, lse, do), None
+    # The head-major pair's dq, dk and dv stacked into one gradient (a copy
+    # the packed pair does not make).
+    return torch.stack(flash_attention_bwd(q, k, v, out, lse, do),
+                       dim=2), None
+
+
+train_attention.register_autograd(_train_attention_bwd,
+                                  setup_context=_train_attention_setup)
 
 
 def dot_product_attention(qkv: torch.Tensor) -> torch.Tensor:
     """Attention for the ViT trunks: the qkv projection's output viewed as
     [B, N, 3, H, D] -> [B, N, H, D], routed as the module docstring says."""
     q, k, v = qkv.unbind(2)
-    if qkv.device.type == "cpu":
-        return attention_ref(q, k, v)
-    if qkv.device.type != "cuda":
+    if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention path for device {qkv.device}")
     _, n, h, d = q.shape
-    packed = _use_packed(n, h, d)
     if torch.is_grad_enabled() and qkv.requires_grad:
-        if qkv.dtype == torch.float32:
+        if qkv.device.type == "cuda" and qkv.dtype == torch.float32:
             raise NotImplementedError(_F32_NO_GRAD)
-        if packed and _packed_bwd_wins():
-            return FlashAttentionQKV.apply(qkv)
-        return HeadMajorAttention.apply(qkv)
-    if packed:
+        return train_attention(qkv, _use_packed(n, h, d)
+                               and _packed_bwd_wins())[0]
+    if qkv.device.type == "cpu":
+        return attention_ref(q, k, v)
+    if _use_packed(n, h, d):
         return flash_attention_packed(q, k, v)
     return flash_attention(q, k, v)
 

@@ -9,13 +9,26 @@ parameters and the optimizer state (its count included) stay as they were,
 the rolling mean is frozen and `skipped` counts one more. The rolling mean
 starts at the sentinel -1 and is set to twice the first finite loss.
 
-One process, one card: data parallelism across cards (DDP) is queued.
+Data parallelism: with a torch.distributed process group up, each process
+runs its share of the batch and the step sums the gradients, the total
+loss and each loss over the group in one flat `all_reduce`, before the
+finiteness flag and the skip decision, so every process takes the same
+update and the same skip (two processes that disagreed on a skip would
+drift apart silently). The losses' normalizers are counted over the whole
+batch (`compute_losses`' count reduction), so each process's loss is its
+share of the global batch's loss, and the summed gradients are the global
+batch's gradient, as in the JAX package's one program over a sharded batch
+(averaging per-process losses over local counts, as detectron2's DDP does,
+is another result). `DistributedDataParallel` is not used: its reducer
+hooks do not fire under `torch.autograd.grad`. Without a group the step
+makes no collective call.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from ovmono3d_tpu_torch.models.rcnn3d import RCNN3D
 from ovmono3d_tpu_torch.ops.quant import refuse_quantized
@@ -85,6 +98,22 @@ def _all_finite(grads: list[torch.Tensor]) -> torch.Tensor:
     return torch.stack(torch._foreach_norm(zeroed)).sum() == 0
 
 
+def _sum_over_group(x: torch.Tensor) -> torch.Tensor:
+    """A count summed over the process group, outside autograd."""
+    x = x.detach().clone()
+    dist.all_reduce(x)
+    return x
+
+
+def _all_reduce_flat(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Sum `tensors` over the process group with one all_reduce of a flat
+    buffer; returns views of the summed buffer shaped as the inputs."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat)
+    return [part.view(t.shape) for part, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
 def make_train_step(model: RCNN3D, optimizer: Optimizer,
                     stabilize: float = 0.01):
     """Returns train_step(state, batch) -> (state, metrics).
@@ -95,10 +124,12 @@ def make_train_step(model: RCNN3D, optimizer: Optimizer,
     state.generator). Runs on the model's device. Frozen parameters
     (requires_grad False) get no gradient and no update, like the JAX package's
     trainable_mask. `metrics` are device tensors: the losses, total_loss
-    and skipped (1.0 on a skipped step). Refuses a model built with
-    quant="int8" (SERVING-only).
+    and skipped (1.0 on a skipped step); under a process group the losses
+    are the global batch's. `optimizer` may be `with_grad_accum`'s wrapper.
+    Refuses a model built with quant="int8" (SERVING-only).
     """
     refuse_quantized(model)
+    grouped = dist.is_available() and dist.is_initialized()
 
     def train_step(state: TrainState, batch: dict):
         gt = GroundTruth(boxes=batch["gt_boxes"], classes=batch["gt_classes"],
@@ -107,10 +138,20 @@ def make_train_step(model: RCNN3D, optimizer: Optimizer,
         losses = model.compute_losses(
             batch["image"], batch["K"], batch["im_hw"],
             batch["im_scale_ratio"], gt, generator=state.generator,
-            draws=batch.get("draws"), depth=batch.get("depth"))
+            draws=batch.get("draws"), depth=batch.get("depth"),
+            count_reduce=_sum_over_group if grouped else None)
         total = sum(losses.values())
         grads = torch.autograd.grad(total, optimizer.params,
                                     allow_unused=True)
+        if grouped:
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(optimizer.params, grads)]
+            names = list(losses)
+            summed = _all_reduce_flat(
+                grads + [total.detach()] + [losses[k].detach() for k in names])
+            grads = summed[:len(grads)]
+            total = summed[len(grads)]
+            losses = dict(zip(names, summed[len(grads) + 1:]))
 
         with torch.no_grad():
             loss_finite = torch.isfinite(total)

@@ -1,5 +1,6 @@
 """Optimizer: per-parameter LR / weight-decay groups, the warmup-multistep
-schedule, gradient clipping and trunk freezing (counterpart of
+schedule, gradient clipping, trunk freezing and gradient accumulation
+(`with_grad_accum`, optax.MultiSteps' semantics) (counterpart of
 ovmono3d_tpu/train/optim.py, which builds one optax chain).
 
 The update is written out here rather than taken from torch.optim, for two
@@ -217,3 +218,75 @@ class Optimizer:
                 for name, buf in zip(self.names, bufs):
                     buf.copy_(sd["state"][b][name])
 
+
+
+class GradAccum:
+    """`optax.MultiSteps` over an `Optimizer`: k micro-steps an update.
+
+    Each micro-step folds its gradient into a running mean (optax's Welford
+    form, acc += (g - acc) / (n + 1)); the k-th applies the inner optimizer
+    to that mean and clears it. So the inner count, and with it the LR
+    schedule, advances once every k micro-steps, and the first k - 1 change
+    no parameter. A skipped micro-step (`skip` true) leaves the
+    accumulator, the micro-count and the inner optimizer as they were, so a
+    poisoned gradient never enters the mean. The accumulator and the
+    micro-count are in `state_dict`, so a checkpoint taken mid-accumulation
+    resumes exactly. Everything stays on the device: no host
+    synchronisation.
+    """
+
+    def __init__(self, inner: Optimizer, k: int):
+        self.inner = inner
+        self.k = k
+        self.names, self.params, self.device = (inner.names, inner.params,
+                                                inner.device)
+        self.acc = [torch.zeros_like(p) for p in self.params]
+        self.mini_step = torch.zeros((), dtype=torch.int32, device=self.device)
+
+    @property
+    def count(self) -> torch.Tensor:
+        """The inner optimizer's count of applied updates."""
+        return self.inner.count
+
+    def lr(self, label: str) -> torch.Tensor:
+        return self.inner.lr(label)
+
+    @torch.no_grad()
+    def step(self, grads: list[torch.Tensor | None],
+             skip: torch.Tensor | None = None) -> None:
+        """One micro-step; `grads` and `skip` as `Optimizer.step`."""
+        if skip is None:
+            skip = torch.zeros((), dtype=torch.bool, device=self.device)
+        n = self.mini_step
+        mean = []
+        for acc, p, g in zip(self.acc, self.params, grads):
+            g = torch.zeros_like(p) if g is None else g
+            g = torch.where(skip, torch.zeros_like(g), g)
+            mean.append(acc + (g - acc) / (n + 1))
+        emit = (n == self.k - 1) & ~skip
+        self.inner.step(mean, skip=~emit)
+        for acc, m in zip(self.acc, mean):
+            acc.copy_(torch.where(skip, acc,
+                                  torch.where(emit, torch.zeros_like(m), m)))
+        self.mini_step.copy_(torch.where(skip, n, (n + 1) % self.k))
+
+    def state_dict(self) -> dict:
+        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step,
+                "acc": dict(zip(self.names, self.acc))}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.inner.load_state_dict(sd["inner"])
+        with torch.no_grad():
+            self.mini_step.copy_(sd["mini_step"])
+            for name, acc in zip(self.names, self.acc):
+                acc.copy_(sd["acc"][name])
+
+
+def with_grad_accum(optimizer: Optimizer, k: int):
+    """`optimizer` accumulating gradients over k micro-steps per update
+    (solver.grad_accum_steps; the JAX package's optax.MultiSteps wrapper):
+    k micro-batches of n reproduce one update on a batch of k * n. The
+    optimizer itself for k = 1."""
+    if k < 1:
+        raise ValueError(f"grad_accum_steps={k}; expected >= 1")
+    return optimizer if k == 1 else GradAccum(optimizer, k)

@@ -203,6 +203,9 @@ def test_stats_ref_pads_past_n(n_pad):
 
 
 def test_dispatcher_cpu_autograd_runs_plain_path():
+    """With a gradient, CPU tensors run the training operator's plain pair:
+    its output is attention_ref's and its gradient attention_bwd_ref's (from
+    attention_lse_ref's lse), exactly, and no kernel count moves."""
     counts = (tattn.flash_attention_packed_lse.launches,
               tattn.flash_attention_packed_bwd.launches)
     qkv = torch.from_numpy(
@@ -210,9 +213,13 @@ def test_dispatcher_cpu_autograd_runs_plain_path():
         .astype(np.float32)).requires_grad_()
     out = tattn.dot_product_attention(qkv)
     out.square().sum().backward()
-    ref = qkv.detach().clone().requires_grad_()
-    tattn.attention_ref(*ref.unbind(2)).square().sum().backward()
-    torch.testing.assert_close(qkv.grad, ref.grad, rtol=0, atol=0)
+    q, k, v = qkv.detach().unbind(2)
+    want = tattn.attention_ref(q, k, v)
+    torch.testing.assert_close(out.detach(), want, rtol=0, atol=0)
+    lse = tattn.attention_lse_ref(q, k, v)[1]
+    grads = tattn.attention_bwd_ref(q, k, v, want, lse, 2 * want)
+    torch.testing.assert_close(qkv.grad, torch.stack(grads, dim=2), rtol=0,
+                               atol=0)
     assert (tattn.flash_attention_packed_lse.launches,
             tattn.flash_attention_packed_bwd.launches) == counts
 

@@ -216,26 +216,29 @@ def test_gates_match_jax(jattn, monkeypatch, packed_attn, packed_bwd):
                                    (1, 40, 4, 32)])
 @pytest.mark.parametrize("grad", [False, True])
 def test_dispatcher_cpu_stays_plain(monkeypatch, shape, grad):
-    """CPU tensors run attention_ref under every switch, with or without a
-    gradient, at packed and head-major shapes alike: no kernel count moves
-    and the output and gradient equal attention_ref's."""
+    """CPU tensors run the plain versions under every switch, at packed and
+    head-major shapes alike, and no kernel count moves: the output equals
+    attention_ref's, and with a gradient the training operator's plain
+    backward, attention_bwd_ref's gradient (from attention_lse_ref's lse),
+    exactly."""
     monkeypatch.setenv("OVMONO3D_PACKED_ATTN", "0")
     rng = np.random.default_rng(5)
     b, n, h, d = shape
     qkv = torch.from_numpy(rng.standard_normal((b, n, 3, h, d)).astype(
         np.float32))
-    ref = qkv.clone()
+    q, k, v = qkv.unbind(2)
     if grad:
         qkv.requires_grad_()
-        ref.requires_grad_()
     before = _counts()
     out = tattn.dot_product_attention(qkv)
-    want = tattn.attention_ref(*ref.unbind(2))
-    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    want = tattn.attention_ref(q, k, v)
+    torch.testing.assert_close(out.detach(), want, rtol=0, atol=0)
     if grad:
         out.square().sum().backward()
-        want.square().sum().backward()
-        torch.testing.assert_close(qkv.grad, ref.grad, rtol=0, atol=0)
+        lse = tattn.attention_lse_ref(q, k, v)[1]
+        grads = tattn.attention_bwd_ref(q, k, v, want, lse, 2 * want)
+        torch.testing.assert_close(qkv.grad, torch.stack(grads, dim=2),
+                                   rtol=0, atol=0)
     assert _counts() == before
 
 

@@ -279,6 +279,9 @@ def test_port_sources_import_no_jax():
     assert {"train", "parallel", "ops", "models", "utils", "geo",
             "gdino", "data", "evaluation", "vis", "eval", "probes"} <= {
         f.parent.name for f in files}
+    assert {"train/cli.py", "train/metrics.py", "train/tb_writer.py",
+            "parallel/mesh.py", "vis/draw.py", "utils/util.py"} <= {
+        str(f.relative_to(port)) for f in files[:-1]}
     for f in files:
         assert not _JAX_IMPORT.search(f.read_text()), f
     cuda = sorted(port.glob("csrc/*.cu")) + sorted(port.glob("csrc/*.cuh"))
@@ -329,6 +332,25 @@ helper = Omni3DEvaluationHelper(5, list("abcde"), device="cpu")
 data, _ = synthetic_datasets(5, list("abcde"), num=2)
 evaluate_dataset(ecfg, model, data["synthetic_a"], None, 2, helper, "a")
 assert helper.summarize_all()["datasets"]["a"]["AP2D"] == 100.0
+# The train CLI with its hooks (metrics, TensorBoard, the panels' PNGs);
+# its overrides are parsed with PyYAML, which the card's machine has.
+del sys.modules["yaml"]
+import tempfile
+from pathlib import Path
+from ovmono3d_tpu_torch.train import cli as train_cli
+with tempfile.TemporaryDirectory() as out:
+    res = train_cli.main([
+        "--synthetic", "--device", "cpu", "--max-iter", "1",
+        "--batch-size", "2", "model.num_classes=5",
+        "model.backbone.embed_dim=32", "model.backbone.depth=1",
+        "model.backbone.num_heads=2", "model.backbone.pretrain_grid=8",
+        "model.backbone.out_channels=32", "model.backbone.square_pad=112",
+        "model.cube.fc_dim=32", "model.roi_box.fc_dim=32",
+        "input.min_size_train=(96,)", "input.max_size_train=112",
+        "vis_period=1", f"output_dir={out}"])
+    assert res["step"] == 1
+    assert list(Path(out, "vis").glob("train_*.png"))
+    assert list(Path(out, "tb").glob("events.out.tfevents.*"))
 assert not any(k.split(".")[0] in ("jax", "flax") and v is not None
                for k, v in sys.modules.items())
 print("ok")

@@ -362,7 +362,7 @@ def test_cli_on_the_fixture(tinyds, tmp_path, capsys, oracle):
 
 
 @pytest.mark.parametrize("flag", [["--rcnn-ckpt", "x.pth"],
-                                  ["--data-parallel"], ["--vis-dir", "v"]])
+                                  ["--vis-dir", "v"]])
 def test_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         tcli.parse_args(["--synthetic", *flag])

@@ -183,18 +183,10 @@ def _step_draws(state_rng, anchors: int, proposals: int) -> dict:
     }
 
 
-@pytest.fixture(scope="module")
-def slice_pair():
-    """One JAX train step and one port train step from the same weights,
-    batch and draws. The bf16 trunk rounds at different places in the two
-    frameworks, so two choices keep discrete decisions out of the
-    comparison: the RPN objectness kernel is zeroed, so every anchor ties
-    and both sides select proposals by index (an order taken from
-    bf16-perturbed scores would differ), and the head MLPs' biases start at
-    3, so no ReLU of the box and cube heads sits at its kink, where that
-    rounding switches whole units on or off for a sample (with them at 0,
-    a few units of the 32-wide heads flip and their gradients differ by
-    tens of percent)."""
+def slice_models():
+    """The tiny unfrozen config, the numpy batch, the JAX model and one set
+    of weights in both packages (flax tree, and loaded into the port's
+    model), prepared as `slice_pair` says."""
     cfg = _unfrozen_tiny()
     batch = _np_batch()
     jmodel = jax_build_model(cfg.model)
@@ -207,19 +199,66 @@ def slice_pair():
         for fc in fcs:
             params["params"][head][fc]["bias"] += 3.0
     flax_bridge.load_flax_params(port, params)
+    return cfg, batch, jmodel, params, port
 
+
+def slice_draws(cfg, batch, state_rng) -> dict:
+    """The port's `draws` for the JAX step taken from a state with rng
+    `state_rng`."""
+    n_anchors = sum(3 * h * w for h, w in ((16, 16), (8, 8), (4, 4)))
+    return {k: torch.from_numpy(v) for k, v in _step_draws(
+        state_rng, n_anchors,
+        cfg.model.rpn.post_nms_topk_train + batch["gt_boxes"].shape[1]
+    ).items()}
+
+
+def update_errors(params, new_params, before, port, plan) -> dict:
+    """{module key: (||d_port - d_jax||^2, ||d_jax||^2)} of the parameters'
+    updates, d_jax from the flax trees `params` -> `new_params`, d_port from
+    `before` to `port`'s parameters now; and every trunk parameter must have
+    moved."""
+    old = flax_bridge._flatten(params["params"])
+    new = flax_bridge._flatten(jax.tree.map(np.asarray,
+                                            new_params["params"]))
+    now = dict(port.named_parameters())
+    groups: dict = {}
+    for path, (full, perm, flip) in plan.items():
+        d_jax = new[path] - old[path]
+        if flip:
+            d_jax = d_jax[::-1, ::-1]
+        if perm is not None:
+            d_jax = np.transpose(d_jax, perm)
+        d_port = (now[full] - before[full]).detach().numpy()
+        key = ".".join(full.split(".")[:2])
+        err, ref = groups.get(key, (0.0, 0.0))
+        groups[key] = (err + float(((d_port - d_jax) ** 2).sum()),
+                       ref + float((d_jax ** 2).sum()))
+        if full.startswith("backbone.vit."):
+            assert np.abs(d_port).max() > 0, full
+    return groups
+
+
+@pytest.fixture(scope="module")
+def slice_pair():
+    """One JAX train step and one port train step from the same weights,
+    batch and draws. The bf16 trunk rounds at different places in the two
+    frameworks, so two choices keep discrete decisions out of the
+    comparison: the RPN objectness kernel is zeroed, so every anchor ties
+    and both sides select proposals by index (an order taken from
+    bf16-perturbed scores would differ), and the head MLPs' biases start at
+    3, so no ReLU of the box and cube heads sits at its kink, where that
+    rounding switches whole units on or off for a sample (with them at 0,
+    a few units of the 32-wide heads flip and their gradients differ by
+    tens of percent)."""
+    cfg, batch, jmodel, params, port = slice_models()
     tx = joptim.build_optimizer(cfg.solver, params)
     state = jts.create_train_state(jax.tree.map(jnp.asarray, params), tx,
                                    jax.random.PRNGKey(2))
     state1, jmetrics = jax.jit(jts.make_train_step(jmodel, tx, 0.01))(
         state, {k: jnp.asarray(v) for k, v in batch.items()})
 
-    n_anchors = sum(3 * h * w for h, w in ((16, 16), (8, 8), (4, 4)))
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    tbatch["draws"] = {k: torch.from_numpy(v) for k, v in _step_draws(
-        state.rng, n_anchors,
-        cfg.model.rpn.post_nms_topk_train + batch["gt_boxes"].shape[1]
-    ).items()}
+    tbatch["draws"] = slice_draws(cfg, batch, state.rng)
     before = {n: p.detach().clone() for n, p in port.named_parameters()}
     opt = toptim.Optimizer(port_config_solver(cfg.solver), port)
     tstate = create_train_state(port, opt)
@@ -259,24 +298,7 @@ def test_slice_sgd_step_matches_jax(slice_pair):
     parameter moved. Measured on this seed: at most 1.8e-2 (rpn_head.conv),
     7.3e-3 for the trunk."""
     params, state1, _, before, port, _, plan = slice_pair
-    old = flax_bridge._flatten(params["params"])
-    new = flax_bridge._flatten(jax.tree.map(np.asarray,
-                                            state1.params["params"]))
-    now = dict(port.named_parameters())
-    groups: dict = {}
-    for path, (full, perm, flip) in plan.items():
-        d_jax = new[path] - old[path]
-        if flip:
-            d_jax = d_jax[::-1, ::-1]
-        if perm is not None:
-            d_jax = np.transpose(d_jax, perm)
-        d_port = (now[full] - before[full]).detach().numpy()
-        key = ".".join(full.split(".")[:2])
-        err, ref = groups.get(key, (0.0, 0.0))
-        groups[key] = (err + float(((d_port - d_jax) ** 2).sum()),
-                       ref + float((d_jax ** 2).sum()))
-        if full.startswith("backbone.vit."):
-            assert np.abs(d_port).max() > 0, full
+    groups = update_errors(params, state1.params, before, port, plan)
     for key, (err, ref) in groups.items():
         assert np.sqrt(err) <= 2e-2 * np.sqrt(ref), (key, err, ref)
 

@@ -66,10 +66,14 @@ def test_vit_f32_matches_jax(vit_pair, with_depth):
 
 
 def test_vit_unported_options_raise():
-    for kw, slice_no in [({"pos_sincos": True}, 7), ({"pre_ln": True}, 7),
-                         ({"remat": True}, 3)]:
-        with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
+    for kw in ({"pos_sincos": True}, {"pre_ln": True}):
+        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
             VisionTransformer(device="meta", **VIT_KW, **kw)
+    # remat is ported (tests/test_torch_remat.py); unknown policies refused.
+    assert VisionTransformer(device="meta", remat=True, **VIT_KW)
+    with pytest.raises(ValueError, match="remat_policy='some'"):
+        VisionTransformer(device="meta", remat=True, remat_policy="some",
+                          **VIT_KW)
     # W8A8 is ported (tests/test_torch_quant.py); other modes are refused.
     assert VisionTransformer(device="meta", quant="int8", **VIT_KW)
     with pytest.raises(ValueError, match="quant='int4'"):
@@ -78,7 +82,7 @@ def test_vit_unported_options_raise():
     # its pretraining grid passes, any other grid raises.
     pe = torch.zeros(1, 1 + 64, 16)
     assert resize_pos_embed(pe, (8, 8), 0.0) is not None
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         resize_pos_embed(pe, (9, 9), 0.0)
 
 
