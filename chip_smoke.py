@@ -18,8 +18,11 @@ with the exact 3D IoU on the card); and the entry points of the kernels no
 model path reaches: the differentiable fused LayerNorm and the counterparts
 of the JAX package's LayerNorm and attention-sweep probes; and the rest of
 training: remat under each policy, gradient accumulation, and the train CLI
-(frozen and unfrozen, resumed, --eval-only, in a one-process NCCL group).
-Holds every CUDA kernel on those paths against its plain PyTorch version.
+(frozen and unfrozen, resumed, --eval-only, in a one-process NCCL group);
+and released-checkpoint loading: state dicts in the released key layouts at
+full width, through the CLIs' --rcnn-ckpt, --gdino-ckpt and --vocab and the
+GEO loaders, then served. Holds every CUDA kernel on those paths against
+its plain PyTorch version.
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
     python3 chip_smoke.py --previous DIR   # kernels 7, 8 and 10 also
@@ -304,6 +307,32 @@ profiles' tables):
           the CLI's loop body
           (next batch, page-locked upload, step) timed over
           TRAINCLI_RATE_STEPS steps (img/s) and profiled over 2 (idle share)
+  release released-checkpoint loading at full width, from seeded state dicts
+          in the released key layouts (utils/release_states.py; the weights
+          the other phases move, moved likewise), each model's bytes, the
+          host-side conversion time and the load time printed beside the
+          card's name and power limit: the flagship's ovmono3d_lift.pth
+          (detectron2 keys, priors) written under build/release_phase and
+          evaluated by eval.cli --synthetic --rcnn-ckpt, oracle and learned
+          2D (12 kernel-1 launches a batch, AP2D 100 on the GT oracle);
+          every parameter of the model equal to its converted array bit for
+          bit, its priors the file's; bench.py's request served on it (12
+          kernel-1 launches a request, finite detections, kernel vs plain
+          within the slice phase's limit) and kernel 1 at its first and last
+          block's inputs held to attention_ref; GroundingDINO SwinB in the
+          original layout ({'model': ...}, 'module.' prefixes) and a
+          vocab.txt of the 50 names' words through eval.oracle2d
+          --synthetic --gdino-ckpt --vocab (24 kernel-8 launches an image,
+          its JSONs through merge_oracle2d, every parameter equal to its
+          converted array); one OVMono3DLift.predict with both files loaded
+          (24 kernel-8 and 12 kernel-1 launches), kernel 8 at a shifted and
+          the last Swin block's inputs held to window_attention_ref, then
+          the ovlift phase's comparison on it; SAM ViT-H and f32 Depth-Pro
+          converted in memory through load_sam_params and
+          load_depth_params (every parameter equal), one GEO request (32
+          kernel-7 and 72 f32 kernel-1 launches), kernel 7 at a windowed
+          and a global block's inputs held to rel_pos_attention_ref, then
+          the geo phase's comparison on it
 Then a JSON line of the kernels (kernels 1, 2, 3 and 5 at the trunk shape
 also with previous_ms, device_ms, previous_device_ms and library_device_ms:
 the mma.sync design's event time and the device times of both designs and
@@ -409,7 +438,27 @@ from ovmono3d_tpu_torch.structures import (  # noqa: E402
 from ovmono3d_tpu_torch.train.optim import (  # noqa: E402
     Optimizer, with_grad_accum)
 from ovmono3d_tpu_torch.utils import cuda_build  # noqa: E402
+from ovmono3d_tpu_torch.utils import flax_bridge  # noqa: E402
 from ovmono3d_tpu_torch.utils import geometry as geom  # noqa: E402
+from ovmono3d_tpu_torch.utils import release_states  # noqa: E402
+from ovmono3d_tpu_torch.utils.gdino_convert import (  # noqa: E402
+    convert_groundingdino,
+)
+from ovmono3d_tpu_torch.utils.lift_convert import (  # noqa: E402
+    convert_ovmono3d_lift,
+    extract_priors,
+)
+from ovmono3d_tpu_torch.utils.load import (  # noqa: E402
+    load_depth_params,
+    load_sam_params,
+)
+from ovmono3d_tpu_torch.utils.sam_convert import (  # noqa: E402
+    convert_sam_encoder,
+    convert_sam_segmenter,
+)
+from ovmono3d_tpu_torch.utils.depth_convert import (  # noqa: E402
+    convert_depth_pro,
+)
 
 # The redesigned kernels: (source, kernel template, instances, SASS
 # instructions that show the design) of the bf16 D = 64 forward (kernels 1,
@@ -2616,11 +2665,12 @@ def reset_path_counts() -> None:
     attention.window_flash_attention.launches = 0
 
 
-def check_path_counts(path: str, want: dict) -> dict:
+def check_path_counts(path: str, want: dict, phase: str = "stream"
+                      ) -> dict:
     """Every counter of path_counts() at `want`'s value (0 where it names
     none); returns the counts."""
     got = path_counts()
-    say("stream", f"{path}: launches " + ", ".join(
+    say(phase, f"{path}: launches " + ", ".join(
         f"{k} {v}" for k, v in got.items() if v))
     for key, n in got.items():
         check(n == want.get(key, 0),
@@ -4054,6 +4104,384 @@ def traincli_phase() -> dict:
     return launches
 
 
+# The release phase: state dicts in the released checkpoints' key layouts at
+# full width (utils/release_states.py, from seeds), written where the CLIs
+# read them. Moved off the generator's draws, as the other phases move the
+# seeded init: the LIFT LayerScales (0.1) and pose bias (the identity's 6D
+# vector), as lift_model; GroundingDINO's weights that OVLIFT_SETS names;
+# Depth-Pro's LayerScales (0.1) and depth-head bias (GEO_DEPTH_BIAS), as
+# geo_weights (SAM's rel-pos tables are drawn at REL_POS_STD already).
+RELEASE_DIR = Path(__file__).resolve().parent / "build" / "release_phase"
+RELEASE_TIMED = 3
+
+
+def release_lift_state(cfg) -> dict:
+    state = release_states.lift_state(cfg, seed=0)
+    for key, arr in state.items():
+        if key.endswith(("ls1.gamma", "ls2.gamma")):
+            arr[:] = 0.1
+    state["roi_heads.cube_head.bbox_3D_pose.bias"][:] = IDENTITY_6D
+    return state
+
+
+def release_gdino_state() -> dict:
+    """GroundingDINO SwinB in the original layout; drawn in place, so the
+    decoder's shared bbox_embed copies stay one array."""
+    state = release_states.gdino_state(seed=1)
+    rng = np.random.default_rng(3)
+
+    def draw(arr, std):
+        arr[...] = std * rng.standard_normal(arr.shape, dtype=np.float32)
+
+    for key, arr in state.items():
+        if key.endswith(("sampling_offsets.weight",
+                         "attention_weights.weight")):
+            draw(arr, OVLIFT_SETS[
+                "sampling_offsets / attention_weights kernels"])
+        elif key.endswith("relative_position_bias_table"):
+            draw(arr, OVLIFT_SETS["Swin rel_pos_bias tables"])
+        elif key.endswith(("gamma_v", "gamma_l")):
+            arr[:] = OVLIFT_SETS["fusion gamma_v / gamma_l"]
+    for key in ("bbox_embed.0.layers.2.weight",
+                "transformer.enc_out_bbox_embed.layers.2.weight",
+                "transformer.decoder.ref_point_head.layers.1.weight"):
+        draw(state[key], OVLIFT_SETS["box heads' last kernels"])
+    return state
+
+
+def release_depth_state() -> dict:
+    state = release_states.depth_pro_state(seed=4)
+    for key, arr in state.items():
+        if key.endswith(("layer_scale1.lambda1", "layer_scale2.lambda1")):
+            arr[:] = 0.1
+    state["head.layers.4.bias"][:] = GEO_DEPTH_BIAS
+    return state
+
+
+def state_bytes(state: dict) -> int:
+    """Bytes of a state dict, each array once (shared copies once)."""
+    return sum({id(v): v.nbytes for v in state.values()}.values())
+
+
+def loaded_exactly(module, tree: dict, what: str, keep=()) -> int:
+    """Every parameter of `module` equals its array of the converted tree
+    in the torch layout, bit for bit; returns the parameters compared."""
+    params = dict(module.named_parameters())
+    arrays = flax_bridge.torch_arrays(module, tree, keep)
+    bad = [name for name, arr in arrays.items() if not torch.equal(
+        params[name].detach(), torch.from_numpy(
+            np.ascontiguousarray(arr)).to(params[name].device))]
+    check(not bad and len(arrays) == len(params) - len(tuple(keep)),
+          f"{what}: every parameter equals its converted array "
+          f"({len(bad)} differ: {bad[:3]})")
+    return len(arrays)
+
+
+def spied(attn, run) -> tuple:
+    """The arguments of `attn.attn_fn`'s first call during run(), cloned."""
+    seen, fn = [], attn.attn_fn
+
+    def spy(*args):
+        if not seen:
+            seen.append(tuple(a.clone() if torch.is_tensor(a) else a
+                              for a in args))
+        return fn(*args)
+
+    attn.attn_fn = spy
+    try:
+        run()
+    finally:
+        attn.attn_fn = fn
+    check(bool(seen), "the spied block ran")
+    return seen[0]
+
+
+def release_phase() -> dict:
+    """Released-checkpoint loading at full width: LIFT through eval.cli
+    --rcnn-ckpt and bench.py's request on the loaded model;
+    open-vocabulary through eval.oracle2d --gdino-ckpt --vocab and one
+    OVMono3DLift.predict with both files loaded; GEO with SAM ViT-H and f32
+    Depth-Pro loaded in memory through the loaders. Every parameter is
+    held to its converted array, kernels 1, 8 and 7 to their plain versions
+    on the loaded weights. Returns the paths' launches by kernel."""
+    t_phase = time.perf_counter()
+    card = card_name()
+    shutil.rmtree(RELEASE_DIR, ignore_errors=True)
+    RELEASE_DIR.mkdir(parents=True)
+    totals = {"fwd": 0, "window": 0, "relpos": 0, "fwd_f32": 0}
+
+    def add(counts: dict) -> None:
+        totals["fwd"] += counts["flash_attention_packed"]
+        totals["window"] += counts["window"]
+        totals["relpos"] += counts["relpos"]
+        totals["fwd_f32"] += counts["flash_attention_packed_f32"]
+
+    def report(model: str, nbytes: int, make_s: float, convert_s: float,
+               load_s: float, how: str) -> None:
+        say("release", f"{model}: {nbytes} bytes; made in {make_s:.2f} s; "
+                       f"host-side conversion {convert_s:.2f} s; {how} "
+                       f"{load_s:.2f} s; card {card}")
+
+    # -- LIFT: the flagship through eval.cli --rcnn-ckpt -------------------
+    cfg = Config()
+    check(cfg.model == flagship_config(S),
+          "eval.cli's default model is the flagship")
+    t0 = time.perf_counter()
+    state = release_lift_state(cfg.model)
+    make_s = time.perf_counter() - t0
+    lift_path = RELEASE_DIR / "ovmono3d_lift.pth"
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in state.items()},
+                "iteration": 0}, lift_path)
+    t0 = time.perf_counter()
+    tree = convert_ovmono3d_lift(state, depth=cfg.model.backbone.depth)
+    convert_s = time.perf_counter() - t0
+    built = []
+    build = eval_cli.build_model
+    eval_cli.build_model = lambda *a, **k: built.append(build(*a, **k)) or \
+        built[-1]
+    cli_s = {}
+    try:
+        for mode, extra in (("oracle", []), ("learned",
+                                             ["test.oracle2d=false"])):
+            reset_path_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                summary = eval_cli.main([
+                    "--synthetic", "--rcnn-ckpt", str(lift_path),
+                    "--batch-size", str(EVAL_BATCH), *extra])
+            torch.cuda.synchronize()
+            cli_s[mode] = time.perf_counter() - t0
+            # Two generated datasets of 16 records: 4 batches, one
+            # kernel-1 launch a block each.
+            add(check_path_counts(
+                f"eval.cli --synthetic --rcnn-ckpt ({mode} 2D)",
+                {"flash_attention_packed": len(built[-1].backbone.vit.blocks())
+                 * 2 * 16 // EVAL_BATCH},
+                "release"))
+            for name, res in summary["datasets"].items():
+                check(all(math.isfinite(res[k]) for k in ("AP2D", "AP3D")),
+                      f"{mode} {name}: finite AP")
+                if mode == "oracle":
+                    check(res["AP2D"] == 100.0,
+                          f"{name}: AP2D 100 on the GT oracle")
+            say("release", f"eval.cli --synthetic --rcnn-ckpt, {mode} 2D: "
+                           f"{cli_s[mode]:.1f} s (the file read, converted "
+                           "and loaded included); " + ", ".join(
+                               f"{n} AP2D {r['AP2D']:.3f} AP3D "
+                               f"{r['AP3D']:.3f}" for n, r in
+                               summary["datasets"].items()))
+    finally:
+        eval_cli.build_model = build
+    model = built[-1].eval()
+    del built
+    blocks = model.backbone.vit.blocks()
+    n = loaded_exactly(model, tree, "LIFT")
+    for key, want in extract_priors(state).items():
+        check(torch.equal(model.priors[key].cpu(), torch.from_numpy(want)),
+              f"the model's priors[{key!r}] are the file's")
+    report("OVMono3D-LIFT (flagship)", lift_path.stat().st_size, make_s,
+           convert_s, cli_s["oracle"], "eval.cli read + convert + load + "
+           "evaluate")
+    say("release", f"LIFT: {n} parameters equal their converted arrays bit "
+                   "for bit; the priors are the file's")
+    del state, tree
+    inputs = bench_inputs()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.rand(1 + RELEASE_TIMED, 1, S, S, 3, device="cuda",
+                        generator=g) * 255.0
+    with torch.inference_mode():
+        serve(model, images[:1], inputs)
+        reset_path_counts()
+        dets, lats = serve(model, images[1:], inputs)
+        add(check_path_counts(
+            f"bench.py's request x {RELEASE_TIMED} on the loaded model",
+            {"flash_attention_packed": len(blocks) * RELEASE_TIMED},
+            "release"))
+        for det in dets:
+            check_detections(det)
+        set_attention(model, attention.attention_ref)
+        plain, _ = serve(model, images[1:2], inputs)
+        set_attention(model, attention.dot_product_attention)
+    for field in ("center_cam", "dimensions", "corners3d"):
+        a, b = getattr(dets[0], field), getattr(plain[0], field)
+        dev, scale = (a - b).abs().max().item(), b.abs().max().item()
+        say("release", f"LIFT kernel vs plain {field}: max |diff| {dev:.3e} "
+                       f"(scale {scale:.3e}, limit 2e-2 of it)")
+        check(dev <= 2e-2 * scale + 1e-4, f"loaded LIFT {field}: kernel vs "
+              "plain within the slice phase's limit")
+    for i in (0, len(blocks) - 1):
+        with torch.inference_mode():
+            (qkv,) = spied(blocks[i].attn, lambda: serve(
+                model, images[1:2], inputs))
+            q, k, v = qkv.unbind(2)
+            check_close(f"release k1 LIFT block {i} {tuple(q.shape)}",
+                        attention.flash_attention_packed(q, k, v),
+                        attention.attention_ref(q, k, v), absolute=True)
+    say("release", f"LIFT serving the loaded flagship: {rate(lats)}")
+
+    # -- open vocabulary: eval.oracle2d --gdino-ckpt --vocab ---------------
+    names, tok = category_tokenizer()
+    vocab_path = RELEASE_DIR / "vocab.txt"
+    by_id = {i: w for w, i in tok.vocab.items()}
+    vocab_path.write_text("".join(
+        by_id.get(i, f"[unused{i}]") + "\n"
+        for i in range(max(by_id) + 1)))
+    read = BertTokenizer(vocab_path).vocab
+    check(all(read[w] == i for w, i in tok.vocab.items()),
+          "vocab.txt gives each word the category tokenizer's id")
+    t0 = time.perf_counter()
+    state = release_gdino_state()
+    make_s = time.perf_counter() - t0
+    gd_path = RELEASE_DIR / "groundingdino_swinb_cogcoor.pth"
+    # The original release: {'model': ...} with DDP's 'module.' prefixes.
+    torch.save({"model": {"module." + k: torch.from_numpy(v)
+                          for k, v in state.items()}}, gd_path)
+    t0 = time.perf_counter()
+    tree = convert_groundingdino(state)
+    convert_s = time.perf_counter() - t0
+    nbytes = gd_path.stat().st_size
+    del state
+    captured = {}
+    load_gdino = oracle2d.load_gdino_params
+
+    def capture(gdino, path):
+        captured["gdino"] = gdino
+        load_gdino(gdino, path)
+
+    oracle2d.load_gdino_params = capture
+    try:
+        reset_path_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            paths = oracle2d.main([
+                "--synthetic", "--gdino-ckpt", str(gd_path), "--vocab",
+                str(vocab_path), "--output-dir",
+                str(RELEASE_DIR / "oracle2d"),
+                "datasets.category_names=" + ",".join(names)])
+        torch.cuda.synchronize()
+        cli_gd_s = time.perf_counter() - t0
+    finally:
+        oracle2d.load_gdino_params = load_gdino
+    gdino = captured["gdino"]
+    swin = gdino.backbone.blocks()
+    add(check_path_counts("eval.oracle2d --synthetic --gdino-ckpt --vocab",
+                          {"window": len(swin) * 8}, "release"))
+    n_dets = 0
+    for name, seed in (("synthetic_a", 7), ("synthetic_b", 11)):
+        dets = json.loads(paths[name].read_text())
+        recs = merge_oracle2d(synthetic_records(4, len(names), seed=seed),
+                              paths[name])
+        check(sum(len(r["oracle2d"]) for r in recs) == len(dets),
+              f"{name}'s detections round-trip through merge_oracle2d")
+        n_dets += len(dets)
+    n = loaded_exactly(gdino, tree, "GroundingDINO")
+    del tree
+    report("GroundingDINO SwinB", nbytes, make_s, convert_s, cli_gd_s,
+           "eval.oracle2d read + convert + load + 8 images")
+    say("release", f"GroundingDINO: {n} parameters equal their converted "
+                   f"arrays bit for bit; {n_dets} detections over 8 "
+                   "images; " + printed.getvalue().strip().replace("\n",
+                                                                  "; "))
+    pipe = OVMono3DLift(cfg, model, gdino, BertTokenizer(vocab_path),
+                        gdino_size=S, gdino_min_size=cfg.input.min_size_test,
+                        gdino_max_size=cfg.input.max_size_test)
+    K = default_focal_K(OV_H, OV_W)
+    images = ov_requests(2, seed=5)
+    serve_ov(pipe, images[:1], K, names)
+    reset_path_counts()
+    dets, lats = serve_ov(pipe, images[1:], K, names)
+    add(check_path_counts("OVMono3DLift.predict with both files loaded",
+                          {"window": len(swin),
+                           "flash_attention_packed": len(blocks)},
+                          "release"))
+    check_ov_detections(dets[0], len(names))
+    say("release", f"open-vocabulary request on the loaded models: "
+                   f"{rate(lats)}; {int(dets[0].valid.sum())} valid of "
+                   f"{len(dets[0].valid)}")
+    # The first shifted block (region ids) and the last (the smallest map).
+    shifted = next(b for b in swin if b.endswith("_block1"))
+    for bname in (shifted, list(swin)[-1]):
+        with torch.inference_mode():
+            qkv, bias, ids = spied(swin[bname].attn, lambda: pipe.predict(
+                images[1], K, names))
+            q, k, v = qkv.unbind(2)
+            check_close(f"release k8 Swin {bname} {tuple(q.shape)} ids "
+                        f"{ids is not None}",
+                        attention.window_flash_attention(q, k, v, bias, ids),
+                        attention.window_attention_ref(q, k, v, bias, ids))
+    compare_ovlift(pipe, images[1], K, names)
+    del pipe, gdino, model, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- GEO: SAM ViT-H and f32 Depth-Pro through the loaders --------------
+    models = geo.build_geo_models("vit_h", depth_bf16=False, device="cuda",
+                                  seed=0)
+    check(models.depth.dtype == torch.float32, "an f32 Depth-Pro")
+    sam_blocks = models.sam_encoder.blocks()
+    depth_blocks = sum(len(vit.blocks()) for vit in models.depth.trunks())
+    for what, make, load, trees in (
+            ("SAM ViT-H (encoder and segmenter)",
+             lambda: release_states.sam_state(seed=2),
+             lambda st: load_sam_params(models.sam_encoder, models.segmenter,
+                                        st, depth=len(sam_blocks)),
+             lambda st: ((models.sam_encoder,
+                          convert_sam_encoder(st, len(sam_blocks))),
+                         (models.segmenter, convert_sam_segmenter(st)))),
+            ("Depth-Pro (f32)", release_depth_state,
+             lambda st: load_depth_params(models.depth, st),
+             lambda st: ((models.depth, convert_depth_pro(st)),))):
+        t0 = time.perf_counter()
+        state = make()
+        make_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        load(state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pairs = trees(state)
+        convert_s = time.perf_counter() - t0
+        n = sum(loaded_exactly(m, t, what) for m, t in pairs)
+        report(what, state_bytes(state), make_s, convert_s, load_s,
+               "in memory through the loader (convert + copy to the card)")
+        say("release", f"{what}: {n} parameters equal their converted "
+                       "arrays bit for bit")
+        del state, pairs
+    requests = geo_requests(2, seed=6)
+    serve_geo(models, requests[:1])
+    torch.cuda.synchronize()
+    reset_path_counts()
+    preds, lats = serve_geo(models, requests[1:])
+    add(check_path_counts("one GEO request on the loaded models",
+                          {"relpos": len(sam_blocks),
+                           "flash_attention_packed_f32": depth_blocks},
+                          "release"))
+    check_geo_preds(preds)
+    say("release", f"GEO request on the loaded models: {rate(lats)}; "
+                   f"{len(preds[0])} boxes")
+    first_global = next(i for i, b in enumerate(sam_blocks) if not b.window)
+    for i in (0, first_global):
+        with torch.inference_mode():
+            qkv, rh, rw, grid = spied(sam_blocks[i].attn, lambda: geo.
+                                      predict_image(models, *requests[1]))
+            q, k, v = qkv.unbind(2)
+            qrh, qrw = attention.rel_pos_factors(q, rh, rw, grid)
+            check_close(f"release k7 SAM block {i} {tuple(q.shape)} grid "
+                        f"{grid}",
+                        attention.rel_pos_flash_attention(q, k, v, qrh, qrw,
+                                                          grid),
+                        attention.rel_pos_attention_ref(q, k, v, rh, rw,
+                                                        grid))
+    compare_geo(models, requests[1])
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(RELEASE_DIR, ignore_errors=True)
+    say("release", f"phase done in {time.perf_counter() - t_phase:.1f} s; "
+                   f"card {card}")
+    return totals
+
+
 def main() -> None:
     import argparse
 
@@ -4111,18 +4539,25 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     cli_launches = traincli_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel_launches = release_phase()
     launches = {"fwd": launches + geo_launches["fwd"] + ov_launches["fwd"]
                 + q_launches["fwd"] + eval_launches + st_launches["fwd"]
-                + remat_launches["fwd"] + cli_launches["fwd"],
+                + remat_launches["fwd"] + cli_launches["fwd"]
+                + rel_launches["fwd"],
                 "lse": train_launches["lse"] + remat_launches["lse"]
                 + cli_launches["lse"],
                 "bwd": train_launches["bwd"] + remat_launches["bwd"]
                 + cli_launches["bwd"],
                 "relpos": geo_launches["relpos"] + q_launches["relpos"]
-                + f32_launches["relpos"] + st_launches["relpos"],
-                "window": ov_launches["window"] + st_launches["window"],
+                + f32_launches["relpos"] + st_launches["relpos"]
+                + rel_launches["relpos"],
+                "window": ov_launches["window"] + st_launches["window"]
+                + rel_launches["window"],
                 "int8": q_launches["int8"], "quant": q_launches["quant"],
-                "fwd_f32": f32_launches["fwd_f32"] + st_launches["fwd_f32"],
+                "fwd_f32": f32_launches["fwd_f32"] + st_launches["fwd_f32"]
+                + rel_launches["fwd_f32"],
                 **hm_launches,
                 "k9": ln["k9_launches"]}
     src = "ovmono3d_tpu_torch/csrc/"

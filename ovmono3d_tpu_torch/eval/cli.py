@@ -17,7 +17,13 @@ detections, and accumulate every dataset into one
 oracle, half the classes novel; with `test.oracle2d=false` they have no
 oracle slots and the model detects its own 2D boxes).
 Weights are the seeded init (`seed`) unless `--checkpoint` names a training
-checkpoint of the port (`train/checkpoint.py`).
+checkpoint of the port (`train/checkpoint.py`) or `--rcnn-ckpt` the released
+ovmono3d_lift.pth (detectron2 format, converted by `utils/lift_convert.py`
+and loaded after --checkpoint, as tools/eval_net.py does). The priors of
+the prior decodes come from --priors, else priors.npz beside --checkpoint,
+else the released file's (`extract_priors`), else, with --synthetic,
+generated records; the JAX tool takes generated records' priors over the
+file's, the port the file's, which its weights were trained with.
 
 `--data-parallel` joins the process group that torchrun (or any launcher
 setting MASTER_ADDR, MASTER_PORT, RANK and WORLD_SIZE) describes: each
@@ -57,6 +63,8 @@ from ovmono3d_tpu_torch.parallel.mesh import (gather_objects, init_multihost,
                                               process_shard, rank)
 from ovmono3d_tpu_torch.utils.device import resolve_device
 from ovmono3d_tpu_torch.utils.geometry import CORNER_SIGNS
+from ovmono3d_tpu_torch.utils.lift_convert import extract_priors
+from ovmono3d_tpu_torch.utils.load import load_rcnn_params, load_torch_state
 from ovmono3d_tpu_torch.utils.priors import compute_priors
 from ovmono3d_tpu_torch.vis.logperf import (print_ap_analysis,
                                             print_ap_per_category,
@@ -67,8 +75,6 @@ logger = logging.getLogger("ovmono3d.eval")
 _ORACLE_KEYS = ("oracle_boxes", "oracle_classes", "oracle_scores",
                 "oracle_valid")
 _NOT_PORTED = {
-    "rcnn_ckpt": "--rcnn-ckpt (a released checkpoint): the converters are "
-                 "ROADMAP queue 1 item 8",
     "vis_dir": "--vis-dir: the visualisation is ROADMAP queue 1 item 10",
 }
 
@@ -92,7 +98,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(<prefix>_<dataset>.json)")
     ap.add_argument("--device", default=None,
                     help="torch device; CUDA unless given (e.g. cpu)")
-    ap.add_argument("--rcnn-ckpt", default=None, help="not ported yet")
+    ap.add_argument("--rcnn-ckpt", default=None,
+                    help="the released ovmono3d_lift.pth (detectron2 "
+                         "format); its priors serve when --priors is absent")
     ap.add_argument("--data-parallel", action="store_true",
                     help="evaluate over the processes of a torchrun group")
     ap.add_argument("--vis-dir", default=None, help="not ported yet")
@@ -305,19 +313,24 @@ def load_datasets(cfg) -> tuple[dict[str, list[dict]], object, set[str]]:
     return datasets, default_image_loader(cfg.datasets.data_root), novel
 
 
-def _priors(args, cfg, device) -> dict | None:
+def _priors(args, cfg, device, released: dict | None = None) -> dict | None:
     """dims / z_scales / z_stats for the prior decodes, as f32 tensors on
-    `device`: from --priors (or priors.npz beside --checkpoint), or, with
-    --synthetic, computed from generated records."""
+    `device`: from --priors (or priors.npz beside --checkpoint), else from
+    the released checkpoint's state dict `released` (--rcnn-ckpt), else,
+    with --synthetic, computed from generated records."""
     path = args.priors
     if path is None and args.checkpoint:
         cand = Path(args.checkpoint).parent / "priors.npz"
         path = str(cand) if cand.exists() else None
     cube = cfg.model.cube
+    from_file = extract_priors(released) if released is not None else None
     if path:
         npz = np.load(path)
         priors = {k: npz[k] for k in npz.files}
         logger.info("loaded priors from %s", path)
+    elif from_file is not None:
+        priors = from_file
+        logger.info("priors from %s", args.rcnn_ckpt)
     elif args.synthetic and (cube.dims_priors_enabled
                              or cube.cluster_bins > 0):
         priors = compute_priors(
@@ -353,13 +366,19 @@ def main(argv=None) -> dict:
         class_names = list(cfg.datasets.category_names) or [
             str(i) for i in range(cfg.model.num_classes)]
 
-    model = build_model(cfg.model, priors=_priors(args, cfg, device),
+    released = load_torch_state(args.rcnn_ckpt) if args.rcnn_ckpt else None
+    model = build_model(cfg.model, priors=_priors(args, cfg, device,
+                                                  released),
                         device=device, seed=cfg.seed)
     if args.checkpoint:
         state = torch.load(args.checkpoint, map_location=device,
                            weights_only=True)
         model.load_state_dict(state["model"])
         logger.info("loaded checkpoint %s", args.checkpoint)
+    if released is not None:
+        load_rcnn_params(model, released, cfg.model)
+        logger.info("loaded %s", args.rcnn_ckpt)
+    del released
     model.eval()
 
     if args.synthetic:

@@ -19,10 +19,12 @@ else the categories annotated in it), previous_metric with every configured
 category. Each dataset's file is a JSON list of {"image_id", "bbox2d"
 [x1, y1, x2, y2] pixels, "category_id" (the model's contiguous id),
 "score"}. `--synthetic` runs two generated datasets of random images.
-GroundingDINO's weights are drawn from a seed and the tokenizer's vocabulary
-is made of the category words: released weights and BERT's vocab.txt wait
-for the converters (ROADMAP queue 1 item 8). Runs on CUDA unless `--device`
-names another device.
+GroundingDINO's weights are drawn from a seed unless `--gdino-ckpt` names the
+released groundingdino_swinb_cogcoor.pth (the original repo's keys,
+`utils/gdino_convert.py`); the tokenizer reads BERT's vocab.txt from
+`--vocab`, else its vocabulary is made of the category words (as
+tools/generate_oracle2d.py). Runs on CUDA unless `--device` names another
+device.
 """
 from __future__ import annotations
 
@@ -43,15 +45,9 @@ from ovmono3d_tpu_torch.data.datasets import (filter_settings_from_cfg,
 from ovmono3d_tpu_torch.data.synthetic import synthetic_records
 from ovmono3d_tpu_torch.models.gdino.tokenizer import BertTokenizer
 from ovmono3d_tpu_torch.models.ovmono3d import OVMono3DLift
+from ovmono3d_tpu_torch.utils.load import load_gdino_params
 
 logger = logging.getLogger("ovmono3d.oracle2d")
-
-_NOT_PORTED = {
-    "gdino_ckpt": "--gdino-ckpt (released GroundingDINO weights): the "
-                  "converters are ROADMAP queue 1 item 8",
-    "vocab": "--vocab (BERT's vocab.txt): the released tokenizer files come "
-             "with the converters, ROADMAP queue 1 item 8",
-}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -67,14 +63,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="at most this many detections an image")
     ap.add_argument("--device", default=None,
                     help="torch device; CUDA unless given (e.g. cpu)")
-    ap.add_argument("--gdino-ckpt", default=None, help="not ported yet")
-    ap.add_argument("--vocab", default=None, help="not ported yet")
+    ap.add_argument("--gdino-ckpt", default=None,
+                    help="the released GroundingDINO SwinB checkpoint "
+                         "(groundingdino_swinb_cogcoor.pth)")
+    ap.add_argument("--vocab", default=None,
+                    help="BERT's vocab.txt (bert-base-uncased)")
     ap.add_argument("opts", nargs="*", default=[])
-    args = ap.parse_args(argv)
-    for key, why in _NOT_PORTED.items():
-        if getattr(args, key):
-            raise NotImplementedError(why)
-    return args
+    return ap.parse_args(argv)
 
 
 def dataset_prompts(cfg, name: str, records: list[dict],
@@ -161,10 +156,16 @@ def main(argv=None) -> dict[str, Path]:
                             / f"{name}.json", fs, cat_map)
             datasets[name] = get_dataset(name)
         image_loader = default_image_loader(cfg.datasets.data_root)
-    logger.warning("no --vocab: a vocabulary of the category words")
-    pipe = OVMono3DLift.build_2d_only(category_tokenizer(class_names),
-                                      device=args.device)
+    if args.vocab:
+        tok = BertTokenizer(args.vocab)
+    else:
+        tok = category_tokenizer(class_names)
+        logger.warning("no --vocab: a vocabulary of the category words")
+    pipe = OVMono3DLift.build_2d_only(tok, device=args.device)
     pipe = dataclasses.replace(pipe, detect_topk=args.topk)
+    if args.gdino_ckpt:
+        load_gdino_params(pipe.gdino, args.gdino_ckpt)
+        logger.info("loaded %s", args.gdino_ckpt)
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     eval_mode, cat_mode = cfg.datasets.oracle2d_eval_mode, cfg.test.cat_mode

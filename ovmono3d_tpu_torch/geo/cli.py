@@ -27,8 +27,10 @@ and `--eval-only` evaluates pickles written before without running the
 models. Entry points run on the card unless given a CPU device. Depth-Pro
 runs in f32 unless `--depth-bf16` is given, as in the JAX CLI; on the card
 its f32 attention is kernel 1's f32 instance, and SAM's is kernel 7.
-Released SAM and Depth-Pro weights are not loaded yet (ROADMAP queue 1 item
-8): weights are drawn from a seed.
+Weights are drawn from a seed unless `--sam-ckpt` names an official
+sam_vit_*.pth (of `--sam-arch`'s size: encoder and segmenter) and
+`--depth-ckpt` Depth-Pro's weights: a flat flax-path .npz, or a HF-format
+(apple/DepthPro-hf) torch checkpoint (`utils/load.py`).
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ from ovmono3d_tpu_torch.models.vit import VisionTransformer
 from ovmono3d_tpu_torch.utils.device import (device_constant, disable_tf32,
                                              resolve_device)
 from ovmono3d_tpu_torch.utils.image import resize_bilinear
+from ovmono3d_tpu_torch.utils.load import load_depth_params, load_sam_params
 from ovmono3d_tpu_torch.utils.stages import Stages
 from ovmono3d_tpu_torch.vis.logperf import print_ap_summary
 
@@ -66,12 +69,6 @@ S_SAM, S_DEPTH = 1024, 1536     # SAM's canvas; Depth-Pro's fixed input
 PIXEL_MEAN = (0.485, 0.456, 0.406)
 PIXEL_STD = (0.229, 0.224, 0.225)
 MASK_INDEX = 2                  # SAM's largest candidate (reference L309)
-_NOT_PORTED = {
-    "sam_ckpt": "--sam-ckpt (released SAM weights): the converters are "
-                "ROADMAP queue 1 item 8",
-    "depth_ckpt": "--depth-ckpt (released Depth-Pro weights): the converters "
-                  "are ROADMAP queue 1 item 8",
-}
 
 
 @dataclasses.dataclass
@@ -320,16 +317,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "before, without running the models")
     ap.add_argument("--device", default=None,
                     help="torch device; CUDA unless given (e.g. cpu)")
-    ap.add_argument("--sam-ckpt", default=None, help="not ported yet")
-    ap.add_argument("--depth-ckpt", default=None, help="not ported yet")
+    ap.add_argument("--sam-ckpt", default=None,
+                    help="an official sam_vit_*.pth of --sam-arch's size")
+    ap.add_argument("--depth-ckpt", default=None,
+                    help="Depth-Pro weights: a flat flax-path .npz or a "
+                         "HF-format (apple/DepthPro-hf) torch checkpoint")
     ap.add_argument("opts", nargs="*", default=[])
     args = ap.parse_args(argv)
     if args.eval_only and args.synthetic:
         ap.error("--eval-only evaluates written predictions; it cannot be "
                  "combined with --synthetic")
-    for key, why in _NOT_PORTED.items():
-        if getattr(args, key):
-            raise NotImplementedError(why)
     return args
 
 
@@ -360,6 +357,13 @@ def main(argv=None) -> dict | None:
     if not args.eval_only:
         models = build_geo_models(args.sam_arch, args.depth_bf16,
                                   args.device, gelu=args.gelu)
+        # Released weights, as tools/ovmono3d_geo.py:295-309 loads them.
+        if args.sam_ckpt:
+            load_sam_params(models.sam_encoder, models.segmenter,
+                            args.sam_ckpt,
+                            depth=SAM_ARCHS[args.sam_arch]["depth"])
+        if args.depth_ckpt:
+            load_depth_params(models.depth, args.depth_ckpt)
         models.max_instances = args.max_instances
         out_dir.mkdir(parents=True, exist_ok=True)
     image_loader = default_image_loader(cfg.datasets.data_root)

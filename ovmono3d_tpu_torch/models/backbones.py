@@ -47,7 +47,7 @@ class ViTSFPBackbone(nn.Module):
         super().__init__()
         if cfg.name != "dinov2":
             raise NotImplementedError(
-                f"backbone {cfg.name!r}: ROADMAP queue 1 items 8 and 9 (only "
+                f"backbone {cfg.name!r}: ROADMAP queue 1 item 9 (only "
                 "dinov2 is ported)")
         self.vit = VisionTransformer(
             patch_size=cfg.patch_size, embed_dim=cfg.embed_dim,

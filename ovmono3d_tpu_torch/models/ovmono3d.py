@@ -28,8 +28,12 @@ chunks, with one chunk in flight (`_stream_drive`): the host stages the next
 chunk's images in page-locked memory while the card runs the current one,
 uploads and reads back without waiting, and resizes on the card into uint8
 canvases, as the JAX streams quantize theirs. `predict_stream(devices=...)`
-splits each chunk over several devices (`parallel/serve.py`). Loading
-released GroundingDINO weights is not ported yet (ROADMAP queue 1 item 8).
+splits each chunk over several devices (`parallel/serve.py`). Released
+GroundingDINO weights load into `pipe.gdino` in place with
+`utils.load.load_gdino_params(pipe.gdino, path)` (and the cube model's with
+`load_rcnn_params(pipe.rcnn, path, cfg.model)`); the Swin bias cache and
+`replicas` follow the weights' versions, so a load after serving takes
+effect.
 """
 from __future__ import annotations
 

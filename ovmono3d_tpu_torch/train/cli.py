@@ -14,8 +14,11 @@ model from `seed` (the trunk frozen when `model.backbone.freeze`), the
 optimizer (accumulating `solver.grad_accum_steps` micro-steps an update)
 and the weighted train iterator, and runs the loop with its stabilisation
 restarts (train/loop.py; a restart rebuilds the iterator with seed + 1000
-x attempt). Batches are uploaded from page-locked memory without making the
-host wait. Hooks: metrics.jsonl and the console line, TensorBoard events
+x attempt). `--trunk-ckpt` loads a torch.hub DINOv2 checkpoint into the
+trunk after the seeded build (the depth-fusion conv keeps its init;
+`utils/cnn_convert.py`); the other trunks are ROADMAP queue 1 item 9.
+Batches are uploaded from page-locked memory without making the host
+wait. Hooks: metrics.jsonl and the console line, TensorBoard events
 under tb/ (`--tensorboard`, on by default), the training panels every
 `vis_period` steps under vis/, and with `--profile` a torch.profiler trace
 of steps 11-15 under profile/. Every `test.eval_period` steps the model is
@@ -69,14 +72,12 @@ from ovmono3d_tpu_torch.train.loop import train
 from ovmono3d_tpu_torch.train.metrics import (MetricsWriter, ProfilerHook,
                                               TrainVisHook)
 from ovmono3d_tpu_torch.train.optim import Optimizer, with_grad_accum
+from ovmono3d_tpu_torch.utils.cnn_convert import load_cnn_trunk
 from ovmono3d_tpu_torch.utils.device import (resolve_device, staged,
                                              to_device_async)
 from ovmono3d_tpu_torch.utils.priors import compute_priors
 
 logger = logging.getLogger("ovmono3d")
-
-TRUNK_CKPT = ("--trunk-ckpt (a released trunk's weights): the checkpoint "
-              "converters are ROADMAP queue 1 item 8")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -97,16 +98,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "solver.ims_per_batch)")
     ap.add_argument("--tensorboard", action=argparse.BooleanOptionalAction,
                     default=True)
-    ap.add_argument("--trunk-ckpt", default=None, help="not ported yet")
+    ap.add_argument("--trunk-ckpt", default=None,
+                    help="a foundation trunk's torch checkpoint (torch.hub "
+                         "DINOv2 for model.backbone.name=dinov2) loaded "
+                         "into the trunk before training")
     ap.add_argument("--profile", action="store_true",
                     help="torch.profiler trace of steps 11-15")
     ap.add_argument("--device", default=None,
                     help="torch device; CUDA unless given (e.g. cpu)")
     ap.add_argument("opts", nargs="*", default=[])
-    args = ap.parse_args(argv)
-    if args.trunk_ckpt:
-        raise NotImplementedError(TRUNK_CKPT)
-    return args
+    return ap.parse_args(argv)
 
 
 def eval_only_argv(args: argparse.Namespace) -> list[str]:
@@ -245,6 +246,9 @@ def build_run(args: argparse.Namespace) -> TrainRun:
     model = build_model(cfg.model, priors={
         k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=device)
         for k, v in priors.items()}, device=device, seed=cfg.seed)
+    if args.trunk_ckpt:
+        load_cnn_trunk(model, args.trunk_ckpt, cfg.model.backbone.name)
+        logger.info("loaded trunk weights from %s", args.trunk_ckpt)
     opt = with_grad_accum(Optimizer(cfg.solver, model),
                           cfg.solver.grad_accum_steps)
     state = create_train_state(model, opt, seed=cfg.seed + 1 + rank)

@@ -24,17 +24,21 @@ the layout:
                                             the Swin rel_pos_bias tables)
 
 The mapping is strict: a flax leaf with no torch parameter, a torch parameter
-no leaf fills, or a shape that disagrees raises. A port RCNN3D holds the
-trunk, the pyramid, the RPN, box and cube heads, so it takes the tree JAX's
-init through `RCNN3D.compute_losses` makes (the training tree); a tree from
-the oracle-only init lacks the RPN and box heads and is refused. The GEO
-models (SAM's encoder, `SamSegmenter`, `DepthPro`) take their JAX modules'
-init trees, and `GroundingDINO` (Swin, BERT, the enhancer and decoder)
-its JAX module's.
+no leaf fills, or a shape that disagrees raises. A partial load names the
+torch parameters the tree may leave as they are in `keep` (the trunk
+checkpoints of `--trunk-ckpt` hold no depth-fusion conv: utils/cnn_convert.py
+keeps the model's own); a name in `keep` that is no parameter raises too. A
+port RCNN3D holds the trunk, the pyramid, the RPN, box and cube heads, so it
+takes the tree JAX's init through `RCNN3D.compute_losses` makes (the
+training tree); a tree from the oracle-only init lacks the RPN and box heads
+and is refused. The GEO models (SAM's encoder, `SamSegmenter`, `DepthPro`)
+take their JAX modules' init trees, and `GroundingDINO` (Swin, BERT, the
+enhancer and decoder) its JAX module's; the released checkpoints' converters
+(utils/*_convert.py) make the same trees.
 """
 from __future__ import annotations
 
-from collections.abc import Mapping
+from collections.abc import Iterable, Mapping
 from typing import Any
 
 import numpy as np
@@ -73,12 +77,14 @@ def _rule(mod: nn.Module, leaf: str) -> tuple[str, tuple | None, bool]:
     return leaf, None, False
 
 
-def plan(model: nn.Module, tree: Mapping) -> dict[str, tuple]:
+def plan(model: nn.Module, tree: Mapping,
+         keep: Iterable[str] = ()) -> dict[str, tuple]:
     """Map every flax leaf onto one torch parameter, checking shapes.
 
     `tree` is the params dict (or the variables dict holding 'params') with
     array-like leaves: numpy arrays, or anything with `.shape`, such as the
-    output of jax.eval_shape. Returns {flax_path: (torch_name, perm, flip)}.
+    output of jax.eval_shape. Every torch parameter must be filled, but those
+    named in `keep`. Returns {flax_path: (torch_name, perm, flip)}.
     """
     if set(tree) == {"params"}:
         tree = tree["params"]
@@ -106,24 +112,46 @@ def plan(model: nn.Module, tree: Mapping) -> dict[str, tuple]:
                              f"{tuple(params[full].shape)}")
         taken[full] = path
         out[path] = (full, perm, flip)
-    unset = sorted(set(params) - set(taken))
+    keep = set(keep)
+    if keep - set(params):
+        raise KeyError(f"keep names no torch parameter: "
+                       f"{sorted(keep - set(params))}")
+    unset = sorted(set(params) - set(taken) - keep)
     if unset:
         raise KeyError(f"torch parameters with no flax leaf: {unset}")
     return out
 
 
-def load_flax_params(model: nn.Module, tree: Mapping) -> None:
-    """Copy the JAX package's params (nested dict of numpy arrays) into
-    `model`, in place."""
+def torch_arrays(model: nn.Module, tree: Mapping,
+                 keep: Iterable[str] = ()) -> dict[str, np.ndarray]:
+    """{torch parameter name: its leaf of `tree` in the torch layout, f32}:
+    what `load_flax_params` copies (views where the layout allows)."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     leaves = _flatten(tree)
+    out = {}
+    for path, (full, perm, flip) in plan(model, tree, keep).items():
+        arr = np.asarray(leaves[path], dtype=np.float32)
+        if flip:
+            arr = arr[::-1, ::-1]
+        if perm is not None:
+            arr = np.transpose(arr, perm)
+        out[full] = arr
+    return out
+
+
+def load_flax_params(model: nn.Module, tree: Mapping,
+                     keep: Iterable[str] = ()) -> None:
+    """Copy params in the JAX package's layout (nested dict of numpy arrays)
+    into `model`, in place, under no_grad and outside inference mode even
+    when the caller is in it: each copy bumps the parameter's version, so
+    the caches keyed on it (QDense's int8 weight and kernel 10's tensor map,
+    Swin's expanded bias, `OVMono3DLift.replicas`) are rebuilt. A parameter
+    made in inference mode has no version; copying into it raises rather
+    than leave a stale cache. `keep`: parameters the tree may leave
+    unset."""
     params = dict(model.named_parameters())
-    with torch.no_grad():
-        for path, (full, perm, flip) in plan(model, tree).items():
-            arr = np.asarray(leaves[path], dtype=np.float32)
-            if flip:
-                arr = arr[::-1, ::-1]
-            if perm is not None:
-                arr = np.transpose(arr, perm)
-            params[full].copy_(torch.from_numpy(arr.copy()))
+    arrays = torch_arrays(model, tree, keep)
+    with torch.inference_mode(False), torch.no_grad():
+        for name, arr in arrays.items():
+            params[name].copy_(torch.from_numpy(arr.copy()))

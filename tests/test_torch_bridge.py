@@ -262,10 +262,11 @@ def test_flagship_config_matches_graft_entry():
                 getattr(getattr(ref, section), f.name), f"{section}.{f.name}"
 
 
-# JAX and the JAX package, and what the GPU machine lacks: cv2, torchvision.
+# JAX and the JAX package, and what the GPU machine lacks: cv2, torchvision,
+# transformers.
 _JAX_IMPORT = re.compile(
-    r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|ovmono3d_tpu|cv2|torchvision)"
-    r"(\.|\s|$)", re.M)
+    r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|ovmono3d_tpu|cv2|torchvision"
+    r"|transformers)(\.|\s|$)", re.M)
 
 
 _CUDA_JAX_INCLUDE = re.compile(r"^\s*#\s*include\s*[<\"][^>\"]*(jax|xla|pallas)",
@@ -280,7 +281,12 @@ def test_port_sources_import_no_jax():
             "gdino", "data", "evaluation", "vis", "eval", "probes"} <= {
         f.parent.name for f in files}
     assert {"train/cli.py", "train/metrics.py", "train/tb_writer.py",
-            "parallel/mesh.py", "vis/draw.py", "utils/util.py"} <= {
+            "parallel/mesh.py", "vis/draw.py", "utils/util.py",
+            "utils/load.py", "utils/checkpoint_convert.py",
+            "utils/lift_convert.py", "utils/gdino_convert.py",
+            "utils/sam_convert.py", "utils/depth_convert.py",
+            "utils/hf_shims.py", "utils/cnn_convert.py",
+            "utils/release_states.py"} <= {
         str(f.relative_to(port)) for f in files[:-1]}
     for f in files:
         assert not _JAX_IMPORT.search(f.read_text()), f
@@ -297,7 +303,7 @@ def test_port_runs_with_jax_unimportable():
     code = """
 import dataclasses, importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "optax", "ovmono3d_tpu", "cv2",
-             "torchvision", "yaml", "PIL"):
+             "torchvision", "transformers", "yaml", "PIL"):
     sys.modules[name] = None           # any import of them now fails
 import torch
 import ovmono3d_tpu_torch
@@ -319,6 +325,10 @@ for quant in ("none", "int8"):
                     oracle_scores=torch.ones(1, 1),
                     oracle_valid=torch.ones(1, 1, dtype=torch.bool))
     assert all(bool(torch.isfinite(v.float()).all()) for _, v in det.items())
+# A released-layout checkpoint loads without transformers.
+from ovmono3d_tpu_torch.utils import release_states
+from ovmono3d_tpu_torch.utils.load import load_rcnn_params
+load_rcnn_params(model, release_states.lift_state(cfg), cfg)
 from ovmono3d_tpu_torch.geo.cli import synthetic_check
 assert synthetic_check("cpu")[0]
 # The evaluation path without PyYAML, PIL or cv2: a config built in code.

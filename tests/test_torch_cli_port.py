@@ -197,9 +197,64 @@ def test_oracle2d_on_the_fixture_matches_jax_tool(monkeypatch, tmp_path,
 
 
 @pytest.mark.parametrize("flag", ["--gdino-ckpt", "--vocab"])
-def test_oracle2d_refuses_what_is_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        oracle2d.parse_args(["--synthetic", flag, "x"])
+def test_oracle2d_loads_what_the_jax_tool_loads(monkeypatch, tmp_path, tinyds,
+                                                gdino_pair, flag):
+    """--gdino-ckpt (a GroundingDINO file in the original repo's layout,
+    wrapped as {'model': ...} with 'module.' prefixes) and --vocab (a BERT
+    vocab.txt) in both tools (tools/generate_oracle2d.py:169-190): the same
+    detections over the fixture (1e-4); the port's detector holds the
+    file's weights bit for bit, its tokenizer the file's vocabulary."""
+    import copy
+
+    from test_torch_gdino import GDINO_KWARGS
+
+    from ovmono3d_tpu_torch.utils import flax_bridge, release_states
+    from ovmono3d_tpu_torch.utils.gdino_convert import convert_groundingdino
+
+    jmodel, params, port, _, _ = gdino_pair
+    port = copy.deepcopy(port)
+    toks = []
+    monkeypatch.setattr(jov.OVMono3DLift, "build_2d_only", classmethod(
+        lambda cls, tok, **kw: cls(None, None, None, jmodel, params, tok,
+                                   gdino_size=64)))
+    monkeypatch.setattr(tov.OVMono3DLift, "build_2d_only", classmethod(
+        lambda cls, tok, device=None, **kw: toks.append(tok) or cls(
+            None, None, port, tok, gdino_size=64)))
+    if flag == "--gdino-ckpt":
+        state = release_states.gdino_state(seed=3, **GDINO_KWARGS)
+        path = tmp_path / "groundingdino_swinb_cogcoor.pth"
+        torch.save({"model": {"module." + k: torch.from_numpy(v)
+                              for k, v in state.items()}}, path)
+    else:
+        words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", ".", "?", "cup",
+                 "bicycle", "chair", "##s"]
+        path = tmp_path / "vocab.txt"
+        path.write_text("\n".join(words) + "\n")
+    overrides = [f"datasets.data_root={tinyds['root']}",
+                 "datasets.test_base=TinyDS_test", "test.cat_mode=base",
+                 "datasets.category_names=chair,cup,bicycle"]
+    got = oracle2d.main(["--device", "cpu", "--output-dir",
+                         str(tmp_path / "port"), flag, str(path),
+                         *overrides])
+    _jax_tool(monkeypatch, jax_oracle2d, ["--output-dir",
+                                          str(tmp_path / "jax"), flag,
+                                          str(path), *overrides])
+    mine = json.loads(got["TinyDS_test"].read_text())
+    theirs = json.loads((tmp_path / "jax" / got["TinyDS_test"].name)
+                        .read_text())
+    assert len(mine) == len(theirs) > 0
+    for g, w in zip(mine, theirs):
+        assert (g["image_id"], g["category_id"]) == \
+            (w["image_id"], w["category_id"])
+        np.testing.assert_allclose(g["bbox2d"], w["bbox2d"], atol=1e-4)
+        assert g["score"] == pytest.approx(w["score"], abs=1e-4)
+    if flag == "--vocab":
+        assert toks[0].vocab == {w: i for i, w in enumerate(words)}
+        return
+    tree = convert_groundingdino(state)
+    ref = dict(port.named_parameters())
+    for name, arr in flax_bridge.torch_arrays(port, tree).items():
+        np.testing.assert_array_equal(ref[name].detach().numpy(), arr)
 
 
 def test_category_tokenizer_matches_jax_tools_vocab():

@@ -361,8 +361,49 @@ def test_cli_on_the_fixture(tinyds, tmp_path, capsys, oracle):
     capsys.readouterr()
 
 
-@pytest.mark.parametrize("flag", [["--rcnn-ckpt", "x.pth"],
-                                  ["--vis-dir", "v"]])
+@pytest.mark.parametrize("flag", [["--vis-dir", "v"]])
 def test_cli_refuses_what_is_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
         tcli.parse_args(["--synthetic", *flag])
+
+
+@pytest.mark.parametrize("priors", ["from_file", "priors_flag"])
+def test_cli_loads_rcnn_ckpt(tmp_path, monkeypatch, capsys, priors):
+    """--rcnn-ckpt: a released-layout file (utils/release_states.py) loads
+    into the evaluated model -- every parameter equal to the converted tree
+    under the bridge's rule -- and its priors reach the model unless
+    --priors names others; the oracle protocol gives AP2D 100."""
+    from ovmono3d_tpu_torch.config import load_config
+    from ovmono3d_tpu_torch.utils import flax_bridge, release_states
+    from ovmono3d_tpu_torch.utils.lift_convert import convert_ovmono3d_lift
+
+    mcfg = load_config(None, overrides=TINY).model
+    state = release_states.lift_state(mcfg, seed=1)
+    path = tmp_path / "ovmono3d_lift.pth"
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in state.items()}},
+               path)
+    argv = ["--synthetic", "--device", "cpu", "--rcnn-ckpt", str(path),
+            *TINY]
+    want_priors = {"dims": state["roi_heads.priors_dims_per_cat"][0],
+                   "z_scales": state["roi_heads.priors_z_scales"],
+                   "z_stats": state["roi_heads.priors_z_stats"]}
+    if priors == "priors_flag":
+        want_priors = {k: v + 1.0 for k, v in want_priors.items()}
+        np.savez(tmp_path / "p.npz", **want_priors)
+        argv += ["--priors", str(tmp_path / "p.npz")]
+    built = []
+    monkeypatch.setattr(tcli, "build_model", lambda *a, **k: built.append(
+        build_model(*a, **k)) or built[-1])
+    summary = tcli.main(argv)
+    capsys.readouterr()
+    (model,) = built
+    assert sorted(model.priors) == sorted(want_priors)
+    for k, v in want_priors.items():
+        np.testing.assert_array_equal(model.priors[k].numpy(), v)
+    tree = convert_ovmono3d_lift(state, depth=mcfg.backbone.depth)
+    params = dict(model.named_parameters())
+    for name, arr in flax_bridge.torch_arrays(model, tree).items():
+        np.testing.assert_array_equal(params[name].detach().numpy(), arr)
+    for name in ("synthetic_a", "synthetic_b"):
+        assert summary["datasets"][name]["AP2D"] == pytest.approx(100.0)
+        assert math.isfinite(summary["datasets"][name]["AP3D"])

@@ -5,6 +5,7 @@ and the CLI over the tiny Omni3D fixture (`--config-file --eval`,
 `--eval-only`, `geo.eval_cli`, `--max-instances`) against the JAX tool's
 evaluation and box selection (CPU)."""
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -142,10 +143,52 @@ def test_synthetic_self_check_passes(tmp_path, capsys):
     assert (tmp_path / "geo_predictions_synthetic.pkl").is_file()
 
 
-@pytest.mark.parametrize("flag", ["--sam-ckpt", "--depth-ckpt"])
-def test_cli_checkpoint_flags_refuse(flag):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        cli.main(["--synthetic", "--device", "cpu", flag, "x.pth"])
+@pytest.mark.parametrize("fmt", ["sam", "depth_pth", "depth_npz"])
+def test_cli_checkpoint_flags_load(geo_models, tmp_path, monkeypatch, fmt):
+    """--sam-ckpt (an official segment-anything file of --sam-arch's depth)
+    and --depth-ckpt (HF-layout .pth or flat flax-path .npz, the JAX CLI's
+    two branches) load into the models the CLI serves the fixture with:
+    every parameter equal to the converted tree under the bridge's rule."""
+    from ovmono3d_tpu_torch.utils import flax_bridge, release_states
+    from ovmono3d_tpu_torch.utils.depth_convert import convert_depth_pro
+    from ovmono3d_tpu_torch.utils.sam_convert import (convert_sam_encoder,
+                                                      convert_sam_segmenter)
+
+    _, tiny = geo_models
+    models = cli.GeoModels(*(copy.deepcopy(m) for m in (
+        tiny.sam_encoder, tiny.segmenter, tiny.depth)), sam_size=S_SAM,
+        depth_size=S_DEPTH, max_instances=MAX_INSTANCES)
+    monkeypatch.setattr(cli, "build_geo_models", lambda *a, **k: models)
+    monkeypatch.setitem(cli.SAM_ARCHS, "tiny", dict(
+        embed_dim=SAM_KW["embed_dim"], depth=SAM_KW["depth"],
+        num_heads=SAM_KW["num_heads"], global_blocks=SAM_KW["global_blocks"]))
+    if fmt == "sam":
+        state = release_states.sam_state(
+            embed_dim=32, depth=3, num_heads=2, global_blocks=(1,),
+            window_size=4, grid=6, patch=8, neck=16, decoder_dim=16,
+            decoder_mlp=32, seed=4)
+        pairs = [(models.sam_encoder, convert_sam_encoder(state, depth=3)),
+                 (models.segmenter, convert_sam_segmenter(state))]
+        path = tmp_path / "sam_vit_tiny.pth"
+    else:
+        state = release_states.depth_pro_state(seed=5, **TINY)
+        pairs = [(models.depth, convert_depth_pro(state))]
+        path = tmp_path / "depth_pro.pth"
+    if fmt == "depth_npz":
+        path = tmp_path / "depth_pro.npz"
+        np.savez(path, **{"params/" + k: v for k, v in
+                          flax_bridge._flatten(pairs[0][1]).items()})
+    else:
+        torch.save({k: torch.from_numpy(v) for k, v in state.items()}, path)
+    flag = "--sam-ckpt" if fmt == "sam" else "--depth-ckpt"
+    tinyds = build_dataset(tmp_path / "tiny_omni3d")
+    res, _ = _run(cli.main, _dataset_argv(tinyds, tmp_path / "out")
+                  + ["--sam-arch", "tiny", flag, str(path)])
+    assert res["TinyDS_test"]["images"] == 4
+    for module, tree in pairs:
+        ref = dict(module.named_parameters())
+        for name, arr in flax_bridge.torch_arrays(module, tree).items():
+            np.testing.assert_array_equal(ref[name].detach().numpy(), arr)
 
 
 def test_entry_points_default_to_cuda():

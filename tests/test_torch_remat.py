@@ -140,7 +140,7 @@ def test_rel_pos_and_windowed_blocks_are_not_wrapped(monkeypatch, caplog):
     dino(torch.randn(1, IMG, IMG, 3))["last_feat"].sum().backward()
     assert len(wrapped) == KW["depth"]
     with caplog.at_level(logging.WARNING, logger="ovmono3d"):
-        with pytest.raises(NotImplementedError, match="items 8 and 9"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
             build_backbone(BackboneConfig(name="sam", remat=True),
                            device="meta")
     assert any("remat only wraps plain" in r.getMessage()

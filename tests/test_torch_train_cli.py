@@ -118,11 +118,52 @@ def test_refusals(tmp_path):
     with pytest.raises(SystemExit, match="SERVING-only"):
         cli.main(["--synthetic", *CPU, *TINY, "model.backbone.quant=int8",
                   f"output_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        cli.main(["--synthetic", *CPU, "--trunk-ckpt", "dino.pth"])
     if not torch.cuda.is_available():       # CUDA unless asked for the CPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["--synthetic", *TINY, f"output_dir={tmp_path}"])
+
+
+def test_trunk_ckpt_loads_a_dinov2_trunk(tmp_path, monkeypatch):
+    """--trunk-ckpt with a torch.hub DINOv2 file (tools/train_net.py:229-
+    233): the frozen trunk trains from the file's weights (equal to the
+    converted tree, bit for bit, after the steps) and the depth-fusion conv
+    from the seeded init."""
+    from ovmono3d_tpu_torch.config import load_config
+    from ovmono3d_tpu_torch.models.rcnn3d import build_model
+    from ovmono3d_tpu_torch.utils import flax_bridge, release_states
+    from ovmono3d_tpu_torch.utils.cnn_convert import _convert_vit_trunk
+
+    cfg = load_config(None, overrides=TINY)
+    bb = cfg.model.backbone
+    state = release_states.dinov2_hub_state(
+        bb.embed_dim, bb.depth, bb.patch_size, bb.pretrain_grid, seed=2)
+    path = tmp_path / "dinov2_vit.pth"
+    torch.save({k: torch.from_numpy(v) for k, v in state.items()}, path)
+    built = []
+    monkeypatch.setattr(cli, "build_model", lambda *a, **k: built.append(
+        build_model(*a, **k)) or built[-1])
+    res = cli.main(["--synthetic", *CPU, "--max-iter", "2", "--batch-size",
+                    "8", "--trunk-ckpt", str(path), *TINY,
+                    "solver.checkpoint_period=1000", "test.eval_period=0",
+                    f"output_dir={tmp_path / 'out'}"])
+    assert res["step"] == 2 and res["skipped"] == 0
+    vit = built[0].backbone.vit
+    seeded = build_model(cfg.model, device="cpu",
+                         seed=cfg.seed).backbone.vit
+    assert torch.equal(vit.depth_fusion.weight, seeded.depth_fusion.weight)
+    tree = _convert_vit_trunk(state, "dinov2")
+    ref = dict(vit.named_parameters())
+    keep = ("depth_fusion.weight", "depth_fusion.bias")
+    for name, arr in flax_bridge.torch_arrays(vit, tree, keep).items():
+        np.testing.assert_array_equal(ref[name].detach().numpy(), arr)
+
+
+@pytest.mark.parametrize("name", ["clip", "mae", "midas", "sam", "dla34"])
+def test_trunk_ckpt_refuses_the_unported_trunks(tmp_path, name):
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        cli.main(["--synthetic", *CPU, "--max-iter", "1", "--trunk-ckpt",
+                  "trunk.pth", *TINY, f"model.backbone.name={name}",
+                  f"output_dir={tmp_path}"])
 
 
 @pytest.fixture(scope="module")
