@@ -21,8 +21,10 @@ training: remat under each policy, gradient accumulation, and the train CLI
 (frozen and unfrozen, resumed, --eval-only, in a one-process NCCL group);
 and released-checkpoint loading: state dicts in the released key layouts at
 full width, through the CLIs' --rcnn-ckpt, --gdino-ckpt and --vocab and the
-GEO loaders, then served. Holds every CUDA kernel on those paths against
-its plain PyTorch version.
+GEO loaders, then served; and the other detector trunks (CLIP, MAE, MiDaS,
+SAM, DLA, ResNet, DenseNet, MNASNet, ShuffleNetV2) at full width from their
+released layouts, served and trained through --trunk-ckpt. Holds every CUDA
+kernel on those paths against its plain PyTorch version.
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
     python3 chip_smoke.py --previous DIR   # kernels 7, 8 and 10 also
@@ -333,6 +335,23 @@ profiles' tables):
           kernel-7 and 72 f32 kernel-1 launches), kernel 7 at a windowed
           and a global block's inputs held to rel_pos_attention_ref, then
           the geo phase's comparison on it
+  trunks  the other detector trunks at full width and 1024^2: CLIP, MAE,
+          MiDaS and SAM ViT-B + SFP from their shipped configs, DLA-34,
+          ResNet-50, DenseNet-121, MNASNet 1.0 and ShuffleNetV2 + FPN over
+          p2-p6 with detectron2's anchors; each trunk's released layout
+          (utils/release_states.py) through load_cnn_trunk (every parameter
+          and BatchNorm buffer equal to its converted array), bench.py's
+          request served 1 + 3 times (finite detections; 12, 12, 24 and 12
+          kernel-1 / kernel-7 launches a request for the ViTs, none for the
+          CNNs), p50 and device ms a request beside the card's name and
+          power limit, kernel vs plain attention on one request within the
+          slice phase's limit, and kernel 1 (CLIP, MAE: [1, 4097, 12, 64];
+          MiDaS: [1, 4097, 16, 64]) or kernel 7 (SAM-B: [25, 196, 12, 64]
+          windowed, [1, 4096, 12, 64] global) at the first and last block's
+          inputs held to its plain version and timed beside it, SDPA and the
+          bound; then 2 train-CLI steps of the frozen DLA-34 detector with
+          --trunk-ckpt: every trunk parameter and BatchNorm buffer still the
+          file's, bit for bit
 Then a JSON line of the kernels (kernels 1, 2, 3 and 5 at the trunk shape
 also with previous_ms, device_ms, previous_device_ms and library_device_ms:
 the mma.sync design's event time and the device times of both designs and
@@ -376,6 +395,7 @@ from ovmono3d_tpu_torch.config import (  # noqa: E402
     Config,
     SolverConfig,
     flagship_config,
+    load_config,
 )
 from ovmono3d_tpu_torch.data.build import (  # noqa: E402
     build_test_iterator,
@@ -406,6 +426,8 @@ from ovmono3d_tpu_torch.models.ovmono3d import (  # noqa: E402
     OVMono3DLift,
     default_focal_K,
 )
+from ovmono3d_tpu_torch.models.backbones import SAM_ARCHS  # noqa: E402
+from ovmono3d_tpu_torch.models.dla import DLA_PRESETS  # noqa: E402
 from ovmono3d_tpu_torch.models.rcnn3d import build_model  # noqa: E402
 from ovmono3d_tpu_torch.models.vit import GELUS, Mlp  # noqa: E402
 from ovmono3d_tpu_torch.models.vit import remat_context  # noqa: E402
@@ -458,6 +480,10 @@ from ovmono3d_tpu_torch.utils.sam_convert import (  # noqa: E402
 )
 from ovmono3d_tpu_torch.utils.depth_convert import (  # noqa: E402
     convert_depth_pro,
+)
+from ovmono3d_tpu_torch.utils.cnn_convert import (  # noqa: E402
+    convert_trunk,
+    load_cnn_trunk,
 )
 
 # The redesigned kernels: (source, kernel template, instances, SASS
@@ -1350,17 +1376,18 @@ def int8_kernel_phase(previous: str | None) -> dict:
             "quantize": quantize}
 
 
-def bench_inputs():
-    """bench.py's request: B=1, 64 oracle boxes, K with f=1000 at 896^2."""
+def bench_inputs(side: int = S):
+    """bench.py's request: B=1, 64 oracle boxes, K with f=1000 at side^2
+    (896^2 by default)."""
     dev = "cuda"
-    K = torch.tensor([[[1000.0, 0, S / 2], [0, 1000.0, S / 2], [0, 0, 1]]],
-                     device=dev)
+    K = torch.tensor([[[1000.0, 0, side / 2], [0, 1000.0, side / 2],
+                       [0, 0, 1]]], device=dev)
     boxes = (torch.tensor([50.0, 50.0, 400.0, 400.0], device=dev)
              + torch.arange(N_BOXES, device=dev, dtype=torch.float32)[:, None]
              )[None]
     return dict(
         K=K,
-        im_hw=torch.full((1, 2), S, dtype=torch.int32, device=dev),
+        im_hw=torch.full((1, 2), side, dtype=torch.int32, device=dev),
         im_scale_ratio=torch.ones(1, device=dev),
         oracle_boxes=boxes,
         oracle_classes=torch.zeros(1, N_BOXES, dtype=torch.int32, device=dev),
@@ -4164,9 +4191,11 @@ def state_bytes(state: dict) -> int:
 
 
 def loaded_exactly(module, tree: dict, what: str, keep=()) -> int:
-    """Every parameter of `module` equals its array of the converted tree
-    in the torch layout, bit for bit; returns the parameters compared."""
-    params = dict(module.named_parameters())
+    """Every parameter and buffer (the BatchNorms' statistics) of `module`
+    equals its array of the converted tree in the torch layout, bit for
+    bit; returns the tensors compared."""
+    params = {**dict(module.named_parameters()),
+              **dict(module.named_buffers())}
     arrays = flax_bridge.torch_arrays(module, tree, keep)
     bad = [name for name, arr in arrays.items() if not torch.equal(
         params[name].detach(), torch.from_numpy(
@@ -4482,6 +4511,272 @@ def release_phase() -> dict:
     return totals
 
 
+# The trunks phase: the detector trunks besides the flagship's DINOv2, each
+# at the shipped foundation configs' 1024^2 square pad and full width.
+TRUNKS_VIT = ("clip", "mae", "midas", "sam")
+TRUNKS_CNN = ("dla34", "resnet50", "densenet121", "mnasnet1_0",
+              "shufflenet_v2")
+TRUNK_SIDE, TRUNK_TIMED = 1024, 3
+# detectron2's FPN anchor sizes, one a level p2-p6.
+CNN_LEVELS = ("p2", "p3", "p4", "p5", "p6")
+CNN_ANCHORS = ((32.0,), (64.0,), (128.0,), (256.0,), (512.0,))
+TRUNK_DIR = Path(__file__).resolve().parent / "build" / "trunks_phase"
+CONFIGS = Path(__file__).resolve().parent / "configs"
+
+
+def trunk_config(name: str):
+    """The shipped config of a foundation ViT trunk
+    (configs/OVMono3D_<name>_SFP.yaml); for a CNN, the same Omni3D surface
+    (the CLIP config: 1024^2, 50 classes) with the trunk over p2-p6 and
+    detectron2's FPN anchors, as the JAX package's tests build it."""
+    if name in TRUNKS_VIT:
+        return load_config(CONFIGS / f"OVMono3D_{name}_SFP.yaml").model
+    m = load_config(CONFIGS / "OVMono3D_clip_SFP.yaml").model
+    return dataclasses.replace(
+        m, backbone=dataclasses.replace(m.backbone, name=name),
+        anchors=dataclasses.replace(m.anchors, sizes=CNN_ANCHORS),
+        rpn=dataclasses.replace(m.rpn, in_features=CNN_LEVELS),
+        roi_box=dataclasses.replace(m.roi_box, in_features=CNN_LEVELS))
+
+
+def trunk_release_state(name: str, seed: int) -> dict:
+    """The trunk's released layout at full width (utils/release_states.py):
+    open_clip ViT-B/16, HF ViTMAE base, MiDaS DPT_Large, segment-anything
+    vit_b, the DLA-34 model zoo, torchvision ResNet-50 / DenseNet-121 /
+    MNASNet 1.0 / ShuffleNetV2 x1.0."""
+    make = {"clip": release_states.clip_visual_state,
+            "mae": release_states.mae_state,
+            "midas": release_states.midas_state,
+            "sam": lambda seed: release_states.sam_state(
+                **SAM_ARCHS["vit_b"], seed=seed),
+            "dla34": lambda seed: release_states.dla_state(
+                **DLA_PRESETS["dla34"], seed=seed),
+            "resnet50": release_states.resnet_state,
+            "densenet121": release_states.densenet_state,
+            "mnasnet1_0": release_states.mnasnet_state,
+            "shufflenet_v2": release_states.shufflenet_state}[name]
+    return make(seed=seed)
+
+
+def set_trunk_attention(model, plain: bool) -> None:
+    """Every trunk block's attention through its plain version
+    (attention_ref, rel_pos_attention_ref) or back through the port's
+    dispatchers."""
+    for blk in model.backbone.vit.blocks():
+        if blk.attn.use_rel_pos:
+            blk.attn.attn_fn = (_relpos_plain if plain
+                                else attention.rel_pos_attention)
+        else:
+            blk.attn.attn_fn = ((lambda qkv: attention.attention_ref(
+                *qkv.unbind(2))) if plain else attention.dot_product_attention)
+
+
+def device_busy_ms(run, n: int) -> float:
+    """The device's busy time per call of `run` over n calls, from the
+    profiler's device events (no table printed)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / n
+    check(busy > 0, "the profiler saw device time")
+    return busy
+
+
+def trunk_kernel_rows(name: str, model, run) -> dict:
+    """Kernel 1 (kernel 7 for SAM) against its plain version on the first
+    and the last block's inputs of one request (run), each held to the
+    kernel phase's limits; at each shape the kernel's events and device
+    time, its plain version's time, the library call's (SDPA, with the
+    rel-pos bias built in the call for SAM) and the bound. Returns
+    {shape: row}."""
+    blocks = model.backbone.vit.blocks()
+    rows = {}
+    for i in (0, len(blocks) - 1):
+        with torch.inference_mode():
+            args = spied(blocks[i].attn, run)
+            q, k, v = args[0].unbind(2)
+            b, n, h, d = q.shape
+            if blocks[i].attn.use_rel_pos:
+                rh, rw, grid = args[1:]
+                qrh, qrw = attention.rel_pos_factors(q, rh, rw, grid)
+                kernel, match = (lambda: attention.rel_pos_flash_attention(
+                    q, k, v, qrh, qrw, grid)), relpos_probe.KERNEL
+                plain = lambda: attention.rel_pos_attention_ref(  # noqa: E731
+                    q, k, v, rh, rw, grid)
+                library = lambda: relpos_probe.sdpa_with_bias(  # noqa: E731
+                    q, k, v, qrh, qrw)
+                bound = relpos_probe.bound_ms(b, grid, h, d)
+                kind = "k7"
+            else:
+                kernel, match = (lambda: attention.flash_attention_packed(
+                    q, k, v)), fwd_probe.NEW_KERNEL
+                plain = lambda: attention.attention_ref(q, k, v)  # noqa: E731
+                library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    *sdpa_views(q, k, v))
+                bound = bound_ms(b, n, h, d, "fwd")
+                kind = "k1"
+            shape = (b, n, h, d)
+            err = check_close(f"trunks {kind} {name} block {i} {shape}",
+                              kernel(), plain(), absolute=True)
+            key = f"{kind} {shape}"
+            if key in rows:
+                rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], err)
+                continue
+            row = {"kind": kind, "shape": shape, "max_abs_err": err,
+                   "ms": time_ms(kernel), "device_ms": device_ms(kernel, match),
+                   "plain_ms": time_ms(plain, reps=5),
+                   "library_ms": time_ms(library), "bound_ms": bound[0],
+                   "bound_by": bound[1]}
+        rows[key] = row
+        say("trunks", f"{name} {kind} {shape}: kernel {row['ms']:.4f} ms "
+                      f"(device {row['device_ms']:.4f}), plain "
+                      f"{row['plain_ms']:.4f} ms, library "
+                      f"{row['library_ms']:.4f} ms, bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return rows
+
+
+def trunks_phase() -> dict:
+    """The CLIP, MAE, MiDaS and SAM ViT + SFP detectors and the DLA-34,
+    ResNet-50, DenseNet-121, MNASNet 1.0 and ShuffleNetV2 + FPN detectors at
+    full width and 1024^2: each built from its config and seed 0, its
+    released-layout trunk loaded through load_cnn_trunk (every parameter and
+    buffer equal to its converted array), bench.py's oracle request served
+    1 + 3 times (finite detections, the attention launches a request: one
+    kernel 1 or kernel 7 a block, none for a CNN), p50 and device ms a
+    request, the kernel path against the plain attention on one request
+    (the slice phase's limits), and the kernels against their plain
+    versions on the first and last blocks' inputs; then 2 train-CLI steps
+    of the frozen DLA-34 detector with --trunk-ckpt, after which every
+    trunk parameter and BatchNorm buffer still equals the file's. Returns
+    the paths' launches by kernel."""
+    t_phase = time.perf_counter()
+    card = card_name()
+    totals = {"fwd": 0, "relpos": 0}
+    inputs = bench_inputs(TRUNK_SIDE)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.rand(1 + TRUNK_TIMED, 1, TRUNK_SIDE, TRUNK_SIDE, 3,
+                        device="cuda", generator=g) * 255.0
+    kernel_rows = {}
+    for i, name in enumerate(TRUNKS_VIT + TRUNKS_CNN):
+        t0 = time.perf_counter()
+        model = build_model(trunk_config(name), device="cuda", seed=0).eval()
+        with torch.no_grad():
+            model.cube_head.pose.bias.copy_(torch.tensor(IDENTITY_6D))
+        state = trunk_release_state(name, seed=30 + i)
+        load_cnn_trunk(model, state, name)
+        attr, tree = convert_trunk(state, name)
+        n = loaded_exactly(getattr(model.backbone, attr), tree, f"{name} trunk")
+        del state, tree
+        build_s = time.perf_counter() - t0
+        vit = name in TRUNKS_VIT
+        n_blocks = len(model.backbone.vit.blocks()) if vit else 0
+        per = ({} if not vit else {"relpos": n_blocks} if name == "sam"
+               else {"flash_attention_packed": n_blocks})
+        with torch.inference_mode():
+            serve(model, images[:1], inputs)
+            reset_path_counts()
+            dets, lats = serve(model, images[1:], inputs)
+            counts = check_path_counts(
+                f"{name}: bench.py's request x {TRUNK_TIMED}",
+                {k: v * TRUNK_TIMED for k, v in per.items()}, "trunks")
+            totals["fwd"] += counts["flash_attention_packed"]
+            totals["relpos"] += counts["relpos"]
+            for det in dets:
+                check_detections(det)
+            busy = device_busy_ms(lambda: serve(model, images[1:2], inputs),
+                                  TRUNK_TIMED)
+        p50 = statistics.median(lats) * 1e3
+        say("trunks", f"{name}: {n} trunk tensors equal their converted "
+                      f"arrays; built and loaded in {build_s:.1f} s; p50 "
+                      f"{p50:.3f} ms, device {busy:.3f} ms a request "
+                      f"({1 - busy / p50:.1%} idle); launches a request: "
+                      + (", ".join(f"{k} {v}" for k, v in per.items())
+                         or "none (no attention kernel on a CNN path)")
+                      + f"; card {card}")
+        if vit:
+            with torch.inference_mode():
+                set_trunk_attention(model, plain=True)
+                plain, _ = serve(model, images[1:2], inputs)
+                set_trunk_attention(model, plain=False)
+            for field in ("center_cam", "dimensions", "corners3d"):
+                a, b = getattr(dets[0], field), getattr(plain[0], field)
+                dev, scale = (a - b).abs().max().item(), b.abs().max().item()
+                say("trunks", f"{name} kernel vs plain {field}: max |diff| "
+                              f"{dev:.3e} (scale {scale:.3e}, limit 2e-2 of "
+                              "it)")
+                check(dev <= 2e-2 * scale + 1e-4, f"{name} {field}: kernel "
+                      "vs plain within the slice phase's limit")
+            for key, row in trunk_kernel_rows(
+                    name, model, lambda: serve(model, images[1:2],
+                                               inputs)).items():
+                if key in kernel_rows:      # a shape two trunks share
+                    kept = kernel_rows[key]
+                    kept["max_abs_err"] = max(kept["max_abs_err"],
+                                              row["max_abs_err"])
+                    kept["trunks"].append(name)
+                else:
+                    kernel_rows[key] = {**row, "trunks": [name]}
+        del model, dets
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 2 train-CLI steps of the frozen DLA-34 detector, --trunk-ckpt ------
+    from ovmono3d_tpu_torch.train import cli as train_cli
+
+    shutil.rmtree(TRUNK_DIR, ignore_errors=True)
+    TRUNK_DIR.mkdir(parents=True)
+    state = trunk_release_state("dla34", seed=40)
+    path = TRUNK_DIR / "dla34.pth"
+    torch.save({k: torch.from_numpy(v) for k, v in state.items()}, path)
+    built = []
+    build = train_cli.build_model
+    train_cli.build_model = lambda *a, **k: built.append(build(*a, **k)) or \
+        built[-1]
+    try:
+        reset_path_counts()
+        t0 = time.perf_counter()
+        res = train_cli.main([
+            "--config-file", str(CONFIGS / "OVMono3D_clip_SFP.yaml"),
+            "--synthetic", "--batch-size", "2", "--max-iter", "2",
+            "--trunk-ckpt", str(path), "datasets.category_names=[]",
+            "model.backbone.name=dla34",
+            "model.rpn.in_features=[p2,p3,p4,p5,p6]",
+            "model.roi_box.in_features=[p2,p3,p4,p5,p6]",
+            "model.anchors.sizes=[[32],[64],[128],[256],[512]]",
+            "test.eval_period=0", f"output_dir={TRUNK_DIR / 'out'}"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        train_cli.build_model = build
+    check(res["step"] == 2, "the train CLI took its 2 steps")
+    check_path_counts("train.cli, DLA-34 frozen, 2 steps", {}, "trunks")
+    model = built[-1]
+    check(not any(p.requires_grad for p in model.backbone.dla.parameters()),
+          "the DLA-34 trunk is frozen")
+    n = loaded_exactly(model.backbone.dla, convert_trunk(state, "dla34")[1],
+                       "DLA-34 after 2 frozen train-CLI steps")
+    n_bufs = len(dict(model.backbone.dla.named_buffers()))
+    say("trunks", f"train.cli --trunk-ckpt, DLA-34 frozen: 2 steps in "
+                  f"{cli_s:.1f} s (the build and the file's load included); "
+                  f"all {n} trunk tensors, {n_bufs} BatchNorm buffers among "
+                  "them, equal the file's bit for bit")
+    del model, built, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRUNK_DIR, ignore_errors=True)
+    say("trunks", "kernel rows at the trunks' shapes: " + json.dumps(
+        list(kernel_rows.values())))
+    say("trunks", f"phase done in {time.perf_counter() - t_phase:.1f} s; "
+                  f"card {card}")
+    return totals
+
+
 def main() -> None:
     import argparse
 
@@ -4542,17 +4837,20 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     rel_launches = release_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    trunk_launches = trunks_phase()
     launches = {"fwd": launches + geo_launches["fwd"] + ov_launches["fwd"]
                 + q_launches["fwd"] + eval_launches + st_launches["fwd"]
                 + remat_launches["fwd"] + cli_launches["fwd"]
-                + rel_launches["fwd"],
+                + rel_launches["fwd"] + trunk_launches["fwd"],
                 "lse": train_launches["lse"] + remat_launches["lse"]
                 + cli_launches["lse"],
                 "bwd": train_launches["bwd"] + remat_launches["bwd"]
                 + cli_launches["bwd"],
                 "relpos": geo_launches["relpos"] + q_launches["relpos"]
                 + f32_launches["relpos"] + st_launches["relpos"]
-                + rel_launches["relpos"],
+                + rel_launches["relpos"] + trunk_launches["relpos"],
                 "window": ov_launches["window"] + st_launches["window"]
                 + rel_launches["window"],
                 "int8": q_launches["int8"], "quant": q_launches["quant"],

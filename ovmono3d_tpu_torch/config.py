@@ -19,7 +19,7 @@ from typing import Any
 
 @dataclass(frozen=True)
 class BackboneConfig:
-    name: str = "dinov2"            # only dinov2 is ported
+    name: str = "dinov2"            # models/backbones.py build_backbone
     model_name: str = "vitb14"
     patch_size: int = 14
     embed_dim: int = 768
@@ -28,7 +28,7 @@ class BackboneConfig:
     pretrain_grid: int = 37
     use_depth_fusion: bool = True
     layerscale: bool = True
-    freeze: bool = True             # requires_grad=False on the ViT trunk
+    freeze: bool = True             # requires_grad=False on the trunk
     remat: bool = False             # checkpoint the trunk's plain blocks
     remat_policy: str = "dots_attn"  # full | dots | dots_attn: what a
                                     # rematerialized block keeps for its

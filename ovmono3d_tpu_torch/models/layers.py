@@ -14,6 +14,8 @@ bridge flips the flax kernel into it (utils/flax_bridge.py). `conv_norm_pair`
 is the 1x1 conv -> LayerNorm -> 3x3 conv -> LayerNorm of SAM's neck and of
 every pyramid level. `LayerNorm` and `GroupNorm` are flax's with
 `dtype=float32`: f32 statistics and output whatever the input's dtype.
+`FrozenBatchNorm2d` is flax's `nn.BatchNorm(use_running_average=True)` over
+the CNN trunks' NCHW maps, the only way the JAX package runs its BatchNorms.
 """
 from __future__ import annotations
 
@@ -94,6 +96,39 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps)
 
 
+class FrozenBatchNorm2d(nn.Module):
+    """BatchNorm over [B, C, H, W] maps with its running statistics, in f32,
+    in training too: flax's nn.BatchNorm(use_running_average=True), which is
+    how every BatchNorm of the JAX package's CNN trunks runs (no caller
+    passes train=True). The affine `weight` (flax's scale) and `bias` are
+    parameters; `running_mean` and `running_var` (flax's batch_stats mean
+    and var) are buffers that `train()` neither switches to batch
+    statistics nor updates. y = (x - mean) * (rsqrt(var + eps) * weight) +
+    bias, flax's order of operations."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(num_features, device=device))
+        self.bias = nn.Parameter(torch.empty(num_features, device=device))
+        self.register_buffer("running_mean",
+                             torch.empty(num_features, device=device))
+        self.register_buffer("running_var",
+                             torch.empty(num_features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return ((x.float() - self.running_mean[:, None, None])
+                * mul[:, None, None] + self.bias[:, None, None])
+
+    def init_weights(self) -> None:
+        """flax's: scale 1, bias 0, mean 0, var 1."""
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        nn.init.zeros_(self.running_mean)
+        nn.init.ones_(self.running_var)
+
+
 class GroupNorm(nn.GroupNorm):
     """flax nn.GroupNorm over [B, H, W, C] maps, in f32. Written out: a
     group of one value (a 1x1 map) is normalized to the bias, as in flax,
@@ -122,15 +157,20 @@ def conv_norm_pair(x: torch.Tensor, conv1: nn.Conv2d, norm1: nn.LayerNorm,
 
 
 def init_flax_defaults(module: nn.Module, generator: torch.Generator) -> None:
-    """flax's default initializers over every Linear, conv, LayerNorm and
-    GroupNorm of `module`: lecun-normal kernels (fan-in over kh * kw * in),
-    zero biases, unit scales."""
+    """flax's default initializers over every Linear, conv, LayerNorm,
+    GroupNorm and FrozenBatchNorm2d of `module`: lecun-normal kernels
+    (fan-in over kh * kw * in / groups), zero biases, unit scales, and the
+    BatchNorms' mean 0 and var 1."""
     for mod in module.modules():
+        if isinstance(mod, FrozenBatchNorm2d):
+            mod.init_weights()
+            continue
         if isinstance(mod, nn.Linear):
             lecun_normal_(mod.weight, mod.in_features, generator)
         elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
             kh, kw = mod.kernel_size
-            lecun_normal_(mod.weight, mod.in_channels * kh * kw, generator)
+            lecun_normal_(mod.weight, mod.in_channels // mod.groups * kh * kw,
+                          generator)
         elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             nn.init.ones_(mod.weight)
         else:
@@ -143,14 +183,14 @@ def init_seeded(model: nn.Module, seed: int) -> nn.Module:
     """`model` (built on the meta device, with an `init_weights(generator)`)
     materialized on the CPU and filled from torch.Generator(seed), so a
     seed gives the same weights whatever device the model moves to. Raises
-    if a parameter is left unset."""
+    if a parameter or buffer (the BatchNorms' statistics) is left unset."""
     model = model.to_empty(device="cpu")
+    tensors = [*model.named_parameters(), *model.named_buffers()]
     with torch.no_grad():
-        for p in model.parameters():
-            p.fill_(float("nan"))
+        for _, t in tensors:
+            t.fill_(float("nan"))
         model.init_weights(torch.Generator().manual_seed(seed))
-        unset = [name for name, p in model.named_parameters()
-                 if torch.isnan(p).any()]
+        unset = [name for name, t in tensors if torch.isnan(t).any()]
     if unset:
         raise RuntimeError(f"parameters left uninitialized: {unset}")
     return model

@@ -811,14 +811,30 @@ class RCNN3D(nn.Module):
         return losses
 
 
+def freeze_trunk(model: RCNN3D, freeze: bool) -> None:
+    """The backbone's trunk (every backbone child but the sfp / fpn
+    pyramid; the JAX package's freeze mask over `backbone/*`) gets
+    requires_grad=not freeze; the pyramid and the heads stay trainable.
+    Unfrozen, the trunk's BatchNorm statistics (buffers) require grad too,
+    so the optimizer updates them with their gradients: the JAX train step
+    differentiates its whole variables tree, batch_stats included (ROADMAP
+    queue 3). Frozen, they are plain buffers no step changes."""
+    for name, child in model.backbone.named_children():
+        if name in ("sfp", "fpn"):
+            continue
+        child.requires_grad_(not freeze)
+        for buf in child.buffers():
+            buf.requires_grad_(not freeze)
+
+
 def build_model(cfg: ModelConfig, priors: dict | None = None, device=None,
                 seed: int = 0) -> RCNN3D:
     """Build the model with weights drawn from torch.Generator(seed), on
     `device`: CUDA unless the caller asks for another device ("cpu"), and
     an error when there is no card. On "meta" the model has shapes only (no
-    weights). With cfg.backbone.freeze the ViT trunk's parameters get
-    requires_grad=False (the SFP and the heads stay trainable, as the
-    reference freezes backbone.net).
+    weights). With cfg.backbone.freeze the trunk's parameters get
+    requires_grad=False (`freeze_trunk`: the SFP / FPN and the heads stay
+    trainable, as the reference freezes backbone.net).
 
     Parameters are made on the CPU, filled by the flax-style initializers
     from one generator (so a seed gives the same weights on every device),
@@ -830,8 +846,8 @@ def build_model(cfg: ModelConfig, priors: dict | None = None, device=None,
     disable_tf32(device)
     if device.type == "meta":
         model = RCNN3D(cfg, priors, device=device)
-        model.backbone.vit.requires_grad_(not cfg.backbone.freeze)
-        return model
-    model = init_seeded(RCNN3D(cfg, priors, device="meta"), seed)
-    model.backbone.vit.requires_grad_(not cfg.backbone.freeze)
-    return model.to(device)
+    else:
+        model = init_seeded(RCNN3D(cfg, priors, device="meta"),
+                            seed).to(device)
+    freeze_trunk(model, cfg.backbone.freeze)
+    return model

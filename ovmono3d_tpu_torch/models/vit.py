@@ -1,5 +1,5 @@
-"""Vision Transformer trunks in PyTorch: DINOv2 (the detector's), SAM's
-image encoder and Depth-Pro's encoders.
+"""Vision Transformer trunks in PyTorch: the detector trunks (DINOv2, CLIP,
+MAE, MiDaS, SAM), SAM's image encoder and Depth-Pro's encoders.
 
 Counterpart of ovmono3d_tpu/models/vit.py: f32 parameters, activations and
 products in the compute dtype (bf16 by default), LayerNorm statistics in
@@ -8,6 +8,10 @@ f32. Options ported:
 - DINOv2 (the defaults): cls token, the learned position table bicubically
   resized to the runtime grid with DINOv2's +0.1 offset, LayerScale, the
   depth-fusion 1x1 conv after the last block;
+- the other trunks' options: the size-based bicubic resize of the table
+  (`pos_interp_offset=0`, CLIP, SAM and MiDaS), CLIP's `pre_ln` (its ln_pre,
+  eps 1e-5) and `quick_gelu` MLPs, MAE's fixed 2D sin-cos table rebuilt at
+  the runtime grid (`pos_sincos`, no learned table), and `norm_eps`;
 - SAM's image encoder: no cls token (`use_cls_token=False`), windowed
   blocks (`window_size`, with global attention in `global_blocks`),
   decomposed relative-position attention (`use_rel_pos`) and the
@@ -44,12 +48,8 @@ runs no attention forward again. Windowed and rel-pos blocks are not
 wrapped, as in the JAX package.
 
 Submodules carry the JAX package's parameter names (`block0.attn.qkv`,
-`block0.attn.rel_pos_h`, `neck_conv1`, `norm`, ...) so utils/flax_bridge.py
-maps the two trees mechanically. Options still to port raise
-NotImplementedError naming their ROADMAP item (queue 1 item 9): the CLIP
-and MAE trunks' `pre_ln` and `pos_sincos`, and the size-based
-position-table resize of the non-DINOv2 trunks (a grid other than the
-pretraining grid; SAM at 1024^2 and Depth-Pro at 384^2 need none).
+`block0.attn.rel_pos_h`, `neck_conv1`, `ln_pre`, `norm`, ...) so
+utils/flax_bridge.py maps the two trees mechanically.
 """
 from __future__ import annotations
 
@@ -175,20 +175,29 @@ GELUS = {"erf": "none", "tanh": "tanh"}   # gelu option -> F.gelu approximate
 class Mlp(nn.Module):
     """fc1 -> GELU -> fc2. `gelu` is "erf" (exact, the released models' op)
     or "tanh" (the approximate form, jax.nn.gelu(approximate=True): the JAX
-    package's opt-in serving epilogue, not bit-identical). `quant` is the
-    products' int8 serving option (ops/quant.py)."""
+    package's opt-in serving epilogue, not bit-identical). `quick_gelu`
+    (OpenAI CLIP's towers) replaces either with x * sigmoid(1.702 x) on
+    fc1's output, with int8 products too. `quant` is the products' int8
+    serving option (ops/quant.py)."""
 
     def __init__(self, dim: int, hidden_dim: int, dtype=torch.bfloat16,
-                 device=None, quant: str = "none", gelu: str = "erf"):
+                 device=None, quant: str = "none", gelu: str = "erf",
+                 quick_gelu: bool = False):
         super().__init__()
         if gelu not in GELUS:
             raise ValueError(f"gelu={gelu!r}; the port takes {tuple(GELUS)}")
         self.approximate = GELUS[gelu]
+        self.quick_gelu = quick_gelu
         self.fc1 = QDense(dim, hidden_dim, dtype, device=device, quant=quant)
         self.fc2 = QDense(hidden_dim, dim, dtype, device=device, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        h = self.fc1(x)
+        if self.quick_gelu:
+            h = h * torch.sigmoid(1.702 * h)
+        else:
+            h = F.gelu(h, approximate=self.approximate)
+        return self.fc2(h)
 
 
 def _resize_rel_pos(rel_pos: torch.Tensor, size: int) -> torch.Tensor:
@@ -269,14 +278,16 @@ class Block(nn.Module):
                  layerscale: bool = True, dtype=torch.bfloat16,
                  norm_eps: float = 1e-6, device=None,
                  use_rel_pos: bool = False, rel_pos_size: int = 0,
-                 window: int = 0, quant: str = "none", gelu: str = "erf"):
+                 window: int = 0, quant: str = "none", gelu: str = "erf",
+                 quick_gelu: bool = False):
         super().__init__()
         self.window = window
         self.norm1 = LayerNormBf16Out(dim, norm_eps, dtype, device)
         self.attn = Attention(dim, num_heads, dtype, device, use_rel_pos,
                               rel_pos_size, quant)
         self.norm2 = LayerNormBf16Out(dim, norm_eps, dtype, device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, device, quant, gelu)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, device, quant, gelu,
+                       quick_gelu)
         if layerscale:
             self.ls1 = LayerScale(dim, dtype=dtype, device=device)
             self.ls2 = LayerScale(dim, dtype=dtype, device=device)
@@ -308,47 +319,65 @@ class Block(nn.Module):
         return g[:, :H, :W].reshape(B, N, C)
 
 
-def _bicubic_matrix(src: int, dst: int, device) -> torch.Tensor:
+def _bicubic_matrix(src: int, dst: int, device,
+                    offset: float = DINOV2_POS_OFFSET) -> torch.Tensor:
     """[dst, src] matrix of torch's 1-D bicubic resize (align_corners=False,
-    border taps clamped) with DINOv2's mapping, scale_factor =
-    (dst + DINOV2_POS_OFFSET) / src: F.interpolate applied to the src basis
-    vectors, so the weights are torch's own."""
+    border taps clamped): F.interpolate applied to the src basis vectors, so
+    the weights are torch's own. With an `offset` it is DINOv2's mapping,
+    scale_factor = (dst + offset) / src; with 0 the size-based one
+    (F.interpolate(size=...), source position (i + 0.5) * src / dst - 0.5)
+    of the CLIP, SAM and MiDaS resize helpers."""
     basis = torch.eye(src, device=device).reshape(1, src, src, 1)
-    out = F.interpolate(basis,
-                        scale_factor=((dst + DINOV2_POS_OFFSET) / src, 1.0),
-                        mode="bicubic", align_corners=False)
+    how = (dict(scale_factor=((dst + offset) / src, 1.0)) if offset
+           else dict(size=(dst, 1)))
+    out = F.interpolate(basis, mode="bicubic", align_corners=False, **how)
     if out.shape[2] != dst:
         raise ValueError(f"bicubic resize gave {out.shape[2]} rows, not {dst}")
     return out[0, :, :, 0].T
+
+
+def sincos_pos_embed_2d(dim: int, grid_hw: tuple[int, int],
+                        device=None) -> torch.Tensor:
+    """MAE's fixed 2D sin-cos position table at the (h, w) grid, [h*w, dim]
+    f32, row-major (transformers vit_mae get_2d_sincos_pos_embed as the
+    reference rebuilds it, mae.py:152-179): the FIRST half of the channels
+    encodes the column, each half [sin, cos] of pos * 10000^(-k / (dim/4))."""
+    h, w = grid_hw
+    quarter = dim // 4
+    omega = 1.0 / 10000 ** (torch.arange(quarter, dtype=torch.float32,
+                                         device=device) / quarter)
+
+    def one_d(pos: torch.Tensor) -> torch.Tensor:
+        x = pos[:, None] * omega[None]
+        return torch.cat([torch.sin(x), torch.cos(x)], dim=-1)
+
+    cols = torch.arange(w, dtype=torch.float32, device=device).repeat(h)
+    rows = torch.arange(h, dtype=torch.float32,
+                        device=device).repeat_interleave(w)
+    return torch.cat([one_d(cols), one_d(rows)], dim=-1)
 
 
 def resize_pos_embed(pos_embed: torch.Tensor, grid_hw: tuple[int, int],
                      interpolate_offset: float = DINOV2_POS_OFFSET
                      ) -> torch.Tensor:
     """Bicubic-resize a [1, 1 + G*G, C] table (cls first) to the (h, w) grid
-    as DINOv2's interpolate_pos_encoding does: F.interpolate(mode="bicubic",
-    align_corners=False, scale_factor=((h + 0.1) / G, (w + 0.1) / G)).
+    as torch's F.interpolate(mode="bicubic", align_corners=False) does:
+    with DINOv2's interpolate_pos_encoding mapping, scale_factor =
+    ((h + 0.1) / G, (w + 0.1) / G), or with `interpolate_offset` 0 the
+    size-based mapping of the other trunks (size=(h, w)).
 
     Bicubic resizing is separable, so it runs as two f32 products with the
     per-axis matrices: on an H100, F.interpolate on the 768-channel table
     itself took 4.6 ms per call, more than the attention of all 12 ViT-B
-    blocks at 896^2. The other trunks' size-based mapping
-    (`interpolate_offset` 0) is not ported: at a grid other than the
-    pretraining grid it raises (ROADMAP queue 1 item 9). Returns
-    [1, 1 + h*w, C].
+    blocks at 896^2. Returns [1, 1 + h*w, C].
     """
     cls_pe, patch_pe = pos_embed[:, :1], pos_embed[:, 1:]
     g = int(round(math.sqrt(patch_pe.shape[1])))
     c = patch_pe.shape[-1]
     h, w = grid_hw
     if (g, g) != (h, w):
-        if interpolate_offset != DINOV2_POS_OFFSET:
-            raise NotImplementedError(
-                f"position table of grid {g} at grid {grid_hw} with the "
-                "size-based mapping (CLIP/MAE/SAM/MiDaS): ROADMAP queue 1 "
-                "item 9")
-        wy = _bicubic_matrix(g, h, pos_embed.device)
-        wx = _bicubic_matrix(g, w, pos_embed.device)
+        wy = _bicubic_matrix(g, h, pos_embed.device, interpolate_offset)
+        wx = _bicubic_matrix(g, w, pos_embed.device, interpolate_offset)
         x = torch.einsum("hg,gkc->hkc", wy, patch_pe.reshape(g, g, c))
         x = torch.einsum("wk,hkc->hwc", wx, x)
         patch_pe = x.reshape(1, h * w, c)
@@ -359,6 +388,9 @@ class VisionTransformer(nn.Module):
     """ViT trunk: NHWC image -> {'last_feat': [B, h, w, C'] f32,
     'cls': [B, C] f32, 'feat{i}': [B, h, w, C] for i in out_layers}.
     Defaults are DINOv2 ViT-B/14; C' is neck_channels when there is a neck.
+    `pos_interp_offset` is DINOv2's +0.1 by default (the JAX module's is 0:
+    its callers pass the preset's); `pre_ln`, `quick_gelu`, `pos_sincos`
+    and `norm_eps` are the CLIP and MAE presets' options.
     """
 
     def __init__(self, patch_size: int = 14, embed_dim: int = 768,
@@ -371,16 +403,10 @@ class VisionTransformer(nn.Module):
                  use_rel_pos: bool = False, neck_channels: int = 0,
                  out_layers=(), final_norm: bool = False,
                  pre_ln: bool = False, pos_sincos: bool = False,
+                 quick_gelu: bool = False,
                  remat: bool = False, remat_policy: str = "dots_attn",
                  quant: str = "none", gelu: str = "erf"):
         super().__init__()
-        unported = [
-            (pre_ln, "pre_ln (CLIP trunk): ROADMAP queue 1 item 9"),
-            (pos_sincos, "pos_sincos (MAE trunk): ROADMAP queue 1 item 9"),
-        ]
-        for asked, what in unported:
-            if asked:
-                raise NotImplementedError(what)
         self.remat = remat
         self.remat_context = remat_context(remat_policy)
         self.patch_size = patch_size
@@ -390,8 +416,11 @@ class VisionTransformer(nn.Module):
         self.n_prefix = 1 if use_cls_token else 0
         self.out_layers = tuple(out_layers)
         self.patch_embed = PatchEmbed(patch_size, embed_dim, 3, dtype, device)
-        self.pos_embed = nn.Parameter(torch.empty(
-            1, self.n_prefix + pretrain_grid**2, embed_dim, device=device))
+        self.pos_sincos = pos_sincos
+        self.pos_embed = (None if pos_sincos else nn.Parameter(torch.empty(
+            1, self.n_prefix + pretrain_grid**2, embed_dim, device=device)))
+        self.ln_pre = (nn.LayerNorm(embed_dim, eps=1e-5, device=device)
+                       if pre_ln else None)
         self.cls_token = (nn.Parameter(
             torch.empty(1, 1, embed_dim, device=device))
             if use_cls_token else None)
@@ -403,7 +432,7 @@ class VisionTransformer(nn.Module):
                 device, use_rel_pos=use_rel_pos,
                 rel_pos_size=window_size if windowed else pretrain_grid,
                 window=window_size if windowed else 0, quant=quant,
-                gelu=gelu))
+                gelu=gelu, quick_gelu=quick_gelu))
         self.depth_fusion = (
             nn.Conv2d(embed_dim + 1, embed_dim, 1, device=device)
             if use_depth_fusion else None)
@@ -433,13 +462,10 @@ class VisionTransformer(nn.Module):
         if self.cls_token is not None:
             cls = self.cls_token.expand(B, 1, self.embed_dim).to(x.dtype)
             x = torch.cat([cls, x], dim=1)
-            pe = resize_pos_embed(self.pos_embed, (h, w),
-                                  self.pos_interp_offset)
-        else:
-            zero = self.pos_embed.new_zeros(1, 1, self.embed_dim)
-            pe = resize_pos_embed(torch.cat([zero, self.pos_embed], dim=1),
-                                  (h, w), self.pos_interp_offset)[:, 1:]
-        x = x + pe.to(x.dtype)
+        x = x + self._pos_table(h, w).to(x.dtype)
+        if self.ln_pre is not None:
+            # CLIP's ln_pre: f32 statistics, back to the compute dtype.
+            x = self.ln_pre(x.float()).to(self.dtype)
         extra = {}
         for i, blk in enumerate(self.blocks()):
             if blk.window > 0 and p:
@@ -466,6 +492,22 @@ class VisionTransformer(nn.Module):
         cls = x[:, 0] if p else x.mean(dim=1)
         return {"last_feat": feat.float(), "cls": cls.float(), **extra}
 
+    def _pos_table(self, h: int, w: int) -> torch.Tensor:
+        """[1, n_prefix + h*w, C] f32: MAE's sin-cos table built at the grid
+        (zero for the cls slot), or the learned table resized to it (a
+        table without a cls row gets a zero one for the resize, as
+        the JAX module does)."""
+        if self.pos_sincos:
+            pe = sincos_pos_embed_2d(self.embed_dim, (h, w),
+                                     self.patch_embed.weight.device)[None]
+            return F.pad(pe, (0, 0, self.n_prefix, 0))
+        if self.n_prefix:
+            return resize_pos_embed(self.pos_embed, (h, w),
+                                    self.pos_interp_offset)
+        zero = self.pos_embed.new_zeros(1, 1, self.embed_dim)
+        return resize_pos_embed(torch.cat([zero, self.pos_embed], dim=1),
+                                (h, w), self.pos_interp_offset)[:, 1:]
+
     def _fuse_depth(self, x, prompt_depth, B, h, w):
         """Depth-prompt fusion after the last block (reference
         dino.py:91-105): a 1x1 conv over [patch tokens, depth]. Without a
@@ -489,7 +531,8 @@ class VisionTransformer(nn.Module):
         position table, zero cls token and rel-pos tables, LayerScale 1e-5,
         unit LayerNorms."""
         self.patch_embed.init_weights(generator)
-        nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=generator)
+        if self.pos_embed is not None:
+            nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=generator)
         if self.cls_token is not None:
             nn.init.zeros_(self.cls_token)
         for blk in self.blocks():
@@ -507,7 +550,7 @@ class VisionTransformer(nn.Module):
             lecun_normal_(self.depth_fusion.weight, self.embed_dim + 1,
                           generator)
             nn.init.zeros_(self.depth_fusion.bias)
-        norms = [self.norm]
+        norms = [self.norm, self.ln_pre]
         if self.neck_channels > 0:
             for conv in (self.neck_conv1, self.neck_conv2):
                 lecun_normal_(conv.weight, conv.weight[0].numel(), generator)

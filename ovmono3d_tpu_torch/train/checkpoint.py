@@ -1,8 +1,10 @@
 """One rolling checkpoint and a final one (counterpart of
 ovmono3d_tpu/train/checkpoint.py; the reference's
 PeriodicCheckpointerOnlyOne): `model_recent.pt`, overwritten every period,
-and `model_final.pt` at the end, each holding the whole TrainState (model,
-optimizer buffers and count, step, loss_ema, skipped, sampling generator).
+and `model_final.pt` at the end, each holding the whole TrainState (the
+model's parameters and buffers, a CNN trunk's BatchNorm statistics among
+them; optimizer buffers and count, step, loss_ema, skipped, sampling
+generator).
 The recovery target of the training loop's restart. In a data-parallel run
 every process reads the checkpoints and one writes them (`writer`); each
 process draws its own sampling uniforms, so every process's generator is

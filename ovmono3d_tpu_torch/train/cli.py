@@ -14,9 +14,11 @@ model from `seed` (the trunk frozen when `model.backbone.freeze`), the
 optimizer (accumulating `solver.grad_accum_steps` micro-steps an update)
 and the weighted train iterator, and runs the loop with its stabilisation
 restarts (train/loop.py; a restart rebuilds the iterator with seed + 1000
-x attempt). `--trunk-ckpt` loads a torch.hub DINOv2 checkpoint into the
-trunk after the seeded build (the depth-fusion conv keeps its init;
-`utils/cnn_convert.py`); the other trunks are ROADMAP queue 1 item 9.
+x attempt). `--trunk-ckpt` loads the trunk's released torch checkpoint
+after the seeded build, for every backbone (`utils/cnn_convert.py`
+`load_cnn_trunk`: a torch.hub DINOv2, open_clip, HF ViTMAE, MiDaS
+DPT_Large or segment-anything trunk, or a DLA model-zoo / torchvision CNN
+with its BatchNorm statistics; dinov2's depth-fusion conv keeps its init).
 Batches are uploaded from page-locked memory without making the host
 wait. Hooks: metrics.jsonl and the console line, TensorBoard events
 under tb/ (`--tensorboard`, on by default), the training panels every
@@ -99,9 +101,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--tensorboard", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--trunk-ckpt", default=None,
-                    help="a foundation trunk's torch checkpoint (torch.hub "
-                         "DINOv2 for model.backbone.name=dinov2) loaded "
-                         "into the trunk before training")
+                    help="the trunk's released torch checkpoint for "
+                         "model.backbone.name (torch.hub DINOv2, open_clip, "
+                         "HF ViTMAE, MiDaS, segment-anything, a DLA model-zoo "
+                         "or torchvision CNN) loaded before training")
     ap.add_argument("--profile", action="store_true",
                     help="torch.profiler trace of steps 11-15")
     ap.add_argument("--device", default=None,

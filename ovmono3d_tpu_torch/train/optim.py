@@ -16,6 +16,12 @@ Groups (detectron2 / reference solver/build.py:20-46): "norm" parameters
 contains a norm keyword) take weight_decay_norm; other biases take
 weight_decay_bias (default: weight_decay) and base_lr * bias_lr_factor;
 the rest take weight_decay. LayerScale `gamma` is not a norm parameter.
+
+What trains: every parameter with requires_grad, and every buffer with it
+(`trainable`): an unfrozen CNN trunk's BatchNorm statistics, which the JAX
+train step differentiates and updates like parameters (its whole variables
+tree is the optimizer's; models/rcnn3d.py `freeze_trunk`). They fall in the
+"norm" group.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 from torch import nn
 
 from ovmono3d_tpu_torch.config import SolverConfig
+from ovmono3d_tpu_torch.models.layers import FrozenBatchNorm2d
 from ovmono3d_tpu_torch.models.vit import LayerNormBf16Out
 
 NORM_KEYWORDS = ("norm", "layernorm", "ln", "bn")
@@ -60,14 +67,25 @@ def _is_norm_or_bias(name: str, module: nn.Module) -> tuple[bool, bool]:
     is_bias = keys[-1] == "bias"
     is_norm = any(kw in k for k in keys[:-1] for kw in NORM_KEYWORDS) or (
         keys[-1] == "weight"
-        and isinstance(module, (nn.LayerNorm, LayerNormBf16Out)))
+        and isinstance(module, (nn.LayerNorm, LayerNormBf16Out,
+                                FrozenBatchNorm2d)))
     return is_norm, is_bias
 
 
+def trainable(model: nn.Module) -> list[tuple[str, torch.Tensor]]:
+    """(name, tensor) of what an update changes: the parameters, then the
+    buffers, that require grad."""
+    return [(n, t) for n, t in (*model.named_parameters(),
+                                *model.named_buffers()) if t.requires_grad]
+
+
 def param_group_labels(model: nn.Module) -> dict[str, str]:
-    """{parameter name: "default" | "bias" | "norm"}."""
+    """{parameter name: "default" | "bias" | "norm"}, and the same for the
+    trainable buffers."""
     labels = {}
-    for name, _ in model.named_parameters():
+    names = [n for n, _ in model.named_parameters()]
+    names += [n for n, b in model.named_buffers() if b.requires_grad]
+    for name in names:
         mod = model.get_submodule(name.rpartition(".")[0])
         is_norm, is_bias = _is_norm_or_bias(name, mod)
         labels[name] = "norm" if is_norm else "bias" if is_bias else "default"
@@ -98,7 +116,7 @@ def clip_gradients(grads: list[torch.Tensor],
 
 class Optimizer:
     """sgd | adam | adamw | adam+amsgrad | adamw+amsgrad over the trainable
-    (requires_grad) parameters of `model`, with the parameter groups, the
+    (requires_grad) parameters and buffers of `model`, with the groups, the
     schedule and optional global-norm clipping of `cfg`.
 
     Adam variants use coupled L2 decay (added to the gradient before the
@@ -118,9 +136,8 @@ class Optimizer:
         self.eps = cfg.adam_eps
         self.clip = cfg.clip_gradients
         labels = param_group_labels(model)
-        self.names = [n for n, p in model.named_parameters() if p.requires_grad]
-        params = dict(model.named_parameters())
-        self.params = [params[n] for n in self.names]
+        self.names = [n for n, _ in trainable(model)]
+        self.params = [t for _, t in trainable(model)]
         devices = {p.device for p in self.params}
         if len(devices) != 1:
             raise ValueError(f"trainable parameters on {devices}; expected "

@@ -6,12 +6,16 @@ The port names its submodules after the flax module names, so a flax leaf
 the layout:
 
   Dense kernel [in, out]                 -> Linear weight [out, in]
-  Conv / PatchEmbed kernel HWIO          -> weight OIHW
+  Conv / PatchEmbed kernel HWIO          -> weight OIHW (a grouped
+                                            conv's I is in / groups on both
+                                            sides)
   ConvTranspose kernel HWIO              -> weight IOHW, spatially flipped
                                             (flax applies it mirrored: the
                                             SFP's, SAM's up1/up2 and every
                                             Depth-Pro deconv)
-  LayerNorm / GroupNorm scale            -> weight
+  LayerNorm / GroupNorm / BatchNorm scale -> weight
+  batch_stats mean / var                 -> the FrozenBatchNorm2d's buffers
+                                            running_mean / running_var
   Embed embedding [num, features]        -> Embedding weight, unchanged
   any other leaf                         -> the parameter of the same name,
                                             unchanged (bias, pos_embed,
@@ -23,9 +27,11 @@ the layout:
                                             tgt_embed, gamma_v/gamma_l and
                                             the Swin rel_pos_bias tables)
 
-The mapping is strict: a flax leaf with no torch parameter, a torch parameter
-no leaf fills, or a shape that disagrees raises. A partial load names the
-torch parameters the tree may leave as they are in `keep` (the trunk
+A tree is a params dict, or a variables dict of 'params' and, for the CNN
+trunks, 'batch_stats' (their BatchNorms' running statistics). The mapping is
+strict: a flax leaf with no torch parameter (or buffer), a torch parameter or
+buffer no leaf fills, or a shape that disagrees raises. A partial load names
+the torch tensors the tree may leave as they are in `keep` (the trunk
 checkpoints of `--trunk-ckpt` hold no depth-fusion conv: utils/cnn_convert.py
 keeps the model's own); a name in `keep` that is no parameter raises too. A
 port RCNN3D holds the trunk, the pyramid, the RPN, box and cube heads, so it
@@ -45,10 +51,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from ovmono3d_tpu_torch.models.layers import FrozenBatchNorm2d
 from ovmono3d_tpu_torch.models.vit import PatchEmbed
 
 _HWIO_TO_OIHW = (3, 2, 0, 1)
 _HWIO_TO_IOHW = (2, 3, 0, 1)
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, Any]:
@@ -62,8 +70,24 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, Any]:
     return out
 
 
-def _rule(mod: nn.Module, leaf: str) -> tuple[str, tuple | None, bool]:
-    """(torch parameter name, axes permutation or None, flip H/W first)."""
+def _leaves(tree: Mapping) -> dict[str, Any]:
+    """{flax path: leaf} of a params tree or of a variables dict ('params',
+    and 'batch_stats' whose paths keep that prefix)."""
+    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+        out = _flatten(tree["params"])
+        out.update(_flatten(tree.get("batch_stats", {}), "batch_stats"))
+        return out
+    return _flatten(tree)
+
+
+def _rule(mod: nn.Module, leaf: str, stats: bool = False
+          ) -> tuple[str, tuple | None, bool]:
+    """(torch tensor name, axes permutation or None, flip H/W first)."""
+    if stats:
+        if not isinstance(mod, FrozenBatchNorm2d) or leaf not in _STATS:
+            raise KeyError(f"batch_stats leaf {leaf!r} of a "
+                           f"{type(mod).__name__}")
+        return _STATS[leaf], None, False
     if leaf == "kernel":
         if isinstance(mod, nn.ConvTranspose2d):
             return "weight", _HWIO_TO_IOHW, True
@@ -79,26 +103,29 @@ def _rule(mod: nn.Module, leaf: str) -> tuple[str, tuple | None, bool]:
 
 def plan(model: nn.Module, tree: Mapping,
          keep: Iterable[str] = ()) -> dict[str, tuple]:
-    """Map every flax leaf onto one torch parameter, checking shapes.
+    """Map every flax leaf onto one torch parameter or buffer, checking
+    shapes.
 
-    `tree` is the params dict (or the variables dict holding 'params') with
-    array-like leaves: numpy arrays, or anything with `.shape`, such as the
-    output of jax.eval_shape. Every torch parameter must be filled, but those
-    named in `keep`. Returns {flax_path: (torch_name, perm, flip)}.
+    `tree` is the params dict (or the variables dict holding 'params' and
+    maybe 'batch_stats') with array-like leaves: numpy arrays, or anything
+    with `.shape`, such as the output of jax.eval_shape. Every torch
+    parameter and buffer must be filled, but those named in `keep`. Returns
+    {flax_path: (torch_name, perm, flip)}; batch_stats paths keep their
+    'batch_stats/' prefix.
     """
-    if set(tree) == {"params"}:
-        tree = tree["params"]
     modules = dict(model.named_modules())
-    params = dict(model.named_parameters())
+    params = {**dict(model.named_parameters()),
+              **dict(model.named_buffers())}
     out: dict[str, tuple] = {}
     taken: dict[str, str] = {}
-    for path, leaf_val in _flatten(tree).items():
-        *mod_path, leaf = path.split("/")
+    for path, leaf_val in _leaves(tree).items():
+        stats = path.startswith("batch_stats/")
+        *mod_path, leaf = path.split("/")[1 if stats else 0:]
         mod_name = ".".join(mod_path)
         mod = modules.get(mod_name)
         if mod is None:
             raise KeyError(f"flax leaf {path}: no torch module {mod_name!r}")
-        tname, perm, flip = _rule(mod, leaf)
+        tname, perm, flip = _rule(mod, leaf, stats)
         full = f"{mod_name}.{tname}" if mod_name else tname
         if full not in params:
             raise KeyError(f"flax leaf {path}: no torch parameter {full!r}")
@@ -124,11 +151,10 @@ def plan(model: nn.Module, tree: Mapping,
 
 def torch_arrays(model: nn.Module, tree: Mapping,
                  keep: Iterable[str] = ()) -> dict[str, np.ndarray]:
-    """{torch parameter name: its leaf of `tree` in the torch layout, f32}:
-    what `load_flax_params` copies (views where the layout allows)."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
-    leaves = _flatten(tree)
+    """{torch parameter or buffer name: its leaf of `tree` in the torch
+    layout, f32}: what `load_flax_params` copies (views where the layout
+    allows)."""
+    leaves = _leaves(tree)
     out = {}
     for path, (full, perm, flip) in plan(model, tree, keep).items():
         arr = np.asarray(leaves[path], dtype=np.float32)
@@ -148,9 +174,10 @@ def load_flax_params(model: nn.Module, tree: Mapping,
     the caches keyed on it (QDense's int8 weight and kernel 10's tensor map,
     Swin's expanded bias, `OVMono3DLift.replicas`) are rebuilt. A parameter
     made in inference mode has no version; copying into it raises rather
-    than leave a stale cache. `keep`: parameters the tree may leave
-    unset."""
-    params = dict(model.named_parameters())
+    than leave a stale cache. A 'batch_stats' tree fills the BatchNorms'
+    buffers. `keep`: parameters the tree may leave unset."""
+    params = {**dict(model.named_parameters()),
+              **dict(model.named_buffers())}
     arrays = torch_arrays(model, tree, keep)
     with torch.inference_mode(False), torch.no_grad():
         for name, arr in arrays.items():

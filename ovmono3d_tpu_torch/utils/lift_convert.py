@@ -16,6 +16,14 @@ module:
 Layout rules per checkpoint_convert (Linear transpose, Conv OIHW->HWIO,
 ConvTranspose IOHW->HWIO); detectron2 Conv2d `.norm` submodules are
 LayerNorms over channels.
+
+One departure from the JAX converter: the box head's and the cube head's
+first fc layer. detectron2 pools [N, C, R, R] and flattens it in (C, H, W)
+order, so the released fc1 weight's input columns run in that order; the
+heads here flatten the pooled [N, R, R, C] grid in (H, W, C) order. The JAX
+converter only transposes fc1, so its heads read a released file's features
+in the wrong order; here fc1's input rows are permuted from (C, H, W) to
+(H, W, C) (`_fc1`), which makes the heads compute detectron2's function.
 """
 from __future__ import annotations
 
@@ -39,6 +47,22 @@ def _linear(state, prefix):
         "kernel": _t(state[prefix + ".weight"]),
         "bias": np.asarray(state[prefix + ".bias"]),
     }
+
+
+def _fc1(state, prefix, resolution):
+    """A head's first fc layer, its input rows permuted from detectron2's
+    (C, H, W) flattening to the (H, W, C) order of the pooled NHWC grid."""
+    out = _linear(state, prefix)
+    k = out["kernel"]
+    rr = resolution * resolution
+    if k.ndim != 2 or k.shape[0] % rr:
+        raise ValueError(f"{prefix}.weight: {k.shape[::-1]} is not "
+                         f"[out, C * {resolution} * {resolution}]")
+    c = k.shape[0] // rr
+    out["kernel"] = np.ascontiguousarray(
+        k.reshape(c, resolution, resolution, -1).transpose(1, 2, 0, 3)
+        .reshape(k.shape))
+    return out
 
 
 def _conv2d(state, prefix):
@@ -111,9 +135,11 @@ def convert_rpn_head(state, prefix="proposal_generator.rpn_head.") -> dict:
     }
 
 
-def convert_box_head(state) -> dict:
+def convert_box_head(state, resolution: int = 7) -> dict:
+    """detectron2's FastRCNNConvFCHead and predictors -> box_head;
+    `resolution` is the pooler's (fc1's input is C * resolution^2)."""
     return {
-        "fc1": _linear(state, "roi_heads.box_head.fc1"),
+        "fc1": _fc1(state, "roi_heads.box_head.fc1", resolution),
         "fc2": _linear(state, "roi_heads.box_head.fc2"),
         "cls_score": _linear(state, "roi_heads.box_predictor.cls_score"),
         "bbox_pred": _linear(state, "roi_heads.box_predictor.bbox_pred"),
@@ -121,13 +147,18 @@ def convert_box_head(state) -> dict:
 
 
 def convert_cube_head(state, shared_fc=True, num_fc=2,
-                      prefix="roi_heads.cube_head.") -> dict:
+                      prefix="roi_heads.cube_head.",
+                      resolution: int = 7) -> dict:
+    """The cube head's fc stacks and outputs -> cube_head; `resolution` is
+    its pooler's."""
+    def fc(key, j):
+        return (_fc1(state, key, resolution) if j == 1
+                else _linear(state, key))
+
     out: dict = {}
     if shared_fc:
         for j in range(1, num_fc + 1):
-            out[f"shared_fc{j}"] = _linear(
-                state, f"{prefix}feature_generator.fc{j}"
-            )
+            out[f"shared_fc{j}"] = fc(f"{prefix}feature_generator.fc{j}", j)
     else:
         names = {
             "xy": "XY", "dims": "dims", "pose": "pose", "z": "Z",
@@ -137,7 +168,7 @@ def convert_cube_head(state, shared_fc=True, num_fc=2,
             for j in range(1, num_fc + 1):
                 key = f"{prefix}feature_generator_{theirs}.fc{j}"
                 if key + ".weight" in state:
-                    out[f"{ours}_fc{j}"] = _linear(state, key)
+                    out[f"{ours}_fc{j}"] = fc(key, j)
     out["center_deltas"] = _linear(state, prefix + "bbox_3D_center_deltas")
     out["dims"] = _linear(state, prefix + "bbox_3D_dims")
     out["pose"] = _linear(state, prefix + "bbox_3D_pose")
@@ -172,8 +203,11 @@ def convert_ovmono3d_lift(
     scale_factors=(2.0, 1.0, 0.5),
     patch_size: int = 14,
     shared_fc: bool = True,
+    box_resolution: int = 7,
+    cube_resolution: int = 7,
 ) -> dict:
-    """Full ovmono3d_lift.pth state dict -> RCNN3D params['params'] tree."""
+    """Full ovmono3d_lift.pth state dict -> RCNN3D params['params'] tree
+    (the resolutions are the box and cube poolers')."""
     vit = convert_dinov2_vit(
         {
             k[len("backbone.net.vit."):]: v
@@ -190,6 +224,7 @@ def convert_ovmono3d_lift(
             "sfp": convert_sfp(state, scale_factors, patch_size),
         },
         "rpn_head": convert_rpn_head(state),
-        "box_head": convert_box_head(state),
-        "cube_head": convert_cube_head(state, shared_fc=shared_fc),
+        "box_head": convert_box_head(state, box_resolution),
+        "cube_head": convert_cube_head(state, shared_fc=shared_fc,
+                                       resolution=cube_resolution),
     }

@@ -102,6 +102,8 @@ def load_rcnn_params(model: nn.Module, path, model_cfg) -> None:
         scale_factors=tuple(model_cfg.backbone.scale_factors),
         patch_size=model_cfg.backbone.patch_size,
         shared_fc=model_cfg.cube.shared_fc,
+        box_resolution=model_cfg.roi_box.pooler_resolution,
+        cube_resolution=model_cfg.cube.pooler_resolution,
     )
     load_flax_params(model, converted)
     logger.info("loaded RCNN3D weights (%d tensors)", len(state))

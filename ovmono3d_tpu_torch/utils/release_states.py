@@ -15,14 +15,27 @@ and shapes, filled from a numpy seed:
                     `prompt_encoder.*`, `mask_decoder.*`)
   depth_pro_state   transformers' DepthProForDepthEstimation (`depth_pro.*`,
                     `fusion_stage.*`, `head.*`, `fov_model.*`)
+  clip_visual_state open_clip's 'openai' ViT-B/16 tower (`visual.*`)
+  mae_state         HF ViTMAE (`vit.embeddings.*`, `vit.encoder.layer.*`)
+  midas_state       MiDaS DPT_Large (`pretrained.model.*` timm ViT-L/16 and
+                    the DPT `scratch.*` head)
+  dla_state         the DLA model zoo (`base_layer.*`, `level0-5.*`, `fc.*`)
+  resnet_state      torchvision ResNet (`conv1`, `bn1`, `layer1-4.*`, `fc`)
+  densenet_state    torchvision DenseNet (`features.*`, `classifier.*`)
+  mnasnet_state     torchvision MNASNet 1.0 (`layers.*`, `classifier.1.*`)
+  shufflenet_state  torchvision ShuffleNetV2 x1.0 (`conv1`, `stage2-4`,
+                    `conv5`, `fc`)
 
 Each also holds keys the converters do not read, as the released modules
 register them: DINOv2's final `norm.*` and `mask_token`, the priors (read by
 `lift_convert.extract_priors`), Swin's `relative_position_index`, BERT's
 `position_ids` and pooler, the decoder's shared `bbox_embed` copies, SAM's
 unused point embeddings and mask downscaling, Depth-Pro's `mask_token`s and
-its first fusion layer's unused residual unit. `IGNORED` names them by
-pattern.
+its first fusion layer's unused residual unit, CLIP's `ln_post` and `proj`,
+MAE's final `layernorm` and table, MiDaS's final `norm` and DPT head, and
+the CNNs' classifiers and `num_batches_tracked`. `IGNORED` names them by
+pattern. BatchNorms are drawn with their running statistics: mean ~N(0,
+0.02^2), var ~1 + N(0, 0.1^2), as scales are.
 
 Kernels are drawn ~N(0, 1/fan_in), biases ~N(0, 0.02^2), norm scales
 ~1 + N(0, 0.1^2): activations stay O(1) through any depth. With
@@ -53,6 +66,11 @@ IGNORED = {
             r"prompt_encoder\.mask_embed\."),
     "depth_pro": (r"\.embeddings\.mask_token$",
                   r"^fusion_stage\.intermediate\.0\.residual_layer1\."),
+    "clip": (r"^visual\.ln_post\.", r"^visual\.proj$"),
+    "mae": (r"^vit\.layernorm\.", r"position_embeddings$"),
+    "midas": (r"^pretrained\.model\.norm\.", r"^scratch\."),
+    "cnn": (r"num_batches_tracked$", r"^fc\.", r"^classifier\.",
+            r"^layers\.1[456]\.", r"^conv5\."),
 }
 
 
@@ -98,6 +116,20 @@ class _Draw:
     def norm(self, prefix: str, d: int) -> None:
         self.put(prefix + ".weight", (d,), "scale")
         self.put(prefix + ".bias", (d,), "bias")
+
+    def bn(self, prefix: str, d: int) -> None:
+        """torch BatchNorm2d: affine, running statistics, the step count."""
+        self.norm(prefix, d)
+        self.put(prefix + ".running_mean", (d,), "bias")
+        self.put(prefix + ".running_var", (d,), "scale")
+        self.state[prefix + ".num_batches_tracked"] = (
+            np.empty((), SHAPE_ONLY) if self.shape_only
+            else np.array(0, np.int64))
+
+    def convbn(self, conv: str, bn: str, cin: int, cout: int, k: int,
+               groups: int = 1) -> None:
+        self.conv(conv, cin // groups, cout, k, bias=False)
+        self.bn(bn, cout)
 
     def table(self, key: str, shape, std: float = 0.02) -> None:
         self.put(key, shape, fan_in=1.0 / std ** 2)
@@ -522,4 +554,235 @@ def depth_pro_state(seed: int = 0, shape_only: bool = False,
             cin = cout
         k = int((grid - 1) / 2 ** num_fov_layers + 1)
         d.conv(f"fov_model.head.layers.{2 * num_fov_layers}", cin, 1, k)
+    return d.state
+
+
+def _vit_blocks(d: _Draw, p: str, dim: int, depth: int) -> None:
+    """timm / hub ViT blocks (fused qkv, no layer scale) under `p`."""
+    for i in range(depth):
+        b = f"{p}blocks.{i}."
+        d.norm(b + "norm1", dim)
+        d.linear(b + "attn.qkv", dim, 3 * dim)
+        d.linear(b + "attn.proj", dim, dim)
+        d.norm(b + "norm2", dim)
+        d.linear(b + "mlp.fc1", dim, 4 * dim)
+        d.linear(b + "mlp.fc2", 4 * dim, dim)
+
+
+def clip_visual_state(dim: int = 768, depth: int = 12, patch: int = 16,
+                      grid: int = 14, out_dim: int = 512, seed: int = 0,
+                      shape_only: bool = False) -> dict:
+    """open_clip's ViT-B-16 'openai' visual tower (the defaults)."""
+    d = _Draw(seed, shape_only)
+    p = "visual."
+    d.table(p + "class_embedding", (dim,))
+    d.table(p + "positional_embedding", (grid * grid + 1, dim))
+    d.conv(p + "conv1", 3, dim, patch, bias=False)
+    d.norm(p + "ln_pre", dim)
+    for i in range(depth):
+        b = f"{p}transformer.resblocks.{i}."
+        d.norm(b + "ln_1", dim)
+        d.put(b + "attn.in_proj_weight", (3 * dim, dim), fan_in=dim)
+        d.put(b + "attn.in_proj_bias", (3 * dim,), "bias")
+        d.linear(b + "attn.out_proj", dim, dim)
+        d.norm(b + "ln_2", dim)
+        d.linear(b + "mlp.c_fc", dim, 4 * dim)
+        d.linear(b + "mlp.c_proj", 4 * dim, dim)
+    d.norm(p + "ln_post", dim)
+    d.put(p + "proj", (dim, out_dim), fan_in=dim)
+    return d.state
+
+
+def mae_state(dim: int = 768, depth: int = 12, patch: int = 16,
+              grid: int = 14, seed: int = 0, shape_only: bool = False
+              ) -> dict:
+    """HF ViTMAE's encoder under `vit.` (facebook/vit-mae-base at the
+    defaults), with its fixed sin-cos table and final layernorm."""
+    d = _Draw(seed, shape_only)
+    e = "vit.embeddings."
+    d.table(e + "cls_token", (1, 1, dim))
+    d.table(e + "position_embeddings", (1, grid * grid + 1, dim))
+    d.conv(e + "patch_embeddings.projection", 3, dim, patch)
+    for i in range(depth):
+        b = f"vit.encoder.layer.{i}."
+        d.norm(b + "layernorm_before", dim)
+        for name in ("query", "key", "value"):
+            d.linear(b + "attention.attention." + name, dim, dim)
+        d.linear(b + "attention.output.dense", dim, dim)
+        d.norm(b + "layernorm_after", dim)
+        d.linear(b + "intermediate.dense", dim, 4 * dim)
+        d.linear(b + "output.dense", 4 * dim, dim)
+    d.norm("vit.layernorm", dim)
+    return d.state
+
+
+def midas_state(dim: int = 1024, depth: int = 24, patch: int = 16,
+                grid: int = 24, features: int = 256, seed: int = 0,
+                shape_only: bool = False) -> dict:
+    """MiDaS DPT_Large (the defaults): the timm ViT-L/16 trunk under
+    `pretrained.model.` and a stand-in of the DPT head's `scratch.*`."""
+    d = _Draw(seed, shape_only)
+    p = "pretrained.model."
+    d.table(p + "cls_token", (1, 1, dim))
+    d.table(p + "pos_embed", (1, grid * grid + 1, dim))
+    d.conv(p + "patch_embed.proj", 3, dim, patch)
+    _vit_blocks(d, p, dim, depth)
+    d.norm(p + "norm", dim)
+    for i in range(4):
+        d.conv(f"scratch.layer{i + 1}_rn", dim, features, 3, bias=False)
+    return d.state
+
+
+def _dla_block(d: _Draw, p: str, block: str, cin: int, features: int,
+               cardinality: int) -> None:
+    if block == "basic":
+        d.convbn(p + ".conv1", p + ".bn1", cin, features, 3)
+        d.convbn(p + ".conv2", p + ".bn2", features, features, 3)
+        return
+    bottle = (features * cardinality // 32 if block == "bottleneckx"
+              else features // 2)
+    d.convbn(p + ".conv1", p + ".bn1", cin, bottle, 1)
+    d.convbn(p + ".conv2", p + ".bn2", bottle, bottle, 3,
+             groups=cardinality if block == "bottleneckx" else 1)
+    d.convbn(p + ".conv3", p + ".bn3", bottle, features, 1)
+
+
+def _dla_tree(d: _Draw, p: str, levels: int, cin: int, features: int,
+              level_root: bool, block: str, cardinality: int,
+              children_ch=()) -> None:
+    """The reference Tree's keys; the root's width counts the children."""
+    ch = list(children_ch) + ([cin] if level_root else [])
+    if levels == 1:
+        _dla_block(d, p + ".tree1", block, cin, features, cardinality)
+        _dla_block(d, p + ".tree2", block, features, features, cardinality)
+        d.convbn(p + ".root.conv", p + ".root.bn", 2 * features + sum(ch),
+                 features, 1)
+    else:
+        _dla_tree(d, p + ".tree1", levels - 1, cin, features, False, block,
+                  cardinality)
+        _dla_tree(d, p + ".tree2", levels - 1, features, features, False,
+                  block, cardinality, (*ch, features))
+    if cin != features:
+        d.convbn(p + ".project.0", p + ".project.1", cin, features, 1)
+
+
+def dla_state(levels=(1, 1, 1, 2, 2, 1), channels=(16, 32, 64, 128, 256, 512),
+              block: str = "basic", cardinality: int = 32,
+              num_classes: int = 1000, seed: int = 0,
+              shape_only: bool = False, **_unused) -> dict:
+    """The DLA model zoo's layout (dla34 at the defaults; a
+    `models.dla.DLA_PRESETS` entry gives the others), with its 1x1-conv
+    classifier `fc`."""
+    d = _Draw(seed, shape_only)
+    ch = channels
+    d.convbn("base_layer.0", "base_layer.1", 3, ch[0], 7)
+    d.convbn("level0.0", "level0.1", ch[0], ch[0], 3)
+    d.convbn("level1.0", "level1.1", ch[0], ch[1], 3)
+    for i in (2, 3, 4, 5):
+        _dla_tree(d, f"level{i}", levels[i], ch[i - 1], ch[i], i > 2, block,
+                  cardinality)
+    d.conv("fc", ch[5], num_classes, 1)
+    return d.state
+
+
+def resnet_state(depths=(3, 4, 6, 3), bottleneck: bool = True,
+                 width: int = 64, num_classes: int = 1000, seed: int = 0,
+                 shape_only: bool = False) -> dict:
+    """torchvision's ResNet layout (resnet50 at the defaults)."""
+    d = _Draw(seed, shape_only)
+    d.convbn("conv1", "bn1", 3, width, 7)
+    cin, exp = width, 4 if bottleneck else 1
+    for si, depth in enumerate(depths):
+        f = width * 2 ** si
+        for bi in range(depth):
+            t = f"layer{si + 1}.{bi}"
+            stride = 2 if (bi == 0 and si > 0) else 1
+            if bottleneck:
+                d.convbn(t + ".conv1", t + ".bn1", cin, f, 1)
+                d.convbn(t + ".conv2", t + ".bn2", f, f, 3)
+                d.convbn(t + ".conv3", t + ".bn3", f, 4 * f, 1)
+            else:
+                d.convbn(t + ".conv1", t + ".bn1", cin, f, 3)
+                d.convbn(t + ".conv2", t + ".bn2", f, f, 3)
+            if cin != f * exp or stride > 1:
+                d.convbn(t + ".downsample.0", t + ".downsample.1", cin,
+                         f * exp, 1)
+            cin = f * exp
+    d.linear("fc", cin, num_classes)
+    return d.state
+
+
+def densenet_state(block_layers=(6, 12, 24, 16), growth: int = 32,
+                   init_features: int = 64, num_classes: int = 1000,
+                   seed: int = 0, shape_only: bool = False) -> dict:
+    """torchvision's DenseNet layout (densenet121 at the defaults)."""
+    d = _Draw(seed, shape_only)
+    d.conv("features.conv0", 3, init_features, 7, bias=False)
+    d.bn("features.norm0", init_features)
+    ch = init_features
+    for bi, layers in enumerate(block_layers):
+        for li in range(layers):
+            t = f"features.denseblock{bi + 1}.denselayer{li + 1}"
+            d.bn(t + ".norm1", ch + li * growth)
+            d.conv(t + ".conv1", ch + li * growth, 4 * growth, 1, bias=False)
+            d.bn(t + ".norm2", 4 * growth)
+            d.conv(t + ".conv2", 4 * growth, growth, 3, bias=False)
+        ch += layers * growth
+        if bi < len(block_layers) - 1:
+            t = f"features.transition{bi + 1}"
+            d.bn(t + ".norm", ch)
+            d.conv(t + ".conv", ch, ch // 2, 1, bias=False)
+            ch //= 2
+    d.bn("features.norm5", ch)
+    d.linear("classifier", ch, num_classes)
+    return d.state
+
+
+# torchvision mnasnet1_0's stacks: (out, kernel, expansion, repeats).
+MNASNET_STACKS = ((24, 3, 3, 3), (40, 5, 3, 3), (80, 5, 6, 3), (96, 3, 6, 2),
+                  (192, 5, 6, 4), (320, 3, 6, 1))
+
+
+def mnasnet_state(num_classes: int = 1000, seed: int = 0,
+                  shape_only: bool = False) -> dict:
+    """torchvision's MNASNet 1.0 layout (the flat `layers` Sequential)."""
+    d = _Draw(seed, shape_only)
+    d.convbn("layers.0", "layers.1", 3, 32, 3)
+    d.convbn("layers.3", "layers.4", 32, 32, 3, groups=32)
+    d.convbn("layers.6", "layers.7", 32, 16, 1)
+    cin = 16
+    for si, (out, k, e, reps) in enumerate(MNASNET_STACKS):
+        for ri in range(reps):
+            t = f"layers.{8 + si}.{ri}.layers"
+            mid = cin * e
+            d.convbn(t + ".0", t + ".1", cin, mid, 1)
+            d.convbn(t + ".3", t + ".4", mid, mid, k, groups=mid)
+            d.convbn(t + ".6", t + ".7", mid, out, 1)
+            cin = out
+    d.convbn("layers.14", "layers.15", cin, 1280, 1)
+    d.linear("classifier.1", 1280, num_classes)
+    return d.state
+
+
+def shufflenet_state(num_classes: int = 1000, seed: int = 0,
+                     shape_only: bool = False) -> dict:
+    """torchvision's ShuffleNetV2 x1.0 layout."""
+    d = _Draw(seed, shape_only)
+    d.convbn("conv1.0", "conv1.1", 3, 24, 3)
+    cin = 24
+    for si, (reps, out) in enumerate(zip((4, 8, 4), (116, 232, 464))):
+        br = out // 2
+        for ri in range(reps):
+            t = f"stage{si + 2}.{ri}"
+            if ri == 0:
+                d.convbn(t + ".branch1.0", t + ".branch1.1", cin, cin, 3,
+                         groups=cin)
+                d.convbn(t + ".branch1.2", t + ".branch1.3", cin, br, 1)
+            d.convbn(t + ".branch2.0", t + ".branch2.1",
+                     cin if ri == 0 else br, br, 1)
+            d.convbn(t + ".branch2.3", t + ".branch2.4", br, br, 3, groups=br)
+            d.convbn(t + ".branch2.5", t + ".branch2.6", br, br, 1)
+            cin = out
+    d.convbn("conv5.0", "conv5.1", cin, 1024, 1)
+    d.linear("fc", 1024, num_classes)
     return d.state

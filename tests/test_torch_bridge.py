@@ -286,7 +286,8 @@ def test_port_sources_import_no_jax():
             "utils/lift_convert.py", "utils/gdino_convert.py",
             "utils/sam_convert.py", "utils/depth_convert.py",
             "utils/hf_shims.py", "utils/cnn_convert.py",
-            "utils/release_states.py"} <= {
+            "utils/release_states.py", "models/dla.py", "models/resnet.py",
+            "models/cnns.py"} <= {
         str(f.relative_to(port)) for f in files[:-1]}
     for f in files:
         assert not _JAX_IMPORT.search(f.read_text()), f
@@ -329,6 +330,14 @@ for quant in ("none", "int8"):
 from ovmono3d_tpu_torch.utils import release_states
 from ovmono3d_tpu_torch.utils.load import load_rcnn_params
 load_rcnn_params(model, release_states.lift_state(cfg), cfg)
+# The CNN trunks (models/dla.py, resnet.py, cnns.py) and their converters.
+from ovmono3d_tpu_torch.utils.cnn_convert import load_cnn_trunk
+cnn = build_model(dataclasses.replace(cfg, backbone=dataclasses.replace(
+    cfg.backbone, name="shufflenet_v2", square_pad=128)), device="cpu")
+load_cnn_trunk(cnn, release_states.shufflenet_state(), "shufflenet_v2")
+with torch.inference_mode():
+    feats = cnn.features(torch.rand(1, 128, 128, 3) * 255)
+assert all(bool(torch.isfinite(f).all()) for f in feats.values())
 from ovmono3d_tpu_torch.geo.cli import synthetic_check
 assert synthetic_check("cpu")[0]
 # The evaluation path without PyYAML, PIL or cv2: a config built in code.

@@ -109,9 +109,12 @@ def test_unknown_key_and_trunks_the_port_lacks():
         tcfg.load_config(None, overrides=["model.backbone.attention=xla"])
     from ovmono3d_tpu_torch.models.rcnn3d import build_model
 
+    # Every shipped config builds: the SAM one (once refused) on meta, at
+    # its full width.
     cfg = tcfg.load_config(REPO / "configs" / "OVMono3D_sam_SFP.yaml")
-    with pytest.raises(NotImplementedError):
-        build_model(cfg.model, device="meta")
+    model = build_model(cfg.model, device="meta")
+    assert model.backbone.vit.neck_channels == 256
+    assert len(model.backbone.vit.blocks()) == 12
 
 
 def test_builtin_categories_are_a_copy():

@@ -287,13 +287,53 @@ def test_trunk_converters_match_jax(case):
     check_same(lambda s: call(j, s), lambda s: call(t, s), state)
 
 
+# The port's one departure from the JAX LIFT converter (ROADMAP, the
+# reference's features): the box and cube heads' fc1 input rows permuted from
+# detectron2's (C, H, W) flattening to the pooled grid's (H, W, C). These are
+# exactly the leaves where the two trees differ, by case.
+_UNSHARED_FC1 = tuple(f"{n}_fc1/kernel"
+                      for n in ("xy", "dims", "pose", "z", "conf"))
+FC1_KEYS = {
+    "box_head": ("fc1/kernel",),
+    "cube_head_shared": ("shared_fc1/kernel",),
+    "cube_head_unshared": _UNSHARED_FC1,
+    "ovmono3d_lift": ("box_head/fc1/kernel", "cube_head/shared_fc1/kernel"),
+    "ovmono3d_lift_up4": ("box_head/fc1/kernel",
+                          *(f"cube_head/{k}" for k in _UNSHARED_FC1)),
+}
+
+
+def chw_to_hwc_rows(kernel, resolution=7):
+    """A [C * R * R, out] kernel's rows from (C, H, W) to (H, W, C) order;
+    a kernel of another rank raises, as the port's converter does."""
+    k = np.asarray(kernel)
+    if k.ndim != 2:
+        raise ValueError(f"fc1 kernel of shape {k.shape}")
+    c = k.shape[0] // resolution**2
+    return np.ascontiguousarray(
+        k.reshape(c, resolution, resolution, -1).transpose(1, 2, 0, 3)
+        .reshape(k.shape))
+
+
+def with_hwc_fc1(tree, keys):
+    """`tree` with the leaves at `keys` (flat paths) through chw_to_hwc_rows."""
+    out = {k: (with_hwc_fc1(v, [p.split("/", 1)[1] for p in keys
+                                if p.split("/", 1)[0] == k])
+               if isinstance(v, dict) else v) for k, v in tree.items()}
+    for p in keys:
+        if "/" not in p:
+            out[p] = chw_to_hwc_rows(tree[p])
+    return out
+
+
 @pytest.mark.parametrize("case", sorted(LIFT_CASES))
 def test_lift_converters_match_jax(case):
     scales, shared, call = LIFT_CASES[case]
     cfg = lift_cfg(scales, shared, priors=True, bins=3)
     state = rs.lift_state(cfg, seed=7)
-    check_same(lambda s: call(jlc, s, cfg), lambda s: call(tlc, s, cfg),
-               state)
+    keys = FC1_KEYS.get(case, ())
+    check_same(lambda s: with_hwc_fc1(call(jlc, s, cfg), keys),
+               lambda s: call(tlc, s, cfg), state)
 
 
 def test_extract_priors_without_priors_is_none():
@@ -366,3 +406,115 @@ def test_deconv_layout_round_trips_asymmetric_kernels():
                             "bias": np.zeros(5, np.float32)})
     np.testing.assert_array_equal(conv.weight.detach().numpy(), w)
     np.testing.assert_array_equal(tcc._deconv(w), jcc._deconv(w))
+
+
+# -- detectron2's head semantics on released-layout weights -----------------
+
+def _d2_linear(state, key, x):
+    return torch.nn.functional.linear(
+        x, torch.from_numpy(np.asarray(state[key + ".weight"])),
+        torch.from_numpy(np.asarray(state[key + ".bias"])))
+
+
+def _d2_head_input(state, pooled_nchw, prefix, num_conv):
+    """detectron2's conv stack (3x3, padding 1, ReLU) on the pooled
+    [N, C, R, R] features, then `torch.flatten(x, 1)`: (C, H, W) order."""
+    x = pooled_nchw
+    for i in range(num_conv):
+        x = torch.relu(torch.nn.functional.conv2d(
+            x, torch.from_numpy(state[f"{prefix}conv{i + 1}.weight"]),
+            torch.from_numpy(state[f"{prefix}conv{i + 1}.bias"]),
+            padding=1))
+    return torch.flatten(x, 1)
+
+
+def _pooled(n, c, r=7, seed=0):
+    """Pooled features [N, C, R, R] (detectron2's layout) and the same
+    values as the port's [N, R, R, C]."""
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (n, c, r, r)).astype(np.float32))
+    return x, x.permute(0, 2, 3, 1).contiguous()
+
+
+def test_box_head_computes_detectron2s_function():
+    """FastRCNNConvFCHead (flatten, fc1, fc2, ReLUs) and its predictors on a
+    released-layout state dict, against the port's FastRCNNHead on the
+    converted tree with the same pooled features in NHWC."""
+    from ovmono3d_tpu_torch.models.heads import FastRCNNHead
+    from ovmono3d_tpu_torch.utils.flax_bridge import load_flax_params
+
+    cfg = lift_cfg()
+    state = rs.lift_state(cfg, seed=12)
+    c = cfg.backbone.out_channels
+    nchw, nhwc = _pooled(5, c)
+    x = _d2_head_input(state, nchw, "", 0)
+    for j in (1, 2):
+        x = torch.relu(_d2_linear(state, f"roi_heads.box_head.fc{j}", x))
+    want = (_d2_linear(state, "roi_heads.box_predictor.cls_score", x),
+            _d2_linear(state, "roi_heads.box_predictor.bbox_pred", x))
+    head = FastRCNNHead(c * 49, cfg.num_classes, fc_dim=cfg.roi_box.fc_dim)
+    load_flax_params(head, tlc.convert_box_head(state))
+    with torch.no_grad():
+        got = head(nhwc)
+    for g, w in zip(got, want):
+        # f32 on both sides; the products sum in the same order.
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    # The JAX converter's tree (fc1 transposed only) gives another function.
+    load_flax_params(head, jlc.convert_box_head(state))
+    with torch.no_grad():
+        assert not np.allclose(head(nhwc)[0].numpy(), want[0].numpy(),
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("num_conv", [0, 2])
+def test_cube_head_computes_detectron2s_function(num_conv):
+    """The cube head (convs, flatten, shared fc stack, outputs) on a
+    released-layout state dict, against the port's CubeHead on the converted
+    tree: with num_conv > 0 fc1 reads the conv stack's [N, conv_dim, R, R]
+    output, still flattened in (C, H, W) order."""
+    from ovmono3d_tpu_torch.models.heads import CubeHead
+    from ovmono3d_tpu_torch.ops.rotation import rotation_6d_to_matrix
+    from ovmono3d_tpu_torch.utils.flax_bridge import load_flax_params
+
+    cfg = lift_cfg()
+    c, conv_dim, fc_dim = cfg.backbone.out_channels, 8, cfg.cube.fc_dim
+    p = "roi_heads.cube_head."
+    state = dict(rs.lift_state(cfg, seed=13))
+    rng = np.random.default_rng(14)
+    cin = c
+    for i in range(num_conv):
+        state[f"{p}conv{i + 1}.weight"] = (rng.standard_normal(
+            (conv_dim, cin, 3, 3)) / np.sqrt(9 * cin)).astype(np.float32)
+        state[f"{p}conv{i + 1}.bias"] = (0.02 * rng.standard_normal(
+            conv_dim)).astype(np.float32)
+        cin = conv_dim
+    if num_conv:
+        state[f"{p}feature_generator.fc1.weight"] = (rng.standard_normal(
+            (fc_dim, conv_dim * 49)) / np.sqrt(conv_dim * 49)).astype(
+                np.float32)
+    nchw, nhwc = _pooled(5, c, seed=1)
+    x = _d2_head_input(state, nchw, p, num_conv)
+    for j in (1, 2):
+        x = torch.relu(_d2_linear(state, f"{p}feature_generator.fc{j}", x))
+    want = {"deltas_2d": _d2_linear(state, p + "bbox_3D_center_deltas", x),
+            "dims": _d2_linear(state, p + "bbox_3D_dims", x),
+            "z": _d2_linear(state, p + "bbox_3D_center_depth", x)[:, 0],
+            "uncert": _d2_linear(state, p + "bbox_3D_uncertainty",
+                                 x)[:, 0].clamp(min=0.01),
+            "pose": rotation_6d_to_matrix(
+                _d2_linear(state, p + "bbox_3D_pose", x))}
+    head = CubeHead(c, 7, cfg.num_classes, num_conv=num_conv,
+                    conv_dim=conv_dim, fc_dim=fc_dim)
+    tree = tlc.convert_cube_head(state)
+    for i in range(num_conv):
+        tree[f"conv{i + 1}"] = {
+            "kernel": tcc._conv(state[f"{p}conv{i + 1}.weight"]),
+            "bias": state[f"{p}conv{i + 1}.bias"]}
+    load_flax_params(head, tree)
+    with torch.no_grad():
+        got = head(nhwc)
+    for k, w in want.items():
+        # f32 on both sides.
+        np.testing.assert_allclose(got[k].numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=k)

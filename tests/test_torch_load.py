@@ -16,7 +16,10 @@ import numpy as np
 import pytest
 import torch
 from test_model import tiny_config
+from test_torch_convert import chw_to_hwc_rows
 from test_torch_rcnn3d import _inputs, port_config
+from test_torch_trunks import (assert_trunk_equal, jax_init_tree,  # noqa: F401
+                               tiny_presets, trunk_model_config, trunk_state)
 
 from ovmono3d_tpu.models import depth as jdepth
 from ovmono3d_tpu.models.gdino.model import GroundingDINO as JaxGDINO
@@ -101,6 +104,24 @@ def lift_release_state(pcfg, seed=3):
     return state
 
 
+def hwc_fc1(variables, pcfg):
+    """The JAX-loaded tree with the box and cube heads' fc1 rows in the
+    pooled grid's (H, W, C) order: the port converter's one departure from
+    the JAX one (tests/test_torch_convert.py FC1_KEYS); both sides then
+    compute detectron2's heads."""
+    params = jax.tree.map(np.asarray, variables["params"])
+    cube = pcfg.cube
+    params["box_head"]["fc1"]["kernel"] = chw_to_hwc_rows(
+        params["box_head"]["fc1"]["kernel"], pcfg.roi_box.pooler_resolution)
+    names = (("shared",) if cube.shared_fc
+             else ("xy", "dims", "pose", "z", "conf"))
+    for n in names:
+        leaf = params["cube_head"][f"{n}_fc1"]
+        leaf["kernel"] = chw_to_hwc_rows(leaf["kernel"],
+                                         cube.pooler_resolution)
+    return {**variables, "params": params}
+
+
 @pytest.fixture(scope="module")
 def lift_pair(tmp_path_factory):
     jcfg = tiny_config().model
@@ -110,7 +131,8 @@ def lift_pair(tmp_path_factory):
     image, K, im_hw, ratio, boxes, classes, scores, valid = _inputs()
     jmodel = jax_build_model(jcfg)
     args = tuple(map(jnp.asarray, (image, K, im_hw, ratio)))
-    jparams = jload.load_rcnn_params(init_tree(jmodel, *args), path, jcfg)
+    jparams = hwc_fc1(jload.load_rcnn_params(init_tree(jmodel, *args), path,
+                                             jcfg), pcfg)
     port = build_model(pcfg, device="cpu")
     tload.load_rcnn_params(port, path, pcfg)
     oracle = dict(oracle_boxes=boxes, oracle_classes=classes,
@@ -416,10 +438,20 @@ def test_dinov2_trunk_load_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("name", ["clip", "mae", "midas", "sam", "dla34",
                                   "resnet50"])
-def test_other_trunks_refuse_citing_item_9(name):
-    port = build_model(port_config(tiny_config().model), device="meta")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tcnn.load_cnn_trunk(port, {}, name)
+def test_other_trunks_refuse_citing_item_9(name, tmp_path, tiny_presets):
+    """Once refusals, now loads: one tiny seeded trunk in its released
+    layout (torch.save'd) through both packages' load_cnn_trunk; every
+    parameter and BatchNorm buffer of the port's trunk equals the JAX
+    graft's leaf, bit for bit (MiDaS and DLA-34 at tiny widths, ResNet-50
+    at its own)."""
+    jcfg = trunk_model_config(tiny_config().model, name)
+    pcfg = port_config(jcfg)
+    path = save(tmp_path / f"{name}.pth", trunk_state(name, pcfg.backbone,
+                                                      seed=8))
+    port = build_model(pcfg, device="cpu")
+    jvariables = jcnn.load_cnn_trunk(jax_init_tree(jcfg), path, name)
+    tcnn.load_cnn_trunk(port, path, name)
+    assert_trunk_equal(port, jvariables)
 
 
 def test_bridge_keep_list_is_explicit():

@@ -21,6 +21,8 @@ from ovmono3d_tpu.utils.priors import compute_priors as jax_compute_priors
 from ovmono3d_tpu_torch.eval import cli as eval_cli
 from ovmono3d_tpu_torch.eval import predictions
 from ovmono3d_tpu_torch.train import cli
+from test_torch_trunks import (assert_trunk_equal, jax_init_tree,  # noqa: F401
+                               tiny_presets, trunk_state)
 from tools.train_net import synthetic_records as jax_synthetic_records
 
 torch.set_num_threads(2)
@@ -159,11 +161,33 @@ def test_trunk_ckpt_loads_a_dinov2_trunk(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["clip", "mae", "midas", "sam", "dla34"])
-def test_trunk_ckpt_refuses_the_unported_trunks(tmp_path, name):
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        cli.main(["--synthetic", *CPU, "--max-iter", "1", "--trunk-ckpt",
-                  "trunk.pth", *TINY, f"model.backbone.name={name}",
-                  f"output_dir={tmp_path}"])
+def test_trunk_ckpt_refuses_the_unported_trunks(tmp_path, monkeypatch, name,
+                                                tiny_presets):
+    """Once refusals, now loads: --trunk-ckpt with a tiny seeded trunk in
+    its released layout trains one step with the trunk frozen, and every
+    parameter and BatchNorm buffer of the trunk then equals the JAX
+    load_cnn_trunk's leaf for the same file, bit for bit."""
+    from ovmono3d_tpu.utils import cnn_convert as jcnn
+    from ovmono3d_tpu_torch.models.rcnn3d import build_model
+
+    overrides = [*TINY, f"model.backbone.name={name}",
+                 "model.backbone.square_pad=128",
+                 "model.backbone.scale_factors=(4.0,2.0,1.0)"]
+    pcfg = cli.load_config(None, overrides=overrides)
+    path = tmp_path / f"{name}.pth"
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in
+                trunk_state(name, pcfg.model.backbone, seed=3).items()}, path)
+    built = []
+    monkeypatch.setattr(cli, "build_model", lambda *a, **k: built.append(
+        build_model(*a, **k)) or built[-1])
+    res = cli.main(["--synthetic", *CPU, "--max-iter", "1", "--batch-size",
+                    "2", "--trunk-ckpt", str(path), *overrides,
+                    "solver.checkpoint_period=1000", "test.eval_period=0",
+                    f"output_dir={tmp_path / 'out'}"])
+    assert res["step"] == 1
+    jmodel_cfg = jcfg.load_config(None, overrides=overrides).model
+    jvariables = jcnn.load_cnn_trunk(jax_init_tree(jmodel_cfg), path, name)
+    assert_trunk_equal(built[0], jvariables)
 
 
 @pytest.fixture(scope="module")

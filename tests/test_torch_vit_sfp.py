@@ -66,9 +66,13 @@ def test_vit_f32_matches_jax(vit_pair, with_depth):
 
 
 def test_vit_unported_options_raise():
-    for kw in ({"pos_sincos": True}, {"pre_ln": True}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            VisionTransformer(device="meta", **VIT_KW, **kw)
+    """Every option builds now (the CLIP / MAE ones are held to JAX in
+    tests/test_torch_trunks.py); unknown remat policies and quant modes are
+    refused."""
+    for kw in ({"pos_sincos": True}, {"pre_ln": True, "quick_gelu": True}):
+        vit = VisionTransformer(device="meta", **VIT_KW, **kw)
+        assert (vit.pos_embed is None) == ("pos_sincos" in kw)
+        assert (vit.ln_pre is not None) == ("pre_ln" in kw)
     # remat is ported (tests/test_torch_remat.py); unknown policies refused.
     assert VisionTransformer(device="meta", remat=True, **VIT_KW)
     with pytest.raises(ValueError, match="remat_policy='some'"):
@@ -79,11 +83,11 @@ def test_vit_unported_options_raise():
     with pytest.raises(ValueError, match="quant='int4'"):
         VisionTransformer(device="meta", quant="int4", **VIT_KW)
     # The size-based position resize of the non-DINOv2 trunks: a table at
-    # its pretraining grid passes, any other grid raises.
-    pe = torch.zeros(1, 1 + 64, 16)
-    assert resize_pos_embed(pe, (8, 8), 0.0) is not None
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        resize_pos_embed(pe, (9, 9), 0.0)
+    # its pretraining grid passes unchanged, another grid is resized
+    # (against JAX in tests/test_torch_trunks.py).
+    pe = torch.randn(1, 1 + 64, 16)
+    assert torch.equal(resize_pos_embed(pe, (8, 8), 0.0), pe)
+    assert resize_pos_embed(pe, (9, 9), 0.0).shape == (1, 1 + 81, 16)
 
 
 @pytest.mark.parametrize("grid", [(9, 9), (9, 11), (5, 12), (8, 8)])
