@@ -270,9 +270,11 @@ profiles' tables):
           compute time, 12 kernel-1 launches a batch, finite predictions,
           AP2D / AP3D per dataset and overall (AP2D 100 on the GT oracle),
           a profile of one batch; one batch with attention_ref: oracle 3D
-          fields within 2e-2 of their scale, learned: proposals and
-          detections that change printed, the shared detections' 3D
-          fields within 2e-2; GT as the prediction gives AP2D = AP3D = 100
+          fields within 2e-2 of their scale, learned: proposals,
+          detections that change and the shared ones' 3D fields printed,
+          the kernel run's 2D detections lifted by both runs within 2e-2
+          (the batch of the route evaluate_dataset takes); GT as the
+          prediction gives AP2D = AP3D = 100
           on the card; pairwise_iou3d on the card within EVAL_IOU_ATOL of
           the CPU
   remat   the flagship unfrozen at 896^2, B=REMAT_B, 16 GT slots, SGD,
@@ -352,10 +354,35 @@ profiles' tables):
           bound; then 2 train-CLI steps of the frozen DLA-34 detector with
           --trunk-ckpt: every trunk parameter and BatchNorm buffer still the
           file's, bit for bit
+  demo    python -m ovmono3d_tpu_torch.demo in-process on 3 seeded 640x480
+          PNGs at the shipped flagship config (weights moved off the init
+          as in the ovlift phase), labels "chair,table,lamp": the panels'
+          shapes, 12 kernel-1 and 24 kernel-8 launches an image, predict's
+          p50, device ms an image and the host's drawing ms, one panel with
+          every valid slot, Swin's features and the lift on one set of
+          boxes against the plain attention within the ovlift limits; then
+          eval.cli --synthetic --vis-dir --vis-period 1: a [2H, 3W] panel
+          for each of the 32 images, 12 kernel-1 launches a batch
+  tp      kernels 1, 3 and 4 at the tensor-parallel shard shape [1, 4097,
+          6, 64] (views of a half-width qkv) against their plain versions
+          and timed beside the 12-head shape; 2 train steps of the unfrozen
+          flagship at B=2 as data x model = 1 x 1 in a one-process NCCL
+          group against no group, bit for bit (two runs without a group as
+          the control); the dry run's entry point (parallel/dryrun.py,
+          --device cuda) on the shipped flagship file with the trunk
+          unfrozen, data x model = 1 x 1 in a spawned process on the card
+          (a finite loss, no skip); a run across cards waits for more than
+          one card
+  native  the g++ build of the native batch resize, one OpenMP runtime in
+          the process, 8 640x480 images through build_test_iterator on the
+          native route and on the torch resize in turns (geometry equal,
+          pixels within 2e-2), ms per batch of each
 Then a JSON line of the kernels (kernels 1, 2, 3 and 5 at the trunk shape
 also with previous_ms, device_ms, previous_device_ms and library_device_ms:
 the mma.sync design's event time and the device times of both designs and
-of SDPA; kernel 7 at SAM-H global, kernel 8 at stage 0 shifted and kernel
+of SDPA; kernels 1, 3 and 4 also with shard_ms and shard_plain_ms, their
+times at the tensor-parallel shard shape; kernel 7 at SAM-H global, kernel
+8 at stage 0 shifted and kernel
 10 at LIFT fc1 with
 device_ms, previous_device_ms (the design in --previous DIR, null without
 it) and library_device_ms; kernel 10's quantization in its own entry with
@@ -448,7 +475,9 @@ from ovmono3d_tpu_torch.probes import card as card_name  # noqa: E402
 from ovmono3d_tpu_torch.probes import (  # noqa: E402
     bf16_ulp_diff, device_ms, in_turns, time_ms)
 from ovmono3d_tpu_torch.probes import layernorm as ln_probe  # noqa: E402
+from ovmono3d_tpu_torch.parallel import mesh  # noqa: E402
 from ovmono3d_tpu_torch.parallel import serve as serve_batch  # noqa: E402
+from ovmono3d_tpu_torch.parallel.tensor_parallel import apply_tp  # noqa: E402
 from ovmono3d_tpu_torch.parallel.train_step import (  # noqa: E402
     create_train_state,
     make_train_step,
@@ -3637,14 +3666,18 @@ def _matches(a_boxes, a_cls, b_boxes, b_cls, tol: float) -> list:
 
 
 def compare_eval_learned(model, run, batch) -> None:
-    """One batch of the learned mode with the kernels and with
-    attention_ref: how many of each image's proposals have no proposal of
-    the other run within 0.01 px and within 0.5 px, how far the rest move,
-    and how many detections change (no detection of the same class within
-    0.5 px); kernel and plain attention move the RPN's deltas by ~1e-3,
-    which the anchors scale to fractions of a pixel, and near-tied
-    proposals swap; printed, not checked), and the 3D boxes of the
-    detections both runs share within 2e-2 of their scale."""
+    """One batch of the learned mode (the pixels evaluate_dataset maps)
+    with the kernels and with attention_ref. Printed: how many of each
+    image's proposals have no proposal of the other run within 0.01 px and
+    within 0.5 px, how far the rest move, how many detections change (no
+    detection of the same class within 0.5 px), and the 3D fields of the
+    detections both runs share (kernel and plain attention move the RPN's
+    deltas by ~1e-3, which the anchors scale to fractions of a pixel;
+    near-tied proposals swap, and a sub-pixel move of a box moves a seeded
+    depth near 0 by its own size). Checked: detections are shared, and the
+    kernel run's 2D detections lifted by each run (the cube model on one
+    set of boxes, as compare_demo_lift) give 3D fields within 2e-2 of
+    their scale on the valid slots (compare_eval_oracle's limit)."""
     rpn = model.cfg.rpn
     hw = batch["im_hw"].float()
     out = {}
@@ -3657,9 +3690,14 @@ def compare_eval_learned(model, run, batch) -> None:
             props = rcnn3d.rpn_proposals(
                 logits, deltas, anchors, sizes, hw, rpn.pre_nms_topk_test,
                 rpn.post_nms_topk_test, rpn.nms_thresh, rpn.min_box_size)
-            out[name] = (props, _det_fields(run(batch)))
+            if name == "kernel":
+                det2d = dict(zip(("oracle_boxes", "oracle_scores",
+                                  "oracle_classes", "oracle_valid"),
+                                 model._detect_2d(feats, batch["im_hw"])))
+            out[name] = (props, _det_fields(run(batch)),
+                         _det_fields(run({**batch, **det2d})))
         set_attention(model, attention.dot_product_attention)
-    (kp, kd), (pp, pd) = out["kernel"], out["plain"]
+    (kp, kd, kl), (pp, pd, pl) = out["kernel"], out["plain"]
     changed_d, n_p, n_d, devs = 0, 0, 0, {}
     nearest = []      # each proposal's distance to the plain run's nearest
     for i in range(batch["image"].shape[0]):
@@ -3698,10 +3736,19 @@ def compare_eval_learned(model, run, batch) -> None:
                 + ", ".join(f"{f} max abs deviation {d:.3e} (scale {s:.3e})"
                             for f, (d, s) in devs.items()))
     check(n_d > 0 and changed_d < n_d, "eval learned: shared detections")
-    for field, (d, s) in devs.items():
-        check(d <= 2e-2 * s + 1e-4,
-              f"eval learned {field} of shared detections within 2e-2 of "
-              f"its scale")
+    valid = det2d["oracle_valid"]
+    check(torch.equal(kl["valid"], valid) and torch.equal(pl["valid"], valid)
+          and bool(valid.any()), "eval learned: the lifted slots are valid")
+    for field in ("center_cam", "dimensions", "corners3d"):
+        x, y = kl[field][valid], pl[field][valid]
+        dev, scale = (x - y).abs().max().item(), y.abs().max().item()
+        say("eval", f"learned, the kernel run's {valid.sum().item()} 2D "
+                    f"detections lifted with the kernel and with "
+                    f"attention_ref: {field} max abs deviation {dev:.3e} "
+                    f"(scale {scale:.3e})")
+        check(dev <= 2e-2 * scale + 1e-4,
+              f"eval learned {field} of one set of 2D detections within "
+              f"2e-2 of its scale")
 
 
 def gt_as_prediction(names) -> None:
@@ -4777,6 +4824,349 @@ def trunks_phase() -> dict:
     return totals
 
 
+# The demo phase: DEMO_IMAGES seeded OV_H x OV_W PNGs through
+# `python -m ovmono3d_tpu_torch.demo` in-process at the shipped flagship
+# config, with DEMO_LABELS as the prompt.
+DEMO_DIR = Path(__file__).resolve().parent / "build" / "demo_phase"
+DEMO_IMAGES, DEMO_LABELS = 3, "chair,table,lamp"
+# The tp phase: kernels 1, 3 and 4 at the trunk's shard shape under a model
+# group of two (6 of its 12 heads a rank, views of a half-width qkv), and
+# TP_STEPS train steps at B = TP_B under a one-process NCCL group of data x
+# model = 1 x 1 against the same steps without a group.
+TP_SHAPE = (1, 4097, 6, 64)
+TP_B, TP_STEPS = 2, 2
+SHARD_KEYS = ("shard_ms", "shard_plain_ms")
+# The native phase: NATIVE_B images of NATIVE_HW a batch, NATIVE_REPS
+# batches timed per route.
+NATIVE_B, NATIVE_HW, NATIVE_REPS = 8, (480, 640), 3
+NATIVE_ATOL = 2e-2      # tests/test_torch_native.py's
+
+
+def demo_phase() -> dict:
+    """The open-vocabulary demo at full width through its entry point, the
+    weights moved off the init as the ovlift phase moves them; the panels'
+    shapes, kernels 1 and 8 counted (12 and 24 an image), one image's Swin
+    features and lifted cuboids against the plain attention within the
+    ovlift phase's limits, the timing; then eval.cli --synthetic with
+    --vis-dir --vis-period 1 and its panels. Returns the launches of both
+    paths."""
+    from ovmono3d_tpu_torch import demo
+    from ovmono3d_tpu_torch.data.build import read_png
+
+    shutil.rmtree(DEMO_DIR, ignore_errors=True)
+    folder = DEMO_DIR / "images"
+    folder.mkdir(parents=True)
+    for i, image in enumerate(ov_requests(DEMO_IMAGES, seed=21)):
+        write_png(folder / f"img{i}.png", image)
+    built = []
+    build = demo.build_pipeline
+
+    def seeded(*args, **kw):
+        pipe = build(*args, **kw)
+        ovlift_weights(pipe)
+        built.append(pipe)
+        return pipe
+
+    argv = ["--input-folder", str(folder), "--labels", DEMO_LABELS,
+            "--config-file", str(CONFIGS / "OVMono3D_dinov2_SFP.yaml"),
+            "--output-dir", str(DEMO_DIR / "panels")]
+    torch.cuda.synchronize()
+    reset_path_counts()
+    t0 = time.perf_counter()
+    demo.build_pipeline = seeded
+    try:
+        served = demo.main(argv)
+    finally:
+        demo.build_pipeline = build
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = check_path_counts(
+        "python -m ovmono3d_tpu_torch.demo",
+        {"window": 24 * DEMO_IMAGES,
+         "flash_attention_packed": 12 * DEMO_IMAGES}, phase="demo")
+    launches = {"window": counts["window"],
+                "fwd": counts["flash_attention_packed"]}
+    check(len(served) == DEMO_IMAGES, f"{len(served)} images served")
+    for s in served:
+        panel = read_png(s["panel"])
+        check(panel.shape == (OV_H, OV_W + OV_H, 3),
+              f"{Path(s['panel']).name}: panel {panel.shape}")
+        check(bool((panel != 0).any()), "the panel is drawn")
+    pipe, names = built[0], DEMO_LABELS.split(",")
+    image = read_png(folder / "img0.png")
+    K = default_focal_K(OV_H, OV_W)
+    p50 = statistics.median(s["predict_ms"] for s in served)
+    with torch.inference_mode():
+        busy = device_profile("demo", lambda: pipe.predict(image, K, names),
+                              DEMO_IMAGES, p50, per="image")
+    say("demo", f"{DEMO_IMAGES} images of {OV_W}x{OV_H} with {names} "
+                f"(the shipped flagship config, weights from its seed moved "
+                f"off the init as in the ovlift phase), {wall:.1f} s with "
+                f"the build: "
+                f"predict ms per image (host clock, to the copy back) "
+                + ", ".join(f"{s['predict_ms']:.3f}" for s in served)
+                + f" (p50 {p50:.3f}); device busy {busy:.3f} ms per image; "
+                  f"drawing ms per image on the host "
+                + ", ".join(f"{s['draw_ms']:.3f}" for s in served)
+                + "; detections at 0.2: "
+                + ", ".join(str(s["detections"]) for s in served))
+    # Seeded weights score few slots past the CLI's threshold: one panel
+    # with every valid slot drawn times the drawing at its heaviest.
+    panel, det, ms = demo.demo_image(pipe, image, names, K, threshold=0.0)
+    check(panel.shape == (OV_H, OV_W + OV_H, 3), "the full panel's shape")
+    say("demo", f"every valid slot drawn ({int(det['valid'].sum())}): "
+                f"{ms['draw_ms']:.3f} ms on the host; scores of the valid "
+                f"slots: max {det['scores'][det['valid']].max():.4f}, median "
+                f"{np.median(det['scores'][det['valid']]):.4f}")
+    compare_ovlift(pipe, image, K, names)
+    compare_demo_lift(pipe, image, K, names)
+    launches["fwd"] += demo_vis_dir()
+    return launches
+
+
+def compare_demo_lift(pipe, image, K, names) -> None:
+    """The cube model on one set of 2D detections with kernel 1 and with
+    attention_ref in every trunk block: the valid slots' corners and
+    scores within the ovlift phase's limits (a guard of the model, as
+    there)."""
+    det2d = pipe.detect_2d(image, names)
+    runs = {}
+    for label, fn in (("kernel", attention.dot_product_attention),
+                      ("plain", attention.attention_ref)):
+        set_attention(pipe.rcnn, fn)
+        runs[label] = pipe.lift_3d(image, K, det2d)
+    set_attention(pipe.rcnn, attention.dot_product_attention)
+    valid = runs["plain"].valid
+    check(torch.equal(runs["kernel"].valid, valid) and bool(valid.any()),
+          "the same valid slots")
+    for field in ("corners3d", "scores"):
+        got = getattr(runs["kernel"], field)[valid].float()
+        want = getattr(runs["plain"], field)[valid].float()
+        d = (got - want).abs()
+        mx = d.max().item() / want.abs().max().item()
+        mean = d.mean().item() / want.abs().mean().item()
+        say("demo", f"lift on {int(valid.sum())} boxes, kernel 1 vs plain "
+                    f"{field}: max |diff| / max |ref| {mx:.3e} (limit "
+                    f"{OVLIFT_MAX_REL}), mean |diff| / mean |ref| {mean:.3e} "
+                    f"(limit {OVLIFT_MEAN_REL})")
+        check(mx <= OVLIFT_MAX_REL and mean <= OVLIFT_MEAN_REL,
+              f"demo lift {field}: kernel 1 within the limits")
+
+
+def demo_vis_dir() -> int:
+    """eval.cli --synthetic --vis-dir --vis-period 1 (the flagship at its
+    defaults, weights from the seed): a pred-vs-GT panel for every image,
+    each [2H, 3W, 3] with the GT columns drawn; returns its kernel-1
+    launches (12 a batch)."""
+    from ovmono3d_tpu_torch.data.build import read_png
+
+    vis = DEMO_DIR / "vis"
+    reset_path_counts()
+    t0 = time.perf_counter()
+    eval_cli.main(["--synthetic", "--batch-size", "8", "--vis-dir", str(vis),
+                   "--vis-period", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    data, _ = synthetic_datasets(50, [str(i) for i in range(50)])
+    n_images = sum(len(r) for r in data.values())
+    n_batches = sum(-(-len(r) // 8) for r in data.values())
+    counts = check_path_counts(
+        "eval.cli --synthetic --vis-dir --vis-period 1",
+        {"flash_attention_packed": 12 * n_batches}, phase="demo")
+    files = sorted(vis.glob("*.png"))
+    check(len(files) == n_images, f"{len(files)} panels for {n_images} "
+                                  "images")
+    for name, recs in data.items():
+        for i, rec in enumerate(recs):
+            panel = read_png(vis / f"{name}_p0_{i:06d}.png")
+            h, w = rec["height"], rec["width"]
+            check(panel.shape == (2 * h, 3 * w, 3),
+                  f"{name} {i}: panel {panel.shape}")
+            check(bool((panel[:h, :w] != 255).any()), "the GT is drawn")
+    say("demo", f"eval.cli --vis-dir: {len(files)} panels of "
+                f"{n_images} images in {wall:.1f} s (model, evaluation, "
+                "drawing and PNG encoding)")
+    return counts["flash_attention_packed"]
+
+
+def tp_steps(cfg, model, batch, groups) -> dict:
+    """TP_STEPS train steps (sampling seed 1); the parameters after them."""
+    opt = Optimizer(SolverConfig(), model)
+    state = create_train_state(model, opt, seed=1)
+    step = make_train_step(model, opt, cfg.stabilize, groups)
+    for _ in range(TP_STEPS):
+        state, metrics = step(state, batch)
+        check_losses(metrics, "tp step")
+    check(int(state.skipped) == 0, "no step skipped")
+    torch.cuda.synchronize()
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def tp_phase(k: dict) -> dict:
+    """Kernels 1, 3 and 4 at TP_SHAPE against their plain versions, and
+    their times beside the 12-head ones (added to `k`'s rows); then the
+    flagship's train step (trunk unfrozen) in a one-process NCCL group as
+    data x model = 1 x 1 against no group, bit for bit (cuDNN's
+    deterministic algorithms in both, and a repeat of the run without a
+    group as the control). Returns the kernel-3 and kernel-4 launches of
+    the grouped run."""
+    b, n, h, d = TP_SHAPE
+    q, kk, v = qkv_views(b, n, h, d, seed=31)
+    do = qkv_views(b, n, h, d, seed=32)[0]
+    check(q.stride(1) == 3 * h * d,
+          f"views of a half-width qkv (row stride {q.stride(1)})")
+    with torch.no_grad():
+        err = {"fwd": check_close(
+            f"k1 shard {TP_SHAPE} out", attention.flash_attention_packed(
+                q, kk, v), attention.attention_ref(q, kk, v), absolute=True)}
+        o, lse = attention.flash_attention_packed_lse(q, kk, v)
+        want_o, want_lse = attention.attention_lse_ref(q, kk, v)
+        err["lse"] = max(check_close("k3 shard out", o, want_o),
+                         check_close("k3 shard lse", lse, want_lse))
+        grad = attention.flash_attention_packed_bwd(q, kk, v, o, lse, do)
+        want = attention.attention_bwd_ref(q, kk, v, o, lse, do)
+        err["bwd"] = max(check_close(f"k4 shard {g}", x, w) for x, w, g in
+                         zip(grad.unbind(2), want, ("dq", "dk", "dv")))
+        del grad, want
+        calls = {
+            "fwd": (lambda: attention.flash_attention_packed(q, kk, v),
+                    lambda: attention.attention_ref(q, kk, v)),
+            "lse": (lambda: attention.flash_attention_packed_lse(q, kk, v),
+                    lambda: attention.attention_lse_ref(q, kk, v)),
+            "bwd": (lambda: attention.flash_attention_packed_bwd(
+                        q, kk, v, o, lse, do),
+                    lambda: attention.attention_bwd_ref(
+                        q, kk, v, o, lse, do))}
+        for kind, (fn, plain) in calls.items():
+            ms, plain_ms = time_ms(fn), time_ms(plain, reps=5)
+            bound = bound_ms(b, n, h, d, kind)
+            k[kind]["max_abs_err"] = max(k[kind]["max_abs_err"], err[kind])
+            k[kind]["shard_ms"], k[kind]["shard_plain_ms"] = ms, plain_ms
+            say("tp", f"{kind} at {TP_SHAPE}: kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+                      f"({bound[1]}); at {KERNEL_SHAPES['trunk']} the "
+                      f"kernel {k[kind]['ms']:.4f} ms")
+
+    batch = synthetic_batch(TP_B, TRAIN_GT, seed=9)
+    torch.backends.cudnn.deterministic = True
+    try:
+        alone = [tp_steps(*train_model(), batch, None) for _ in range(2)]
+        control = [n for n in alone[0]
+                   if not torch.equal(alone[0][n], alone[1][n])]
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        mesh.init_multihost(f"localhost:{port}", 1, 0, device="cuda")
+        groups = mesh.make_groups(1, 1)
+        cfg, model = train_model()
+        check(not apply_tp(model, groups.model),
+              "a model group of one shards nothing")
+        reset_attention_counts()
+        grouped = tp_steps(cfg, model, batch, groups)
+        launches = {"lse": attention.flash_attention_packed_lse.launches,
+                    "bwd": attention.flash_attention_packed_bwd.launches}
+        check(torch.distributed.get_backend() == "nccl", "an NCCL group")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    n_blocks = len(model.backbone.vit.blocks())
+    check(launches["lse"] == launches["bwd"] == n_blocks * TP_STEPS,
+          f"kernel 3/4 launches {launches} for {TP_STEPS} steps")
+    differ = [n for n in alone[0] if not torch.equal(alone[0][n], grouped[n])]
+    say("tp", f"{TP_STEPS} train steps of the unfrozen flagship at B={TP_B}: "
+              f"two runs without a group differ in {len(control)} tensors "
+              f"{control[:3]}; data x model = 1 x 1 in a one-process NCCL "
+              f"group against no group: {len(differ)} of {len(grouped)} "
+              f"tensors differ {differ[:3]}. A run across cards waits for a "
+              f"machine with more than one (this one has "
+              f"{torch.cuda.device_count()})")
+    check(not control, "two runs without a group are equal (the control)")
+    check(not differ, "data x model = 1 x 1 equals no group, bit for bit")
+    tp_dryrun()
+    return launches
+
+
+def tp_dryrun() -> None:
+    """python -m ovmono3d_tpu_torch.parallel.dryrun --device cuda --data 1
+    --model 1 on the shipped flagship file with the trunk unfrozen: its
+    process spawned on this card, NCCL, one train step."""
+    from ovmono3d_tpu_torch.parallel import dryrun
+
+    config = Path(__file__).resolve().parent / "configs" / \
+        "OVMono3D_dinov2_SFP.yaml"
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        m = dryrun.main(["--device", "cuda", "--data", "1", "--model", "1",
+                         "--config-file", str(config),
+                         "model.backbone.freeze=false"])
+    say("tp", f"dryrun in {time.perf_counter() - t0:.1f} s (the process's "
+              f"start and kernel builds included): {out.getvalue().strip()}")
+    check(math.isfinite(m["total_loss"]) and m["skipped"] == 0,
+          "the dry run's step on the card: a finite loss, no skip")
+
+
+def native_phase() -> None:
+    """The g++ build of the native batch resize, the OpenMP runtime in the
+    process, and NATIVE_B-image batches through build_test_iterator on the
+    native route and on the per-image torch resize: equal geometry, pixels
+    within NATIVE_ATOL, the ms per batch of each."""
+    from ovmono3d_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.load()
+    # The runtimes of SONAME libgomp.so.1 (other packages may load their
+    # own renamed copies, libgomp-<hash>.so.1, for themselves).
+    maps = Path("/proc/self/maps").read_text()
+    gomp = sorted({line.split()[-1] for line in maps.splitlines()
+                   if Path(line.split()[-1]).name.startswith("libgomp.so.1")})
+    say("native", f"{lib.name} ({' '.join(native.CXX_FLAGS)} -c, linked "
+                  f"to {native.libgomp()}) ready in "
+                  f"{time.perf_counter() - t0:.2f} s; OpenMP runtime in the "
+                  f"process: {gomp}; {os.cpu_count()} cores, "
+                  f"native_worthwhile {native.native_worthwhile()}")
+    check(len(gomp) == 1, "one OpenMP runtime")
+    check(native.native_worthwhile(), "the native route is taken here")
+    cfg = Config(model=flagship_config(S))
+    h, w = NATIVE_HW
+    images = ov_requests(NATIVE_B, seed=41)
+    records = [{"file_name": f"{i}.png", "height": h, "width": w,
+                "image_id": i, "K": default_focal_K(h, w).tolist()}
+               for i in range(NATIVE_B)]
+
+    def batch(use_native: bool) -> dict:
+        it = build_test_iterator(cfg, records, NATIVE_B,
+                                 lambda r: images[r["image_id"]],
+                                 use_native=use_native)
+        return next(it)[1]
+
+    fast, slow = batch(True), batch(False)
+    for key in fast:
+        if key == "image":
+            err = float(np.abs(fast[key] - slow[key]).max())
+            check(err <= NATIVE_ATOL, f"native pixels within {NATIVE_ATOL} "
+                                      f"of the torch resize ({err:.3e})")
+        elif key != "im_scale_ratio":
+            check(np.array_equal(fast[key], slow[key]), f"{key} equal")
+    ms = {}
+    for label, use in (("native", True), ("torch", False), ("native", True),
+                       ("torch", False)):
+        t = []
+        for _ in range(NATIVE_REPS):
+            t1 = time.perf_counter()
+            batch(use)
+            t.append((time.perf_counter() - t1) * 1e3)
+        ms.setdefault(label, []).extend(t)
+    say("native", f"build_test_iterator, {NATIVE_B} images of {w}x{h} to "
+                  f"the {S}^2 canvas, ms per batch (median of "
+                  f"{2 * NATIVE_REPS}, in turns): native "
+                  f"{statistics.median(ms['native']):.2f}, torch per image "
+                  f"{statistics.median(ms['torch']):.2f}; pixels within "
+                  f"{err:.3e} of each other")
+
+
 def main() -> None:
     import argparse
 
@@ -4840,19 +5230,29 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     trunk_launches = trunks_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    demo_launches = demo_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_launches = tp_phase(k)
+    gc.collect()
+    torch.cuda.empty_cache()
+    native_phase()
     launches = {"fwd": launches + geo_launches["fwd"] + ov_launches["fwd"]
                 + q_launches["fwd"] + eval_launches + st_launches["fwd"]
                 + remat_launches["fwd"] + cli_launches["fwd"]
-                + rel_launches["fwd"] + trunk_launches["fwd"],
+                + rel_launches["fwd"] + trunk_launches["fwd"]
+                + demo_launches["fwd"],
                 "lse": train_launches["lse"] + remat_launches["lse"]
-                + cli_launches["lse"],
+                + cli_launches["lse"] + tp_launches["lse"],
                 "bwd": train_launches["bwd"] + remat_launches["bwd"]
-                + cli_launches["bwd"],
+                + cli_launches["bwd"] + tp_launches["bwd"],
                 "relpos": geo_launches["relpos"] + q_launches["relpos"]
                 + f32_launches["relpos"] + st_launches["relpos"]
                 + rel_launches["relpos"] + trunk_launches["relpos"],
                 "window": ov_launches["window"] + st_launches["window"]
-                + rel_launches["window"],
+                + rel_launches["window"] + demo_launches["window"],
                 "int8": q_launches["int8"], "quant": q_launches["quant"],
                 "fwd_f32": f32_launches["fwd_f32"] + st_launches["fwd_f32"]
                 + rel_launches["fwd_f32"],
@@ -4892,8 +5292,8 @@ def main() -> None:
             "library_ms")
     kernels = []
     for kind, (name, source, replaces) in meta.items():
-        design = (DESIGN_KEYS if kind in ("fwd", "lse", "k2", "k5", "bwd",
-                                          "k6")
+        design = (DESIGN_KEYS + SHARD_KEYS if kind in ("fwd", "lse", "bwd")
+                  else DESIGN_KEYS if kind in ("k2", "k5", "k6")
                   else F32_KEYS if kind == "fwd_f32"
                   else PREVIOUS_KEYS if kind in ("relpos", "window", "int8")
                   else ("device_ms",) if kind == "quant" else ())

@@ -11,16 +11,18 @@ an image loader that needs neither cv2 nor PIL.
   whatever the threads' timing: producer t makes batches t, t + T, ...
 - `build_test_iterator`: each record once, in order (InferenceSampler
   semantics), mapped by `data/mapper.py` and stacked; the last chunk is
-  padded by repeating its final record. The JAX package's optional native
-  resize (`native/preproc.cc`) has no counterpart yet: the mapper resizes
-  each image with torch on the CPU.
+  padded by repeating its final record. Its pixels go through the C++
+  batch resize (`data/native.py`, the port's copy of `native/preproc.cc`)
+  on a machine with at least 4 cores, else the mapper resizes each image
+  with torch on the CPU.
 - `default_image_loader`: record["file_name"] under the data root as RGB
   uint8, or None when the file is missing (a zero image, as in the JAX
-  package). The machine with the card has no cv2 and no PIL, so 8-bit PNG
-  (the format the repository's fixtures write) is decoded here with zlib and
-  numpy (`read_png`); any other format raises, naming it. `encode_png` /
-  `write_png` write it (test data, the training panels of train/metrics.py
-  and their TensorBoard images) where cv2 is missing.
+  package), read by `utils/util.py` `imread_rgb`. The machine with the
+  card has no cv2, so 8-bit PNG (the format the repository's fixtures
+  write) is decoded here with zlib and numpy (`read_png`); other formats go
+  through PIL, imported only then. `encode_png` / `write_png`
+  write it (test data, the panels of train/metrics.py, eval --vis-dir and
+  the demo, and their TensorBoard images) where cv2 is missing.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from typing import Iterator
 import numpy as np
 
 from ovmono3d_tpu_torch.config import Config
+from ovmono3d_tpu_torch.data import native
 from ovmono3d_tpu_torch.data.mapper import batch_examples, map_example
 
 logger = logging.getLogger(__name__)
@@ -185,20 +188,39 @@ def _train_batches(cfg, records, weights, batch_size, image_loader, max_gt,
 
 
 def build_test_iterator(cfg: Config, records: list[dict], batch_size: int = 1,
-                        image_loader=None, max_oracle: int = 64
+                        image_loader=None, max_oracle: int = 64,
+                        use_native: bool = True
                         ) -> Iterator[tuple[list[dict], dict]]:
     """Yields (records_chunk, batch) with the model's keyword names; the
-    caller drops the padded slots by the chunk's length."""
+    caller drops the padded slots by the chunk's length.
+
+    With `use_native` on a machine with the cores for it
+    (`native.native_worthwhile`), a chunk whose images all loaded resizes,
+    pads and packs them in one call of the C++ batch path
+    (`data/native.py`), the records' geometry mapped in Python with
+    `skip_pixels`; a failed build of that library raises. Otherwise each
+    image is resized by the mapper."""
+    native_ok = use_native and native.native_worthwhile()
+    S = cfg.model.backbone.square_pad
     for start in range(0, len(records), batch_size):
         chunk = records[start:start + batch_size]
         padded = chunk + [chunk[-1]] * (batch_size - len(chunk))
-        examples = [
-            map_example(r, cfg, image=(image_loader(r) if image_loader
-                                       is not None else None),
-                        is_train=False, max_oracle=max_oracle)
-            for r in padded
-        ]
-        yield chunk, _to_model_batch(batch_examples(examples))
+        images = [image_loader(r) if image_loader is not None else None
+                  for r in padded]
+        if native_ok and all(im is not None for im in images):
+            batch = batch_examples([
+                map_example(r, cfg, is_train=False, max_oracle=max_oracle,
+                            skip_pixels=True) for r in padded])
+            batch["image"], batch["im_hw"], batch["im_scale_ratio"] = \
+                native.preprocess_batch_native(
+                    images, S, cfg.input.min_size_test,
+                    cfg.input.max_size_test)
+        else:
+            batch = batch_examples([
+                map_example(r, cfg, image=im, is_train=False,
+                            max_oracle=max_oracle)
+                for r, im in zip(padded, images)])
+        yield chunk, _to_model_batch(batch)
 
 
 def _to_model_batch(b: dict) -> dict:
@@ -256,8 +278,9 @@ def read_png(path) -> np.ndarray:
     if not data.startswith(_PNG_MAGIC):
         kind = ("JPEG" if data[:3] == b"\xff\xd8\xff" else
                 "an unknown format")
-        raise ValueError(f"{path}: {kind}; the port's image loader reads "
-                         "8-bit PNG only (no cv2 or PIL on the GPU machine)")
+        raise ValueError(f"{path}: {kind}; read_png reads 8-bit PNG only "
+                         "(utils/util.py imread_rgb reads the others "
+                         "through PIL)")
     pos, header, idat = len(_PNG_MAGIC), None, []
     while pos < len(data):
         (length,), kind = struct.unpack(">I", data[pos:pos + 4]), \
@@ -309,13 +332,15 @@ def write_png(path, rgb: np.ndarray) -> None:
 
 
 def default_image_loader(data_root: str):
-    """Loads record['file_name'] relative to data_root as RGB uint8; None
-    for a missing file."""
+    """Loads record['file_name'] relative to data_root as RGB uint8
+    (`utils/util.py` `imread_rgb`: PNG here, other formats through PIL);
+    None for a missing file."""
+    from ovmono3d_tpu_torch.utils.util import imread_rgb
 
     def load(rec: dict):
         path = Path(data_root) / rec["file_name"]
         if not path.exists():
             return None
-        return read_png(path)
+        return imread_rgb(path)
 
     return load

@@ -61,9 +61,12 @@ def _resize_image(image: np.ndarray, new_hw: tuple[int, int]) -> np.ndarray:
 def map_example(record: dict, cfg: Config, image: np.ndarray | None = None,
                 is_train: bool = False, max_gt: int = 64,
                 max_oracle: int = 64,
-                rng: np.random.RandomState | None = None) -> MappedExample:
+                rng: np.random.RandomState | None = None,
+                skip_pixels: bool = False) -> MappedExample:
     """Map one dataset record to fixed-shape arrays. `image`: [H, W, 3]
-    uint8/float RGB, or None for a zero image of the record's size."""
+    uint8/float RGB, or None for a zero image of the record's size.
+    `skip_pixels` keeps every field but leaves the canvas zero, unresized:
+    for callers that put the native batch resize's pixels there."""
     H, W = record["height"], record["width"]
     if image is None:
         image = np.zeros((H, W, 3), np.float32)
@@ -76,10 +79,11 @@ def map_example(record: dict, cfg: Config, image: np.ndarray | None = None,
     flip = bool(is_train and cfg.input.random_flip and rng is not None
                 and rng.rand() < 0.5)
     padded = np.zeros((S, S, 3), np.float32)
-    resized = _resize_image(image.astype(np.float32), (nh, nw))
-    if flip:
-        resized = resized[:, ::-1]
-    padded[:nh, :nw] = resized
+    if not skip_pixels:
+        resized = _resize_image(image.astype(np.float32), (nh, nw))
+        if flip:
+            resized = resized[:, ::-1]
+        padded[:nh, :nw] = resized
 
     K = np.asarray(record["K"], np.float64)
     ratio = 1.0 / scale  # original / network

@@ -33,6 +33,11 @@ records' order on every process (`gather_objects`), so the tables are those
 of one process; rank 0 prints them and writes the dumps. Without a group it
 is one process, as without the flag.
 
+`--vis-dir DIR` writes the 3 x 2 pred-vs-GT panel (`vis/draw.py`
+`pred_vs_gt_panels`) of every `--vis-period`-th image of each dataset to
+DIR as <dataset>_p<rank>_<index>.png (the JAX tool writes .jpg through
+cv2).
+
 Runs on CUDA unless `--device` names another device.
 """
 from __future__ import annotations
@@ -66,6 +71,8 @@ from ovmono3d_tpu_torch.utils.geometry import CORNER_SIGNS
 from ovmono3d_tpu_torch.utils.lift_convert import extract_priors
 from ovmono3d_tpu_torch.utils.load import load_rcnn_params, load_torch_state
 from ovmono3d_tpu_torch.utils.priors import compute_priors
+from ovmono3d_tpu_torch.utils.util import imwrite_rgb
+from ovmono3d_tpu_torch.vis.draw import pred_vs_gt_panels
 from ovmono3d_tpu_torch.vis.logperf import (print_ap_analysis,
                                             print_ap_per_category,
                                             print_ap_summary)
@@ -74,9 +81,6 @@ logger = logging.getLogger("ovmono3d.eval")
 
 _ORACLE_KEYS = ("oracle_boxes", "oracle_classes", "oracle_scores",
                 "oracle_valid")
-_NOT_PORTED = {
-    "vis_dir": "--vis-dir: the visualisation is ROADMAP queue 1 item 10",
-}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -103,13 +107,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "format); its priors serve when --priors is absent")
     ap.add_argument("--data-parallel", action="store_true",
                     help="evaluate over the processes of a torchrun group")
-    ap.add_argument("--vis-dir", default=None, help="not ported yet")
+    ap.add_argument("--vis-dir", default=None,
+                    help="write a pred-vs-GT panel (PNG) every --vis-period "
+                         "images here")
+    ap.add_argument("--vis-period", type=int, default=50,
+                    help="the image period of the --vis-dir panels")
     ap.add_argument("opts", nargs="*", default=[])
-    args = ap.parse_args(argv)
-    for key, why in _NOT_PORTED.items():
-        if getattr(args, key):
-            raise NotImplementedError(why)
-    return args
+    return ap.parse_args(argv)
 
 
 def make_run_fn(model):
@@ -128,13 +132,17 @@ def make_run_fn(model):
 
 
 def evaluate_dataset(cfg, model, records, image_loader, batch_size, helper,
-                     dataset_name, dump_path=None, run=None) -> dict:
+                     dataset_name, dump_path=None, run=None, vis_dir=None,
+                     vis_period: int = 50) -> dict:
     """Inference over `records`, accumulated into the shared `helper`. The
     data timer covers loading and mapping a batch on the host, the compute
     timer its upload, the model and the copy of the detections back.
     Under a process group each process runs its share of the records
     (`process_shard`), and every process's helper receives all of them in
-    the records' order (`gather_objects`); rank 0 writes the dump. Returns
+    the records' order (`gather_objects`); rank 0 writes the dump. With
+    `vis_dir`, every `vis_period`-th image of this process gets a
+    `pred_vs_gt_panels` panel, <dataset>_p<rank>_<index>.png (the image, or
+    white where the loader has none). Returns
     {"images" (this process's), "data_s", "compute_s", "batch_ms": [...]}.
     """
     device = next(model.parameters()).device
@@ -178,7 +186,13 @@ def evaluate_dataset(cfg, model, records, image_loader, batch_size, helper,
                 "center_2d": det["center_2d"][bi][valid],
             }
             place = order[stats["images"] + bi]
-            collected.append((place, _record_gt(rec), pred))
+            gt = _record_gt(rec)
+            collected.append((place, gt, pred))
+            n = stats["images"] + bi
+            if vis_dir is not None and vis_period > 0 and n % vis_period == 0:
+                write_panel(Path(vis_dir) / f"{dataset_name}_p{rank()}_"
+                                            f"{n:06d}.png",
+                            rec, image_loader, gt, pred, helper.class_names)
             if dump_path is not None:
                 dumped.append((place, _dump_entry(rec, pred)))
         stats["images"] += len(chunk)
@@ -197,6 +211,18 @@ def evaluate_dataset(cfg, model, records, image_loader, batch_size, helper,
             with open(dump_path, "w") as fh:
                 json.dump(dumped, fh)
     return stats
+
+
+def write_panel(path: Path, rec: dict, image_loader, gt: dict, pred: dict,
+                class_names) -> None:
+    """The 3 x 2 pred-vs-GT panel of one record (tools/eval_net.py's, the
+    reference's visualize_from_instances) as a PNG."""
+    img = image_loader(rec) if image_loader else None
+    if img is None:
+        img = np.full((rec["height"], rec["width"], 3), 255, np.uint8)
+    imwrite_rgb(path, pred_vs_gt_panels(
+        img, np.asarray(rec["K"], np.float64), gt, pred,
+        class_names=class_names))
 
 
 def _dump_entry(rec: dict, pred: dict) -> dict:
@@ -397,7 +423,7 @@ def main(argv=None) -> dict:
             cfg, model, records, image_loader, args.batch_size, helper, name,
             dump_path=(f"{args.dump_predictions}_{name}.json"
                        if args.dump_predictions else None),
-            run=run)
+            run=run, vis_dir=args.vis_dir, vis_period=args.vis_period)
 
     summary = helper.summarize_all()
     if rank() != 0:

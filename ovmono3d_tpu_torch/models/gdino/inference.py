@@ -78,3 +78,30 @@ def postprocess_grounding(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     out_valid = top_scores > box_threshold
     return (boxes[idx], torch.where(out_valid, top_scores, 0.0),
             classes[idx].to(torch.int32), out_valid)
+
+
+def detect_open_vocabulary(model, image: torch.Tensor, tok: BertTokenizer,
+                           categories: list[str], topk: int = 100,
+                           rel_biases: dict | None = None) -> dict:
+    """Open-vocabulary detection of one image [H, W, 3] (normalized with
+    ImageNet statistics, H and W multiples of 32) by the GroundingDINO
+    `model`, on the image's device; returns padded numpy detections (boxes,
+    scores, classes, valid) in pixels of `image`. `rel_biases`: the Swin
+    biases (`model.backbone.rel_biases()`), else the trunk's cache."""
+    text = build_text_inputs(tok, categories, max_len=model.max_text_len)
+    dev = image.device
+
+    def up(key):
+        return torch.from_numpy(text[key]).to(dev)
+
+    with torch.inference_mode():
+        out = model(image[None], up("input_ids").long(), up("text_mask"),
+                    up("text_self_mask"), up("position_ids").long(),
+                    rel_biases)
+        h, w = image.shape[:2]
+        boxes, scores, classes, valid = postprocess_grounding(
+            out["pred_logits"][0].float(), out["pred_boxes"][0].float(),
+            up("span_matrix"), up("span_valid"), (float(h), float(w)),
+            topk=topk)
+    return {"boxes": boxes.cpu().numpy(), "scores": scores.cpu().numpy(),
+            "classes": classes.cpu().numpy(), "valid": valid.cpu().numpy()}

@@ -259,13 +259,14 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor,
                 grid_hw: tuple[int, int] | None = None) -> torch.Tensor:
         B, N, C = x.shape
-        H = self.num_heads
-        qkv = self.qkv(x).view(B, N, 3, H, C // H)
+        # The heads this module holds: all, or a tensor-parallel rank's
+        # share (parallel/tensor_parallel.py splits qkv by head).
+        qkv = self.qkv(x).view(B, N, 3, -1, C // self.num_heads)
         if self.use_rel_pos:
             out = self.attn_fn(qkv, *self.rel_tables(grid_hw), grid_hw)
         else:
             out = self.attn_fn(qkv)          # [B, N, H, D]
-        return self.proj(out.reshape(B, N, C))
+        return self.proj(out.reshape(B, N, -1))
 
 
 class Block(nn.Module):
@@ -559,3 +560,21 @@ class VisionTransformer(nn.Module):
             if norm is not None:
                 nn.init.ones_(norm.weight)
                 nn.init.zeros_(norm.bias)
+
+
+def _preset(patch_size: int, embed_dim: int, depth: int, num_heads: int,
+            kw: dict) -> VisionTransformer:
+    """A preset with the JAX module's defaults where the port's differ
+    (pos_interp_offset 0, remat_policy "full"), so a preset built with the
+    same keywords in both packages is the same trunk."""
+    kw = {"pos_interp_offset": 0.0, "remat_policy": "full", **kw}
+    return VisionTransformer(patch_size=patch_size, embed_dim=embed_dim,
+                             depth=depth, num_heads=num_heads, **kw)
+
+
+def vit_base_14(**kw) -> VisionTransformer:
+    return _preset(14, 768, 12, 12, kw)
+
+
+def vit_large_14(**kw) -> VisionTransformer:
+    return _preset(14, 1024, 24, 16, kw)

@@ -34,6 +34,11 @@ def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
     return torch.stack([b1, b2, b3], dim=-2)
 
 
+def matrix_to_rotation_6d(matrix: torch.Tensor) -> torch.Tensor:
+    """Inverse of `rotation_6d_to_matrix`: the first two rows, flattened."""
+    return matrix[..., :2, :].reshape(*matrix.shape[:-2], 6)
+
+
 def quaternion_to_matrix(quat: torch.Tensor) -> torch.Tensor:
     """Quaternions (w, x, y, z), not necessarily unit -> rotation matrices."""
     w, x, y, z = quat.unbind(-1)
@@ -53,6 +58,37 @@ def quaternion_to_matrix(quat: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return m.reshape(*quat.shape[:-1], 3, 3)
+
+
+def matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices -> unit quaternions (w, x, y, z) with w >= 0,
+    branch-free: the four candidates from the diagonal, the one with the
+    largest denominator taken (the JAX package's construction)."""
+    m00, m11, m22 = matrix[..., 0, 0], matrix[..., 1, 1], matrix[..., 2, 2]
+    m01, m02 = matrix[..., 0, 1], matrix[..., 0, 2]
+    m10, m12 = matrix[..., 1, 0], matrix[..., 1, 2]
+    m20, m21 = matrix[..., 2, 0], matrix[..., 2, 1]
+    q_abs = torch.stack([1.0 + m00 + m11 + m22, 1.0 + m00 - m11 - m22,
+                         1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22],
+                        dim=-1).clamp(min=0.0).sqrt()
+    candidates = torch.stack([
+        torch.stack([q_abs[..., 0] ** 2, m21 - m12, m02 - m20, m10 - m01],
+                    dim=-1),
+        torch.stack([m21 - m12, q_abs[..., 1] ** 2, m10 + m01, m02 + m20],
+                    dim=-1),
+        torch.stack([m02 - m20, m10 + m01, q_abs[..., 2] ** 2, m12 + m21],
+                    dim=-1),
+        torch.stack([m10 - m01, m20 + m02, m21 + m12, q_abs[..., 3] ** 2],
+                    dim=-1),
+    ], dim=-2)
+    # The floor keeps the candidates not taken away from a division by ~0.
+    candidates = candidates / (2.0 * q_abs.clamp(min=0.1))[..., None]
+    best = q_abs.argmax(dim=-1)
+    idx = best[..., None, None].expand(*best.shape, 1, 4)
+    quat = candidates.gather(-2, idx)[..., 0, :]
+    quat = quat / torch.linalg.vector_norm(quat, dim=-1,
+                                           keepdim=True).clamp(min=_EPS)
+    return torch.where(quat[..., :1] < 0, -quat, quat)
 
 
 def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
@@ -91,6 +127,17 @@ def euler_angles_to_matrix(euler: torch.Tensor,
     return matmul3(matmul3(mats[0], mats[1]), mats[2])
 
 
+def matrix_to_euler_angles(matrix: torch.Tensor,
+                           convention: str = "XYZ") -> torch.Tensor:
+    """Rotation matrices -> XYZ Euler angles (R = Rx @ Ry @ Rz)."""
+    if convention != "XYZ":
+        raise NotImplementedError("only XYZ supported")
+    y = torch.asin(matrix[..., 0, 2].clamp(-1.0, 1.0))
+    x = torch.atan2(-matrix[..., 1, 2], matrix[..., 2, 2])
+    z = torch.atan2(-matrix[..., 0, 1], matrix[..., 0, 0])
+    return torch.stack([x, y, z], dim=-1)
+
+
 def so3_relative_angle(r1: torch.Tensor, r2: torch.Tensor, eps: float = 1e-4,
                        cos_angle: bool = False) -> torch.Tensor:
     """Angle of r1 @ r2^T by the trace formula (pytorch3d semantics). With
@@ -101,3 +148,14 @@ def so3_relative_angle(r1: torch.Tensor, r2: torch.Tensor, eps: float = 1e-4,
     if cos_angle:
         return cos
     return torch.acos(cos.clamp(-1.0 + eps, 1.0 - eps))
+
+
+def random_rotations(generator: torch.Generator, n: int,
+                     dtype=torch.float32) -> torch.Tensor:
+    """n uniform random rotation matrices, from normalized normal
+    quaternions drawn from `generator` (on its device)."""
+    quat = torch.randn(n, 4, generator=generator, dtype=dtype,
+                       device=generator.device)
+    quat = quat / torch.linalg.vector_norm(quat, dim=-1,
+                                           keepdim=True).clamp(min=_EPS)
+    return quaternion_to_matrix(quat)

@@ -1,18 +1,21 @@
-"""Processes of a data-parallel run over torch.distributed (counterpart of
+"""Processes of a parallel run over torch.distributed (counterpart of
 ovmono3d_tpu/parallel/mesh.py).
 
 The reference's only parallelism is NCCL data parallelism (detectron2's
-`launch`); the JAX package runs one program over a device mesh. Here each
-process drives one device and holds a share of the batch: the train step
-sums gradients and losses over the process group (parallel/train_step.py),
-evaluation shards its records (`process_shard`) and gathers what each
-process predicted (`gather_objects`). The JAX package's Megatron tensor
-parallelism (sharding_rules.py) has no counterpart: the reference has none.
+`launch`); the JAX package runs one program over a device mesh of data x
+model devices. Here each process drives one device and holds a share of the
+batch: the train step sums gradients and losses over the data group
+(parallel/train_step.py), evaluation shards its records (`process_shard`)
+and gathers what each process predicted (`gather_objects`). With a model
+axis (`make_groups`), the processes of one model group hold the same share
+of the batch and split the trunk's and the box head's layers between them
+(parallel/tensor_parallel.py, the JAX package's sharding_rules.py).
 """
 from __future__ import annotations
 
 import datetime
 import os
+from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
@@ -84,3 +87,43 @@ def gather_objects(items: list) -> list:
     parts: list = [None] * world_size()
     dist.all_gather_object(parts, list(items))
     return [x for part in parts for x in part]
+
+
+@dataclass(frozen=True)
+class Groups:
+    """This process's place on the data x model mesh: its data group (the
+    processes holding the same layer shards, each its own share of the
+    batch) and its model group (the processes splitting the layers, on the
+    same share). Ranks are laid out as the JAX mesh's devices, rank =
+    data_rank * n_model + model_rank."""
+
+    n_data: int
+    n_model: int
+    data: object           # torch.distributed ProcessGroup
+    model: object
+    data_rank: int
+    model_rank: int
+
+
+def make_groups(n_data: int, n_model: int) -> Groups:
+    """The data and model subgroups of the running process group (every
+    process must call this, in the same order as its other new_group
+    calls). Raises unless n_data * n_model is the group's size."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_groups needs a process group "
+                           "(init_multihost)")
+    if n_data * n_model != world_size():
+        raise ValueError(f"data {n_data} x model {n_model} != "
+                         f"{world_size()} processes")
+    me = rank()
+    data_rank, model_rank = divmod(me, n_model)
+    data = model = None
+    for d in range(n_data):
+        g = dist.new_group([d * n_model + m for m in range(n_model)])
+        if d == data_rank:
+            model = g
+    for m in range(n_model):
+        g = dist.new_group([d * n_model + m for d in range(n_data)])
+        if m == model_rank:
+            data = g
+    return Groups(n_data, n_model, data, model, data_rank, model_rank)

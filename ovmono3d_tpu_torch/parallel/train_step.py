@@ -22,6 +22,15 @@ batch's gradient, as in the JAX package's one program over a sharded batch
 is another result). `DistributedDataParallel` is not used: its reducer
 hooks do not fire under `torch.autograd.grad`. Without a group the step
 makes no collective call.
+
+Tensor parallelism: given `groups` (parallel/mesh.py `make_groups`) the
+sums run over the data group alone, and the model (tensor_parallel.py
+`apply_tp` over groups.model) holds its shards. The processes of a model
+group compute the same loss on the same share, so they must draw the same
+samples (seed the state's generator by the data rank, or pass the draws);
+their shards' gradients differ, so the skip flag is also reduced over the
+model group (a max), and every process takes the same decision. Global-norm
+clipping over shards is not implemented and is refused.
 """
 from __future__ import annotations
 
@@ -98,24 +107,26 @@ def _all_finite(grads: list[torch.Tensor]) -> torch.Tensor:
     return torch.stack(torch._foreach_norm(zeroed)).sum() == 0
 
 
-def _sum_over_group(x: torch.Tensor) -> torch.Tensor:
-    """A count summed over the process group, outside autograd."""
+def _sum_over_group(x: torch.Tensor, group=None) -> torch.Tensor:
+    """A count summed over the process group (the whole group when None),
+    outside autograd."""
     x = x.detach().clone()
-    dist.all_reduce(x)
+    dist.all_reduce(x, group=group)
     return x
 
 
-def _all_reduce_flat(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+def _all_reduce_flat(tensors: list[torch.Tensor],
+                     group=None) -> list[torch.Tensor]:
     """Sum `tensors` over the process group with one all_reduce of a flat
     buffer; returns views of the summed buffer shaped as the inputs."""
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     return [part.view(t.shape) for part, t in
             zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
 def make_train_step(model: RCNN3D, optimizer: Optimizer,
-                    stabilize: float = 0.01):
+                    stabilize: float = 0.01, groups=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     `batch` holds image, K, im_hw, im_scale_ratio, gt_boxes, gt_classes,
@@ -126,10 +137,22 @@ def make_train_step(model: RCNN3D, optimizer: Optimizer,
     trainable_mask. `metrics` are device tensors: the losses, total_loss
     and skipped (1.0 on a skipped step); under a process group the losses
     are the global batch's. `optimizer` may be `with_grad_accum`'s wrapper.
-    Refuses a model built with quant="int8" (SERVING-only).
+    `groups`: the data x model groups of a tensor-parallel run (the sums go
+    over groups.data). Refuses a model built with quant="int8"
+    (SERVING-only).
     """
     refuse_quantized(model)
     grouped = dist.is_available() and dist.is_initialized()
+    data_group = groups.data if groups is not None else None
+    model_group = (groups.model if groups is not None and groups.n_model > 1
+                   else None)
+    inner = getattr(optimizer, "inner", optimizer)      # GradAccum's
+    if model_group is not None and inner.clip > 0:
+        raise NotImplementedError("global-norm clipping of tensor-parallel "
+                                  "shards")
+
+    def count_reduce(x):
+        return _sum_over_group(x, data_group)
 
     def train_step(state: TrainState, batch: dict):
         gt = GroundTruth(boxes=batch["gt_boxes"], classes=batch["gt_classes"],
@@ -139,7 +162,7 @@ def make_train_step(model: RCNN3D, optimizer: Optimizer,
             batch["image"], batch["K"], batch["im_hw"],
             batch["im_scale_ratio"], gt, generator=state.generator,
             draws=batch.get("draws"), depth=batch.get("depth"),
-            count_reduce=_sum_over_group if grouped else None)
+            count_reduce=count_reduce if grouped else None)
         total = sum(losses.values())
         grads = torch.autograd.grad(total, optimizer.params,
                                     allow_unused=True)
@@ -148,7 +171,8 @@ def make_train_step(model: RCNN3D, optimizer: Optimizer,
                      for p, g in zip(optimizer.params, grads)]
             names = list(losses)
             summed = _all_reduce_flat(
-                grads + [total.detach()] + [losses[k].detach() for k in names])
+                grads + [total.detach()] + [losses[k].detach() for k in names],
+                data_group)
             grads = summed[:len(grads)]
             total = summed[len(grads)]
             losses = dict(zip(names, summed[len(grads) + 1:]))
@@ -166,6 +190,10 @@ def make_train_step(model: RCNN3D, optimizer: Optimizer,
                     | ~loss_finite)
             if stabilize > 0:
                 skip = skip | ((ema > 0) & (total > TOLERANCE * ema))
+            if model_group is not None:
+                flag = skip.float()
+                dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=model_group)
+                skip = flag > 0
             optimizer.step(grads, skip)
             state.loss_ema.copy_(torch.where(
                 skip, ema, ema * (1.0 - GAMMA) + safe_total * GAMMA))

@@ -38,12 +38,13 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, match: str, reps: int = 20, sessions: int = 3) -> float:
+def device_ms(fn, match: str, reps: int = 20, sessions: int = 6) -> float:
     """The device time of the kernels whose name holds `match`, per call of
     `fn`, from torch.profiler's trace of `reps` calls (CUDA events around a
     call also count the host's launch time when the device waits on it).
     A profiling session now and then returns no device events at all (seen
-    in a fresh process on the H100), so up to `sessions` are tried."""
+    in a fresh process on the H100, three sessions in a row once), so up to
+    `sessions` are tried."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

@@ -77,6 +77,33 @@ def project_points(K: torch.Tensor, pts3d: torch.Tensor) -> torch.Tensor:
     return torch.cat([uv, z], dim=-1)
 
 
+def cuboid_to_2d_box(K: torch.Tensor, box3d: torch.Tensor, R: torch.Tensor,
+                     clip_w: float = 0.0, clip_h: float = 0.0,
+                     min_z: float = 0.20, xywh: bool = True):
+    """The tight 2D box of a cuboid's projection, with corners behind the
+    camera (z <= min_z) snapped to the image corner of their sign quadrant
+    (0 or clip - 1 on each axis) before the min / max, as the reference's
+    convert_3d_box_to_2d (math_util.py:498-577).
+
+    Returns (box2d [..., 4] (xywh, or xyxy), behind [...] (any corner
+    behind), fully_behind [...] (every corner behind))."""
+    corners3d = cuboid_corners(box3d, R)
+    corners2d = project_points(K, corners3d)
+    behind = corners2d[..., 2] <= min_z                       # [..., 8]
+    zero = torch.zeros_like(corners2d[..., 0])
+    bx = torch.where(corners3d[..., 0] > 0, zero + (clip_w - 1.0), zero)
+    by = torch.where(corners3d[..., 1] > 0, zero + (clip_h - 1.0), zero)
+    u = torch.where(behind, bx, corners2d[..., 0])
+    v = torch.where(behind, by, corners2d[..., 1])
+    x1, y1 = u.amin(dim=-1), v.amin(dim=-1)
+    x2, y2 = u.amax(dim=-1), v.amax(dim=-1)
+    if xywh:
+        box2d = torch.stack([x1, y1, x2 - x1, y2 - y1], dim=-1)
+    else:
+        box2d = torch.stack([x1, y1, x2, y2], dim=-1)
+    return box2d, behind.any(dim=-1), behind.all(dim=-1)
+
+
 def chamfer_corner_distance(pred: torch.Tensor,
                             gt: torch.Tensor) -> torch.Tensor:
     """Symmetric chamfer distance between two 8-corner sets [..., 8, 3] ->

@@ -1,6 +1,7 @@
-"""2D boxes and projected 3D cuboids drawn on images, in numpy (what the
-training panels need of ovmono3d_tpu/vis/draw.py, which draws with cv2; the
-machine with the card has no OpenCV).
+"""2D boxes and projected 3D cuboids drawn on images, the bird's-eye view,
+the evaluation's pred-vs-GT panels, the shaded scene view and the demo's
+panel, in numpy (counterpart of ovmono3d_tpu/vis/draw.py, which draws with
+cv2; the machine with the card has no OpenCV).
 
 The rasterizer paints every pixel whose centre lies within half the
 thickness of a segment (round ends, as cv2's thick lines), and for the
@@ -8,11 +9,16 @@ cuboids' edges (cv2's LINE_AA) a one-pixel fringe blended by coverage: it
 lands within a pixel of cv2's `rectangle` and antialiased `line`.
 Labels use a 3 x 5 bitmap font at twice its size (ASCII; lower case drawn
 as upper case, characters it lacks as a box), not cv2's Hershey font.
+Panels are joined with np.concatenate (cv2's hconcat / vconcat), and the
+demo panel's bird's-eye view is resized by `utils/image.py`
+`resize_bilinear` (cv2.resize's INTER_LINEAR filter), rounded to uint8.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ovmono3d_tpu_torch.utils.image import resize_bilinear
 from ovmono3d_tpu_torch.utils.util import get_color
 
 # Wireframe edges of the reference's corner ordering (math_util diagram).
@@ -159,3 +165,127 @@ def draw_cuboid_3d(image: np.ndarray, corners3d: np.ndarray, K: np.ndarray,
         draw_line(out, [int(round(v)) for v in qa],
                   [int(round(v)) for v in qb], c, thickness, antialias=True)
     return out
+
+
+def draw_bev(corners3d_list, extent: float = 10.0, size: int = 400,
+             colors=None) -> np.ndarray:
+    """Bird's-eye-view panel [size, size, 3] on white: each cuboid's xz
+    footprint (corners 0, 1, 5, 4), `extent` metres across, the camera at
+    the bottom centre (vis.py:26 BEV)."""
+    canvas = np.full((size, size, 3), 255, np.uint8)
+
+    def to_px(x, zz):
+        return (int(round((x / extent + 0.5) * size)),
+                int(round(size - zz / extent * size)))
+
+    for i, corners in enumerate(corners3d_list):
+        corners = np.asarray(corners)
+        c = colors[i] if colors else get_color(i)
+        pts = [to_px(p[0], p[2]) for p in corners[[0, 1, 5, 4]]]
+        for j in range(4):
+            draw_line(canvas, pts[j], pts[(j + 1) % 4], c, 2, antialias=True)
+    return canvas
+
+
+def pred_vs_gt_panels(image, K, gt: dict, pred: dict,
+                      class_names: list[str] | None = None,
+                      prompted_ids: set[int] | None = None,
+                      score_thres: float | None = None) -> np.ndarray:
+    """3 x 2 evaluation panel grid (the reference's visualize_from_instances,
+    vis.py:76-296): columns GT of all classes | GT of the evaluated
+    (prompted) classes | predictions; rows 2D boxes | 3D wireframes. A
+    prediction's wireframe is drawn when its score passes `score_thres`,
+    by default sqrt(1 / n_classes) * 1.2 (vis.py:103-104).
+
+    gt / pred: evaluation dicts (classes [N], boxes2d [N, 4] xyxy,
+    corners3d [N, 8, 3]; pred also scores [N])."""
+    g_cls = np.asarray(gt.get("classes", np.zeros(0, np.int64)))
+    p_cls = np.asarray(pred.get("classes", np.zeros(0, np.int64)))
+    p_scores = np.asarray(pred.get("scores", np.ones(len(p_cls))))
+    if score_thres is None:
+        n_cats = max(len(class_names) if class_names else 1, 1)
+        score_thres = float(np.sqrt(1.0 / n_cats) * 1.2)
+
+    def name(c):
+        return class_names[int(c)] if class_names else str(int(c))
+
+    def column(classes, boxes2d, corners3d, keep, scores=None):
+        im2d = np.ascontiguousarray(np.asarray(image).copy())
+        im3d = np.ascontiguousarray(np.asarray(image).copy())
+        for i in np.flatnonzero(keep):
+            c = get_color(int(classes[i]))
+            im2d = draw_boxes_2d(
+                im2d, boxes2d[i:i + 1], [name(classes[i])],
+                None if scores is None else scores[i:i + 1], color=c)
+            if corners3d is not None and (scores is None
+                                          or scores[i] > score_thres):
+                im3d = draw_cuboid_3d(im3d, corners3d[i], K, color=c)
+        return im2d, im3d
+
+    g_boxes = np.asarray(gt.get("boxes2d", np.zeros((0, 4))))
+    g_corners = np.asarray(gt["corners3d"]) if "corners3d" in gt else None
+    p_boxes = np.asarray(pred.get("boxes2d", np.zeros((0, 4))))
+    p_corners = (np.asarray(pred["corners3d"]) if "corners3d" in pred
+                 else None)
+    all_keep = g_cls >= 0
+    eval_keep = (all_keep if prompted_ids is None
+                 else all_keep & np.isin(g_cls, list(prompted_ids)))
+    c1 = column(g_cls, g_boxes, g_corners, all_keep)
+    c2 = column(g_cls, g_boxes, g_corners, eval_keep)
+    c3 = column(p_cls, p_boxes, p_corners, np.ones(len(p_cls), bool),
+                p_scores)
+    top = np.concatenate([c1[0], c2[0], c3[0]], axis=1)
+    bottom = np.concatenate([c1[1], c2[1], c3[1]], axis=1)
+    return np.concatenate([top, bottom], axis=0)
+
+
+def draw_scene_view(image, K, corners3d_list, colors=None,
+                    novel_angle_deg: float = 45.0) -> np.ndarray:
+    """The cuboids shaded on the image | shaded from a camera orbited
+    `novel_angle_deg` upward about the scene centroid, on white with their
+    wireframes (the reference's draw_scene_view, vis.py:309+, its
+    pytorch3d render replaced by vis/rasterize.py's flat-shaded z-buffer)."""
+    from ovmono3d_tpu_torch.vis.rasterize import render_mesh_view
+
+    corners = np.asarray(corners3d_list, np.float64).reshape(-1, 8, 3)
+    if colors is None:
+        colors = np.array([get_color(i) for i in range(len(corners))],
+                          np.float64)
+    front = render_mesh_view(image, K, corners, colors)
+    center = (corners.reshape(-1, 3).mean(0) if len(corners)
+              else np.array([0.0, 0.0, 5.0]))
+    a = np.deg2rad(novel_angle_deg)
+    Rx = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                   [0, np.sin(a), np.cos(a)]])
+    moved = (corners - center) @ Rx.T + center
+    blank = np.full_like(np.asarray(image), 255)
+    novel = render_mesh_view(blank, K, moved, colors)
+    for i in range(len(moved)):
+        novel = draw_cuboid_3d(novel, moved[i], K,
+                               color=tuple(int(v) for v in colors[i]))
+    return np.concatenate([front, novel], axis=1)
+
+
+def scene_panel(image, det, K, class_names=None) -> np.ndarray:
+    """The demo's panel: the image with the valid detections' 2D boxes,
+    labels and scores and their 3D wireframes | their bird's-eye view,
+    resized to the image's height. `det`: Detections (or any object with
+    those fields) of one image, tensors or arrays."""
+
+    def host(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+
+    valid = host(det.valid).astype(bool)
+    boxes, corners = host(det.boxes)[valid], host(det.corners3d)[valid]
+    classes, scores = host(det.classes)[valid], host(det.scores)[valid]
+    labels = [class_names[c] if class_names else str(int(c))
+              for c in classes]
+    img = draw_boxes_2d(image, boxes, labels, scores)
+    for i in range(len(corners)):
+        img = draw_cuboid_3d(img, corners[i], K, color=get_color(i))
+    side = img.shape[0]
+    bev = resize_bilinear(torch.from_numpy(draw_bev(list(corners))).float(),
+                          (side, side))
+    bev = bev.round().clamp(0, 255).to(torch.uint8).numpy()
+    return np.concatenate([img, bev], axis=1)

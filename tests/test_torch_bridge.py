@@ -287,7 +287,9 @@ def test_port_sources_import_no_jax():
             "utils/sam_convert.py", "utils/depth_convert.py",
             "utils/hf_shims.py", "utils/cnn_convert.py",
             "utils/release_states.py", "models/dla.py", "models/resnet.py",
-            "models/cnns.py"} <= {
+            "models/cnns.py", "demo.py", "vis/rasterize.py",
+            "parallel/tensor_parallel.py", "parallel/dryrun.py",
+            "data/native.py"} <= {
         str(f.relative_to(port)) for f in files[:-1]}
     for f in files:
         assert not _JAX_IMPORT.search(f.read_text()), f
@@ -370,6 +372,34 @@ with tempfile.TemporaryDirectory() as out:
     assert res["step"] == 1
     assert list(Path(out, "vis").glob("train_*.png"))
     assert list(Path(out, "tb").glob("events.out.tfevents.*"))
+# The demo's and --vis-dir's drawing, image files and the native batch
+# resize, without PIL or cv2 (a JPEG then raises, naming its format).
+import numpy as np
+from ovmono3d_tpu_torch.data.native import preprocess_batch_native
+from ovmono3d_tpu_torch.utils.util import imread_rgb, imwrite_rgb
+from ovmono3d_tpu_torch.vis.draw import draw_scene_view, scene_panel
+assert preprocess_batch_native([np.zeros((40, 60, 3), np.uint8)], 64, 48,
+                               64)[0].shape == (1, 64, 64, 3)
+K = np.array([[50.0, 0, 30], [0, 50.0, 20], [0, 0, 1]])
+corners = np.array([[[x, y, z] for x, y, z in
+                     [(-1, -1, 4), (1, -1, 4), (1, 1, 4), (-1, 1, 4),
+                      (-1, -1, 6), (1, -1, 6), (1, 1, 6), (-1, 1, 6)]]],
+                   np.float64)
+det = type("Det", (), dict(valid=np.ones(1, bool), boxes=np.array(
+    [[5.0, 5, 40, 30]]), corners3d=corners, classes=np.zeros(1, int),
+    scores=np.ones(1)))
+image = np.zeros((40, 60, 3), np.uint8)
+assert scene_panel(image, det, K, ["box"]).shape == (40, 100, 3)
+assert draw_scene_view(image, K, corners).shape == (40, 120, 3)
+with tempfile.TemporaryDirectory() as out:
+    imwrite_rgb(Path(out, "a.png"), image)
+    assert (imread_rgb(Path(out, "a.png")) == image).all()
+    Path(out, "b.jpg").write_bytes(bytes([255, 216, 255, 224] + [0] * 16))
+    try:
+        imread_rgb(Path(out, "b.jpg"))
+        raise AssertionError("a JPEG read without PIL")
+    except ImportError as e:
+        assert "JPEG" in str(e) and "PIL" in str(e)
 assert not any(k.split(".")[0] in ("jax", "flax") and v is not None
                for k, v in sys.modules.items())
 print("ok")

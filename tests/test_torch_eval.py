@@ -363,8 +363,11 @@ def test_cli_on_the_fixture(tinyds, tmp_path, capsys, oracle):
 
 @pytest.mark.parametrize("flag", [["--vis-dir", "v"]])
 def test_cli_refuses_what_is_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        tcli.parse_args(["--synthetic", *flag])
+    """Nothing is refused any more: --vis-dir, the last flag that was, now
+    parses with tools/eval_net.py's --vis-period default (its panels are
+    tests/test_torch_demo.py's)."""
+    args = tcli.parse_args(["--synthetic", *flag])
+    assert (args.vis_dir, args.vis_period) == ("v", 50)
 
 
 @pytest.mark.parametrize("priors", ["from_file", "priors_flag"])
