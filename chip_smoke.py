@@ -23,8 +23,10 @@ and released-checkpoint loading: state dicts in the released key layouts at
 full width, through the CLIs' --rcnn-ckpt, --gdino-ckpt and --vocab and the
 GEO loaders, then served; and the other detector trunks (CLIP, MAE, MiDaS,
 SAM, DLA, ResNet, DenseNet, MNASNet, ShuffleNetV2) at full width from their
-released layouts, served and trained through --trunk-ckpt. Holds every CUDA
-kernel on those paths against its plain PyTorch version.
+released layouts, served and trained through --trunk-ckpt; and the SAM
+ViT-B + SFP detector trained with its trunk unfrozen (kernel 7's lse
+instance and the rel-pos backward). Holds every CUDA kernel on those paths
+against its plain PyTorch version.
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
     python3 chip_smoke.py --previous DIR   # kernels 7, 8 and 10 also
@@ -41,7 +43,10 @@ the head-major counterparts of 1, 3, 4 (the same CUDA sources, launched on
 the same views through their own wrappers); 9 = the fused row LayerNorm
 (layer_norm_fused), 12 = the LayerNorm probe's variants v2 / v3 / v4 (the
 same source's instances), 11 = the attention sweep's forward (8 instances:
-block_q and block_k in {64, 128}, softmax in f32 or bf16).
+block_q and block_k in {64, 128}, softmax in f32 or bf16); 7 lse = kernel
+7's training instance, which also writes the row log-sum-exp, and the
+rel-pos backward (csrc/relpos_flash_bwd.cu, the port's own: the JAX package
+differentiates its XLA path there).
 
 Phases, one line each (more for the build's resource report and the
 profiles' tables):
@@ -53,15 +58,17 @@ profiles' tables):
           flash_bwd_sm90_kernel<true / false>, its dk/dv and dq kernels,
           the sweep's eight sweep_fwd_sm90_kernel<block_k, consumers,
           f32 softmax>, the rel-pos forward's relpos_fwd_sm90_kernel<64
-          / 80> and the window forward's window_fwd_sm90_kernel<false /
-          true>): registers, spill stores and stack frame from the
-          -Xptxas -v log (no spills, no stack frame), ptxas's C7513 lines
-          printed, and their HGMMA and UTMALDG instructions in cuobjdump's
-          SASS (both above 0); the int8 product's three
-          int8_gemm_sm90_kernel<mode>: the same, with IGMMA
-          (s8 wgmma) for HGMMA; the f32 instance's two
-          flash_fwd_f32_kernel<D> and the int8 path's two
-          quantize_rows_kernel<T>: no spills, no stack frame
+          / 80, false / true> (inference / lse) and the window forward's
+          window_fwd_sm90_kernel<false / true>): registers, spill
+          stores and stack frame from the -Xptxas -v log (no spills, no
+          stack frame), ptxas's C7513 lines printed, and their HGMMA and
+          UTMALDG instructions in cuobjdump's SASS (both above 0); the
+          int8 product's three int8_gemm_sm90_kernel<mode>: the same,
+          with IGMMA (s8 wgmma) for HGMMA; the f32 instance's two
+          flash_fwd_f32_kernel<D>, the int8 path's two
+          quantize_rows_kernel<T> and the rel-pos backward's
+          relpos_bwd_dkdv_kernel<D> and relpos_bwd_dq_kernel<D> (D 64,
+          80; mma.sync): no spills, no stack frame
   kernel  kernel 1 vs attention_ref, kernel 3 vs attention_lse_ref and
           kernel 4 vs attention_bwd_ref at the trunk, Depth-Pro's B=1 and
           35-crop shapes, a small ragged shape, the 128-row tile's edges
@@ -87,9 +94,11 @@ profiles' tables):
           SAM-H global and windowed, SAM-B global and a small ragged grid
           (rel-pos tables ~N(0, 0.1^2)), then through probes/relpos.py at
           SAM-H's global and windowed shapes: the kernel, its earlier design
-          (with --previous; its device time must be above the new one's)
-          and SDPA with the [B, H, N, N] bias built from qrh/qrw inside the
-          timed call (a yardstick the port never calls) in turns, by events
+          (with --previous; its device time must be above the new one's,
+          or, where every kernel of DIR's library is one of the shipped
+          one's instruction for instruction, within RELPOS_SAME_NOISE of
+          it) and SDPA with the [B, H, N, N] bias built from qrh/qrw inside
+          the timed call (a yardstick the port never calls) in turns, by events
           and by the profiler's device time, the plain version's time and
           the bound; kernel 8 vs
           window_attention_ref at Swin-B's four stage shapes at 896^2, with
@@ -354,6 +363,30 @@ profiles' tables):
           bound; then 2 train-CLI steps of the frozen DLA-34 detector with
           --trunk-ckpt: every trunk parameter and BatchNorm buffer still the
           file's, bit for bit
+  samtrain  SAM ViT-B + SFP (configs/OVMono3D_sam_SFP.yaml) trained with
+          the trunk unfrozen: kernel 7's lse instance (out, lse) and the
+          rel-pos backward (dq, dk, dv, dqrh, dqrw) against
+          rel_pos_attention_lse_ref / rel_pos_attention_bwd_ref at SAM-B's
+          global blocks (B=2), its windowed blocks of 8 images and SAM-H's
+          global blocks (D = 80), two backward launches bit-identical;
+          then probes/relpos_bwd.py at the step's global and windowed
+          blocks (B=8), a global block of one image and SAM-H's: each
+          within its limit of the plain version (one image at a time) and
+          timed by events and by the profiler's device time (the
+          backward's three kernels apart) beside the plain versions, SDPA
+          with the bias as a float mask (forward; forward + backward, a
+          yardstick the port never calls) and the bound; then the
+          detector from seed 0 (rel-pos tables ~N(0, 0.1^2)) at 1024^2,
+          B=8, 16 GT slots, SGD: 2 warm-up + 3 timed steps (finite
+          losses, none skipped, every trunk parameter
+          moved, the tables among them; 12 lse-instance and 12 backward
+          launches a step and no other attention kernel), p50, device ms
+          and idle share of a step, peak memory, the card's name and power
+          limit; one B=1 loss and trunk gradient with the kernels against
+          rel_pos_attention_ref (bf16 and f32) as the train phase compares
+          them (TRAIN_LOSS_REL, TRAIN_GRAD_REL); 2 steps of the train CLI on
+          the shipped SAM config with model.backbone.freeze=false,
+          --synthetic (12 + 12 launches a step)
   demo    python -m ovmono3d_tpu_torch.demo in-process on 3 seeded 640x480
           PNGs at the shipped flagship config (weights moved off the init
           as in the ovlift phase), labels "chair,table,lamp": the panels'
@@ -365,7 +398,8 @@ profiles' tables):
           for each of the 32 images, 12 kernel-1 launches a batch
   tp      kernels 1, 3 and 4 at the tensor-parallel shard shape [1, 4097,
           6, 64] (views of a half-width qkv) against their plain versions
-          and timed beside the 12-head shape; 2 train steps of the unfrozen
+          and timed beside the 12-head shape, with SDPA's forward or
+          backward on the same views; 2 train steps of the unfrozen
           flagship at B=2 as data x model = 1 x 1 in a one-process NCCL
           group against no group, bit for bit (two runs without a group as
           the control); the dry run's entry point (parallel/dryrun.py,
@@ -380,8 +414,11 @@ profiles' tables):
 Then a JSON line of the kernels (kernels 1, 2, 3 and 5 at the trunk shape
 also with previous_ms, device_ms, previous_device_ms and library_device_ms:
 the mma.sync design's event time and the device times of both designs and
-of SDPA; kernels 1, 3 and 4 also with shard_ms and shard_plain_ms, their
-times at the tensor-parallel shard shape; kernel 7 at SAM-H global, kernel
+of SDPA; kernels 1, 3 and 4 also with shard_ms, shard_plain_ms and
+shard_library_ms: their times, their plain versions' and SDPA's at the
+tensor-parallel shard shape; kernel 7 at SAM-H global, kernel
+7's lse instance and the rel-pos backward at SAM-B's global blocks of the
+B=8 train step with device_ms and library_device_ms, kernel
 8 at stage 0 shifted and kernel
 10 at LIFT fc1 with
 device_ms, previous_device_ms (the design in --previous DIR, null without
@@ -470,6 +507,7 @@ from ovmono3d_tpu_torch.probes import flash_fwd as fwd_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import flash_fwd_f32 as f32_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import int8_gemm as int8_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import relpos as relpos_probe  # noqa: E402
+from ovmono3d_tpu_torch.probes import relpos_bwd as relpos_bwd_probe  # noqa
 from ovmono3d_tpu_torch.probes import window as window_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import card as card_name  # noqa: E402
 from ovmono3d_tpu_torch.probes import (  # noqa: E402
@@ -518,21 +556,24 @@ from ovmono3d_tpu_torch.utils.cnn_convert import (  # noqa: E402
 # The redesigned kernels: (source, kernel template, instances, SASS
 # instructions that show the design) of the bf16 D = 64 forward (kernels 1,
 # 2, 3, 5) and backward (4, 6: the dk/dv and dq instances), the attention
-# sweep (11, eight instances) and the rel-pos forward (7, D 64 and 80), on
-# wgmma and TMA loads; the int8 product (10: raw, bf16 and f32) on s8 wgmma
-# (IGMMA) and TMA loads; and kernel 1's
-# f32 instance (FFMA; D 32 and 64) and the int8 path's quantization (bf16
-# and f32 inputs).
+# sweep (11, eight instances) and the rel-pos forward (7, D 64 and 80, the
+# inference and the lse instance of each), on wgmma and TMA loads; the
+# int8 product (10: raw, bf16 and f32) on s8 wgmma (IGMMA) and TMA loads;
+# and kernel 1's f32 instance (FFMA; D 32 and 64), the int8 path's
+# quantization (bf16 and f32 inputs) and the rel-pos backward's mma.sync
+# dk/dv and dq kernels (D 64 and 80).
 SASS_OPS = ("HGMMA", "UTMALDG")
 DESIGNS = (("flash_attn_fwd.cu", "flash_fwd_sm90_kernel", 2, SASS_OPS),
            ("flash_attn_bwd.cu", "flash_bwd_sm90_kernel", 2, SASS_OPS),
            ("attn_sweep_fwd.cu", "sweep_fwd_sm90_kernel", 8, SASS_OPS),
-           ("relpos_flash_fwd.cu", "relpos_fwd_sm90_kernel", 2, SASS_OPS),
+           ("relpos_flash_fwd.cu", "relpos_fwd_sm90_kernel", 4, SASS_OPS),
            ("window_attn_fwd.cu", "window_fwd_sm90_kernel", 2, SASS_OPS),
            ("int8_gemm.cu", "int8_gemm_sm90_kernel", 3,
             ("IGMMA", "UTMALDG")),
            ("flash_attn_fwd.cu", "flash_fwd_f32_kernel", 2, ()),
-           ("int8_gemm.cu", "quantize_rows_kernel", 2, ()))
+           ("int8_gemm.cu", "quantize_rows_kernel", 2, ()),
+           ("relpos_flash_bwd.cu", "relpos_bwd_dkdv_kernel", 2, ()),
+           ("relpos_flash_bwd.cu", "relpos_bwd_dq_kernel", 2, ()))
 # The JSON entries of kernels 1-6 carry, besides every kernel's keys, the
 # mma.sync design's event time and the device times of both designs and of
 # SDPA (fwd_probe.rows, bwd_probe.rows, design_times).
@@ -566,6 +607,9 @@ RELPOS_SHAPES = {"sam_h_global": (1, (64, 64), 16, 80),
                  "sam_b_global": (1, (64, 64), 12, 64),
                  "ragged": (2, (6, 10), 12, 64)}
 REL_POS_STD = 0.1     # about a trained SAM table's scale
+# Kernel 7's inference instance and the same machine code built from
+# --previous DIR, timed in turns: their device times agree within this.
+RELPOS_SAME_NOISE = 0.05
 # The f32 instance of kernel 1: Depth-Pro's B=1 encoders and 35-crop patch
 # encoder in f32 (the JAX GEO CLI's default), a small ragged case.
 F32_SHAPES = {"depth_pro": (1, 577, 16, 64),
@@ -1275,12 +1319,33 @@ def relpos_kernel_phase(previous: str | None) -> dict:
                 absolute=True))
             del got, bias
     previous = earlier_design(previous, "relpos_flash_fwd.cu")
+    # Whether every kernel of the earlier library is one of the shipped
+    # library's, instruction for instruction: the inference instances
+    # unchanged beside new ones (the lse instances). Then the two are timed
+    # as the same machine code, and their device times must agree within
+    # RELPOS_SAME_NOISE instead of the new one being below.
+    same = previous is not None and set(machine_code(cuda_build.build(
+        ["relpos_flash_fwd.cu"], Path(previous))["relpos_flash_fwd.cu"])) <= \
+        set(machine_code(cuda_build.build(["relpos_flash_fwd.cu"])[
+            "relpos_flash_fwd.cu"]))
+    if same:
+        say("kernel", f"k7: every kernel of {previous}'s relpos_flash_fwd.cu "
+                      f"is one of the shipped library's, instruction for "
+                      f"instruction (the inference instances unchanged)")
     rows = relpos_probe.rows(previous=previous)
     for name, r in rows.items():
         say("kernel", "k7 " + relpos_probe.describe(name, r))
         check(r["ok"], f"k7 {name}: within the probe's limits of the plain "
                        f"version")
-        if previous is not None:
+        if previous is not None and same:
+            ratio = r["device_ms"] / r["previous_device_ms"]
+            say("kernel", f"k7 {name}: shipped / earlier device time "
+                          f"{ratio:.4f} (the same machine code)")
+            check(r["previous_ok"] and abs(ratio - 1) <= RELPOS_SAME_NOISE,
+                  f"k7 {name}: the earlier library within the limits and "
+                  f"the same code's device times within "
+                  f"{RELPOS_SAME_NOISE:.0%} of each other")
+        elif previous is not None:
             check(r["previous_ok"]
                   and r["device_ms"] < r["previous_device_ms"],
                   f"k7 {name}: the earlier design within the limits and the "
@@ -1832,9 +1897,24 @@ def sampling_draws(model, batch: dict, seed: int) -> dict:
             "proposal": uniform_draws((b, 2, n_props), g, dev)}
 
 
-def compare_train_step(model, batch) -> None:
+def set_sam_attention(model, fn) -> None:
+    """Route every SAM block's rel-pos attention through fn(qkv, Rh, Rw,
+    grid)."""
+    for blk in model.backbone.vit.blocks():
+        blk.attn.attn_fn = fn
+
+
+def compare_train_step(model, batch, phase: str = "train",
+                       set_attn=set_attention, attn: dict | None = None,
+                       bwd_launches=lambda: (
+                           attention.flash_attention_packed_bwd.launches)
+                       ) -> None:
     """One B=1 loss and gradient from the same state, with the kernels and
-    with attention_ref in every block, and the same sampling draws.
+    with attention_ref in every block, and the same sampling draws. `attn`
+    gives each run's attention ({"kernel", "plain", "plain_f32"}, set
+    through `set_attn`; the flagship's by default) and `bwd_launches` the
+    backward kernel's count, which the kernel run must raise by one a block
+    and the plain runs leave.
 
     Attention's bf16 rounding differs between the two paths, and the RPN's
     proposals are discrete decisions (top-k, NMS at IoU 0.7) that a small
@@ -1906,18 +1986,21 @@ def compare_train_step(model, batch) -> None:
     vit = model.backbone.vit
     trunk = dict(vit.named_parameters())
     n_blocks = len(vit.blocks())
-    runs = (("kernel", attention.dot_product_attention, False),
-            ("plain", attention.attention_ref, False),
-            ("plain_f32", attention_f32_probs, False),
-            ("plain_shared", attention.attention_ref, True),
-            ("plain_f32_shared", attention_f32_probs, True))
+    attn = attn or {"kernel": attention.dot_product_attention,
+                    "plain": attention.attention_ref,
+                    "plain_f32": attention_f32_probs}
+    runs = (("kernel", attn["kernel"], False),
+            ("plain", attn["plain"], False),
+            ("plain_f32", attn["plain_f32"], False),
+            ("plain_shared", attn["plain"], True),
+            ("plain_f32_shared", attn["plain_f32"], True))
     out = {}
     rcnn3d.rpn_proposals, rcnn3d.sample_proposals = (replay_proposals,
                                                      sample_both)
     hook = vit.register_forward_hook(at_trunk_output)
     try:
         for name, fn, share in runs:
-            set_attention(model, fn)
+            set_attn(model, fn)
             upstream["share"] = share
             reset_attention_counts()
             torch.cuda.reset_peak_memory_stats()
@@ -1928,9 +2011,9 @@ def compare_train_step(model, batch) -> None:
             grads = torch.autograd.grad(total, list(trunk.values()))
             total = total.detach()
             torch.cuda.synchronize()
-            launched = attention.flash_attention_packed_bwd.launches
+            launched = bwd_launches()
             check(launched == (n_blocks if name == "kernel" else 0),
-                  f"{name} run: {launched} kernel-4 launches")
+                  f"{name} run: {launched} backward-kernel launches")
             out[name] = (total.item(), dict(zip(trunk, grads)),
                          torch.cuda.max_memory_allocated(),
                          {k: v.item() for k, v in losses.items()})
@@ -1939,19 +2022,19 @@ def compare_train_step(model, batch) -> None:
         hook.remove()
         rcnn3d.rpn_proposals, rcnn3d.sample_proposals = (rpn_proposals,
                                                          sample_proposals)
-        set_attention(model, attention.dot_product_attention)
+        set_attn(model, attn["kernel"])
     (lk, gk, mem_k, parts_k), (lp, gp, mem_p, parts_p) = (out["kernel"],
                                                           out["plain"])
     d_logit, d_delta, props_diff, props_n = seen["rpn"]
     samp_diff, samp_n, fg_own, fg_kept = seen["sampled"]
-    say("train", f"B=1 plain run vs kernel run, before the replay: RPN "
+    say(phase, f"B=1 plain run vs kernel run, before the replay: RPN "
                  f"logits max |diff| {d_logit:.3e}, deltas {d_delta:.3e}; "
                  f"{props_diff} of its {props_n} valid proposals and "
                  f"{samp_diff} of its {samp_n} sampled boxes have no match "
                  f"within 1 px in the kernel run's (foreground {fg_own} vs "
                  f"{fg_kept}); every run uses the kernel run's proposals")
     loss_rel = abs(lk - lp) / abs(lp)
-    say("train", f"B=1 kernel vs plain: total loss {lk:.6f} vs {lp:.6f} "
+    say(phase, f"B=1 kernel vs plain: total loss {lk:.6f} vs {lp:.6f} "
                  f"(rel {loss_rel:.3e}, limit {TRAIN_LOSS_REL}, margin "
                  f"{TRAIN_LOSS_REL / max(loss_rel, 1e-30):.1f}x); "
                  + ", ".join(f"{k} {parts_k[k]:.5f}/{parts_p[k]:.5f}"
@@ -1968,13 +2051,13 @@ def compare_train_step(model, batch) -> None:
         return (f"median {statistics.median(r.values()):.3e}, worst "
                 + ", ".join(f"{n} {v:.3e}" for n, v in worst))
 
-    say("train", "B=1 trunk gradient ||g_a - g_b|| / ||g_b||, each run's own "
+    say(phase, "B=1 trunk gradient ||g_a - g_b|| / ||g_b||, each run's own "
                  "heads (not checked): kernel vs plain "
                  + summary(rel("kernel", "plain")) + "; plain vs plain in "
                  "f32 " + summary(rel("plain", "plain_f32")))
     checked = rel("kernel", "plain_shared")
     worst = max(checked.values())
-    say("train", "B=1 trunk gradient from the kernel run's gradient at the "
+    say(phase, "B=1 trunk gradient from the kernel run's gradient at the "
                  "trunk output: kernel vs plain " + summary(checked)
                  + f" (limit {TRAIN_GRAD_REL}, margin "
                  f"{TRAIN_GRAD_REL / max(worst, 1e-30):.2f}x); plain vs plain "
@@ -2204,8 +2287,13 @@ def attention_counts() -> dict:
     return out
 
 
+REL_POS_WRAPPERS = (attention.rel_pos_flash_attention,
+                    attention.rel_pos_flash_attention_lse,
+                    attention.rel_pos_flash_attention_bwd)
+
+
 def reset_attention_counts() -> None:
-    for fn in ATTENTION_WRAPPERS + (attention.rel_pos_flash_attention,):
+    for fn in ATTENTION_WRAPPERS + REL_POS_WRAPPERS:
         fn.launches = 0
         if hasattr(fn, "launches_f32"):
             fn.launches_f32 = 0
@@ -2713,6 +2801,8 @@ def path_counts() -> dict:
     """The launches of the kernels the stream phase's paths run."""
     return {"window": attention.window_flash_attention.launches,
             "relpos": attention.rel_pos_flash_attention.launches,
+            "relpos_lse": attention.rel_pos_flash_attention_lse.launches,
+            "relpos_bwd": attention.rel_pos_flash_attention_bwd.launches,
             **attention_counts()}
 
 
@@ -4824,6 +4914,206 @@ def trunks_phase() -> dict:
     return totals
 
 
+# The samtrain phase: the SAM ViT-B + SFP detector trained with its trunk
+# unfrozen. SAMTRAIN_CHECK: (B, grid, H, D) at which kernel 7's lse instance
+# and the rel-pos backward are held to their plain versions under the kernel
+# phase's limits: SAM ViT-B's global blocks at B=2 (the plain backward's [B,
+# H, N, N] f32 tensors bound the batch), its windowed blocks at 8 images (200
+# windows of 14 x 14) and SAM-H's global blocks (D = 80). They are timed at
+# probes/relpos_bwd.py's shapes; its first, a global block of the B=8 step,
+# is the kernels' JSON row.
+SAMTRAIN_CHECK = {"sam_b_global_b2": (2, (64, 64), 12, 64),
+                  "sam_b_window_b8": (200, (14, 14), 12, 64),
+                  "sam_h_global_b1": (1, (64, 64), 16, 80)}
+SAMTRAIN_B, SAMTRAIN_GT, SAMTRAIN_WARMUP, SAMTRAIN_TIMED = 8, 16, 2, 3
+SAMTRAIN_CLI_STEPS = 2
+SAMTRAIN_DIR = Path(__file__).resolve().parent / "build" / "samtrain_phase"
+
+
+def relpos_train_kernels() -> dict:
+    """Kernel 7's lse instance and the rel-pos backward against their plain
+    versions at SAMTRAIN_CHECK (out, lse, dq, dk, dv, dqrh, dqrw) and two
+    backward launches bit-identical at each; then probes/relpos_bwd.py's
+    rows (each within its limit, and timed beside the plain versions, SDPA
+    with the bias as a float mask and the bound). Returns the JSON rows
+    {"relpos_lse", "relpos_bwd"} at the probe's first shape, with the worst
+    errors over the checked shapes."""
+    worst = {"lse": 0.0, "bwd": 0.0}
+    with torch.no_grad():
+        for i, (name, (b, grid, h, d)) in enumerate(SAMTRAIN_CHECK.items()):
+            q, k, v, _, _, qrh, qrw = relpos_probe.inputs(b, grid, h, d,
+                                                          seed=40 + i)
+            do = qkv_views(b, q.shape[1], h, d, seed=140 + i)[0]
+            out, lse = attention.rel_pos_flash_attention_lse(q, k, v, qrh,
+                                                             qrw, grid)
+            grads = attention.rel_pos_flash_attention_bwd(
+                q, k, v, out, lse, do, qrh, qrw, grid)
+            again = attention.rel_pos_flash_attention_bwd(
+                q, k, v, out, lse, do, qrh, qrw, grid)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, c) for a, c in zip(grads, again))
+            say("samtrain", f"{name} {(b, grid, h, d)}: two backward launches "
+                            f"bit-identical: {same}")
+            check(same, f"{name}: the backward is deterministic")
+            del again
+            want_out, want_lse = attention.rel_pos_attention_lse_ref(
+                q, k, v, qrh, qrw, grid)
+            worst["lse"] = max(worst["lse"], check_close(
+                f"k7 lse {name} out", out, want_out, absolute=True),
+                check_close(f"k7 lse {name} lse", lse, want_lse))
+            del want_out, want_lse
+            want = attention.rel_pos_attention_bwd_ref(
+                q, k, v, out, lse, do, qrh, qrw, grid)
+            got = (*grads[0].unbind(2), grads[1], grads[2])
+            for g_name, g_got, g_want in zip(
+                    ("dq", "dk", "dv", "dqrh", "dqrw"), got, want):
+                worst["bwd"] = max(worst["bwd"], check_close(
+                    f"relpos bwd {name} {g_name}", g_got, g_want))
+            del grads, got, want
+            torch.cuda.empty_cache()
+    rows = relpos_bwd_probe.rows()
+    for name, r in rows.items():
+        for kind in ("lse", "bwd"):
+            say("samtrain", relpos_bwd_probe.describe(name, kind, r[kind]))
+            check(r[kind]["ok"], f"{name} {kind}: within the probe's limit "
+                                 f"of the plain version")
+    first = rows[next(iter(relpos_bwd_probe.SHAPES))]
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms", "bound_by")
+    return {f"relpos_{kind}": {**{key: first[kind][key] for key in keys},
+                               "max_abs_err": worst[kind]}
+            for kind in ("lse", "bwd")}
+
+
+def samtrain_model():
+    """The shipped SAM ViT-B + SFP config with the trunk unfrozen, its model
+    from seed 0 with the rel-pos tables ~N(0, REL_POS_STD^2) (zero at
+    init, where the kernels' bias path and the tables' gradient would go
+    unseen, as geo_weights says)."""
+    cfg = load_config(CONFIGS / "OVMono3D_sam_SFP.yaml",
+                      overrides=["model.backbone.freeze=false"])
+    model = build_model(cfg.model, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for blk in model.backbone.vit.blocks():
+            blk.attn.rel_pos_h.normal_(0.0, REL_POS_STD, generator=g)
+            blk.attn.rel_pos_w.normal_(0.0, REL_POS_STD, generator=g)
+    return cfg, model
+
+
+def samtrain_phase() -> tuple[dict, dict]:
+    """The SAM ViT-B + SFP detector (configs/OVMono3D_sam_SFP.yaml) trained
+    with its trunk unfrozen at 1024^2: the training kernels against their
+    plain versions and timed (relpos_train_kernels); SAMTRAIN_WARMUP +
+    SAMTRAIN_TIMED SGD steps at B=SAMTRAIN_B with SAMTRAIN_GT GT
+    slots (finite losses, none skipped, every trunk parameter moved, the
+    rel-pos tables among them; 12 lse-instance and 12 backward launches a
+    step and no other attention kernel), p50 ms, device ms and idle share
+    of a step and peak memory beside the card's name and power limit; one
+    B=1 loss and trunk gradient against the plain rel-pos attention
+    (compare_train_step's limits); then SAMTRAIN_CLI_STEPS steps of the
+    train CLI on the shipped SAM config, unfrozen, --synthetic. Returns
+    the main path's launches and the kernels' JSON rows."""
+    t_phase = time.perf_counter()
+    card = card_name()
+    rows = relpos_train_kernels()
+    cfg, model = samtrain_model()
+    vit = model.backbone.vit
+    n_blocks = len(vit.blocks())
+    check(all(blk.attn.use_rel_pos for blk in vit.blocks()),
+          "every SAM block is a rel-pos block")
+    opt = Optimizer(SolverConfig(), model)
+    state = create_train_state(model, opt, seed=0)
+    step = make_train_step(model, opt, cfg.model.stabilize)
+    batch = synthetic_batch(SAMTRAIN_B, SAMTRAIN_GT, seed=11,
+                            size=TRUNK_SIDE)
+    trunk0 = {n: p.detach().clone() for n, p in vit.named_parameters()}
+    for _ in range(SAMTRAIN_WARMUP):
+        state, metrics = step(state, batch)
+        check_losses(metrics, "samtrain warm-up step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_path_counts()
+    lats = []
+    for _ in range(SAMTRAIN_TIMED):
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        lats.append(time.perf_counter() - t1)
+        check_losses(metrics, "samtrain timed step")
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {"relpos_lse": n_blocks, "relpos_bwd": n_blocks}
+    counts = check_path_counts(
+        f"{SAMTRAIN_TIMED} SAM-B train steps",
+        {k: v * SAMTRAIN_TIMED for k, v in per_step.items()},
+        "samtrain")
+    launches = {k: counts[k] for k in per_step}
+    check(int(state.skipped) == 0, f"{int(state.skipped)} steps skipped")
+    moved = [n for n, p in vit.named_parameters()
+             if not torch.equal(p.detach(), trunk0[n])]
+    tables = [n for n in trunk0 if n.endswith(("rel_pos_h", "rel_pos_w"))]
+    check(len(moved) == len(trunk0) and set(tables) <= set(moved),
+          f"{len(trunk0) - len(moved)} trunk parameters did not move")
+    p50 = statistics.median(lats) * 1e3
+    say("samtrain", f"SAM ViT-B + SFP unfrozen, 1024^2, B={SAMTRAIN_B}, "
+                    f"{SAMTRAIN_GT} GT slots, SGD: {SAMTRAIN_TIMED} "
+                    f"timed steps p50 {p50:.3f} ms "
+                    f"({SAMTRAIN_B * 1e3 / p50:.3f} img/s); peak memory "
+                    f"{peak} bytes; per step "
+                    f"{launches['relpos_lse'] // SAMTRAIN_TIMED} "
+                    f"lse-instance and "
+                    f"{launches['relpos_bwd'] // SAMTRAIN_TIMED} "
+                    f"backward launches; all {len(moved)} trunk tensors "
+                    f"moved ({len(tables)} rel-pos tables); total loss "
+                    f"{float(metrics['total_loss']):.4f}; card {card}")
+    busy = device_profile("samtrain", lambda: step(state, batch), 2, p50)
+    say("samtrain", f"a step: p50 {p50:.3f} ms, device {busy:.3f} ms, idle "
+                    f"{max(0.0, 1 - busy / p50):.1%}, peak {peak} bytes; "
+                    f"card {card}")
+    del state
+    compare_train_step(
+        model, batch, phase="samtrain", set_attn=set_sam_attention,
+        attn={"kernel": attention.rel_pos_attention, "plain": _relpos_plain,
+              "plain_f32": _relpos_f32},
+        bwd_launches=lambda: attention.rel_pos_flash_attention_bwd.launches)
+    del model, opt, step, batch, trunk0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the train CLI on the shipped SAM config, trunk unfrozen ----------
+    from ovmono3d_tpu_torch.train import cli as train_cli
+
+    shutil.rmtree(SAMTRAIN_DIR, ignore_errors=True)
+    reset_path_counts()
+    t0 = time.perf_counter()
+    res = train_cli.main([
+        "--config-file", str(CONFIGS / "OVMono3D_sam_SFP.yaml"),
+        "--synthetic", "--batch-size", str(TRAINCLI_B), "--max-iter",
+        str(SAMTRAIN_CLI_STEPS), "model.backbone.freeze=false",
+        "datasets.category_names=[]", "test.eval_period=0",
+        f"output_dir={SAMTRAIN_DIR}"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    check(res["step"] == SAMTRAIN_CLI_STEPS and res["skipped"] == 0,
+          f"the train CLI took its {SAMTRAIN_CLI_STEPS} steps, none "
+          f"skipped: {res['step']}, {res['skipped']}")
+    counts = check_path_counts(
+        f"train.cli, SAM-B unfrozen, {SAMTRAIN_CLI_STEPS} steps",
+        {k: v * SAMTRAIN_CLI_STEPS for k, v in per_step.items()}, "samtrain")
+    for k in launches:
+        launches[k] += counts[k]
+    say("samtrain", f"train.cli --config-file OVMono3D_sam_SFP.yaml "
+                    f"model.backbone.freeze=false: {SAMTRAIN_CLI_STEPS} steps "
+                    f"at B={TRAINCLI_B} in {cli_s:.1f} s (the build "
+                    "included)")
+    shutil.rmtree(SAMTRAIN_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("samtrain", f"phase done in {time.perf_counter() - t_phase:.1f} s; "
+                    f"card {card}")
+    return launches, rows
+
+
 # The demo phase: DEMO_IMAGES seeded OV_H x OV_W PNGs through
 # `python -m ovmono3d_tpu_torch.demo` in-process at the shipped flagship
 # config, with DEMO_LABELS as the prompt.
@@ -4835,7 +5125,7 @@ DEMO_IMAGES, DEMO_LABELS = 3, "chair,table,lamp"
 # model = 1 x 1 against the same steps without a group.
 TP_SHAPE = (1, 4097, 6, 64)
 TP_B, TP_STEPS = 2, 2
-SHARD_KEYS = ("shard_ms", "shard_plain_ms")
+SHARD_KEYS = ("shard_ms", "shard_plain_ms", "shard_library_ms")
 # The native phase: NATIVE_B images of NATIVE_HW a batch, NATIVE_REPS
 # batches timed per route.
 NATIVE_B, NATIVE_HW, NATIVE_REPS = 8, (480, 640), 3
@@ -5028,22 +5318,32 @@ def tp_phase(k: dict) -> dict:
         err["bwd"] = max(check_close(f"k4 shard {g}", x, w) for x, w, g in
                          zip(grad.unbind(2), want, ("dq", "dk", "dv")))
         del grad, want
+        sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            *sdpa_views(q, kk, v))
         calls = {
             "fwd": (lambda: attention.flash_attention_packed(q, kk, v),
-                    lambda: attention.attention_ref(q, kk, v)),
+                    lambda: attention.attention_ref(q, kk, v), sdpa_fwd),
             "lse": (lambda: attention.flash_attention_packed_lse(q, kk, v),
-                    lambda: attention.attention_lse_ref(q, kk, v)),
+                    lambda: attention.attention_lse_ref(q, kk, v), sdpa_fwd),
             "bwd": (lambda: attention.flash_attention_packed_bwd(
                         q, kk, v, o, lse, do),
                     lambda: attention.attention_bwd_ref(
-                        q, kk, v, o, lse, do))}
-        for kind, (fn, plain) in calls.items():
+                        q, kk, v, o, lse, do), None)}
+        for kind, (fn, plain, library) in calls.items():
             ms, plain_ms = time_ms(fn), time_ms(plain, reps=5)
+            # SDPA's forward (kernels 1 and 3) or its backward alone
+            # (kernel 4), on the same views: a yardstick the port never
+            # calls.
+            library_ms = (sdpa_bwd_ms(q, kk, v, do) if library is None
+                          else time_ms(library))
             bound = bound_ms(b, n, h, d, kind)
             k[kind]["max_abs_err"] = max(k[kind]["max_abs_err"], err[kind])
             k[kind]["shard_ms"], k[kind]["shard_plain_ms"] = ms, plain_ms
+            k[kind]["shard_library_ms"] = library_ms
             say("tp", f"{kind} at {TP_SHAPE}: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+                      f"{plain_ms:.4f} ms, SDPA "
+                      f"{'backward ' if library is None else ''}"
+                      f"{library_ms:.4f} ms, bound {bound[0]:.4f} ms "
                       f"({bound[1]}); at {KERNEL_SHAPES['trunk']} the "
                       f"kernel {k[kind]['ms']:.4f} ms")
 
@@ -5232,6 +5532,10 @@ def main() -> None:
     trunk_launches = trunks_phase()
     gc.collect()
     torch.cuda.empty_cache()
+    sam_launches, sam_rows = samtrain_phase()
+    k.update(sam_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
     demo_launches = demo_phase()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5253,6 +5557,7 @@ def main() -> None:
                 + rel_launches["relpos"] + trunk_launches["relpos"],
                 "window": ov_launches["window"] + st_launches["window"]
                 + rel_launches["window"] + demo_launches["window"],
+                **sam_launches,
                 "int8": q_launches["int8"], "quant": q_launches["quant"],
                 "fwd_f32": f32_launches["fwd_f32"] + st_launches["fwd_f32"]
                 + rel_launches["fwd_f32"],
@@ -5268,6 +5573,13 @@ def main() -> None:
                 "ovmono3d_tpu/ops/attention.py:691"),
         "relpos": ("relpos_flash_fwd_bf16", src + "relpos_flash_fwd.cu",
                    "ovmono3d_tpu/ops/attention.py:277"),
+        "relpos_lse": ("relpos_flash_fwd_lse_bf16 (kernel 7's lse "
+                       "instance, training)", src + "relpos_flash_fwd.cu",
+                       "ovmono3d_tpu/ops/attention.py:277"),
+        "relpos_bwd": ("relpos_flash_bwd_bf16 (the port's own: the JAX "
+                       "package differentiates its XLA path in _rpa_bwd)",
+                       src + "relpos_flash_bwd.cu",
+                       "ovmono3d_tpu/models/vit.py:205"),
         "window": ("window_attn_fwd_bf16 (window_fwd_sm90_kernel<masked> "
                    "for N <= 144; the mma.sync window_fwd_kernel past 144)",
                    src + "window_attn_fwd.cu",
@@ -5296,6 +5608,8 @@ def main() -> None:
                   else DESIGN_KEYS if kind in ("k2", "k5", "k6")
                   else F32_KEYS if kind == "fwd_f32"
                   else PREVIOUS_KEYS if kind in ("relpos", "window", "int8")
+                  else ("device_ms", "library_device_ms")
+                  if kind in ("relpos_lse", "relpos_bwd")
                   else ("device_ms",) if kind == "quant" else ())
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[kind],

@@ -16,6 +16,13 @@
 // projection reads as it is. D is 64 or 80 (SAM ViT-B/L and ViT-H), one
 // template instance each; gh + gw is at most 128.
 //
+// Two instances of each: inference (relpos_flash_fwd_bf16) and training
+// (relpos_flash_fwd_lse_bf16, kWriteLse), which also writes the row
+// log-sum-exp of the biased logits, lse = m + log(l) ([B, H, N] f32,
+// natural log, unclamped: kernel 3's unit), for csrc/relpos_flash_bwd.cu.
+// The flag is a template argument and lse the kernel's last parameter, so
+// the inference instance carries no lse code and builds as before.
+//
 // What bounds it on this card: at the SAM ViT-H global blocks (N = 4096,
 // H = 16, D = 80) the QK^T and PV tensor-core work, 4*N^2*D flops per
 // (batch, head); at the 14x14 windowed blocks (N = 196) the bytes of q, k, v,
@@ -78,6 +85,7 @@
 
 namespace {
 
+using flash::kLn2;
 using flash::kLog2e;
 using flash::pack_bf16;
 using flash::Strides;
@@ -445,8 +453,9 @@ __device__ __forceinline__ void fill_unit(float* tab, const Problem& pr,
 // The next unit's bias rows are copied into the table once every warp's
 // last softmax of this unit has read it, so the copies run during this
 // unit's last PV and epilogue and the next unit's first QK^T.
-template <int D>
-__device__ __forceinline__ void consume(Smem& sm, const Problem& pr) {
+template <int D, bool kWriteLse>
+__device__ __forceinline__ void consume(Smem& sm, const Problem& pr,
+                                        float* __restrict__ lse) {
   const int ctid = threadIdx.x - 128;
   const int cw = ctid / 128;                // rows 64 cw .. 64 cw + 63
   const int warp = (ctid % 128) / 32;
@@ -577,6 +586,17 @@ __device__ __forceinline__ void consume(Smem& sm, const Problem& pr) {
     const int r0 =
         (u % pr.q_tiles) * kRows + cw * 64 + warp * 16 + (lane >> 2);
     store_rows(o, ob + 2 * t, row_elems, r0, pr.n, inv0, inv1);
+    if constexpr (kWriteLse) {
+      // log(sum_j exp(s_j)) = ln2 * (m log2(e) + log2(l)), m the row max.
+      float* lb = lse + (static_cast<long long>(batch) * pr.heads + head) *
+                            pr.n;
+      if (t == 0 && r0 < pr.n) {
+        lb[r0] = (m0 * kLog2e + log2f(l0)) * kLn2;
+      }
+      if (t == 0 && r0 + 8 < pr.n) {
+        lb[r0 + 8] = (m1 * kLog2e + log2f(l1)) * kLn2;
+      }
+    }
   }
 }
 
@@ -595,10 +615,10 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
 
 // A persistent grid: block b takes the work units b, b + gridDim.x, ...
 // (unit = q tile + q_tiles * (head + heads * batch)).
-template <int D>
+template <int D, bool kWriteLse>
 __global__ void __launch_bounds__(kThreads, 1)
     relpos_fwd_sm90_kernel(const __grid_constant__ Maps maps, const Dims md,
-                           const Problem pr) {
+                           const Problem pr, float* __restrict__ lse) {
   constexpr int kTileBytes = kKeys * D * 2;  // a Q, K or V tile
   extern __shared__ unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(
@@ -652,14 +672,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     sm90::setmaxnreg_inc<kConsumerRegs>();
-    consume<D>(sm, pr);
+    consume<D, kWriteLse>(sm, pr, lse);
   }
 }
 
-template <int D>
-int launch(const Maps& maps, const Dims& md, const Problem& pr,
+template <int D, bool kWriteLse>
+int launch(const Maps& maps, const Dims& md, const Problem& pr, float* lse,
            cudaStream_t stream) {
-  auto* kernel = relpos_fwd_sm90_kernel<D>;
+  auto* kernel = relpos_fwd_sm90_kernel<D, kWriteLse>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) {
@@ -672,25 +692,16 @@ int launch(const Maps& maps, const Dims& md, const Problem& pr,
   // One block an SM (its shared memory allows no second), each looping
   // over work units.
   kernel<<<std::min(pr.units, sms), kThreads, kSmemBytes, stream>>>(
-      maps, md, pr);
+      maps, md, pr, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// q, k, v: [B, N, H, D] bf16 with the given batch/token/head strides (in
-// elements, last stride 1, 16-byte aligned pointers and strides), D in
-// {64, 80}, N = gh * gw < 2^21, gh + gw <= 128. qrh: contiguous
-// [B, N, H, gh] f32; qrw: contiguous [B, N, H, gw] f32. out: contiguous
-// [B, N, H * D] bf16. Launches on `stream`; returns cudaGetLastError(),
-// cuTensorMapEncodeTiled's result if a tensor map cannot be encoded, or
-// cudaErrorInvalidValue for a shape it does not take.
-extern "C" int relpos_flash_fwd_bf16(
-    const void* q, const void* k, const void* v, const void* qrh,
-    const void* qrw, void* out, int batch, int n, int heads, int head_dim,
-    int gh, int gw, long long q_sb, long long q_sn, long long q_sh,
-    long long k_sb, long long k_sn, long long k_sh, long long v_sb,
-    long long v_sn, long long v_sh, float scale, void* stream) {
+// The shared body of the two C entries: checks, tensor maps, the launch of
+// the instance for D and for whether `lse` is given.
+int run(const void* q, const void* k, const void* v, const void* qrh,
+        const void* qrw, void* out, float* lse, int batch, int n, int heads,
+        int head_dim, int gh, int gw, const Strides& qs, const Strides& ks,
+        const Strides& vs, float scale, void* stream) {
   if (n <= 0 || n >= (1 << 21) || batch <= 0 || heads <= 0 || gh <= 0 ||
       gw <= 0 || gh * gw != n || gh + gw > kMaxBias ||
       (head_dim != 64 && head_dim != 80)) {
@@ -701,7 +712,6 @@ extern "C" int relpos_flash_fwd_bf16(
   if (units > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh};
   Maps maps;
   Dims md;
   // Boxes of 16 columns x 128 rows with the 32-byte swizzle.
@@ -733,6 +743,49 @@ extern "C" int relpos_flash_fwd_bf16(
                    scale,
                    1.f / gw};
   const auto st = static_cast<cudaStream_t>(stream);
-  return head_dim == 64 ? launch<64>(maps, md, pr, st)
-                        : launch<80>(maps, md, pr, st);
+  if (lse == nullptr) {
+    return head_dim == 64 ? launch<64, false>(maps, md, pr, nullptr, st)
+                          : launch<80, false>(maps, md, pr, nullptr, st);
+  }
+  return head_dim == 64 ? launch<64, true>(maps, md, pr, lse, st)
+                        : launch<80, true>(maps, md, pr, lse, st);
+}
+
+}  // namespace
+
+// q, k, v: [B, N, H, D] bf16 with the given batch/token/head strides (in
+// elements, last stride 1, 16-byte aligned pointers and strides), D in
+// {64, 80}, N = gh * gw < 2^21, gh + gw <= 128. qrh: contiguous
+// [B, N, H, gh] f32; qrw: contiguous [B, N, H, gw] f32. out: contiguous
+// [B, N, H * D] bf16. Launches on `stream`; returns cudaGetLastError(),
+// cuTensorMapEncodeTiled's result if a tensor map cannot be encoded, or
+// cudaErrorInvalidValue for a shape it does not take.
+extern "C" int relpos_flash_fwd_bf16(
+    const void* q, const void* k, const void* v, const void* qrh,
+    const void* qrw, void* out, int batch, int n, int heads, int head_dim,
+    int gh, int gw, long long q_sb, long long q_sn, long long q_sh,
+    long long k_sb, long long k_sn, long long k_sh, long long v_sb,
+    long long v_sn, long long v_sh, float scale, void* stream) {
+  return run(q, k, v, qrh, qrw, out, nullptr, batch, n, heads, head_dim, gh,
+             gw, Strides{q_sb, q_sn, q_sh}, Strides{k_sb, k_sn, k_sh},
+             Strides{v_sb, v_sn, v_sh}, scale, stream);
+}
+
+// The training forward: the same, and the row log-sum-exp of the biased
+// logits into `lse`, a contiguous [B, H, N] f32 (natural log, unclamped:
+// kernel 3's unit), which relpos_flash_bwd.cu reads.
+extern "C" int relpos_flash_fwd_lse_bf16(
+    const void* q, const void* k, const void* v, const void* qrh,
+    const void* qrw, void* out, void* lse, int batch, int n, int heads,
+    int head_dim, int gh, int gw, long long q_sb, long long q_sn,
+    long long q_sh, long long k_sb, long long k_sn, long long k_sh,
+    long long v_sb, long long v_sn, long long v_sh, float scale,
+    void* stream) {
+  if (lse == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return run(q, k, v, qrh, qrw, out, static_cast<float*>(lse), batch, n,
+             heads, head_dim, gh, gw, Strides{q_sb, q_sn, q_sh},
+             Strides{k_sb, k_sn, k_sh}, Strides{v_sb, v_sn, v_sh}, scale,
+             stream);
 }

@@ -20,8 +20,8 @@ f32. Options ported:
   `out_layers` (the pre-norm features of those blocks as `feat{i}`).
 
 Attention goes through `dot_product_attention` and the rel-pos blocks
-through `rel_pos_attention` (kernel 7, inference only); on the CPU both run
-their plain versions. On the card `dot_product_attention` routes as the JAX
+through `rel_pos_attention` (kernel 7); on the CPU both run their plain
+versions. On the card `dot_product_attention` routes as the JAX
 package does: kernel 1 (its bf16 instance, or its f32 one for an f32 trunk
 such as the JAX GEO CLI's default Depth-Pro), or the head-major kernel 2
 for shapes the packed gate refuses and under OVMONO3D_PACKED_ATTN=0.
@@ -36,9 +36,14 @@ Training: when the trunk needs gradients, attention runs through
 ops/attention.py's `train_attention` operator: kernels 3 and 4 (packed), or
 the head-major 5 and 6 for shapes the packed gate refuses and under
 OVMONO3D_PACKED_ATTN=0 or OVMONO3D_PACKED_BWD=0; bf16 only (an f32 trunk
-with gradients raises on the card). Under no_grad / inference_mode it runs
-the inference kernels. Freezing the trunk (`BackboneConfig.freeze`) is done by
-`build_model`, which sets requires_grad=False on this module's parameters.
+with gradients raises on the card). Rel-pos blocks run the
+`rel_pos_train_attention` operator: kernel 7's lse instance and the rel-pos
+backward (csrc/relpos_flash_bwd.cu), the bias factors' gradients taken back
+to q and the tables by autograd (an f32 SAM trunk trains through the plain
+version, as the JAX f32 branch is XLA code). Under no_grad /
+inference_mode it runs the inference kernels. Freezing the trunk
+(`BackboneConfig.freeze`) is done by `build_model`, which sets
+requires_grad=False on this module's parameters.
 `remat` checkpoints each plain block (`torch.utils.checkpoint`, the JAX
 package's nn.remat) under `remat_policy`, which says what a block keeps for
 its backward (`remat_context`): "full" only its input, "dots" also the
@@ -246,9 +251,17 @@ class Attention(nn.Module):
                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """Rh [h, h, D] and Rw [w, w, D]: the tables resized to the grid and
         gathered at r_i - r_j + h - 1 (and likewise for columns), f32."""
+        return self.gather_tables(self.rel_pos_h, self.rel_pos_w, grid_hw)
+
+    @staticmethod
+    def gather_tables(rel_pos_h: torch.Tensor, rel_pos_w: torch.Tensor,
+                      grid_hw: tuple[int, int]
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """`rel_tables` of the given tables (a tensor-parallel rank passes
+        them through its group's gradient all-reduce first)."""
         h, w = grid_hw
-        rh = _resize_rel_pos(self.rel_pos_h, h)
-        rw = _resize_rel_pos(self.rel_pos_w, w)
+        rh = _resize_rel_pos(rel_pos_h, h)
+        rw = _resize_rel_pos(rel_pos_w, w)
         dev = rh.device
         idx_h = (torch.arange(h, device=dev)[:, None]
                  - torch.arange(h, device=dev)[None, :] + h - 1)

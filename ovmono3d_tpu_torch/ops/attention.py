@@ -64,14 +64,29 @@ Decomposed relative-position attention (the SAM image encoder's blocks):
 
 - `rel_pos_attention_ref`: the plain version, the same math as the JAX
   package's `_rel_pos_attention_fast(..., clamp=None)`;
+  `rel_pos_attention_lse_ref` / `rel_pos_attention_bwd_ref`: the forward
+  with its row lse and the explicit backward (dq, dk, dv and the bias
+  factors' dqrh, dqrw), in f32 from the factors: the plain versions of the
+  training kernels;
 - `rel_pos_flash_attention` (`csrc/relpos_flash_fwd.cu`, counted in
   `rel_pos_flash_attention.launches`), replacing the TPU kernel
   `_relpos_flash_kernel`: inference only, bf16, head dim 64 or 80, a
   grid of gh + gw <= 128 (wgmma + TMA, as kernel 1);
-- `rel_pos_attention`: its dispatcher. f32 inputs (on any device) and CPU
-  tensors go to the plain version; CUDA bf16 goes to the kernel, with the
-  bias factors qrh/qrw computed outside it in f32 (`rel_pos_factors`), and
-  raises when a gradient is needed (no backward yet).
+  `rel_pos_flash_attention_lse`, the same source's lse instance (training),
+  and `rel_pos_flash_attention_bwd` (`csrc/relpos_flash_bwd.cu`, the port's
+  own: the JAX package differentiates its XLA path there), bf16, head dim
+  64 or 80, gw <= 64; each counted in its own `.launches`;
+- `rel_pos_train_attention` (`torch.ops.ovmono3d.rel_pos_train_attention`):
+  the training forward over (qkv, qrh, qrw) as one operator with its
+  autograd formula, as `train_attention`: those two kernels on CUDA, the
+  plain versions on the CPU;
+- `rel_pos_attention`: its dispatcher. The bias factors qrh/qrw are
+  computed outside the kernels in f32 (`rel_pos_factors`), and autograd
+  takes their gradients back to q and the tables. f32 inputs (on any
+  device) go to the plain version (the JAX f32 branch is XLA code); bf16
+  with a gradient goes to `rel_pos_train_attention` on both devices;
+  without one, CPU tensors go to the plain version and CUDA tensors to
+  kernel 7. Shapes the kernels do not take raise.
 
 Swin window attention (GroundingDINO's image trunk):
 
@@ -108,11 +123,13 @@ import os
 import torch
 
 KERNEL_SOURCES = ["flash_attn_fwd.cu", "flash_attn_bwd.cu",
-                  "relpos_flash_fwd.cu", "window_attn_fwd.cu"]
+                  "relpos_flash_fwd.cu", "relpos_flash_bwd.cu",
+                  "window_attn_fwd.cu"]
 _HEAD_DIMS = (32, 64)      # csrc/flash_attn_{fwd,bwd}.cu instances
 _FWD_DTYPES = (torch.bfloat16, torch.float32)
 _REL_POS_HEAD_DIMS = (64, 80)
 _REL_POS_MAX_BIAS = 128      # csrc/relpos_flash_fwd.cu kMaxBias: gh + gw
+_REL_POS_BWD_MAX_GW = 64     # csrc/relpos_flash_bwd.cu kMaxGw
 _WINDOW_HEAD_DIM = 32
 _WINDOW_MAX_TOKENS = 1024   # csrc/window_attn_fwd.cu kMaxTokens
 _WINDOW_SM90_TOKENS = 144   # csrc/window_attn_fwd.cu w90::kN
@@ -250,16 +267,25 @@ def _kernels() -> dict:
                     + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]),
         "relpos": (libs["relpos_flash_fwd.cu"].relpos_flash_fwd_bf16,
                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + strided),
+        "relpos_lse": (libs["relpos_flash_fwd.cu"].relpos_flash_fwd_lse_bf16,
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + strided),
+        "relpos_bwd": (libs["relpos_flash_bwd.cu"].relpos_flash_bwd_bf16,
+                       [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]),
         "window": (libs["window_attn_fwd.cu"].window_attn_fwd_bf16,
                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + strided),
     }
     for fn, argtypes in fns.values():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    scratch = libs["flash_attn_bwd.cu"].flash_attn_bwd_scratch_floats
-    scratch.argtypes = [ctypes.c_int] * 3
-    scratch.restype = ctypes.c_longlong
-    return {"bwd_scratch": scratch,
+    scratch = {
+        "bwd_scratch": libs["flash_attn_bwd.cu"].flash_attn_bwd_scratch_floats,
+        "relpos_bwd_scratch":
+            libs["relpos_flash_bwd.cu"].relpos_flash_bwd_scratch_floats}
+    for fn in scratch.values():
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_longlong
+    return {**scratch,
             **{name: fn for name, (fn, _) in fns.items()}}
 
 
@@ -657,9 +683,10 @@ def dot_product_attention(qkv: torch.Tensor) -> torch.Tensor:
     return flash_attention(q, k, v)
 
 
-_REL_POS_NO_GRAD = ("rel-pos attention on CUDA is inference-only: its "
-                    "backward (SAM-backbone training) is ROADMAP queue 2 "
-                    "item 5; run under torch.no_grad() / inference_mode()")
+_REL_POS_FWD_ONLY = ("rel_pos_flash_attention is forward-only; "
+                     "rel_pos_attention runs the training kernels (kernel "
+                     "7's lse instance and relpos_flash_bwd.cu) through "
+                     "rel_pos_train_attention")
 
 
 def rel_pos_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -687,13 +714,75 @@ def rel_pos_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _rel_pos_logits(q: torch.Tensor, k: torch.Tensor, qrh: torch.Tensor,
+                    qrw: torch.Tensor, grid_hw: tuple[int, int]
+                    ) -> torch.Tensor:
+    """f32 [B, H, N, N]: scale q_i.k_j + qrh[i, j // w] + qrw[i, j % w]."""
+    B, N, H, D = q.shape
+    h, w = grid_hw
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (
+        1.0 / math.sqrt(D))
+    bias = (qrh.float().permute(0, 2, 1, 3)[..., :, None]
+            + qrw.float().permute(0, 2, 1, 3)[..., None, :])
+    return (logits.view(B, H, N, h, w) + bias).view(B, H, N, N)
+
+
+def rel_pos_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, qrh: torch.Tensor,
+                              qrw: torch.Tensor, grid_hw: tuple[int, int]
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rel-pos forward with its row log-sum-exp, all in f32, from the
+    bias factors (`rel_pos_factors`): out [B, N, H, D] (f32) and lse =
+    log(sum_j exp(s_ij)) [B, H, N] (f32), s the biased logits. The plain
+    version of kernel 7's lse instance."""
+    logits = _rel_pos_logits(q, k, qrh, qrw, grid_hw)
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse[..., None])
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()), lse
+
+
+def rel_pos_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              qrh: torch.Tensor, qrw: torch.Tensor,
+                              grid_hw: tuple[int, int]) -> tuple:
+    """The explicit rel-pos attention backward in f32, from the forward's
+    output o and lse ([B, H, N]) and the output's gradient do; with s the
+    biased logits (`rel_pos_attention_lse_ref`):
+
+        p = exp(s - lse),  dv = p^T do,  dS = p * (do v^T - rowsum(do * o)),
+        dk = dS^T q / sqrt(D),  dq = dS k / sqrt(D),
+        dqrh[i, a] = sum_{j in key row a} dS_ij,
+        dqrw[i, c] = sum_{j in key column c} dS_ij.
+
+    Returns f32 (dq, dk, dv) [B, N, H, D] and (dqrh, dqrw), the factors'
+    shapes. The plain version of csrc/relpos_flash_bwd.cu."""
+    B, N, H, D = q.shape
+    h, w = grid_hw
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    p = torch.exp(_rel_pos_logits(q, k, qrh, qrw, grid_hw)
+                  - lse.float()[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - attention_bwd_delta_ref(o, do)[..., None])
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    ds = ds.view(B, H, N, h, w)
+    dqrh = ds.sum(-1).permute(0, 2, 1, 3).contiguous()
+    dqrw = ds.sum(-2).permute(0, 2, 1, 3).contiguous()
+    return dq, dk, dv, dqrh, dqrw
+
+
 def rel_pos_factors(q: torch.Tensor, Rh: torch.Tensor, Rw: torch.Tensor,
                     grid_hw: tuple[int, int]
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's bias factors qrh [B, N, H, h] = q_i . Rh[r_i, a] and
     qrw [B, N, H, w] = q_i . Rw[c_i, a]: q and the tables in q's dtype,
     products and sums in f32, contiguous f32 results (the JAX package's
-    einsums before its kernel, without the TPU's bf16 cast)."""
+    einsums before its kernel, without the TPU's bf16 cast). Under autograd
+    the factors' gradients flow back to q, Rh and Rw through these einsums,
+    as the JAX package's vjp does."""
     B, N, H, D = q.shape
     h, w = grid_hw
     q_tok = q.float().reshape(B, h, w, H, D)
@@ -705,14 +794,20 @@ def rel_pos_factors(q: torch.Tensor, Rh: torch.Tensor, Rw: torch.Tensor,
 
 def check_rel_pos_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          qrh: torch.Tensor, qrw: torch.Tensor,
-                         grid_hw: tuple[int, int]) -> None:
-    """Raise ValueError unless kernel 7 takes these inputs as they are. The
-    device is checked last, so the layout checks run on CPU tensors too."""
+                         grid_hw: tuple[int, int], *others,
+                         forward_only: bool = True,
+                         backward: bool = False) -> None:
+    """Raise ValueError unless the rel-pos kernels take these inputs as
+    they are: kernel 7 (`forward_only` also refuses inputs that need a
+    gradient, for its inference instance) and, with `backward`,
+    csrc/relpos_flash_bwd.cu (gw <= 64 too). `others` are (name, tensor)
+    pairs laid out as q. The device is checked last, so the layout checks
+    run on CPU tensors too."""
     h, w = grid_hw
     b, n, heads, d = q.shape
     if h * w != n:
         raise ValueError(f"grid {grid_hw} has {h * w} tokens, q has {n}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in (("q", q), ("k", k), ("v", v), *others):
         err = _layout_error(name, x, q.shape)
         if err:
             raise ValueError(err)
@@ -722,6 +817,10 @@ def check_rel_pos_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if h + w > _REL_POS_MAX_BIAS:
         raise ValueError(f"grid {grid_hw}: the kernel keeps gh + gw <= "
                          f"{_REL_POS_MAX_BIAS} bias terms a row")
+    if backward and w > _REL_POS_BWD_MAX_GW:
+        raise ValueError(f"grid {grid_hw}: the rel-pos backward takes grid "
+                         f"rows of at most {_REL_POS_BWD_MAX_GW} tokens (one "
+                         f"key tile)")
     for name, x, width in (("qrh", qrh, h), ("qrw", qrw, w)):
         if (x.dtype != torch.float32 or tuple(x.shape) != (b, n, heads, width)
                 or not x.is_contiguous()):
@@ -729,13 +828,41 @@ def check_rel_pos_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"{name} must be a contiguous f32 [B, N, H, {width}] = "
                 f"{(b, n, heads, width)} tensor; got {x.dtype} "
                 f"{tuple(x.shape)}")
-    named = (("q", q), ("k", k), ("v", v), ("qrh", qrh), ("qrw", qrw))
-    if torch.is_grad_enabled() and any(x.requires_grad for _, x in named):
-        raise ValueError(_REL_POS_NO_GRAD)
+    named = (("q", q), ("k", k), ("v", v), ("qrh", qrh), ("qrw", qrw),
+             *others)
+    if (forward_only and torch.is_grad_enabled()
+            and any(x.requires_grad for _, x in named)):
+        raise ValueError(_REL_POS_FWD_ONLY)
     for name, x in named:
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"{name} is on {x.device}; the kernel needs "
                              f"all its tensors on one CUDA device")
+
+
+def _launch_relpos_fwd(q, k, v, qrh, qrw, grid_hw,
+                       lse: torch.Tensor | None) -> torch.Tensor:
+    """One launch of csrc/relpos_flash_fwd.cu's inference instance, or its
+    lse instance writing `lse`, after the checks; returns the contiguous
+    [B, N, H, D] output."""
+    b, n, heads, d = q.shape
+    h, w = grid_hw
+    out = torch.empty((b, n, heads, d), dtype=q.dtype, device=q.device)
+    name = "relpos_flash_fwd_bf16" if lse is None else \
+        "relpos_flash_fwd_lse_bf16"
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), qrh.data_ptr(),
+            qrw.data_ptr(), out.data_ptr()]
+    if lse is not None:
+        ptrs.append(lse.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _kernels()["relpos" if lse is None else "relpos_lse"](
+            *ptrs, b, n, heads, d, h, w, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], 1.0 / math.sqrt(d), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} launch failed with CUDA error {rc} "
+            f"(B={b}, N={n}, H={heads}, D={d}, grid={grid_hw})")
+    return out
 
 
 def rel_pos_flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -749,20 +876,7 @@ def rel_pos_flash_attention(q: torch.Tensor, k: torch.Tensor,
     Returns a contiguous [B, N, H, D] bf16. Counts each launch in
     `rel_pos_flash_attention.launches`."""
     check_rel_pos_inputs(q, k, v, qrh, qrw, grid_hw)
-    b, n, heads, d = q.shape
-    h, w = grid_hw
-    out = torch.empty((b, n, heads, d), dtype=q.dtype, device=q.device)
-    relpos = _kernels()["relpos"]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = relpos(q.data_ptr(), k.data_ptr(), v.data_ptr(), qrh.data_ptr(),
-                    qrw.data_ptr(), out.data_ptr(), b, n, heads, d, h, w,
-                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                    1.0 / math.sqrt(d), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"relpos_flash_fwd_bf16 launch failed with CUDA error {rc} "
-            f"(B={b}, N={n}, H={heads}, D={d}, grid={grid_hw})")
+    out = _launch_relpos_fwd(q, k, v, qrh, qrw, grid_hw, None)
     rel_pos_flash_attention.launches += 1
     return out
 
@@ -770,20 +884,168 @@ def rel_pos_flash_attention(q: torch.Tensor, k: torch.Tensor,
 rel_pos_flash_attention.launches = 0
 
 
+def rel_pos_flash_attention_lse(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, qrh: torch.Tensor,
+                                qrw: torch.Tensor, grid_hw: tuple[int, int]
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel 7's lse instance (training): out [B, N, H, D] bf16
+    (contiguous) and the row log-sum-exp of the biased logits, lse [B, H,
+    N] f32, natural log and unclamped (kernel 3's unit). Inputs as
+    `rel_pos_flash_attention`'s, with gw <= 64 (the backward's limit,
+    checked here so a step does not fail only in its backward). Counts each
+    launch in `rel_pos_flash_attention_lse.launches`."""
+    check_rel_pos_inputs(q, k, v, qrh, qrw, grid_hw, forward_only=False,
+                         backward=True)
+    b, n, heads, _ = q.shape
+    lse = torch.empty((b, heads, n), dtype=torch.float32, device=q.device)
+    out = _launch_relpos_fwd(q, k, v, qrh, qrw, grid_hw, lse)
+    rel_pos_flash_attention_lse.launches += 1
+    return out, lse
+
+
+rel_pos_flash_attention_lse.launches = 0
+
+
+def rel_pos_flash_attention_bwd(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, o: torch.Tensor,
+                                lse: torch.Tensor, do: torch.Tensor,
+                                qrh: torch.Tensor, qrw: torch.Tensor,
+                                grid_hw: tuple[int, int]
+                                ) -> tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """Launch the CUDA rel-pos attention backward (csrc/relpos_flash_bwd.cu:
+    a stats pass, then the dk/dv and the dq kernels; the dq kernel also
+    reduces dqrh and dqrw, deterministically).
+
+    q/k/v/o/do: [B, N, H, D] bf16 (strided views welcome), lse [B, H, N]
+    f32 from `rel_pos_flash_attention_lse`, qrh/qrw as the forward took
+    them. Returns the packed gradient [B, N, 3, H, D] bf16 (slots dq, dk,
+    dv: the gradient of the qkv output, as kernel 4's) and dqrh, dqrw (f32,
+    contiguous, the factors' shapes). Counts each launch in
+    `rel_pos_flash_attention_bwd.launches`."""
+    _check_lse(lse, q)
+    _check_same_device(lse, "lse", q)
+    check_rel_pos_inputs(q, k, v, qrh, qrw, grid_hw, ("o", o), ("do", do),
+                         forward_only=False, backward=True)
+    b, n, heads, d = q.shape
+    h, w = grid_hw
+    kernels = _kernels()
+    scratch = torch.empty(kernels["relpos_bwd_scratch"](b, n, heads),
+                          dtype=torch.float32, device=q.device)
+    grad = torch.empty((b, n, 3, heads, d), dtype=q.dtype, device=q.device)
+    dq, dk, dv = grad.unbind(2)
+    dqrh = torch.empty_like(qrh)
+    dqrw = torch.empty_like(qrw)
+    strides = [s for x in (q, k, v, o, do, dq, dk, dv) for s in x.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = kernels["relpos_bwd"](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), qrh.data_ptr(), qrw.data_ptr(), lse.data_ptr(),
+            scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dqrh.data_ptr(), dqrw.data_ptr(), b, n, heads, d, h, w,
+            (ctypes.c_longlong * len(strides))(*strides),
+            1.0 / math.sqrt(d), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"relpos_flash_bwd_bf16 launch failed with CUDA error {rc} "
+            f"(B={b}, N={n}, H={heads}, D={d}, grid={grid_hw})")
+    rel_pos_flash_attention_bwd.launches += 1
+    return grad, dqrh, dqrw
+
+
+rel_pos_flash_attention_bwd.launches = 0
+
+
+@torch.library.custom_op("ovmono3d::rel_pos_train_attention", mutates_args=())
+def rel_pos_train_attention(qkv: torch.Tensor, qrh: torch.Tensor,
+                            qrw: torch.Tensor, gh: int, gw: int
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rel-pos training forward over the packed qkv tensor [B, N, 3,
+    H, D] and the bias factors qrh [B, N, H, gh], qrw [B, N, H, gw] (f32):
+    out [B, N, H, D] in qkv's dtype and lse [B, H, N] f32 (natural log).
+
+    One operator (`torch.ops.ovmono3d.rel_pos_train_attention`) with its
+    autograd formula, as `train_attention`: on CUDA kernel 7's lse instance
+    forward and csrc/relpos_flash_bwd.cu backward; on the CPU
+    rel_pos_attention_ref's math with the rows' lse
+    (`_rel_pos_train_cpu.runs` counts its runs) and
+    `rel_pos_attention_bwd_ref`. The backward gives the gradient of qkv
+    (dq, dk, dv in its slots) and of qrh and qrw; autograd takes the
+    latter back to q, Rh and Rw through `rel_pos_factors`."""
+    raise NotImplementedError(f"no rel-pos training attention on "
+                              f"{qkv.device}")
+
+
+@rel_pos_train_attention.register_kernel("cpu")
+def _rel_pos_train_cpu(qkv: torch.Tensor, qrh: torch.Tensor,
+                       qrw: torch.Tensor, gh: int, gw: int):
+    # rel_pos_attention_ref's math (probabilities in v's dtype before PV,
+    # as the JAX package's _rel_pos_attention_fast that its CPU training
+    # differentiates), with the row log-sum-exp of the same logits.
+    _rel_pos_train_cpu.runs += 1
+    q, k, v = qkv.unbind(2)
+    logits = _rel_pos_logits(q, k, qrh, qrw, (gh, gw))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+    return out.to(q.dtype), torch.logsumexp(logits, dim=-1)
+
+
+_rel_pos_train_cpu.runs = 0
+
+
+@rel_pos_train_attention.register_kernel("cuda")
+def _rel_pos_train_cuda(qkv: torch.Tensor, qrh: torch.Tensor,
+                        qrw: torch.Tensor, gh: int, gw: int):
+    q, k, v = qkv.unbind(2)
+    return rel_pos_flash_attention_lse(q, k, v, qrh, qrw, (gh, gw))
+
+
+def _rel_pos_train_setup(ctx, inputs, output) -> None:
+    qkv, qrh, qrw, gh, gw = inputs
+    out, lse = output
+    ctx.grid = (gh, gw)
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(qkv, qrh, qrw, out, lse)
+
+
+def _rel_pos_train_bwd(ctx, dout: torch.Tensor, _dlse):
+    """The gradients of qkv ([B, N, 3, H, D], qkv's dtype), qrh and qrw
+    (f32)."""
+    qkv, qrh, qrw, out, lse = ctx.saved_tensors
+    q, k, v = qkv.unbind(2)
+    if qkv.device.type == "cpu":
+        dq, dk, dv, dqrh, dqrw = rel_pos_attention_bwd_ref(
+            q, k, v, out, lse, dout, qrh, qrw, ctx.grid)
+        return (torch.stack((dq, dk, dv), dim=2).to(qkv.dtype), dqrh, dqrw,
+                None, None)
+    grad, dqrh, dqrw = rel_pos_flash_attention_bwd(
+        q, k, v, out, lse, _contiguous_do(dout, out), qrh, qrw, ctx.grid)
+    return grad, dqrh, dqrw, None, None
+
+
+rel_pos_train_attention.register_autograd(_rel_pos_train_bwd,
+                                          setup_context=_rel_pos_train_setup)
+
+
 def rel_pos_attention(qkv: torch.Tensor, Rh: torch.Tensor, Rw: torch.Tensor,
                       grid_hw: tuple[int, int]) -> torch.Tensor:
     """Rel-pos attention for the SAM encoder's blocks: the qkv projection's
-    output viewed as [B, h*w, 3, H, D] -> [B, h*w, H, D]."""
+    output viewed as [B, h*w, 3, H, D] -> [B, h*w, H, D], routed as the
+    module docstring says."""
     q, k, v = qkv.unbind(2)
-    if qkv.dtype == torch.float32 or qkv.device.type == "cpu":
-        return rel_pos_attention_ref(q, k, v, Rh, Rw, grid_hw)
-    if qkv.device.type != "cuda":
+    if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no rel-pos attention path for device {qkv.device}")
-    if torch.is_grad_enabled() and (qkv.requires_grad or Rh.requires_grad
-                                    or Rw.requires_grad):
-        raise NotImplementedError(_REL_POS_NO_GRAD)
+    if qkv.dtype == torch.float32:
+        return rel_pos_attention_ref(q, k, v, Rh, Rw, grid_hw)
+    grad = torch.is_grad_enabled() and (qkv.requires_grad or Rh.requires_grad
+                                        or Rw.requires_grad)
+    if not grad and qkv.device.type == "cpu":
+        return rel_pos_attention_ref(q, k, v, Rh, Rw, grid_hw)
     qrh, qrw = rel_pos_factors(q, Rh, Rw, grid_hw)
-    return rel_pos_flash_attention(q, k, v, qrh, qrw, grid_hw)
+    if not grad:
+        return rel_pos_flash_attention(q, k, v, qrh, qrw, grid_hw)
+    return rel_pos_train_attention(qkv, qrh, qrw, *grid_hw)[0]
 
 
 _WINDOW_NO_GRAD = ("window attention on CUDA is inference-only, as the JAX "

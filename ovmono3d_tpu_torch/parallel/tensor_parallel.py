@@ -19,6 +19,12 @@ to the other through per-head attention or an elementwise activation. A
 layer whose sibling would not be split is refused (every shipped
 configuration's box head has its fc1 and fc2).
 
+A rel-pos attention module (SAM's blocks) keeps its tables rel_pos_h and
+rel_pos_w whole on every rank: every head reads them, so each rank's
+gradient of a table holds only its own heads' share. They go through `f`
+on their way into the bias, so the backward sums the shares over the group
+and each rank holds the whole gradient, as GSPMD gives the JAX package.
+
 The JAX kernel's columns split contiguously, which GSPMD reshards around
 the attention; eager PyTorch needs whole heads on a rank, so a qkv (whose
 parent module has `num_heads`) splits by head within each of its q, k and v
@@ -117,6 +123,14 @@ def _row_forward(self, x: torch.Tensor) -> torch.Tensor:
     return y if self.bias is None else y + self.bias.to(dt)
 
 
+def _rel_tables_forward(self, grid_hw: tuple[int, int]):
+    """A rel-pos attention's tables through `f`: the rank's share of their
+    gradient summed over the model group."""
+    rel_h = _CopyToGroup.apply(self.rel_pos_h, self.tp_group)
+    rel_w = _CopyToGroup.apply(self.rel_pos_w, self.tp_group)
+    return self.gather_tables(rel_h, rel_w, grid_hw)
+
+
 def _shard_rows(mod: nn.Linear, parent: nn.Module, leaf: str, n: int,
                 r: int) -> torch.Tensor:
     """The global output features of a column-parallel layer that rank r
@@ -169,9 +183,10 @@ def shard_plan(model: nn.Module, n: int, r: int) -> dict[str, tuple]:
 
 def apply_tp(model: nn.Module, group) -> dict[str, int]:
     """Shard `model` over the process group `group` (the model axis) in
-    place; returns `sharded_leaves`. With a group of one nothing changes.
-    Refuses a layer on the int8 serving path and a layer whose partner
-    would not be split."""
+    place; returns `sharded_leaves`. A rel-pos attention whose qkv splits
+    takes its tables through `f` (their gradient summed over the group).
+    With a group of one nothing changes. Refuses a layer on the int8
+    serving path and a layer whose partner would not be split."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
     leaves = sharded_leaves(model, n)
     plan = shard_plan(model, n, r)
@@ -190,4 +205,9 @@ def apply_tp(model: nn.Module, group) -> dict[str, int]:
                 mod.weight.data = mod.weight.data[:, idx].clone()
                 mod.in_features = len(idx)
                 mod.forward = types.MethodType(_row_forward, mod)
+    for name, (kind, _) in plan.items():
+        parent = modules[name.rpartition(".")[0]]
+        if kind == "col" and getattr(parent, "use_rel_pos", False):
+            parent.tp_group = group
+            parent.rel_tables = types.MethodType(_rel_tables_forward, parent)
     return leaves

@@ -3,7 +3,7 @@ package's TPU probes tools/probe_layernorm.py, tools/profile_attn_sweep.py
 and tools/probe_int8_pallas.py (`python -m
 ovmono3d_tpu_torch.probes.layernorm`, `... .attn_sweep`, `... .int8_gemm`),
 and of the attention kernels' designs (`... .flash_fwd`, `... .relpos`,
-`... .window`). Each
+`... .relpos_bwd`, `... .window`). Each
 times its kernels by CUDA events beside their bounds, their plain versions
 and a PyTorch call of the same function, and holds every kernel to its plain
 version; chip_smoke.py reads their rows. Most also time an earlier

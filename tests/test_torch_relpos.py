@@ -2,7 +2,8 @@
 version against the JAX package's XLA path and its TPU kernel in interpret
 mode, the dispatcher and the kernel wrapper's checks on the CPU, and the
 CUDA kernel (kernel 7) against the plain version on the card (marker
-`cuda`).
+`cuda`); the dispatcher on the card with a gradient runs the training
+kernels (tests/test_torch_relpos_bwd.py holds those).
 
 JAX is imported inside the fixture that needs it, so the `cuda` tests also
 run where JAX is not installed:
@@ -156,7 +157,7 @@ def test_wrapper_takes_the_encoders_strided_views():
 
 @pytest.mark.parametrize("bad,match", [
     ("dtype", "bfloat16"), ("head_dim", "head dim"), ("stride", "unit stride"),
-    ("grad", "inference-only"), ("shape", "shape"), ("align", "aligned"),
+    ("grad", "forward-only"), ("shape", "shape"), ("align", "aligned"),
     ("grid", "tokens"), ("qrh_dtype", "qrh"), ("qrw_shape", "qrw"),
     ("qrh_strided", "qrh"), ("bias_terms", "gh \\+ gw"),
 ])
@@ -254,8 +255,22 @@ def test_dispatcher_on_cuda(cuda_device):
         out = tattn.rel_pos_attention(qkv, rh, rw, grid)
     assert tattn.rel_pos_flash_attention.launches == before + 1
     assert out.shape == q.shape and out.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-        tattn.rel_pos_attention(qkv, rh.requires_grad_(), rw, grid)
+    # With a gradient: kernel 7's lse instance and the backward kernel, not
+    # the inference instance; the tables' gradient within 3e-2 of f32
+    # autograd through the plain version
+    # (tests/test_torch_relpos_bwd.py holds every gradient).
+    lse_before = tattn.rel_pos_flash_attention_lse.launches
+    bwd_before = tattn.rel_pos_flash_attention_bwd.launches
+    rh_g = rh.detach().requires_grad_()
+    got = torch.autograd.grad(
+        tattn.rel_pos_attention(qkv, rh_g, rw, grid).float().sum(), rh_g)[0]
+    assert tattn.rel_pos_flash_attention.launches == before + 1
+    assert tattn.rel_pos_flash_attention_lse.launches == lse_before + 1
+    assert tattn.rel_pos_flash_attention_bwd.launches == bwd_before + 1
+    rh32 = rh.detach().requires_grad_()
+    want = torch.autograd.grad(tattn.rel_pos_attention_ref(
+        *qkv.float().unbind(2), rh32, rw, grid).sum(), rh32)[0]
+    assert (got - want).abs().max() <= 3e-2 * want.abs().max()
     # f32 stays the plain exact branch on the card.
     with torch.no_grad():
         out32 = tattn.rel_pos_attention(qkv.float(), rh, rw, grid)

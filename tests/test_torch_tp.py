@@ -144,7 +144,8 @@ def worker(rank: int, world: int, port: int, out: str, *extra: str) -> None:
     torch.set_num_threads(1)
     mesh.init_multihost(f"localhost:{port}", world, rank, device="cpu",
                         timeout_s=120)
-    groups = mesh.make_groups(N_DATA, N_MODEL)
+    n_model = N_MODEL if world == N_DATA * N_MODEL else world
+    groups = mesh.make_groups(world // n_model, n_model)
     poison = [int(x.split("=")[1]) for x in extra if x.startswith("poison=")]
     extra = [x for x in extra if not x.startswith("poison=")]
     torch.save({"groups": (groups.data_rank, groups.model_rank),
@@ -159,8 +160,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(tmp_path: Path, *extra: str) -> list[dict]:
-    world = N_DATA * N_MODEL
+def launch(tmp_path: Path, *extra: str, world: int = N_DATA * N_MODEL
+           ) -> list[dict]:
+    """`world` worker processes: data 2 x model 2 at 4, data 1 x model
+    `world` otherwise."""
     port = _free_port()
     outs = [tmp_path / f"tp_{r}.pt" for r in range(world)]
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
@@ -226,6 +229,43 @@ def test_data2_model2_equal_one_process(tmp_path):
     assert not torch.equal(
         by[(0, 0)]["params"]["backbone.vit.block0.mlp.fc1.weight"],
         by[(0, 1)]["params"]["backbone.vit.block0.mlp.fc1.weight"])
+
+
+# A tiny SAM detector (test_torch_relpos_bwd.py's trunk on the dry run's
+# widths, 112^2: a 7 x 7 grid, blocks 0 and 1 windowed, block 2 global) for
+# the rel-pos tables, which every head shares.
+SAM = ["model.backbone.name=sam", "model.backbone.patch_size=16",
+       "model.backbone.depth=3", "model.backbone.use_depth_fusion=false",
+       "model.backbone.scale_factors=[4.0,2.0,1.0]"]
+
+
+def test_data1_model2_sam_tables_get_the_whole_gradient(tmp_path):
+    """Data 1 x model 2 on the tiny SAM detector against one process: each
+    rank's gradient of every rel_pos_h / rel_pos_w is the whole one (the
+    heads' shares summed over the model group), and so are the loss, every
+    other gradient and the parameters after the step, at the 2 x 2 test's
+    limits."""
+    want = train_once(SAM)
+    got = launch(tmp_path, *SAM, world=2)
+    cfg = load_config(None, overrides=[*TRAIN, *SAM])
+    ref = build_model(cfg.model, device="meta")
+    tables = [n for n in want["grads"]
+              if n.endswith(("rel_pos_h", "rel_pos_w"))]
+    assert len(tables) == 6
+    assert sorted(g["groups"] for g in got) == [(0, 0), (0, 1)]
+    for g in got:
+        plan = tp.shard_plan(ref, 2, g["groups"][1])
+        assert "backbone.vit.block2.attn.qkv" in plan
+        np.testing.assert_allclose(g["loss"], want["loss"], rtol=LOSS_RTOL)
+        assert g["grads"].keys() == want["grads"].keys()
+        for name, grad in g["grads"].items():
+            w = shard_of(want["grads"], name, plan)
+            tol = GRAD_REL * float(w.abs().max()) + 1e-12
+            assert float((grad - w).abs().max()) <= tol, name
+        for name, p in g["params"].items():
+            torch.testing.assert_close(
+                p, shard_of(want["params"], name, plan), rtol=0,
+                atol=PARAM_ATOL, msg=name)
 
 
 def test_one_data_ranks_nonfinite_image_makes_all_four_skip(tmp_path):
