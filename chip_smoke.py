@@ -29,9 +29,10 @@ instance and the rel-pos backward). Holds every CUDA kernel on those paths
 against its plain PyTorch version.
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
-    python3 chip_smoke.py --previous DIR   # kernels 7, 8 and 10 also
-                                           # beside the designs in DIR's
-                                           # sources (those that differ)
+    python3 chip_smoke.py --previous DIR   # kernels 7, 8, 10 and the
+                                           # rel-pos backward also beside
+                                           # the designs in DIR's sources
+                                           # (those that differ)
 
 Kernels: 1 = the inference flash-attention forward, 3 = the training
 forward that also writes the row log-sum-exp, 4 = the attention backward,
@@ -58,17 +59,17 @@ profiles' tables):
           flash_bwd_sm90_kernel<true / false>, its dk/dv and dq kernels,
           the sweep's eight sweep_fwd_sm90_kernel<block_k, consumers,
           f32 softmax>, the rel-pos forward's relpos_fwd_sm90_kernel<64
-          / 80, false / true> (inference / lse) and the window forward's
-          window_fwd_sm90_kernel<false / true>): registers, spill
-          stores and stack frame from the -Xptxas -v log (no spills, no
-          stack frame), ptxas's C7513 lines printed, and their HGMMA and
-          UTMALDG instructions in cuobjdump's SASS (both above 0); the
-          int8 product's three int8_gemm_sm90_kernel<mode>: the same,
-          with IGMMA (s8 wgmma) for HGMMA; the f32 instance's two
-          flash_fwd_f32_kernel<D>, the int8 path's two
-          quantize_rows_kernel<T> and the rel-pos backward's
+          / 80, false / true> (inference / lse), the window forward's
+          window_fwd_sm90_kernel<false / true> and the rel-pos backward's
           relpos_bwd_dkdv_kernel<D> and relpos_bwd_dq_kernel<D> (D 64,
-          80; mma.sync): no spills, no stack frame
+          80)): registers, spill stores and stack frame from the -Xptxas
+          -v log (no spills, no stack frame), ptxas's C7513 lines
+          printed, and their HGMMA and UTMALDG instructions in
+          cuobjdump's SASS (both above 0); the int8 product's three
+          int8_gemm_sm90_kernel<mode>: the same, with IGMMA (s8 wgmma)
+          for HGMMA; the f32 instance's two flash_fwd_f32_kernel<D> and
+          the int8 path's two quantize_rows_kernel<T>: no spills, no
+          stack frame
   kernel  kernel 1 vs attention_ref, kernel 3 vs attention_lse_ref and
           kernel 4 vs attention_bwd_ref at the trunk, Depth-Pro's B=1 and
           35-crop shapes, a small ragged shape, the 128-row tile's edges
@@ -375,7 +376,11 @@ profiles' tables):
           timed by events and by the profiler's device time (the
           backward's three kernels apart) beside the plain versions, SDPA
           with the bias as a float mask (forward; forward + backward, a
-          yardstick the port never calls) and the bound; then the
+          yardstick the port never calls) and the bound; with --previous,
+          the backward built from DIR's relpos_flash_bwd.cu (where its
+          machine code differs) timed in turns with it, within the same
+          limit, and its device time above the shipped one's at every
+          shape; then the
           detector from seed 0 (rel-pos tables ~N(0, 0.1^2)) at 1024^2,
           B=8, 16 GT slots, SGD: 2 warm-up + 3 timed steps (finite
           losses, none skipped, every trunk parameter
@@ -417,8 +422,8 @@ the mma.sync design's event time and the device times of both designs and
 of SDPA; kernels 1, 3 and 4 also with shard_ms, shard_plain_ms and
 shard_library_ms: their times, their plain versions' and SDPA's at the
 tensor-parallel shard shape; kernel 7 at SAM-H global, kernel
-7's lse instance and the rel-pos backward at SAM-B's global blocks of the
-B=8 train step with device_ms and library_device_ms, kernel
+7's lse instance at SAM-B's global blocks of the B=8 train step with
+device_ms and library_device_ms, the rel-pos backward there, kernel
 8 at stage 0 shifted and kernel
 10 at LIFT fc1 with
 device_ms, previous_device_ms (the design in --previous DIR, null without
@@ -556,24 +561,24 @@ from ovmono3d_tpu_torch.utils.cnn_convert import (  # noqa: E402
 # The redesigned kernels: (source, kernel template, instances, SASS
 # instructions that show the design) of the bf16 D = 64 forward (kernels 1,
 # 2, 3, 5) and backward (4, 6: the dk/dv and dq instances), the attention
-# sweep (11, eight instances) and the rel-pos forward (7, D 64 and 80, the
-# inference and the lse instance of each), on wgmma and TMA loads; the
-# int8 product (10: raw, bf16 and f32) on s8 wgmma (IGMMA) and TMA loads;
-# and kernel 1's f32 instance (FFMA; D 32 and 64), the int8 path's
-# quantization (bf16 and f32 inputs) and the rel-pos backward's mma.sync
-# dk/dv and dq kernels (D 64 and 80).
+# sweep (11, eight instances), the rel-pos forward (7, D 64 and 80, the
+# inference and the lse instance of each), the window forward (8) and the
+# rel-pos backward's dk/dv and dq kernels (D 64 and 80), on wgmma and TMA
+# loads; the int8 product (10: raw, bf16 and f32) on s8 wgmma (IGMMA) and
+# TMA loads; and kernel 1's f32 instance (FFMA; D 32 and 64) and the int8
+# path's quantization (bf16 and f32 inputs).
 SASS_OPS = ("HGMMA", "UTMALDG")
 DESIGNS = (("flash_attn_fwd.cu", "flash_fwd_sm90_kernel", 2, SASS_OPS),
            ("flash_attn_bwd.cu", "flash_bwd_sm90_kernel", 2, SASS_OPS),
            ("attn_sweep_fwd.cu", "sweep_fwd_sm90_kernel", 8, SASS_OPS),
            ("relpos_flash_fwd.cu", "relpos_fwd_sm90_kernel", 4, SASS_OPS),
            ("window_attn_fwd.cu", "window_fwd_sm90_kernel", 2, SASS_OPS),
+           ("relpos_flash_bwd.cu", "relpos_bwd_dkdv_kernel", 2, SASS_OPS),
+           ("relpos_flash_bwd.cu", "relpos_bwd_dq_kernel", 2, SASS_OPS),
            ("int8_gemm.cu", "int8_gemm_sm90_kernel", 3,
             ("IGMMA", "UTMALDG")),
            ("flash_attn_fwd.cu", "flash_fwd_f32_kernel", 2, ()),
-           ("int8_gemm.cu", "quantize_rows_kernel", 2, ()),
-           ("relpos_flash_bwd.cu", "relpos_bwd_dkdv_kernel", 2, ()),
-           ("relpos_flash_bwd.cu", "relpos_bwd_dq_kernel", 2, ()))
+           ("int8_gemm.cu", "quantize_rows_kernel", 2, ()))
 # The JSON entries of kernels 1-6 carry, besides every kernel's keys, the
 # mma.sync design's event time and the device times of both designs and of
 # SDPA (fwd_probe.rows, bwd_probe.rows, design_times).
@@ -585,10 +590,11 @@ FWD_KEYS = ("ms", "library_ms", "bound_ms", "bound_by") + DESIGN_KEYS
 # sweep_probe.rows); the f32 entry also each f32 shape's.
 F32_KEYS = ("device_ms", "library_device_ms", "device_ms_by_shape")
 SWEEP_KEYS = ("device_ms", "library_device_ms")
-# The JSON entries of kernels 7 and 10 carry the profiler's device times of
-# the kernel, of its earlier design (built from the copy of the sources
-# that --previous names; null without it) and of the library call
-# (relpos_probe.rows, int8_probe.rows).
+# The JSON entries of kernels 7, 8 and 10 and of the rel-pos backward carry
+# the profiler's device times of the kernel, of its earlier design (built
+# from the copy of the sources that --previous names; null without it) and
+# of the library call (relpos_probe.rows, window_probe.rows,
+# int8_probe.rows, relpos_bwd_probe.rows).
 PREVIOUS_KEYS = ("device_ms", "previous_device_ms", "library_device_ms")
 # Kernels 1, 3 and 4: (B, N, H, D). The LIFT trunk; Depth-Pro's image and
 # FOV encoders (B=1) and its patch encoder (the 35 pyramid crops in one
@@ -4930,14 +4936,16 @@ SAMTRAIN_CLI_STEPS = 2
 SAMTRAIN_DIR = Path(__file__).resolve().parent / "build" / "samtrain_phase"
 
 
-def relpos_train_kernels() -> dict:
+def relpos_train_kernels(previous: str | None) -> dict:
     """Kernel 7's lse instance and the rel-pos backward against their plain
     versions at SAMTRAIN_CHECK (out, lse, dq, dk, dv, dqrh, dqrw) and two
     backward launches bit-identical at each; then probes/relpos_bwd.py's
     rows (each within its limit, and timed beside the plain versions, SDPA
-    with the bias as a float mask and the bound). Returns the JSON rows
-    {"relpos_lse", "relpos_bwd"} at the probe's first shape, with the worst
-    errors over the checked shapes."""
+    with the bias as a float mask and the bound; with `previous`, beside the
+    backward built from that directory's relpos_flash_bwd.cu, whose device
+    time must be above the shipped one's at every shape). Returns the JSON
+    rows {"relpos_lse", "relpos_bwd"} at the probe's first shape, with the
+    worst errors over the checked shapes."""
     worst = {"lse": 0.0, "bwd": 0.0}
     with torch.no_grad():
         for i, (name, (b, grid, h, d)) in enumerate(SAMTRAIN_CHECK.items()):
@@ -4971,18 +4979,32 @@ def relpos_train_kernels() -> dict:
                     f"relpos bwd {name} {g_name}", g_got, g_want))
             del grads, got, want
             torch.cuda.empty_cache()
-    rows = relpos_bwd_probe.rows()
+    for line in relpos_bwd_probe.build_report(
+            "relpos_flash_bwd.cu", relpos_bwd_probe.BUILD_KERNELS):
+        say("samtrain", f"build: {line}")
+    previous = earlier_design(previous, "relpos_flash_bwd.cu")
+    rows = relpos_bwd_probe.rows(previous=previous)
     for name, r in rows.items():
         for kind in ("lse", "bwd"):
             say("samtrain", relpos_bwd_probe.describe(name, kind, r[kind]))
             check(r[kind]["ok"], f"{name} {kind}: within the probe's limit "
                                  f"of the plain version")
+        if previous is not None:
+            b = r["bwd"]
+            check(b["previous_rel"] <= relpos_bwd_probe.LIMIT
+                  and b["device_ms"] < b["previous_device_ms"],
+                  f"{name}: the earlier backward within the limit and the "
+                  f"shipped one's device time below it ({b['device_ms']:.4f} "
+                  f"against {b['previous_device_ms']:.4f} ms)")
     first = rows[next(iter(relpos_bwd_probe.SHAPES))]
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
             "bound_ms", "bound_by")
-    return {f"relpos_{kind}": {**{key: first[kind][key] for key in keys},
-                               "max_abs_err": worst[kind]}
-            for kind in ("lse", "bwd")}
+    out = {f"relpos_{kind}": {**{key: first[kind][key] for key in keys},
+                              "max_abs_err": worst[kind]}
+           for kind in ("lse", "bwd")}
+    out["relpos_bwd"]["previous_device_ms"] = first["bwd"].get(
+        "previous_device_ms")
+    return out
 
 
 def samtrain_model():
@@ -5001,10 +5023,11 @@ def samtrain_model():
     return cfg, model
 
 
-def samtrain_phase() -> tuple[dict, dict]:
+def samtrain_phase(previous: str | None) -> tuple[dict, dict]:
     """The SAM ViT-B + SFP detector (configs/OVMono3D_sam_SFP.yaml) trained
     with its trunk unfrozen at 1024^2: the training kernels against their
-    plain versions and timed (relpos_train_kernels); SAMTRAIN_WARMUP +
+    plain versions and timed, the backward beside `previous`'s design where
+    one is given (relpos_train_kernels); SAMTRAIN_WARMUP +
     SAMTRAIN_TIMED SGD steps at B=SAMTRAIN_B with SAMTRAIN_GT GT
     slots (finite losses, none skipped, every trunk parameter moved, the
     rel-pos tables among them; 12 lse-instance and 12 backward launches a
@@ -5016,7 +5039,7 @@ def samtrain_phase() -> tuple[dict, dict]:
     the main path's launches and the kernels' JSON rows."""
     t_phase = time.perf_counter()
     card = card_name()
-    rows = relpos_train_kernels()
+    rows = relpos_train_kernels(previous)
     cfg, model = samtrain_model()
     vit = model.backbone.vit
     n_blocks = len(vit.blocks())
@@ -5474,10 +5497,11 @@ def main() -> None:
     parser.add_argument(
         "--previous", metavar="DIR",
         help="a directory holding the earlier relpos_flash_fwd.cu, "
-             "window_attn_fwd.cu and int8_gemm.cu (and their headers), for "
-             "instance the parent commit's ovmono3d_tpu_torch/csrc unpacked "
-             "outside the tree: kernels 7, 8 and 10 are timed beside them "
-             "(each whose copy there differs from the shipped source)")
+             "window_attn_fwd.cu, int8_gemm.cu and relpos_flash_bwd.cu (and "
+             "their headers), for instance the parent commit's "
+             "ovmono3d_tpu_torch/csrc unpacked outside the tree: kernels 7, "
+             "8 and 10 and the rel-pos backward are timed beside them (each "
+             "whose copy there differs from the shipped source)")
     args = parser.parse_args()
     t_start = time.perf_counter()
     card = device_phase()
@@ -5532,7 +5556,7 @@ def main() -> None:
     trunk_launches = trunks_phase()
     gc.collect()
     torch.cuda.empty_cache()
-    sam_launches, sam_rows = samtrain_phase()
+    sam_launches, sam_rows = samtrain_phase(args.previous)
     k.update(sam_rows)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5607,9 +5631,10 @@ def main() -> None:
         design = (DESIGN_KEYS + SHARD_KEYS if kind in ("fwd", "lse", "bwd")
                   else DESIGN_KEYS if kind in ("k2", "k5", "k6")
                   else F32_KEYS if kind == "fwd_f32"
-                  else PREVIOUS_KEYS if kind in ("relpos", "window", "int8")
+                  else PREVIOUS_KEYS
+                  if kind in ("relpos", "window", "int8", "relpos_bwd")
                   else ("device_ms", "library_device_ms")
-                  if kind in ("relpos_lse", "relpos_bwd")
+                  if kind == "relpos_lse"
                   else ("device_ms",) if kind == "quant" else ())
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[kind],

@@ -108,6 +108,53 @@ def previous_library(source: str, csrc: str):
     return cuda_build.load([source], Path(csrc))[source]
 
 
+def build_report(source: str, kernels: tuple, ops=("HGMMA", "UTMALDG")
+                 ) -> list[str]:
+    """One line for each instance of each kernel template named in
+    `kernels` in the library built from `source`: its registers, spill
+    stores and stack frame from the build's -Xptxas -v log, and its count of
+    each SASS instruction in `ops` (cuobjdump, beside nvcc)."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from ovmono3d_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.build([source])[source]
+    log = lib.with_name(lib.name + ".log").read_text().splitlines()
+    tool = Path(cuda_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m[1]
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            for op in ops:
+                counts[fn][op] += len(re.findall(rf"\b{op}\b", line))
+    out = []
+    for i, line in enumerate(log):
+        m = re.search(r"entry function '(\S+)'", line)
+        name = next((k for k in kernels if m and k in m[1]), None)
+        if name is None:
+            continue
+        report = " ".join(x.strip() for x in log[i + 1:i + 6]
+                          if "Compiling entry" not in x)
+        fields = [re.search(pat, report) for pat in (
+            r"Used (\d+) registers", r"(\d+) bytes spill stores",
+            r"(\d+) bytes stack frame")]
+        regs, spills, stack = (f[1] if f else "?" for f in fields)
+        inst = re.search(rf"{name}I((?:L[bi]\d+E)+)E", m[1])
+        args = ",".join(re.findall(r"L[bi](\d+)E", inst[1])) if inst else ""
+        c = counts.get(m[1], {})
+        out.append(f"{name}<{args}>: {regs} registers, {spills} bytes spill "
+                   f"stores, {stack} bytes stack frame; "
+                   + ", ".join(f"{c.get(op, 0)} {op}" for op in ops))
+    return out
+
+
 def bf16_ulp_diff(got: torch.Tensor, want: torch.Tensor) -> tuple[int, int]:
     """(elements of `got` that differ from `want`, elements more than one
     bf16 ulp of `want` away). The ulp is taken at max(|want|, 2^-8), so

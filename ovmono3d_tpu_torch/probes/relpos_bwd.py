@@ -1,9 +1,18 @@
 """SAM-trunk training's attention on the card: kernel 7's lse instance and
-the rel-pos backward (csrc/relpos_flash_bwd.cu: a stats pass, the dk/dv and
-the dq kernels) at SAM's training shapes.
+the rel-pos backward (csrc/relpos_flash_bwd.cu) at SAM's training shapes.
 
     python -m ovmono3d_tpu_torch.probes.relpos_bwd
     python -m ovmono3d_tpu_torch.probes.relpos_bwd --previous DIR
+
+The backward is a stats pass (delta, lse2) and a wgmma + TMA pair built as
+kernel 4's: relpos_bwd_dkdv_kernel<D> and relpos_bwd_dq_kernel<D>, each a
+persistent block an SM over units of 128 fixed rows, a producer warpgroup
+streaming 64-row tiles (16-column blocks under the 32-byte swizzle) through
+a ring, two consumer warpgroups adding the decomposed bias on the
+accumulator layout; the dk/dv kernel's stages bring their queries' bias
+table, the dq kernel holds its rows' and reduces dqrh and dqrw without
+atomics. The probe first prints, from the build, each instance's registers,
+spill stores, stack frame and HGMMA / UTMALDG count.
 
 At each of SHAPES (q, k, v ~ N(0, 1) bf16 as views of one packed [B, N, 3,
 H, D] tensor, tables ~N(0, 0.1^2), do ~N(0, 1)) it holds the lse
@@ -21,7 +30,9 @@ N^2 D flops at the bf16 tensor-core peak against the bytes moved once).
 
 --previous DIR times, in the same turns, the C entry of the copy of
 relpos_flash_bwd.cu in DIR (an earlier design with the same entry, the
-copy made outside the tree) and holds it to the same limit.
+copy made outside the tree, e.g. the parent commit's
+`git archive <commit> ovmono3d_tpu_torch/csrc`), its three kernels apart
+too, and holds it to the same limit.
 """
 from __future__ import annotations
 
@@ -32,9 +43,9 @@ import math
 import torch
 
 from ovmono3d_tpu_torch.ops import attention
-from ovmono3d_tpu_torch.probes import (PEAK_BF16_FLOPS, PEAK_BYTES, card,
-                                       device_ms, in_turns, previous_library,
-                                       time_ms)
+from ovmono3d_tpu_torch.probes import (PEAK_BF16_FLOPS, PEAK_BYTES,
+                                       build_report, card, device_ms,
+                                       in_turns, previous_library, time_ms)
 from ovmono3d_tpu_torch.probes import relpos as relpos_probe
 
 # (B, (gh, gw), H, D): SAM ViT-B's global and windowed blocks in a B=8
@@ -48,6 +59,9 @@ SHAPES = {"sam_b_global_b8": (8, (64, 64), 12, 64),
 # f32 lse, dqrh, dqrw.
 LIMIT = 3e-2
 PARTS = ("relpos_bwd_stats", "relpos_bwd_dkdv", "relpos_bwd_dq")
+# The kernel templates whose build the probe reports.
+BUILD_KERNELS = ("relpos_bwd_stats_kernel", "relpos_bwd_dkdv_kernel",
+                 "relpos_bwd_dq_kernel")
 
 
 def bound_ms(b, grid, h, d, kind: str) -> tuple[float, str]:
@@ -179,6 +193,9 @@ def rows(shapes=None, reps: int = 10, previous: str | None = None) -> dict:
                 r["bwd"][part] = device_ms(
                     lambda: attention.rel_pos_flash_attention_bwd(*args),
                     part, reps)
+                if prev is not None:
+                    r["bwd"][f"previous_{part}"] = device_ms(
+                        lambda: prev(*args), part, reps)
             for kind in ("lse", "bwd"):
                 row = r[kind]
                 row["ms"], row["device_ms"] = t[kind]
@@ -207,8 +224,10 @@ def describe(name: str, kind: str, r: dict) -> str:
              "; device ms by kernel " + ", ".join(f"{p} {r[p]:.4f}"
                                                    for p in PARTS))
     old = (f"; previous {r['previous_ms']:.4f} ms events / "
-           f"{r['previous_device_ms']:.4f} ms device (max rel "
-           f"{r['previous_rel']:.2e})" if "previous_ms" in r else "")
+           f"{r['previous_device_ms']:.4f} ms device (by kernel "
+           + ", ".join(f"{r['previous_' + p]:.4f}" for p in PARTS)
+           + f"; max rel {r['previous_rel']:.2e})"
+           if "previous_ms" in r else "")
     same = (f"; two launches bit-identical: {r['identical']}"
             if "identical" in r else "")
     return (f"{what} {name} {SHAPES[name]}: {r['ms']:.4f} ms events / "
@@ -231,6 +250,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("the probe times kernels on the card: no CUDA device")
     print(f"card: {card()}", flush=True)
+    for line in build_report("relpos_flash_bwd.cu", BUILD_KERNELS):
+        print(f"build: {line}", flush=True)
     failed = []
     for name, r in rows(previous=args.previous).items():
         for kind in ("lse", "bwd"):
