@@ -200,7 +200,7 @@ profiles' tables):
           the words of the 50 categories of configs/category_meta50.json,
           serving 640x480 random images (532x709 content on the 896^2
           canvas) with those 50 categories as the prompt: 2 warm-up + 5
-          timed images (img/s, p50, synchronised ms per stage, peak memory,
+          timed images (img/s, p50, device ms per stage span, peak memory,
           24 kernel-8 and 12 kernel-1 launches per image, finite [300, ...]
           detections with valid classes < 50); one image's detection and
           lift run with the host synchronisation check on (none allowed);
@@ -2169,7 +2169,7 @@ def geo_phase() -> dict:
                f"{launches['relpos'] // GEO_TIMED} kernel-7 and "
                f"{launches['fwd'] // GEO_TIMED} kernel-1 launches; "
                f"{sum(map(len, preds)) / GEO_TIMED:.1f} boxes; peak memory "
-               f"{peak} bytes; ms per image by stage (synchronised): "
+               f"{peak} bytes; device ms per image by stage span: "
                + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     compare_geo(models, requests[GEO_WARMUP])
     with torch.inference_mode():
@@ -2213,7 +2213,8 @@ def check_geo_preds(preds) -> None:
 
 
 def geo_stages(models, requests) -> dict:
-    """Synchronised ms per image in each stage, averaged over `requests`."""
+    """Device ms per image in each stage's span (the stream's time between
+    its events, with no wait between stages), averaged over `requests`."""
     stages: dict = {}
     for image, K, dets in requests:
         trace: dict = {}
@@ -2266,7 +2267,7 @@ def compare_geo(models, request) -> None:
                    f"{offset} in {(ref > offset).float().mean().item():.1%}")
         if not (mx <= GEO_MAX_REL and mean <= GEO_MEAN_REL):
             failed.append(name)
-    say("geo", "plain run stages (ms): " + ", ".join(
+    say("geo", "plain run stages (device ms per span): " + ", ".join(
         f"{k} {v:.3f}" for k, v in runs["plain"][1]["ms"].items()))
     for a, b in zip(runs["kernel"][0], runs["plain"][0]):
         say("geo", f"  box {a['category_id']}: center kernel "
@@ -2341,7 +2342,7 @@ def geo_f32_phase() -> dict:
                    f"boxes: {rate(lats)}; per image {f32 // n} f32 kernel-1 "
                    f"and {relpos // n} kernel-7 launches; "
                    f"{sum(map(len, preds)) / n:.1f} boxes; peak memory "
-                   f"{peak} bytes; ms per image by stage (synchronised): "
+                   f"{peak} bytes; device ms per image by stage span: "
                    + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     device_profile("geo_f32", lambda: serve_geo(
         models, requests[GEO_F32_WARMUP:GEO_F32_WARMUP + 2]), 2, p50,
@@ -2668,7 +2669,7 @@ def ovlift_phase(previous: str | None) -> tuple:
                   f"{launches['window'] // OV_TIMED} kernel-8 and "
                   f"{launches['fwd'] // OV_TIMED} kernel-1 launches; "
                   f"{n_valid:.1f} valid of 300 slots; peak memory {peak} "
-                  "bytes; ms per image by stage (synchronised): "
+                  "bytes; device ms per image by stage span: "
                   + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     profiled = images[OV_WARMUP:OV_WARMUP + 3]
     with torch.inference_mode():
@@ -2798,7 +2799,7 @@ def compare_ovlift(pipe, image, K, names) -> None:
                   f"same class in {same_cls} of 300; corners3d max |diff| "
                   f"{d_corner.item():.3e} (scale "
                   f"{p_det.corners3d.abs().max().item():.3e}); plain run "
-                  "stages (ms): " + ", ".join(
+                  "stages (device ms per span): " + ", ".join(
                       f"{k} {v:.3f}" for k, v in p_tr["ms"].items()))
     check(not failed, f"Swin kernel vs plain within limits: {failed} not")
 
@@ -3308,7 +3309,7 @@ def quant_phase() -> dict:
                  f"{geo_out['int8'] // n} kernel-10, {geo_out['relpos'] // n} "
                  f"kernel-7 and {geo_out['fwd'] // n} kernel-1 launches; "
                  f"{sum(map(len, preds)) / n:.1f} boxes; peak memory {peak} "
-                 "bytes; ms per image by stage (synchronised): "
+                 "bytes; device ms per image by stage span: "
                  + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     with torch.inference_mode():
         device_profile("quant", lambda: serve_geo(

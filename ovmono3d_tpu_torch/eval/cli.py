@@ -71,6 +71,7 @@ from ovmono3d_tpu_torch.utils.geometry import CORNER_SIGNS
 from ovmono3d_tpu_torch.utils.lift_convert import extract_priors
 from ovmono3d_tpu_torch.utils.load import load_rcnn_params, load_torch_state
 from ovmono3d_tpu_torch.utils.priors import compute_priors
+from ovmono3d_tpu_torch.utils.trace import span
 from ovmono3d_tpu_torch.utils.util import imwrite_rgb
 from ovmono3d_tpu_torch.vis.draw import pred_vs_gt_panels
 from ovmono3d_tpu_torch.vis.logperf import (print_ap_analysis,
@@ -120,11 +121,12 @@ def make_run_fn(model):
     """One inference function, built once and shared across datasets: a
     batch with oracle slots runs the oracle path, one without runs the
     model's own 2D detections. Takes the batch's tensors on the model's
-    device and returns the Detections there."""
+    device and returns the Detections there; each call is a unit span,
+    eval.batch."""
 
     def run(batch: dict, depth: torch.Tensor | None = None):
         oracle = {k: batch[k] for k in _ORACLE_KEYS if k in batch}
-        with torch.inference_mode():
+        with span("eval.batch", unit=True), torch.inference_mode():
             return model(batch["image"], batch["K"], batch["im_hw"],
                          batch["im_scale_ratio"], depth, **oracle)
 

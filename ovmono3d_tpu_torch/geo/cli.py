@@ -59,7 +59,7 @@ from ovmono3d_tpu_torch.utils.device import (device_constant, disable_tf32,
                                              resolve_device)
 from ovmono3d_tpu_torch.utils.image import resize_bilinear
 from ovmono3d_tpu_torch.utils.load import load_depth_params, load_sam_params
-from ovmono3d_tpu_torch.utils.stages import Stages
+from ovmono3d_tpu_torch.utils.trace import span, stages
 from ovmono3d_tpu_torch.vis.logperf import print_ap_summary
 
 logger = logging.getLogger("ovmono3d.geo")
@@ -69,6 +69,8 @@ S_SAM, S_DEPTH = 1024, 1536     # SAM's canvas; Depth-Pro's fixed input
 PIXEL_MEAN = (0.485, 0.456, 0.406)
 PIXEL_STD = (0.229, 0.224, 0.225)
 MASK_INDEX = 2                  # SAM's largest candidate (reference L309)
+# `predict_image`'s stages, the spans its trace reports.
+GEO_STAGES = ("depth", "sam_encoder", "segment", "fit")
 
 
 @dataclasses.dataclass
@@ -137,10 +139,17 @@ def predict_image(models: GeoModels, image, K, dets: list[dict],
     one dict per kept box with a valid fit (category_id, score, bbox2d,
     center_cam, dimensions, pose).
     Given a dict `trace`, fills it with each stage's milliseconds (under
-    "ms", synchronising the device between stages) and the intermediate
-    tensors: canonical_inverse_depth, depth_map, embed, mask_logits."""
+    "ms", from the spans of GEO_STAGES, device time on the card, after one
+    wait for the card at the end) and the intermediate tensors:
+    canonical_inverse_depth, depth_map, embed, mask_logits."""
+    with stages(trace, GEO_STAGES):
+        return _predict_image(models, image, K, dets, trace)
+
+
+def _predict_image(models: GeoModels, image, K, dets: list[dict],
+                   trace: dict | None) -> list[dict]:
+    trace = {} if trace is None else trace
     dev = models.device
-    stages = Stages(trace, dev)
     img = torch.as_tensor(image, device=dev).float() / 255.0
     H, W = img.shape[:2]
     Kt = torch.as_tensor(K, dtype=torch.float32, device=dev)
@@ -149,37 +158,41 @@ def predict_image(models: GeoModels, image, K, dets: list[dict],
     with torch.inference_mode():
         # Depth-Pro metric depth, with the known focal length, back at the
         # image's resolution.
-        cid = models.depth(_normalize(resize_bilinear(img, (Sd, Sd)))[None])[
-            "canonical_inverse_depth"]
-        f_px = (Kt[0, 0] * Sd / W).reshape(1)
-        depth_map = resize_bilinear(metric_depth(cid, f_px, Sd)[..., None],
-                                    (H, W))[0, ..., 0]
-        stages.mark("depth", canonical_inverse_depth=cid, depth_map=depth_map)
+        with span("depth"):
+            cid = models.depth(_normalize(resize_bilinear(
+                img, (Sd, Sd)))[None])["canonical_inverse_depth"]
+            f_px = (Kt[0, 0] * Sd / W).reshape(1)
+            depth_map = resize_bilinear(
+                metric_depth(cid, f_px, Sd)[..., None], (H, W))[0, ..., 0]
+        trace.update(canonical_inverse_depth=cid, depth_map=depth_map)
         # SAM's embedding of the image, scaled to the canvas and placed
         # top-left.
-        scale = Ss / max(H, W)
-        sh, sw = int(H * scale), int(W * scale)
-        canvas = torch.zeros(Ss, Ss, 3, device=dev)
-        canvas[:sh, :sw] = _normalize(resize_bilinear(img, (sh, sw)))
-        embed = models.sam_encoder(canvas[None])["last_feat"]
-        stages.mark("sam_encoder", embed=embed)
+        with span("sam_encoder"):
+            scale = Ss / max(H, W)
+            sh, sw = int(H * scale), int(W * scale)
+            canvas = torch.zeros(Ss, Ss, 3, device=dev)
+            canvas[:sh, :sw] = _normalize(resize_bilinear(img, (sh, sw)))
+            embed = models.sam_encoder(canvas[None])["last_feat"]
+        trace.update(embed=embed)
         if not kept:
             return []
-        boxes = torch.tensor([d["bbox2d"] for d in kept], dtype=torch.float32,
-                             device=dev) * scale
-        masks, _ = models.segmenter(embed, boxes, float(Ss))
-        logits = masks[:, MASK_INDEX]
-        # The masks cover the padded canvas: crop its content region before
-        # the resize to the image (segment_anything's postprocess_masks).
-        mh, mw = logits.shape[-2:]
-        ch = max(1, int(round(mh * (H * scale) / Ss)))
-        cw = max(1, int(round(mw * (W * scale) / Ss)))
-        mask_img = resize_bilinear(logits[:, :ch, :cw, None],
-                                   (H, W))[..., 0] > 0
-        stages.mark("segment", mask_logits=logits)
-        fit = fit_box_from_mask_depth(mask_img.float(), depth_map, Kt)
-        fit = {k: v.cpu() for k, v in fit.items()}
-        stages.mark("fit")
+        with span("segment"):
+            boxes = torch.tensor([d["bbox2d"] for d in kept],
+                                 dtype=torch.float32, device=dev) * scale
+            masks, _ = models.segmenter(embed, boxes, float(Ss))
+            logits = masks[:, MASK_INDEX]
+            # The masks cover the padded canvas: crop its content region
+            # before the resize to the image (segment_anything's
+            # postprocess_masks).
+            mh, mw = logits.shape[-2:]
+            ch = max(1, int(round(mh * (H * scale) / Ss)))
+            cw = max(1, int(round(mw * (W * scale) / Ss)))
+            mask_img = resize_bilinear(logits[:, :ch, :cw, None],
+                                       (H, W))[..., 0] > 0
+        trace.update(mask_logits=logits)
+        with span("fit"):
+            fit = fit_box_from_mask_depth(mask_img.float(), depth_map, Kt)
+            fit = {k: v.cpu() for k, v in fit.items()}
     return [{
         "category_id": det["category_id"], "score": det["score"],
         "bbox2d": det["bbox2d"],
@@ -245,7 +258,8 @@ def predict_dataset(models: GeoModels, records: list[dict], image_loader,
                     stage_ms: dict | None = None) -> dict:
     """GEO boxes of every record whose image loads, on its oracle 2D boxes
     (`oracle2d`): {image_id: predict_image's list}. Given a dict
-    `stage_ms`, adds each stage's milliseconds (synchronised) to it."""
+    `stage_ms`, adds each stage span's milliseconds (device ms on the
+    card) to it."""
     preds_all = {}
     for rec in records:
         image = image_loader(rec)
@@ -332,8 +346,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict | None:
     """Run the CLI. Over datasets it returns {dataset: {"images": n,
-    "stage_ms": mean synchronised ms an image by stage (none with
-    --eval-only), "eval": the evaluation (None without --eval)}}."""
+    "stage_ms": mean ms an image by stage span, device ms on the card
+    (none with --eval-only), "eval": the evaluation (None without
+    --eval)}}."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     out_dir = Path(args.output_dir)

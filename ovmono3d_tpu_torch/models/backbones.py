@@ -2,6 +2,9 @@
 trunk family behind one (images, depth) -> {name: [B, H, W, C]} interface
 with static strides, selected by cfg.backbone.name.
 
+Each splits into `trunk_features` and `pyramid` (RCNN3D opens its
+model.trunk and model.pyramid spans around them); `forward` is the two.
+
 - `ViTSFPBackbone`: a ViT trunk and the Simple Feature Pyramid, for the
   dinov2, clip, mae, sam and midas presets (the reference's
   build_dino/clip/mae/sam/midas_backbone);
@@ -93,8 +96,9 @@ def vit_trunk_kwargs(cfg: BackboneConfig) -> dict[str, Any]:
 
 class ViTSFPBackbone(nn.Module):
     """ViT trunk + Simple Feature Pyramid (reference dino.py:141-224). The
-    pyramid reads the trunk's last features (the neck's for SAM: 256
-    channels), or block depth-2's for MAE's tap."""
+    pyramid reads the trunk's last features (through SAM's neck, which is
+    the pyramid's first part: 256 channels), or block depth-2's for MAE's
+    tap."""
 
     def __init__(self, cfg: BackboneConfig, dtype=torch.bfloat16, device=None):
         super().__init__()
@@ -134,9 +138,19 @@ class ViTSFPBackbone(nn.Module):
 
     def forward(self, images: torch.Tensor,
                 depth: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
-        out = self.vit(images, depth)
-        feat = (out["last_feat"] if self.tap_layer is None
-                else out[f"feat{self.tap_layer}"])
+        return self.pyramid(self.trunk_features(images, depth))
+
+    def trunk_features(self, images: torch.Tensor,
+                       depth: torch.Tensor | None = None) -> torch.Tensor:
+        """The map the pyramid reads: the ViT's last features (before
+        SAM's neck, which the pyramid applies) or its tap."""
+        if self.tap_layer is not None:
+            return self.vit(images, depth)[f"feat{self.tap_layer}"]
+        return self.vit(images, depth, neck=False)["last_feat"]
+
+    def pyramid(self, feat: torch.Tensor) -> dict[str, torch.Tensor]:
+        if self.tap_layer is None and self.vit.neck_channels > 0:
+            feat = self.vit.neck(feat)
         return self.sfp(feat)
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -191,9 +205,16 @@ class CNNFPNBackbone(nn.Module):
 
     def forward(self, images: torch.Tensor,
                 depth: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+        return self.pyramid(self.trunk_features(images, depth))
+
+    def trunk_features(self, images: torch.Tensor,
+                       depth: torch.Tensor | None = None):
+        """The trunk's NCHW levels, which the FPN reads."""
         # NCHW views of the NHWC batch (channels_last strides): no copy.
-        feats = self.fpn(self.trunk(images.permute(0, 3, 1, 2)))
-        return {n: f.permute(0, 2, 3, 1) for n, f in feats.items()}
+        return self.trunk(images.permute(0, 3, 1, 2))
+
+    def pyramid(self, feats) -> dict[str, torch.Tensor]:
+        return {n: f.permute(0, 2, 3, 1) for n, f in self.fpn(feats).items()}
 
     def init_weights(self, generator: torch.Generator) -> None:
         """flax's defaults: lecun-normal kernels, zero biases, BatchNorm

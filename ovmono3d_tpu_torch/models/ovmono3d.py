@@ -57,11 +57,13 @@ from ovmono3d_tpu_torch.utils.device import (HostCopy, device_constant,
                                              staged, to_device_async)
 from ovmono3d_tpu_torch.utils.image import (resize_bilinear,
                                             resize_shortest_edge)
-from ovmono3d_tpu_torch.utils.stages import Stages
+from ovmono3d_tpu_torch.utils.trace import span, stages
 
 # GroundingDINO's preprocessing: ImageNet statistics of 0-1 images.
 GDINO_MEAN = (0.485, 0.456, 0.406)
 GDINO_STD = (0.229, 0.224, 0.225)
+# `predict`'s stages, the spans its trace reports.
+SERVE_STAGES = ("canvas", "text", "gdino", "postprocess", "lift")
 
 
 def build_gdino(gdino_kwargs: dict | None = None, device=None,
@@ -256,19 +258,22 @@ class OVMono3DLift:
                 "valid": torch.zeros(k, dtype=torch.bool, device=self.device)}
 
     def _detect(self, tensor: torch.Tensor, text: dict,
-                stages: Stages | None = None) -> dict:
-        """GroundingDINO + postprocess on the detector's tensor; boxes in
-        canvas pixels."""
-        stages = stages or Stages(None, self.device)
-        out = self.gdino(tensor, text["input_ids"], text["text_mask"],
-                         text["text_self_mask"], text["position_ids"])
-        stages.mark("gdino", pred_logits=out["pred_logits"][0],
-                    pred_boxes=out["pred_boxes"][0])
-        S = float(self.gdino_size)
-        boxes, scores, classes, valid = postprocess_grounding(
-            out["pred_logits"][0], out["pred_boxes"][0], text["span_matrix"],
-            text["span_valid"], (S, S), topk=self.detect_topk)
-        stages.mark("postprocess")
+                trace: dict | None = None) -> dict:
+        """GroundingDINO + postprocess on the detector's tensor (spans
+        "gdino" and "postprocess"); boxes in canvas pixels. Given `trace`,
+        keeps the detector's raw pred_logits and pred_boxes there."""
+        with span("gdino"):
+            out = self.gdino(tensor, text["input_ids"], text["text_mask"],
+                             text["text_self_mask"], text["position_ids"])
+        if trace is not None:
+            trace.update(pred_logits=out["pred_logits"][0],
+                         pred_boxes=out["pred_boxes"][0])
+        with span("postprocess"):
+            S = float(self.gdino_size)
+            boxes, scores, classes, valid = postprocess_grounding(
+                out["pred_logits"][0], out["pred_boxes"][0],
+                text["span_matrix"], text["span_valid"], (S, S),
+                topk=self.detect_topk)
         return {"boxes": boxes, "scores": scores, "classes": classes,
                 "valid": valid}
 
@@ -320,40 +325,39 @@ class OVMono3DLift:
                 and self.gdino_min_size == self.cfg.input.min_size_test
                 and self.gdino_max_size == self.cfg.input.max_size_test)
 
-    def prepare(self, image, K, categories: list[str], depth=None,
-                stages: Stages | None = None) -> dict:
+    def prepare(self, image, K, categories: list[str],
+                depth=None) -> dict:
         """Everything `run` needs on the device: the cube model's canvas
         (uploaded and resized here), its content size and ratio, K, the
         prompt's tensors and, when the detector does not share the canvas,
         its own tensor. Uploads end here: the image's, K's and the
         content size's synchronise the host with the card (the prompt's do
-        not). `stages` marks "canvas" and "text"."""
-        stages = stages or Stages(None, self.device)
+        not). Spans "canvas" and "text"."""
         dev = self.device
-        canvas, (nh, nw), scale = self._prep_lift_canvas(image)
-        req = {"canvas": canvas,
-               "hw": torch.tensor([[nh, nw]], dtype=torch.int32, device=dev),
-               "ratio": torch.tensor([1.0 / scale], device=dev),
-               "K": self._upload(K, torch.float32)[None],
-               "depth": (None if depth is None else self._upload(
-                   depth, torch.float32)[None, ..., None]),
-               "text": None, "gdino_tensor": None, "box_scale": scale}
-        if categories and not self._fusable():
-            req["gdino_tensor"], gscale = self._prep_gdino_image(image)
-            req["box_scale"] = scale / gscale
-        elif categories:
-            req["box_scale"] = 1.0
-        stages.mark("canvas")
-        if categories:
-            req["text"] = self._text_device_inputs(categories)
-        stages.mark("text")
+        with span("canvas"):
+            canvas, (nh, nw), scale = self._prep_lift_canvas(image)
+            req = {"canvas": canvas,
+                   "hw": torch.tensor([[nh, nw]], dtype=torch.int32,
+                                      device=dev),
+                   "ratio": torch.tensor([1.0 / scale], device=dev),
+                   "K": self._upload(K, torch.float32)[None],
+                   "depth": (None if depth is None else self._upload(
+                       depth, torch.float32)[None, ..., None]),
+                   "text": None, "gdino_tensor": None, "box_scale": scale}
+            if categories and not self._fusable():
+                req["gdino_tensor"], gscale = self._prep_gdino_image(image)
+                req["box_scale"] = scale / gscale
+            elif categories:
+                req["box_scale"] = 1.0
+        with span("text"):
+            if categories:
+                req["text"] = self._text_device_inputs(categories)
         return req
 
-    def run(self, req: dict, stages: Stages | None = None) -> Detections:
-        """Detection, postprocess and lift of a prepared request, with no
-        host synchronisation unless `stages` times them ("gdino",
-        "postprocess", "lift", synchronising between stages)."""
-        stages = stages or Stages(None, self.device)
+    def run(self, req: dict, trace: dict | None = None) -> Detections:
+        """Detection, postprocess and lift of a prepared request (spans
+        "gdino", "postprocess", "lift"), with no host synchronisation.
+        Given `trace`, keeps the detector's raw outputs there."""
         with torch.inference_mode():
             if req["text"] is None:
                 det2d = self._empty_2d()
@@ -362,10 +366,11 @@ class OVMono3DLift:
                 if tensor is None:
                     tensor = self._gdino_normalize(req["canvas"][None],
                                                    req["hw"])
-                det2d = self._detect(tensor, req["text"], stages)
-            det = self._lift(req["canvas"], req["hw"], req["ratio"], req["K"],
-                             det2d, req["box_scale"], req["depth"])
-            stages.mark("lift")
+                det2d = self._detect(tensor, req["text"], trace)
+            with span("lift"):
+                det = self._lift(req["canvas"], req["hw"], req["ratio"],
+                                 req["K"], det2d, req["box_scale"],
+                                 req["depth"])
         return det
 
     # -- streams --------------------------------------------------------------
@@ -502,12 +507,12 @@ class OVMono3DLift:
         """Prompts -> 2D open-vocabulary boxes -> 3D cuboids for one image
         ([H, W, 3] uint8 or float, K [3, 3]): Detections of `detect_topk`
         slots on the device, boxes in original pixels. Given a dict
-        `trace`, fills it with each stage's milliseconds (under "ms",
-        synchronising between stages) and the detector's raw pred_logits
-        and pred_boxes."""
-        stages = Stages(trace, self.device)
-        return self.run(self.prepare(image, K, categories, depth, stages),
-                        stages)
+        `trace`, fills it with each stage's milliseconds (under "ms", from
+        the stages' spans, device time on the card, after one wait for the
+        card at the end) and the detector's raw pred_logits and
+        pred_boxes."""
+        with stages(trace, SERVE_STAGES):
+            return self.run(self.prepare(image, K, categories, depth), trace)
 
 
 def default_focal_K(h: int, w: int) -> np.ndarray:

@@ -18,6 +18,12 @@ disentangled corner / chamfer cube losses. Where the JAX package vmaps a
 per-image function, the port writes the batched form: one set of tensor ops
 over [B, ...] with no host synchronisation.
 
+Both open spans (utils/trace.py) at their layers: model.trunk (the pixel
+normalization and the trunk), model.pyramid (SFP, SAM's neck, FPN),
+model.rpn (head, anchors, labels, RPN losses), model.proposals (proposals
+and their sampling), model.box_head and model.cube_head (ROIAlign, the
+head, its decode and losses).
+
 Batch contract, as in the JAX package (static shapes):
   image           [B, S, S, 3] f32 RGB 0..255 (padded square)
   K               [B, 3, 3]   original-image intrinsics
@@ -48,6 +54,7 @@ from ovmono3d_tpu_torch.structures import Detections, GroundTruth
 from ovmono3d_tpu_torch.utils import geometry as geom
 from ovmono3d_tpu_torch.utils.device import (device_constant, disable_tf32,
                                              resolve_device)
+from ovmono3d_tpu_torch.utils.trace import span
 
 SQRT_2 = 1.4142135623730951
 
@@ -569,7 +576,10 @@ class RCNN3D(nn.Module):
 
     def features(self, image: torch.Tensor,
                  depth: torch.Tensor | None = None) -> dict:
-        return self.backbone(self.preprocess(image), depth)
+        with span("model.trunk"):
+            feat = self.backbone.trunk_features(self.preprocess(image), depth)
+        with span("model.pyramid"):
+            return self.backbone.pyramid(feat)
 
     @property
     def feature_strides(self) -> list[int]:
@@ -643,21 +653,22 @@ class RCNN3D(nn.Module):
         else:
             det_boxes, det_scores, det_classes, det_valid = self._detect_2d(
                 feats, im_hw)
-        dec, _ = self._run_cube(feats, det_boxes, det_classes, K, im_hw,
-                                im_scale_ratio)
-        fused = torch.sqrt((det_scores * dec["conf"]).clamp(min=0.0))
-        ratio = im_scale_ratio[:, None, None]
-        return Detections(
-            boxes=det_boxes * ratio,
-            scores=torch.where(det_valid, fused, torch.zeros_like(fused)),
-            classes=det_classes,
-            valid=det_valid,
-            center_cam=dec["center_cam"],
-            center_2d=torch.stack([dec["x"], dec["y"]], -1) * ratio,
-            dimensions=dec["dims"],
-            pose=dec["pose"],
-            corners3d=dec["corners"],
-        )
+        with span("model.cube_head"):
+            dec, _ = self._run_cube(feats, det_boxes, det_classes, K, im_hw,
+                                    im_scale_ratio)
+            fused = torch.sqrt((det_scores * dec["conf"]).clamp(min=0.0))
+            ratio = im_scale_ratio[:, None, None]
+            return Detections(
+                boxes=det_boxes * ratio,
+                scores=torch.where(det_valid, fused, torch.zeros_like(fused)),
+                classes=det_classes,
+                valid=det_valid,
+                center_cam=dec["center_cam"],
+                center_2d=torch.stack([dec["x"], dec["y"]], -1) * ratio,
+                dimensions=dec["dims"],
+                pose=dec["pose"],
+                corners3d=dec["corners"],
+            )
 
     def _detect_2d(self, feats: dict, im_hw: torch.Tensor):
         """Learned 2D detection (the JAX package's `_detect_2d`): test-time
@@ -665,33 +676,37 @@ class RCNN3D(nn.Module):
         `fast_rcnn_inference`. Returns boxes [B, K, 4], scores, classes and
         valid [B, K], K = max_detections."""
         rpn_cfg, box_cfg = self.cfg.rpn, self.cfg.roi_box
-        logits, deltas, anchors, level_sizes = self._rpn_forward(feats)
+        with span("model.rpn"):
+            logits, deltas, anchors, level_sizes = self._rpn_forward(feats)
         hw = im_hw.float()
-        prop_boxes, _, prop_valid = rpn_proposals(
-            logits, deltas, anchors, level_sizes, hw,
-            rpn_cfg.pre_nms_topk_test, rpn_cfg.post_nms_topk_test,
-            rpn_cfg.nms_thresh, rpn_cfg.min_box_size)
-        b, p = prop_boxes.shape[:2]
-        pooled = self._pool_flat(feats, prop_boxes, box_cfg.pooler_resolution,
-                                 box_cfg.pooler_sampling_ratio)
-        scores_logits, box_deltas = self.box_head(pooled)
-        c = self.cfg.num_classes
-        probs = torch.softmax(scores_logits, dim=-1)[:, :-1]
-        flat_boxes = prop_boxes.reshape(b * p, 4)
-        if box_cfg.cls_agnostic_bbox_reg:
-            per_class = box_ops.apply_deltas(
-                box_deltas, flat_boxes, box_cfg.bbox_reg_weights
-            )[:, None, :].expand(b * p, c, 4)
-        else:
-            per_class = box_ops.apply_deltas(
-                box_deltas.reshape(b * p, c, 4),
-                flat_boxes[:, None, :].expand(b * p, c, 4),
-                box_cfg.bbox_reg_weights)
-        det = fast_rcnn_inference(
-            per_class.reshape(b, p, c, 4), probs.reshape(b, p, c), prop_valid,
-            hw, box_cfg.score_thresh_test, box_cfg.nms_thresh_test,
-            self.cfg.max_detections)
-        return det[:4]
+        with span("model.proposals"):
+            prop_boxes, _, prop_valid = rpn_proposals(
+                logits, deltas, anchors, level_sizes, hw,
+                rpn_cfg.pre_nms_topk_test, rpn_cfg.post_nms_topk_test,
+                rpn_cfg.nms_thresh, rpn_cfg.min_box_size)
+        with span("model.box_head"):
+            b, p = prop_boxes.shape[:2]
+            pooled = self._pool_flat(feats, prop_boxes,
+                                     box_cfg.pooler_resolution,
+                                     box_cfg.pooler_sampling_ratio)
+            scores_logits, box_deltas = self.box_head(pooled)
+            c = self.cfg.num_classes
+            probs = torch.softmax(scores_logits, dim=-1)[:, :-1]
+            flat_boxes = prop_boxes.reshape(b * p, 4)
+            if box_cfg.cls_agnostic_bbox_reg:
+                per_class = box_ops.apply_deltas(
+                    box_deltas, flat_boxes, box_cfg.bbox_reg_weights
+                )[:, None, :].expand(b * p, c, 4)
+            else:
+                per_class = box_ops.apply_deltas(
+                    box_deltas.reshape(b * p, c, 4),
+                    flat_boxes[:, None, :].expand(b * p, c, 4),
+                    box_cfg.bbox_reg_weights)
+            det = fast_rcnn_inference(
+                per_class.reshape(b, p, c, 4), probs.reshape(b, p, c),
+                prop_valid, hw, box_cfg.score_thresh_test,
+                box_cfg.nms_thresh_test, self.cfg.max_detections)
+            return det[:4]
 
     # -- training -----------------------------------------------------------
 
@@ -734,79 +749,86 @@ class RCNN3D(nn.Module):
         box_cfg = self.cfg.roi_box
         b = image.shape[0]
         feats = self.features(image, depth)
-        logits, deltas, anchors, level_sizes = self._rpn_forward(feats)
-        if draws is None:
-            p = rpn_cfg.post_nms_topk_train + gt.boxes.shape[1]
-            draws = {"anchor": (b, 2, anchors.shape[0]),
-                     "proposal": (b, 2, p)}
-            draws = {k: box_ops.uniform_draws(v, generator, image.device)
-                     for k, v in draws.items()}
 
         # RPN labeling + IoUness losses (rpn.py:129-273).
-        fg_mask, matched_boxes, iou_targets = label_anchors(
-            anchors, gt, rpn_cfg.iou_thresholds, rpn_cfg.batch_size_per_image,
-            rpn_cfg.positive_fraction, rpn_cfg.ignore_threshold,
-            draws=draws["anchor"])
-        fg_f = fg_mask.float()
-        normalizer = rpn_cfg.batch_size_per_image * b
-        if count_reduce is not None:
-            normalizer = count_reduce(torch.full(
-                (), float(normalizer), device=image.device))
-        bce = F.binary_cross_entropy_with_logits(logits, iou_targets,
-                                                 reduction="none")
-        loss_rpn_cls = (bce * iou_targets * fg_f).sum() / normalizer
-        gt_deltas = box_ops.get_deltas(anchors.expand_as(matched_boxes),
-                                       matched_boxes)
-        reg = smooth_l1(deltas, gt_deltas).sum(-1)
-        loss_rpn_loc = (reg * iou_targets * fg_f).sum() / normalizer
-        losses = {"rpn/cls": loss_rpn_cls * rpn_cfg.loss_weight,
-                  "rpn/loc": loss_rpn_loc * rpn_cfg.loss_weight}
+        with span("model.rpn"):
+            logits, deltas, anchors, level_sizes = self._rpn_forward(feats)
+            if draws is None:
+                p = rpn_cfg.post_nms_topk_train + gt.boxes.shape[1]
+                draws = {"anchor": (b, 2, anchors.shape[0]),
+                         "proposal": (b, 2, p)}
+                draws = {k: box_ops.uniform_draws(v, generator, image.device)
+                         for k, v in draws.items()}
+            fg_mask, matched_boxes, iou_targets = label_anchors(
+                anchors, gt, rpn_cfg.iou_thresholds,
+                rpn_cfg.batch_size_per_image, rpn_cfg.positive_fraction,
+                rpn_cfg.ignore_threshold, draws=draws["anchor"])
+            fg_f = fg_mask.float()
+            normalizer = rpn_cfg.batch_size_per_image * b
+            if count_reduce is not None:
+                normalizer = count_reduce(torch.full(
+                    (), float(normalizer), device=image.device))
+            bce = F.binary_cross_entropy_with_logits(logits, iou_targets,
+                                                     reduction="none")
+            loss_rpn_cls = (bce * iou_targets * fg_f).sum() / normalizer
+            gt_deltas = box_ops.get_deltas(anchors.expand_as(matched_boxes),
+                                           matched_boxes)
+            reg = smooth_l1(deltas, gt_deltas).sum(-1)
+            loss_rpn_loc = (reg * iou_targets * fg_f).sum() / normalizer
+            losses = {"rpn/cls": loss_rpn_cls * rpn_cfg.loss_weight,
+                      "rpn/loc": loss_rpn_loc * rpn_cfg.loss_weight}
 
         # Proposals (train top-k) + GT boxes.
-        prop_boxes, _, prop_valid = rpn_proposals(
-            logits.detach(), deltas.detach(), anchors, level_sizes,
-            im_hw.float(), rpn_cfg.pre_nms_topk_train,
-            rpn_cfg.post_nms_topk_train, rpn_cfg.nms_thresh,
-            rpn_cfg.min_box_size)
-        gt_is_fg = gt.valid & (gt.classes >= 0)
-        prop_boxes = torch.cat([prop_boxes, gt.boxes], 1)
-        prop_valid = torch.cat([prop_valid, gt_is_fg], 1)
-        sampled = sample_proposals(
-            prop_boxes, prop_valid, gt, box_cfg.batch_size_per_image,
-            box_cfg.positive_fraction, box_cfg.iou_thresholds[0],
-            rpn_cfg.ignore_threshold, self.cfg.num_classes,
-            draws=draws["proposal"])
+        with span("model.proposals"):
+            prop_boxes, _, prop_valid = rpn_proposals(
+                logits.detach(), deltas.detach(), anchors, level_sizes,
+                im_hw.float(), rpn_cfg.pre_nms_topk_train,
+                rpn_cfg.post_nms_topk_train, rpn_cfg.nms_thresh,
+                rpn_cfg.min_box_size)
+            gt_is_fg = gt.valid & (gt.classes >= 0)
+            prop_boxes = torch.cat([prop_boxes, gt.boxes], 1)
+            prop_valid = torch.cat([prop_valid, gt_is_fg], 1)
+            sampled = sample_proposals(
+                prop_boxes, prop_valid, gt, box_cfg.batch_size_per_image,
+                box_cfg.positive_fraction, box_cfg.iou_thresholds[0],
+                rpn_cfg.ignore_threshold, self.cfg.num_classes,
+                draws=draws["proposal"])
 
         # Box head losses (fast_rcnn.py:145-260).
         s = box_cfg.batch_size_per_image
-        pooled = self._pool_flat(feats, sampled["boxes"],
-                                 box_cfg.pooler_resolution,
-                                 box_cfg.pooler_sampling_ratio)
-        scores_logits, box_deltas = self.box_head(pooled)
-        flat_fg = sampled["fg"].reshape(b * s)
-        gt_idx = sampled["gt_idx"]
-        matched_gt_boxes = torch.gather(
-            gt.boxes, 1, gt_idx[..., None].expand(b, s, 4)).reshape(b * s, 4)
-        flat_boxes = sampled["boxes"].reshape(b * s, 4)
-        losses["box/cls"], losses["box/reg"] = box_head_losses(
-            box_cfg, self.cfg.num_classes, scores_logits, box_deltas,
-            sampled["classes"].reshape(b * s), sampled["valid"].reshape(b * s),
-            flat_fg, flat_boxes, matched_gt_boxes, count_reduce)
+        with span("model.box_head"):
+            pooled = self._pool_flat(feats, sampled["boxes"],
+                                     box_cfg.pooler_resolution,
+                                     box_cfg.pooler_sampling_ratio)
+            scores_logits, box_deltas = self.box_head(pooled)
+            flat_fg = sampled["fg"].reshape(b * s)
+            gt_idx = sampled["gt_idx"]
+            matched_gt_boxes = torch.gather(
+                gt.boxes, 1, gt_idx[..., None].expand(b, s, 4)
+            ).reshape(b * s, 4)
+            flat_boxes = sampled["boxes"].reshape(b * s, 4)
+            losses["box/cls"], losses["box/reg"] = box_head_losses(
+                box_cfg, self.cfg.num_classes, scores_logits, box_deltas,
+                sampled["classes"].reshape(b * s),
+                sampled["valid"].reshape(b * s), flat_fg, flat_boxes,
+                matched_gt_boxes, count_reduce)
 
         # Cube head on the sampled foreground (roi_heads.py:329-793).
-        dec, Kb = self._run_cube(feats, sampled["boxes"],
-                                 sampled["classes"] * sampled["fg"].long(),
-                                 K, im_hw, im_scale_ratio)
-        dec_flat = {k: (v.reshape(b * s, *v.shape[2:]) if v is not None
-                        else None) for k, v in dec.items()}
-        gt_boxes3d = torch.gather(
-            gt.boxes3d, 1, gt_idx[..., None].expand(b, s, 9)).reshape(b * s, 9)
-        gt_poses = torch.gather(
-            gt.poses, 1, gt_idx[..., None, None].expand(b, s, 3, 3)
-        ).reshape(b * s, 3, 3)
-        cube = cube_losses(self.cfg.cube, dec_flat, gt_boxes3d, gt_poses, Kb,
-                           flat_fg.float(), src_boxes=flat_boxes,
-                           count_reduce=count_reduce)
+        with span("model.cube_head"):
+            dec, Kb = self._run_cube(feats, sampled["boxes"],
+                                     sampled["classes"] * sampled["fg"].long(),
+                                     K, im_hw, im_scale_ratio)
+            dec_flat = {k: (v.reshape(b * s, *v.shape[2:]) if v is not None
+                            else None) for k, v in dec.items()}
+            gt_boxes3d = torch.gather(
+                gt.boxes3d, 1, gt_idx[..., None].expand(b, s, 9)
+            ).reshape(b * s, 9)
+            gt_poses = torch.gather(
+                gt.poses, 1, gt_idx[..., None, None].expand(b, s, 3, 3)
+            ).reshape(b * s, 3, 3)
+            cube = cube_losses(self.cfg.cube, dec_flat, gt_boxes3d, gt_poses,
+                               Kb, flat_fg.float(), src_boxes=flat_boxes,
+                               count_reduce=count_reduce)
         losses.update({f"cube/{k}": v for k, v in cube.items()})
         return losses
 

@@ -467,8 +467,11 @@ class VisionTransformer(nn.Module):
         return [getattr(self, f"block{i}") for i in range(self.depth)]
 
     def forward(self, images: torch.Tensor,
-                prompt_depth: torch.Tensor | None = None) -> dict:
-        """images: [B, H, W, 3] normalized; prompt_depth: [B, H', W', 1]."""
+                prompt_depth: torch.Tensor | None = None,
+                neck: bool = True) -> dict:
+        """images: [B, H, W, 3] normalized; prompt_depth: [B, H', W', 1].
+        `neck=False` leaves SAM's neck to the caller (`self.neck`):
+        last_feat is then the trunk's map in the compute dtype."""
         B, H, W, _ = images.shape
         h, w = H // self.patch_size, W // self.patch_size
         p = self.n_prefix
@@ -499,12 +502,17 @@ class VisionTransformer(nn.Module):
         if self.norm is not None:
             x = self.norm(x.float()).to(x.dtype)
         feat = x[:, p:].reshape(B, h, w, self.embed_dim)
-        if self.neck_channels > 0:
-            # SAM's neck.
-            feat = conv_norm_pair(feat, self.neck_conv1, self.neck_norm1,
-                                  self.neck_conv2, self.neck_norm2, self.dtype)
         cls = x[:, 0] if p else x.mean(dim=1)
+        if self.neck_channels > 0:
+            if not neck:
+                return {"last_feat": feat, "cls": cls.float(), **extra}
+            feat = self.neck(feat)
         return {"last_feat": feat.float(), "cls": cls.float(), **extra}
+
+    def neck(self, feat: torch.Tensor) -> torch.Tensor:
+        """SAM's neck on the trunk's [B, h, w, C] map (output f32)."""
+        return conv_norm_pair(feat, self.neck_conv1, self.neck_norm1,
+                              self.neck_conv2, self.neck_norm2, self.dtype)
 
     def _pos_table(self, h: int, w: int) -> torch.Tensor:
         """[1, n_prefix + h*w, C] f32: MAE's sin-cos table built at the grid

@@ -43,6 +43,7 @@ from ovmono3d_tpu_torch.models.rcnn3d import RCNN3D
 from ovmono3d_tpu_torch.ops.quant import refuse_quantized
 from ovmono3d_tpu_torch.structures import GroundTruth
 from ovmono3d_tpu_torch.train.optim import Optimizer
+from ovmono3d_tpu_torch.utils.trace import span
 
 TOLERANCE = 4.0  # loss-spike multiplier (train_net.py:178-250)
 GAMMA = 0.02     # rolling-average gain (train_net.py:189, ~50-step window)
@@ -138,8 +139,10 @@ def make_train_step(model: RCNN3D, optimizer: Optimizer,
     and skipped (1.0 on a skipped step); under a process group the losses
     are the global batch's. `optimizer` may be `with_grad_accum`'s wrapper.
     `groups`: the data x model groups of a tensor-parallel run (the sums go
-    over groups.data). Refuses a model built with quant="int8"
-    (SERVING-only).
+    over groups.data). Each call is a unit span, train.step, holding the
+    model's spans, train.backward and train.optimizer (with
+    train.all_reduce under a process group). Refuses a model built with
+    quant="int8" (SERVING-only).
     """
     refuse_quantized(model)
     grouped = dist.is_available() and dist.is_initialized()
@@ -155,6 +158,10 @@ def make_train_step(model: RCNN3D, optimizer: Optimizer,
         return _sum_over_group(x, data_group)
 
     def train_step(state: TrainState, batch: dict):
+        with span("train.step", unit=True):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: dict):
         gt = GroundTruth(boxes=batch["gt_boxes"], classes=batch["gt_classes"],
                          boxes3d=batch["gt_boxes3d"], poses=batch["gt_poses"],
                          valid=batch["gt_valid"])
@@ -164,41 +171,46 @@ def make_train_step(model: RCNN3D, optimizer: Optimizer,
             draws=batch.get("draws"), depth=batch.get("depth"),
             count_reduce=count_reduce if grouped else None)
         total = sum(losses.values())
-        grads = torch.autograd.grad(total, optimizer.params,
-                                    allow_unused=True)
-        if grouped:
-            grads = [torch.zeros_like(p) if g is None else g
-                     for p, g in zip(optimizer.params, grads)]
-            names = list(losses)
-            summed = _all_reduce_flat(
-                grads + [total.detach()] + [losses[k].detach() for k in names],
-                data_group)
-            grads = summed[:len(grads)]
-            total = summed[len(grads)]
-            losses = dict(zip(names, summed[len(grads) + 1:]))
-
-        with torch.no_grad():
-            loss_finite = torch.isfinite(total)
-            safe_total = torch.where(loss_finite, total,
-                                     torch.zeros_like(total))
-            # The rolling mean starts at 2x the first FINITE loss; a
-            # non-finite first loss keeps the -1 sentinel (else every later
-            # step would trip total > 4 * 0 and training would skip forever).
-            ema = torch.where((state.loss_ema < 0) & loss_finite,
-                              2.0 * safe_total, state.loss_ema)
-            skip = (~_all_finite([g for g in grads if g is not None])
-                    | ~loss_finite)
-            if stabilize > 0:
-                skip = skip | ((ema > 0) & (total > TOLERANCE * ema))
-            if model_group is not None:
-                flag = skip.float()
-                dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=model_group)
-                skip = flag > 0
-            optimizer.step(grads, skip)
-            state.loss_ema.copy_(torch.where(
-                skip, ema, ema * (1.0 - GAMMA) + safe_total * GAMMA))
-            state.step.add_(1)
-            state.skipped.add_(skip.to(state.skipped.dtype))
+        with span("train.backward"):
+            grads = torch.autograd.grad(total, optimizer.params,
+                                        allow_unused=True)
+        with span("train.optimizer"):
+            if grouped:
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(optimizer.params, grads)]
+                names = list(losses)
+                with span("train.all_reduce"):
+                    summed = _all_reduce_flat(
+                        grads + [total.detach()]
+                        + [losses[k].detach() for k in names], data_group)
+                grads = summed[:len(grads)]
+                total = summed[len(grads)]
+                losses = dict(zip(names, summed[len(grads) + 1:]))
+            with torch.no_grad():
+                loss_finite = torch.isfinite(total)
+                safe_total = torch.where(loss_finite, total,
+                                         torch.zeros_like(total))
+                # The rolling mean starts at 2x the first FINITE loss; a
+                # non-finite first loss keeps the -1 sentinel (else every
+                # later step would trip total > 4 * 0 and training would
+                # skip forever).
+                ema = torch.where((state.loss_ema < 0) & loss_finite,
+                                  2.0 * safe_total, state.loss_ema)
+                skip = (~_all_finite([g for g in grads if g is not None])
+                        | ~loss_finite)
+                if stabilize > 0:
+                    skip = skip | ((ema > 0) & (total > TOLERANCE * ema))
+                if model_group is not None:
+                    flag = skip.float()
+                    with span("train.all_reduce"):
+                        dist.all_reduce(flag, op=dist.ReduceOp.MAX,
+                                        group=model_group)
+                    skip = flag > 0
+                optimizer.step(grads, skip)
+                state.loss_ema.copy_(torch.where(
+                    skip, ema, ema * (1.0 - GAMMA) + safe_total * GAMMA))
+                state.step.add_(1)
+                state.skipped.add_(skip.to(state.skipped.dtype))
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
         metrics["skipped"] = skip.float()

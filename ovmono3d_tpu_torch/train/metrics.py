@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ovmono3d_tpu_torch.train.tb_writer import TBEventWriter
+from ovmono3d_tpu_torch.utils import trace
 from ovmono3d_tpu_torch.utils.geometry import backproject, cuboid_corners
 from ovmono3d_tpu_torch.utils.util import imwrite_rgb
 from ovmono3d_tpu_torch.vis.draw import draw_boxes_2d, draw_cuboid_3d
@@ -94,8 +95,12 @@ class ProfilerHook:
     """torch.profiler over the steps PROFILE_STEPS = (start, stop] (the hook
     runs after a step), CPU activity and CUDA activity when there is a card;
     the trace goes to output_dir/profile/trace_<start>-<stop>.json (Chrome's
-    format). A restart that rewinds past `start` opens no second window;
-    training that ends inside the window closes it."""
+    format), where the port's spans (utils/trace.py) show as record
+    functions. When the window closes it logs one line per span name, a
+    step's count, host ms, device ms and backlog at entry, and writes the
+    lines beside the trace as spans_<start>-<stop>.txt. A restart that
+    rewinds past `start` opens no second window; training that ends inside
+    the window closes it."""
 
     def __init__(self, output_dir: str | Path):
         self.dir = Path(output_dir) / "profile"
@@ -108,6 +113,7 @@ class ProfilerHook:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
+            trace.clear()
             self._prof = torch.profiler.profile(activities=activities)
             self._prof.__enter__()
             logger.info("profiler started at step %d -> %s", step, self.dir)
@@ -119,15 +125,37 @@ class ProfilerHook:
             torch.cuda.synchronize()
         self._prof.__exit__(None, None, None)
         self.dir.mkdir(parents=True, exist_ok=True)
-        path = self.dir / f"trace_{self.start}-{self.stop}.json"
+        name = f"{self.start}-{self.stop}"
+        path = self.dir / f"trace_{name}.json"
         self._prof.export_chrome_trace(str(path))
         self._prof = None
         self._done = True
         logger.info("profiler trace written -> %s", path)
+        lines = span_lines(trace.read())
+        trace.clear()
+        for line in lines:
+            logger.info("%s", line)
+        (self.dir / f"spans_{name}.txt").write_text(
+            "".join(line + "\n" for line in lines))
 
     def close(self) -> None:
         if self._prof is not None:
             self._finish()
+
+
+def span_lines(rows: list[dict]) -> list[str]:
+    """One line per span name of `trace.read`'s rows: count, host ms and
+    device ms a step (a unit span: train.step), and the mean backlog at
+    entry ("-" off the card)."""
+    def ms(v):
+        return "-" if v is None else f"{v:.3f}"
+    steps = max(len({r["unit"] for r in rows if r["unit"] is not None}), 1)
+    out = [f"spans over {steps} steps: name count/step host_ms/step "
+           "device_ms/step backlog_ms"]
+    for name, s in trace.summarize(rows, steps).items():
+        out.append(f"{name} {s['count'] / steps:g} {ms(s['host_ms'])} "
+                   f"{ms(s['device_ms'])} {ms(s['backlog_ms'])}")
+    return out
 
 
 # The mapper's 3D row for a 2D-only annotation (no center_cam): drawing it

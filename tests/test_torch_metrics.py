@@ -199,3 +199,38 @@ def test_labels_colors_and_writer(tmp_path):
     imwrite_rgb(tmp_path / "a" / "b.png", out)
     np.testing.assert_array_equal(read_png(tmp_path / "a" / "b.png"), out)
     assert encode_png(out)[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def test_profiler_hook_logs_the_spans_of_its_window(tmp_path, caplog):
+    """Steps 11-15 under the profiler: the Chrome trace shows the spans,
+    and the hook logs and writes one line per span name, a step's count,
+    host ms, device ms and backlog ("-" off the card)."""
+    from ovmono3d_tpu_torch.utils import trace
+    hook = tmetrics.ProfilerHook(tmp_path)
+    start, stop = tmetrics.PROFILE_STEPS
+    caplog.set_level("INFO", logger=tmetrics.__name__)
+    for step in range(1, stop + 2):
+        with trace.span("train.step", unit=True):
+            for _ in range(2):
+                with trace.span("model.probe"):
+                    torch.ones(8).sum()
+        hook(step, None, {})
+    hook.close()
+    assert trace.read() == []
+    name = f"{start}-{stop}"
+    chrome = json.loads((tmp_path / "profile" /
+                         f"trace_{name}.json").read_text())
+    names = [e.get("name") for e in chrome["traceEvents"]]
+    assert names.count("train.step") == stop - start
+    assert names.count("model.probe") == 2 * (stop - start)
+    lines = (tmp_path / "profile" / f"spans_{name}.txt").read_text()
+    lines = lines.splitlines()
+    assert lines[0].startswith(f"spans over {stop - start} steps")
+    rows = {ln.split()[0]: ln.split()[1:] for ln in lines[1:]}
+    assert list(rows) == ["train.step", "model.probe"]
+    assert rows["model.probe"][0] == "2"
+    assert float(rows["train.step"][1]) >= float(rows["model.probe"][1])
+    if not torch.cuda.is_initialized():
+        assert rows["train.step"][2:] == ["-", "-"]
+    logged = [r.getMessage() for r in caplog.records]
+    assert all(ln in logged for ln in lines)
