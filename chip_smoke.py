@@ -25,8 +25,9 @@ GEO loaders, then served; and the other detector trunks (CLIP, MAE, MiDaS,
 SAM, DLA, ResNet, DenseNet, MNASNet, ShuffleNetV2) at full width from their
 released layouts, served and trained through --trunk-ckpt; and the SAM
 ViT-B + SFP detector trained with its trunk unfrozen (kernel 7's lse
-instance and the rel-pos backward). Holds every CUDA kernel on those paths
-against its plain PyTorch version.
+instance and the rel-pos backward, and the multi-tensor SGD update every
+training path takes). Holds every CUDA kernel on those paths against its
+plain PyTorch version.
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
     python3 chip_smoke.py --previous DIR   # kernels 7, 8, 10 and the
@@ -47,7 +48,9 @@ same source's instances), 11 = the attention sweep's forward (8 instances:
 block_q and block_k in {64, 128}, softmax in f32 or bf16); 7 lse = kernel
 7's training instance, which also writes the row log-sum-exp, and the
 rel-pos backward (csrc/relpos_flash_bwd.cu, the port's own: the JAX package
-differentiates its XLA path there).
+differentiates its XLA path there); sgd and finite = the multi-tensor SGD
+update and the gradients' finiteness flag (csrc/multi_tensor_sgd.cu), which
+every training step on the card takes.
 
 Phases, one line each (more for the build's resource report and the
 profiles' tables):
@@ -387,11 +390,20 @@ profiles' tables):
           moved, the tables among them; 12 lse-instance and 12 backward
           launches a step and no other attention kernel), p50, device ms
           and idle share of a step, peak memory, the card's name and power
-          limit; one B=1 loss and trunk gradient with the kernels against
-          rel_pos_attention_ref (bf16 and f32) as the train phase compares
-          them (TRAIN_LOSS_REL, TRAIN_GRAD_REL); 2 steps of the train CLI on
-          the shipped SAM config with model.backbone.freeze=false,
-          --synthetic (12 + 12 launches a step)
+          limit; one update and one flag launch of the multi-tensor SGD
+          a timed step; one B=1 loss and trunk gradient with the kernels
+          against rel_pos_attention_ref (bf16 and f32) as the train phase
+          compares them (TRAIN_LOSS_REL, TRAIN_GRAD_REL); 2 steps of the
+          train CLI on the shipped SAM config with
+          model.backbone.freeze=false, --synthetic (12 + 12 attention and
+          1 + 1 optimizer launches a step); last, the multi-tensor SGD
+          update and flag at the step's 237 leaves (121.17 M) and the
+          DINOv2 detector's 48 (probes/optim.py): parameters and trace bit
+          for bit with the per-leaf update over three steps (one on views
+          at an odd offset of one buffer) and a skipped one, the flag as
+          the per-leaf flag on clean gradients and on a NaN and an inf;
+          timed beside the per-leaf update and flag, PyTorch's _fused_sgd_
+          and AMP flag, and the bound
   demo    python -m ovmono3d_tpu_torch.demo in-process on 3 seeded 640x480
           PNGs at the shipped flagship config (weights moved off the init
           as in the ovlift phase), labels "chair,table,lamp": the panels'
@@ -505,6 +517,7 @@ from ovmono3d_tpu_torch.ops import attention  # noqa: E402
 from ovmono3d_tpu_torch.ops import attn_sweep  # noqa: E402
 from ovmono3d_tpu_torch.ops import iou3d  # noqa: E402
 from ovmono3d_tpu_torch.ops import layernorm  # noqa: E402
+from ovmono3d_tpu_torch.ops import optim_kernels  # noqa: E402
 from ovmono3d_tpu_torch.ops import quant  # noqa: E402
 from ovmono3d_tpu_torch.probes import attn_sweep as sweep_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import flash_bwd as bwd_probe  # noqa: E402
@@ -518,6 +531,7 @@ from ovmono3d_tpu_torch.probes import card as card_name  # noqa: E402
 from ovmono3d_tpu_torch.probes import (  # noqa: E402
     bf16_ulp_diff, device_ms, in_turns, time_ms)
 from ovmono3d_tpu_torch.probes import layernorm as ln_probe  # noqa: E402
+from ovmono3d_tpu_torch.probes import optim as optim_probe  # noqa: E402
 from ovmono3d_tpu_torch.parallel import mesh  # noqa: E402
 from ovmono3d_tpu_torch.parallel import serve as serve_batch  # noqa: E402
 from ovmono3d_tpu_torch.parallel.tensor_parallel import apply_tp  # noqa: E402
@@ -873,10 +887,11 @@ def check_design(lib: Path, design: str, instances: int, ops=SASS_OPS
 def build_phase() -> None:
     t0 = time.perf_counter()
     sources = (attention.KERNEL_SOURCES + quant.KERNEL_SOURCES
-               + layernorm.KERNEL_SOURCES + attn_sweep.KERNEL_SOURCES)
+               + layernorm.KERNEL_SOURCES + attn_sweep.KERNEL_SOURCES
+               + optim_kernels.KERNEL_SOURCES)
     built = cuda_build.build(sources)                  # one nvcc each, at once
     libs = list(built.values())
-    for mod in (attention, quant, layernorm, attn_sweep):
+    for mod in (attention, quant, layernorm, attn_sweep, optim_kernels):
         mod.build_kernels()
     say("build", f"{', '.join(lib.name for lib in libs)} ready in "
                  f"{time.perf_counter() - t0:.1f} s")
@@ -5008,6 +5023,44 @@ def relpos_train_kernels(previous: str | None) -> dict:
     return out
 
 
+def optim_kernel_rows() -> dict:
+    """probes/optim.py at SAM ViT-B's trainable leaves and the DINOv2
+    detector's: the multi-tensor update and flag held to the per-leaf ones
+    (bit for bit, the probe raises otherwise), one launch a call, and each
+    kernel's device time below the per-leaf device time it replaces.
+    Returns the JSON rows {"sgd", "finite"} at SAM's leaves, with DINOv2's
+    device ms beside them."""
+    rows = {}
+    for name in optim_probe.SETS:
+        lines, r = optim_probe.measure(name, repeats=2)
+        for line in lines:
+            say("samtrain", f"optim {line.strip()}")
+        for kind in ("sgd", "finite"):
+            check(r[kind]["launches_a_call"] == 1
+                  and r[kind]["device_ms"] < r[kind]["plain_device_ms"],
+                  f"optim {name} {kind}: one launch a call "
+                  f"({r[kind]['launches_a_call']}) and device time "
+                  f"{r[kind]['device_ms']:.4f} ms below the per-leaf "
+                  f"{r[kind]['plain_device_ms']:.4f} ms")
+        rows[name] = r
+        torch.cuda.empty_cache()
+    out = rows["sam"]
+    for kind in ("sgd", "finite"):
+        out[kind]["dinov2_device_ms"] = rows["dinov2"][kind]["device_ms"]
+        out[kind]["dinov2_bound_ms"] = rows["dinov2"][kind]["bound_ms"]
+    return out
+
+
+def optim_counts() -> dict:
+    return {"sgd": optim_kernels.sgd_update.launches,
+            "finite": optim_kernels.all_finite.launches}
+
+
+def reset_optim_counts() -> None:
+    optim_kernels.sgd_update.launches = 0
+    optim_kernels.all_finite.launches = 0
+
+
 def samtrain_model():
     """The shipped SAM ViT-B + SFP config with the trunk unfrozen, its model
     from seed 0 with the rel-pos tables ~N(0, REL_POS_STD^2) (zero at
@@ -5047,6 +5100,9 @@ def samtrain_phase(previous: str | None) -> tuple[dict, dict]:
     check(all(blk.attn.use_rel_pos for blk in vit.blocks()),
           "every SAM block is a rel-pos block")
     opt = Optimizer(SolverConfig(), model)
+    check(opt.kernel is not None and len(opt.kernel.runs) == 1,
+          "the SAM step's optimizer takes the multi-tensor update in one "
+          "launch")
     state = create_train_state(model, opt, seed=0)
     step = make_train_step(model, opt, cfg.model.stabilize)
     batch = synthetic_batch(SAMTRAIN_B, SAMTRAIN_GT, seed=11,
@@ -5058,6 +5114,7 @@ def samtrain_phase(previous: str | None) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_path_counts()
+    reset_optim_counts()
     lats = []
     for _ in range(SAMTRAIN_TIMED):
         t1 = time.perf_counter()
@@ -5072,6 +5129,11 @@ def samtrain_phase(previous: str | None) -> tuple[dict, dict]:
         {k: v * SAMTRAIN_TIMED for k, v in per_step.items()},
         "samtrain")
     launches = {k: counts[k] for k in per_step}
+    optim = optim_counts()
+    check(optim == {"sgd": SAMTRAIN_TIMED, "finite": SAMTRAIN_TIMED},
+          f"{SAMTRAIN_TIMED} SAM-B train steps: one multi-tensor update and "
+          f"one flag launch a step, got {optim}")
+    launches.update(optim)
     check(int(state.skipped) == 0, f"{int(state.skipped)} steps skipped")
     moved = [n for n, p in vit.named_parameters()
              if not torch.equal(p.detach(), trunk0[n])]
@@ -5087,7 +5149,9 @@ def samtrain_phase(previous: str | None) -> tuple[dict, dict]:
                     f"{launches['relpos_lse'] // SAMTRAIN_TIMED} "
                     f"lse-instance and "
                     f"{launches['relpos_bwd'] // SAMTRAIN_TIMED} "
-                    f"backward launches; all {len(moved)} trunk tensors "
+                    f"backward launches, {optim['sgd'] // SAMTRAIN_TIMED} "
+                    f"update and {optim['finite'] // SAMTRAIN_TIMED} flag "
+                    f"launches; all {len(moved)} trunk tensors "
                     f"moved ({len(tables)} rel-pos tables); total loss "
                     f"{float(metrics['total_loss']):.4f}; card {card}")
     busy = device_profile("samtrain", lambda: step(state, batch), 2, p50)
@@ -5109,6 +5173,7 @@ def samtrain_phase(previous: str | None) -> tuple[dict, dict]:
 
     shutil.rmtree(SAMTRAIN_DIR, ignore_errors=True)
     reset_path_counts()
+    reset_optim_counts()
     t0 = time.perf_counter()
     res = train_cli.main([
         "--config-file", str(CONFIGS / "OVMono3D_sam_SFP.yaml"),
@@ -5124,6 +5189,11 @@ def samtrain_phase(previous: str | None) -> tuple[dict, dict]:
     counts = check_path_counts(
         f"train.cli, SAM-B unfrozen, {SAMTRAIN_CLI_STEPS} steps",
         {k: v * SAMTRAIN_CLI_STEPS for k, v in per_step.items()}, "samtrain")
+    optim = optim_counts()
+    check(optim == {"sgd": SAMTRAIN_CLI_STEPS, "finite": SAMTRAIN_CLI_STEPS},
+          f"train.cli, SAM-B unfrozen: one multi-tensor update and one flag "
+          f"launch a step, got {optim}")
+    counts.update(optim)
     for k in launches:
         launches[k] += counts[k]
     say("samtrain", f"train.cli --config-file OVMono3D_sam_SFP.yaml "
@@ -5133,6 +5203,7 @@ def samtrain_phase(previous: str | None) -> tuple[dict, dict]:
     shutil.rmtree(SAMTRAIN_DIR, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    rows.update(optim_kernel_rows())
     say("samtrain", f"phase done in {time.perf_counter() - t_phase:.1f} s; "
                     f"card {card}")
     return launches, rows
@@ -5150,6 +5221,10 @@ DEMO_IMAGES, DEMO_LABELS = 3, "chair,table,lamp"
 TP_SHAPE = (1, 4097, 6, 64)
 TP_B, TP_STEPS = 2, 2
 SHARD_KEYS = ("shard_ms", "shard_plain_ms", "shard_library_ms")
+# The optimizer kernels' extra JSON keys (probes/optim.py's rows).
+OPTIM_KEYS = ("device_ms", "burst_ms", "plain_device_ms", "library_device_ms",
+              "library_burst_ms", "library_differ", "dinov2_device_ms",
+              "dinov2_bound_ms")
 # The native phase: NATIVE_B images of NATIVE_HW a batch, NATIVE_REPS
 # batches timed per route.
 NATIVE_B, NATIVE_HW, NATIVE_REPS = 8, (480, 640), 3
@@ -5623,6 +5698,12 @@ def main() -> None:
                src + "flash_attn_bwd.cu",
                "ovmono3d_tpu/ops/attention.py:992/:925/:957"),
     }
+    meta["sgd"] = ("sgd_kernel (multi_tensor_sgd, Optimizer.step on the "
+                   "card)", src + "multi_tensor_sgd.cu",
+                   "ovmono3d_tpu/train/optim.py:77")
+    meta["finite"] = ("finite_kernel (multi_tensor_all_finite, the train "
+                      "step's skip flag)", src + "multi_tensor_sgd.cu",
+                      "ovmono3d_tpu/parallel/train_step.py:104")
     meta["k9"] = ("layernorm_fwd kF32Stats (layer_norm_fused)",
                   src + "layernorm_fwd.cu", "ovmono3d_tpu/ops/layernorm.py:28")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5636,7 +5717,8 @@ def main() -> None:
                   if kind in ("relpos", "window", "int8", "relpos_bwd")
                   else ("device_ms", "library_device_ms")
                   if kind == "relpos_lse"
-                  else ("device_ms",) if kind == "quant" else ())
+                  else ("device_ms",) if kind == "quant"
+                  else OPTIM_KEYS if kind in ("sgd", "finite") else ())
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[kind],
                         **{key: k[kind][key] for key in keys + design}})

@@ -100,14 +100,6 @@ def create_train_state(model: RCNN3D, optimizer: Optimizer,
         generator=torch.Generator(device=dev).manual_seed(seed))
 
 
-def _all_finite(grads: list[torch.Tensor]) -> torch.Tensor:
-    """One device-side flag: every element of every gradient is finite.
-    0 * x is 0 for finite x and NaN for inf or NaN, so the norms of the
-    zeroed gradients sum to 0 exactly when all are finite."""
-    zeroed = torch._foreach_mul(grads, 0.0)
-    return torch.stack(torch._foreach_norm(zeroed)).sum() == 0
-
-
 def _sum_over_group(x: torch.Tensor, group=None) -> torch.Tensor:
     """A count summed over the process group (the whole group when None),
     outside autograd."""
@@ -196,8 +188,7 @@ def make_train_step(model: RCNN3D, optimizer: Optimizer,
                 # skip forever).
                 ema = torch.where((state.loss_ema < 0) & loss_finite,
                                   2.0 * safe_total, state.loss_ema)
-                skip = (~_all_finite([g for g in grads if g is not None])
-                        | ~loss_finite)
+                skip = ~inner.all_finite(grads) | ~loss_finite
                 if stabilize > 0:
                     skip = skip | ((ema > 0) & (total > TOLERANCE * ema))
                 if model_group is not None:

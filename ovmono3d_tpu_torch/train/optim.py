@@ -11,6 +11,11 @@ buffer, the step count included, stay exactly as they were, with no host
 synchronisation. torch.optim's SGD would decay its momentum on a zeroed
 gradient.
 
+On the card, kind "sgd" takes the multi-tensor kernel (ops/optim_kernels.py:
+every leaf in one launch, the same arithmetic bit for bit) and refuses a
+leaf the kernel cannot take; the adam kinds, and every optimizer on the
+CPU, run the per-leaf update below (`optim_kernels.use_multi_tensor`).
+
 Groups (detectron2 / reference solver/build.py:20-46): "norm" parameters
 (LayerNorm weights and biases, and anything under a module whose name
 contains a norm keyword) take weight_decay_norm; other biases take
@@ -31,9 +36,11 @@ from torch import nn
 from ovmono3d_tpu_torch.config import SolverConfig
 from ovmono3d_tpu_torch.models.layers import FrozenBatchNorm2d
 from ovmono3d_tpu_torch.models.vit import LayerNormBf16Out
+from ovmono3d_tpu_torch.ops import optim_kernels
 
 NORM_KEYWORDS = ("norm", "layernorm", "ln", "bn")
 KINDS = ("sgd", "adam", "adamw", "adam+amsgrad", "adamw+amsgrad")
+GROUPS = ("default", "bias", "norm")
 B1, B2 = 0.9, 0.999                 # optax's adam / amsgrad defaults
 
 
@@ -145,17 +152,20 @@ class Optimizer:
         (self.device,) = devices
         self.labels = [labels[n] for n in self.names]
 
-        def sched(factor):
-            return warmup_multistep(cfg.base_lr * factor, cfg.steps, cfg.gamma,
-                                    cfg.warmup_iters, cfg.warmup_factor)
-
         wd_bias = (cfg.weight_decay if cfg.weight_decay_bias is None
                    else cfg.weight_decay_bias)
-        self.groups = {
-            "default": (sched(1.0), cfg.weight_decay),
-            "bias": (sched(cfg.bias_lr_factor), wd_bias),
-            "norm": (sched(1.0), cfg.weight_decay_norm),
-        }
+        factors = {"default": 1.0, "bias": cfg.bias_lr_factor, "norm": 1.0}
+        wds = {"default": cfg.weight_decay, "bias": wd_bias,
+               "norm": cfg.weight_decay_norm}
+        # Every group's schedule in one [3] tensor, GROUPS' order; each
+        # group's own is its entry.
+        self._lrs = warmup_multistep(
+            torch.tensor([cfg.base_lr * factors[g] for g in GROUPS],
+                         dtype=torch.float32, device=self.device),
+            cfg.steps, cfg.gamma, cfg.warmup_iters, cfg.warmup_factor)
+        lrs = self._lrs
+        self.groups = {g: ((lambda count, i=i: lrs(count)[i]), wds[g])
+                       for i, g in enumerate(GROUPS)}
         # Updates applied so far (optax's count; a skipped step leaves it).
         self.count = torch.zeros((), dtype=torch.int32, device=self.device)
         buffers = (("trace",) if self.kind == "sgd" else
@@ -163,16 +173,35 @@ class Optimizer:
                    else ("mu", "nu"))
         self.state = {b: [torch.zeros_like(p) for p in self.params]
                       for b in buffers}
+        # The multi-tensor kernel's tables, or None (the per-leaf update).
+        self.kernel = None
+        if optim_kernels.use_multi_tensor(self.kind, self.params, self.names):
+            self.kernel = optim_kernels.MultiTensorSGD(
+                self.params, self.state["trace"],
+                [GROUPS.index(g) for g in self.labels],
+                [wds[g] for g in self.labels])
 
     def lr(self, label: str) -> torch.Tensor:
         """The learning rate of a group at the current count."""
         return self.groups[label][0](self.count)
 
+    def all_finite(self, grads: list[torch.Tensor | None]) -> torch.Tensor:
+        """A device bool: no element of `grads` (one per trainable leaf,
+        None for an unused one) is an inf or a NaN. The kernel's one pass
+        where the update takes it; else 0 * g is 0 for finite g and NaN
+        otherwise, so the norms of the zeroed gradients sum to 0 exactly
+        when all are finite."""
+        if self.kernel is not None:
+            return optim_kernels.all_finite(self.kernel, grads)
+        zeroed = torch._foreach_mul([g for g in grads if g is not None], 0.0)
+        return torch.stack(torch._foreach_norm(zeroed)).sum() == 0
+
     def _updates(self, grads: list[torch.Tensor], new: dict) -> list:
         """The steps to add to the parameters (optax's updates), writing
         the new buffers into `new`."""
         count1 = (self.count + 1).float()
-        lrs = {label: -self.lr(label) for label in self.groups}
+        neg = -self._lrs(self.count)
+        lrs = {label: neg[i] for i, label in enumerate(GROUPS)}
         out = []
         for i, (p, g, label) in enumerate(zip(self.params, grads,
                                               self.labels)):
@@ -207,10 +236,20 @@ class Optimizer:
         for an unused one). With `skip` (a bool tensor) true, nothing
         changes: the gradients are replaced by zeros for the arithmetic, as
         in the JAX step, and every parameter and buffer keeps its value."""
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(self.params, grads)]
         if skip is None:
             skip = torch.zeros((), dtype=torch.bool, device=self.device)
+        if self.kernel is not None:
+            if self.clip > 0:
+                grads = clip_gradients(
+                    [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(self.params, grads)], self.clip)
+            optim_kernels.sgd_update(self.kernel, grads,
+                                     self._lrs(self.count), skip,
+                                     self.momentum)
+            self.count.add_((~skip).to(self.count.dtype))
+            return
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(self.params, grads)]
         grads = [torch.where(skip, torch.zeros_like(g), g) for g in grads]
         if self.clip > 0:
             grads = clip_gradients(grads, self.clip)
