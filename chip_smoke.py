@@ -214,18 +214,21 @@ profiles' tables):
           printed unchecked (top-900 selection and NMS flip on rounding); a
           profile of 3 images, with --previous also with kernel 8's earlier
           design in every Swin block and then the shipped one again
-  stream  on the ovlift phase's pipeline: predict_stream (chunk 8) and
-          per-image predict (results copied to the host) over the same 16
-          640x480 images: img/s, the stream's per-image latency, 24 kernel-8
-          and 12 kernel-1 launches an image and no other attention kernel in
-          both, finite [300, ...] detections, the boxes' deviation and the
+  stream  on the ovlift phase's pipeline: predict_stream (chunk 8, each
+          chunk one batch) and per-image predict (results copied to the
+          host) over the same 16 640x480 images: img/s, the stream's
+          per-image latency, 24 kernel-8 and 12 kernel-1 launches a chunk in
+          the stream and an image in predict and no other attention kernel,
+          finite [300, ...] detections, the boxes' deviation and the
           slots whose validity changes (the stream rounds its canvas to
           uint8); one chunk of each profiled in turns (device ms an image,
           idle share against each one's wall time an image); the stream
           under the card's synchronisation check (at most one a chunk); 3
-          images at resize scale 1 held to predict within STREAM_TOL; the
-          same for detect_2d_stream on a detector-only pipeline (the same
-          GroundingDINO, the longest side to DETECT_SIDE); BATCH_N canvases
+          images at resize scale 1 in chunks of 2 held within STREAM_TOL to
+          run_batch of the same requests (a batch rounds otherwise than one
+          image); the same for detect_2d_stream on a detector-only pipeline
+          (the same GroundingDINO, the longest side to DETECT_SIDE) against
+          _detect_batch; BATCH_N canvases
           through detect_open_vocabulary_batch over BATCH_N + 1 entries of
           the device (per-image detection within STREAM_TOL) and in one
           batch (timed; each image's Swin features within OVLIFT_MAX_REL /
@@ -339,7 +342,7 @@ profiles' tables):
           block's inputs held to attention_ref; GroundingDINO SwinB in the
           original layout ({'model': ...}, 'module.' prefixes) and a
           vocab.txt of the 50 names' words through eval.oracle2d
-          --synthetic --gdino-ckpt --vocab (24 kernel-8 launches an image,
+          --synthetic --gdino-ckpt --vocab (24 kernel-8 launches a chunk,
           its JSONs through merge_oracle2d, every parameter equal to its
           converted array); one OVMono3DLift.predict with both files loaded
           (24 kernel-8 and 12 kernel-1 launches), kernel 8 at a shifted and
@@ -690,8 +693,8 @@ OV_H, OV_W, OV_WARMUP, OV_TIMED = 480, 640, 2, 5
 # per-image predict serve; sizes at resize scale 1 under the flagship's rule
 # (shortest edge 532, longest at most 896) and under the detector-only
 # pipeline's (longest side to DETECT_SIDE, build_2d_only's default canvas),
-# where the stream is held to per-image serving within STREAM_TOL; the batch
-# detection's N.
+# where the stream is held to batched serving of the same requests within
+# STREAM_TOL; the batch detection's N.
 STREAM_CHUNK, STREAM_IMAGES, STREAM_TOL = 8, 16, 1e-5
 STREAM_SCALE1 = ((532, 709), (532, 896), (700, 532))
 DETECT_SIDE = 800
@@ -2865,8 +2868,9 @@ def max_field_diff(a, b) -> float:
 
 def stream_vs_per_image(name, got: list, want: list) -> None:
     """Held within STREAM_TOL, image by image (a stream at scale 1, where
-    its uint8 canvas holds the image's own pixels; a batch of one image a
-    forward)."""
+    its uint8 canvas holds the image's own pixels, against the same batches
+    served from the images' own canvases; or a batch of one image a
+    forward against each image alone)."""
     diffs = [max_field_diff(g, w) for g, w in zip(got, want)]
     valid = sum(int(np.asarray(dict(g.items())["valid"]).sum()) for g in got)
     say("stream", f"{name} vs per-image: max |diff| over every "
@@ -2928,8 +2932,9 @@ def stream_phase(pipe: OVMono3DLift, names: list[str]) -> dict:
         stream.append(det)
     stream_s = time.perf_counter() - t0
     n = len(stream)
+    chunks = -(-n // chunk)
     add(check_path_counts("predict_stream", {
-        "window": 24 * n, "flash_attention_packed": 12 * n}))
+        "window": 24 * chunks, "flash_attention_packed": 12 * chunks}))
     for det in stream:
         check_ov_detections(det, len(names))
     reset_path_counts()
@@ -2950,8 +2955,9 @@ def stream_phase(pipe: OVMono3DLift, names: list[str]) -> dict:
                   f"{statistics.median(lat) * 1e3:.3f} ms (max "
                   f"{max(lat) * 1e3:.3f}); per-image predict over the same "
                   f"images: {n / predict_s:.3f} img/s, p50 "
-                  f"{statistics.median(plats) * 1e3:.3f} ms; per image "
-                  "24 kernel-8 and 12 kernel-1 launches in both; stream vs "
+                  f"{statistics.median(plats) * 1e3:.3f} ms; 24 kernel-8 "
+                  "and 12 kernel-1 launches a chunk in the stream and an "
+                  "image in predict; stream vs "
                   f"predict at scale "
                   f"{pipe._gdino_content_geometry(OV_H, OV_W)[2]:.4f} (the "
                   f"stream's canvas rounded to uint8): boxes max |diff| "
@@ -2982,11 +2988,20 @@ def stream_phase(pipe: OVMono3DLift, names: list[str]) -> dict:
                  n // chunk, "predict_stream")
     scale1 = [(image, default_focal_K(*image.shape[:2]))
               for image in random_images(STREAM_SCALE1, 7)]
+    served = []
+    for at in range(0, len(scale1), 2):
+        reqs = [pipe.prepare(i, k_, names) for i, k_ in scale1[at:at + 2]]
+        canvases = torch.stack([r["canvas"] for r in reqs])
+        hw = torch.cat([r["hw"] for r in reqs])
+        det = pipe.run_batch(
+            canvases, hw, torch.cat([r["ratio"] for r in reqs]),
+            torch.cat([r["K"] for r in reqs]), reqs[0]["text"],
+            pipe._gdino_normalize(canvases, hw))
+        served += [Detections(**{k: v[j].cpu() for k, v in det.items()})
+                   for j in range(len(reqs))]
     stream_vs_per_image(
-        "predict_stream (chunk 2) at scale 1",
-        list(pipe.predict_stream(iter(scale1), names, chunk=2)),
-        [Detections(**{k: v.cpu() for k, v in pipe.predict(i, k_, names)
-                       .items()}) for i, k_ in scale1])
+        "predict_stream (chunk 2) at scale 1, against run_batch",
+        list(pipe.predict_stream(iter(scale1), names, chunk=2)), served)
 
     # detect_2d_stream on a detector-only pipeline (build_2d_only's form,
     # the ovlift phase's GroundingDINO).
@@ -2998,7 +3013,7 @@ def stream_phase(pipe: OVMono3DLift, names: list[str]) -> dict:
     t0 = time.perf_counter()
     dets = list(pipe2d.detect_2d_stream(iter(images), names, chunk=chunk))
     detect_s = time.perf_counter() - t0
-    add(check_path_counts("detect_2d_stream", {"window": 24 * n}))
+    add(check_path_counts("detect_2d_stream", {"window": 24 * chunks}))
     t0 = time.perf_counter()
     want = [pipe2d.detect_2d(image, names) for image in images]
     detect_1_s = time.perf_counter() - t0
@@ -3014,10 +3029,18 @@ def stream_phase(pipe: OVMono3DLift, names: list[str]) -> dict:
     stream_syncs(pipe2d.detect_2d_stream(iter(images), names, chunk=chunk),
                  n // chunk, "detect_2d_stream")
     scale1 = random_images(DETECT_SCALE1, 8)
+    text2d = pipe2d._text_device_inputs(names)
+    served = []
+    with torch.inference_mode():
+        for at in range(0, len(scale1), 2):
+            det = pipe2d._detect_batch(torch.cat([
+                pipe2d._prep_gdino_image(image)[0]
+                for image in scale1[at:at + 2]]), text2d)
+            served += [{k: v[j].cpu().numpy() for k, v in det.items()}
+                       for j in range(det["valid"].shape[0])]
     stream_vs_per_image(
-        "detect_2d_stream (chunk 2) at scale 1",
-        list(pipe2d.detect_2d_stream(iter(scale1), names, chunk=2)),
-        [pipe2d.detect_2d(image, names) for image in scale1])
+        "detect_2d_stream (chunk 2) at scale 1, against _detect_batch",
+        list(pipe2d.detect_2d_stream(iter(scale1), names, chunk=2)), served)
 
     # detect_open_vocabulary_batch, N = BATCH_N: over BATCH_N + 1 entries
     # of the device (one image a forward, one zero image of padding) it is
@@ -3093,7 +3116,8 @@ def stream_phase(pipe: OVMono3DLift, names: list[str]) -> dict:
     with contextlib.redirect_stdout(io.StringIO()) as printed:
         paths = oracle2d.main(["--synthetic", "--device", str(dev),
                                "--output-dir", str(work / "oracle2d")])
-    add(check_path_counts("eval.oracle2d --synthetic", {"window": 24 * 8}))
+    # Two synthetic sets of 4 images, each one chunk of detect_2d_stream.
+    add(check_path_counts("eval.oracle2d --synthetic", {"window": 24 * 2}))
     for name, seed in (("synthetic_a", 7), ("synthetic_b", 11)):
         dets = json.loads(paths[name].read_text())
         recs = merge_oracle2d(synthetic_records(4, Config().model.num_classes,
@@ -4552,8 +4576,9 @@ def release_phase() -> dict:
         oracle2d.load_gdino_params = load_gdino
     gdino = captured["gdino"]
     swin = gdino.backbone.blocks()
+    # Two synthetic sets of 4 images, each one chunk of detect_2d_stream.
     add(check_path_counts("eval.oracle2d --synthetic --gdino-ckpt --vocab",
-                          {"window": len(swin) * 8}, "release"))
+                          {"window": len(swin) * 2}, "release"))
     n_dets = 0
     for name, seed in (("synthetic_a", 7), ("synthetic_b", 11)):
         dets = json.loads(paths[name].read_text())

@@ -58,26 +58,30 @@ def postprocess_grounding(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
                           im_hw: tuple[float, float], topk: int = 100,
                           box_threshold: float = BOX_THRESHOLD,
                           nms_threshold: float = NMS_THRESHOLD):
-    """Token logits [Q, T] and boxes [Q, 4] (cxcywh, normalized) of one
-    image -> (boxes [k, 4] xyxy in pixels of an image of `im_hw` (h, w),
-    scores [k], classes [k] int32, valid [k]), k = min(topk, Q). f32 (keep
-    TF32 off on the card: the JAX package pins Precision.HIGHEST here)."""
+    """Token logits [..., Q, T] and boxes [..., Q, 4] (cxcywh, normalized)
+    of an image, or of a batch of images on the leading axes, all of an
+    image of `im_hw` (h, w) -> (boxes [..., k, 4] xyxy in its pixels,
+    scores [..., k], classes [..., k] int32, valid [..., k]), k = min(topk,
+    Q). f32 (keep TF32 off on the card: the JAX package pins
+    Precision.HIGHEST here)."""
     probs = torch.sigmoid(pred_logits)
-    phrase_logits = probs @ span_matrix.T                     # [Q, P] sums
-    phrase_logits = torch.where(span_valid[None, :], phrase_logits, -1e9)
-    scores, classes = phrase_logits.max(dim=1)
+    phrase_logits = probs @ span_matrix.T                     # [..., Q, P]
+    phrase_logits = torch.where(span_valid, phrase_logits, -1e9)
+    scores, classes = phrase_logits.max(dim=-1)
     h, w = im_hw
-    cx, cy = pred_boxes[:, 0] * w, pred_boxes[:, 1] * h
-    bw, bh = pred_boxes[:, 2] * w, pred_boxes[:, 3] * h
+    cx, cy = pred_boxes[..., 0] * w, pred_boxes[..., 1] * h
+    bw, bh = pred_boxes[..., 2] * w, pred_boxes[..., 3] * h
     boxes = torch.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2],
                         -1)
     valid = scores > box_threshold
     keep = nms_mask_parallel(boxes, scores, nms_threshold, valid)
     masked = torch.where(keep, scores, torch.finfo(scores.dtype).min)
-    top_scores, idx = stable_topk(masked, min(topk, masked.shape[0]))
+    top_scores, idx = stable_topk(masked, min(topk, masked.shape[-1]))
     out_valid = top_scores > box_threshold
-    return (boxes[idx], torch.where(out_valid, top_scores, 0.0),
-            classes[idx].to(torch.int32), out_valid)
+    return (torch.take_along_dim(boxes, idx[..., None], dim=-2),
+            torch.where(out_valid, top_scores, 0.0),
+            torch.take_along_dim(classes, idx, dim=-1).to(torch.int32),
+            out_valid)
 
 
 def detect_open_vocabulary(model, image: torch.Tensor, tok: BertTokenizer,

@@ -9,7 +9,19 @@ decoder layers with text cross-attention, contrastive classification against
 the projected text features, and iterative box refinement in sigmoid space.
 
 Outputs raw `pred_logits` [B, Q, max_text_len] and `pred_boxes` [B, Q, 4]
-(cx, cy, w, h normalized), the contract the inference glue reads.
+(cx, cy, w, h normalized), the contract the inference glue reads, the
+selection's `query_index` [B, Q] (the encoder tokens the queries start
+from), so that a check can hold a reference to the same discrete choice,
+the prompt's `text_features` [B, T, C] (BERT mapped to the width, the
+f32 island every later text product reads), the encoder's output
+`memory` [B, S, C] (the image tokens the selection and the decoder read)
+and the decoder's normed output `hs` [B, Q, C] (what the logits and boxes
+are read from).
+
+Spans (`utils/trace.py`): `gdino.bert`, `gdino.swin`, `gdino.encoder` (the
+six enhancer layers), `gdino.decoder` (the query selection, the decoder and
+the heads) and, inside the last two, `gdino.deformable` around each
+deformable sampling call.
 
 The heavy layers compute in `compute_dtype` (bf16 when serving); BERT, the
 input projections, the heads and the logits are f32. The two f32 logit
@@ -38,6 +50,7 @@ from ovmono3d_tpu_torch.models.layers import (Conv, Dense, GroupNorm,
                                               init_flax_defaults)
 from ovmono3d_tpu_torch.ops.nms import stable_topk
 from ovmono3d_tpu_torch.utils.device import device_constant
+from ovmono3d_tpu_torch.utils.trace import span
 
 
 class GroundingDINO(nn.Module):
@@ -136,19 +149,24 @@ class GroundingDINO(nn.Module):
                 text_position_ids: torch.Tensor | None = None,
                 rel_biases: dict[str, torch.Tensor] | None = None) -> dict:
         """images [B, H, W, 3] normalized, H and W multiples of 32. Returns
-        {"pred_logits": [B, Q, max_text_len] raw, "pred_boxes": [B, Q, 4]}.
+        {"pred_logits": [B, Q, max_text_len] raw, "pred_boxes": [B, Q, 4],
+        "query_index": [B, Q] the selected encoder tokens, "text_features":
+        [B, T, C] the encoded prompt, "memory": [B, S, C] the encoder's
+        output, "hs": [B, Q, C] the decoder's normed output}.
         `rel_biases` are the Swin biases (`backbone.rel_biases()`, on the
         images' device); None takes them from the trunk's cache without
         gradients, and expands them in the forward with gradients."""
         b = images.shape[0]
         dev = images.device
         c = self.hidden_dim
-        txt = self.encode_text(input_ids, text_mask, text_self_mask,
-                               text_position_ids)
+        with span("gdino.bert"):
+            txt = self.encode_text(input_ids, text_mask, text_self_mask,
+                                   text_position_ids)
         t = txt.shape[1]
-        if rel_biases is None and not torch.is_grad_enabled():
-            rel_biases = self.backbone.rel_biases()
-        feats = self.backbone(images, rel_biases)
+        with span("gdino.swin"):
+            if rel_biases is None and not torch.is_grad_enabled():
+                rel_biases = self.backbone.rel_biases()
+            feats = self.backbone(images, rel_biases)
         srcs = [getattr(self, f"input_proj_norm{i}")(
                     getattr(self, f"input_proj{i}")(feats[key]))
                 for i, key in enumerate(("s1", "s2", "s3"))]
@@ -170,12 +188,26 @@ class GroundingDINO(nn.Module):
                                              2 * c)
         enh_mask = text_self_mask if text_self_mask is not None else text_mask
         img, text = src, txt
-        for i in range(self.enc_layers):
-            img, text = getattr(self, f"fusion{i}")(img, text, text_mask)
-            text = getattr(self, f"text_enh{i}")(text, enh_mask, text_pos)
-            img = getattr(self, f"img_enc{i}")(img, pos, refs, shapes,
-                                               level_wh)
+        with span("gdino.encoder"):
+            for i in range(self.enc_layers):
+                img, text = getattr(self, f"fusion{i}")(img, text, text_mask)
+                text = getattr(self, f"text_enh{i}")(text, enh_mask, text_pos)
+                img = getattr(self, f"img_enc{i}")(img, pos, refs, shapes,
+                                                   level_wh)
         memory = img
+        with span("gdino.decoder"):
+            out = self._select_and_decode(memory, text, text_mask, refs,
+                                          shapes)
+        out["text_features"] = txt
+        out["memory"] = memory
+        return out
+
+    def _select_and_decode(self, memory, text, text_mask, refs, shapes
+                           ) -> dict:
+        """The two-stage query selection, the decoder and the heads over
+        the enhanced memory [B, S, C] and text [B, T, C]."""
+        b, _, c = memory.shape
+        dev = memory.device
 
         # Two-stage query selection. Proposals at every token's centre with
         # a per-level size; those with a coordinate outside (0.01, 0.99)
@@ -219,4 +251,5 @@ class GroundingDINO(nn.Module):
             logits = F.pad(logits, (0, pad), value=-1e9)
         elif pad < 0:
             logits = logits[..., :self.max_text_len]
-        return {"pred_logits": logits, "pred_boxes": out_boxes}
+        return {"pred_logits": logits, "pred_boxes": out_boxes,
+                "query_index": top_idx, "hs": hs}

@@ -8,8 +8,10 @@ text cross-attention, the box MLP and the sine embeddings.
 Dtypes follow the JAX modules: the layers' products in their `dtype` (the
 model's compute dtype, bf16 when serving), attention logits, softmax and the
 products' accumulation in f32, LayerNorms in f32. The attentions here are
-plain PyTorch, as they are XLA einsums in the JAX package. The JAX modules'
-ablation knobs (`debug_skip`, `sample_levels`) are not carried over.
+plain PyTorch, as they are XLA einsums in the JAX package. Each deformable
+sampling call runs in a `gdino.deformable` span (`utils/trace.py`). The JAX
+modules' ablation knobs (`debug_skip`, `sample_levels`) are not carried
+over.
 
 Submodules carry the JAX package's parameter names for
 utils/flax_bridge.py.
@@ -25,6 +27,7 @@ from torch import nn
 from ovmono3d_tpu_torch.models.gdino.deformable import (
     deformable_attention_core)
 from ovmono3d_tpu_torch.models.layers import Dense, LayerNorm
+from ovmono3d_tpu_torch.utils.trace import span
 
 
 def _dim_t(half: int, temperature: float, device) -> torch.Tensor:
@@ -189,7 +192,9 @@ class DeformableLayer(nn.Module):
         attw = attw.reshape(b, s, self.heads, self.levels, self.points)
         loc = (ref_points[None, :, None, :, None, :]
                + off / level_wh[None, None, None, :, None, :])
-        sampled = deformable_attention_core(value, spatial_shapes, loc, attw)
+        with span("gdino.deformable"):
+            sampled = deformable_attention_core(value, spatial_shapes, loc,
+                                                attw)
         x = self.norm1(x + self.output_proj(sampled))
         h = self.ffn2(F.relu(self.ffn1(x)))
         return self.norm2(x + h)
@@ -263,7 +268,9 @@ class DecoderLayer(nn.Module):
         center = ref_points[:, :, None, None, None, :2]
         size = ref_points[:, :, None, None, None, 2:]
         loc = center + off / self.points * size * 0.5
-        sampled = deformable_attention_core(value, spatial_shapes, loc, attw)
+        with span("gdino.deformable"):
+            sampled = deformable_attention_core(value, spatial_shapes, loc,
+                                                attw)
         tgt = self.norm2(tgt + self.output_proj(sampled))
         h = self.ffn2(F.relu(self.ffn1(tgt)))
         return self.norm3(tgt + h)

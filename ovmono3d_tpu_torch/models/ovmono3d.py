@@ -259,23 +259,40 @@ class OVMono3DLift:
 
     def _detect(self, tensor: torch.Tensor, text: dict,
                 trace: dict | None = None) -> dict:
-        """GroundingDINO + postprocess on the detector's tensor (spans
-        "gdino" and "postprocess"); boxes in canvas pixels. Given `trace`,
-        keeps the detector's raw pred_logits and pred_boxes there."""
+        """`_detect_batch` of one image's tensor [1, S, S, 3]: its 2D slots
+        with the batch axis dropped."""
+        det = self._detect_batch(tensor, text, [trace])
+        return {k: v[0] for k, v in det.items()}
+
+    def _detect_batch(self, tensors: torch.Tensor, text: dict,
+                      traces: list | None = None) -> dict:
+        """GroundingDINO on a batch of the detector's tensors [B, S, S, 3],
+        the prompt broadcast over it, and the batch's postprocess (spans
+        "gdino" and "postprocess"): {boxes [B, k, 4] in canvas pixels,
+        scores, classes, valid}. `traces`, B dicts or Nones, keeps in each
+        row's dict its raw pred_logits and pred_boxes, the selected
+        query_index, the encoded prompt (text_features), the encoder's and
+        the decoder's outputs (memory, hs) and its 2D slots (`slots`)."""
+        b = tensors.shape[0]
         with span("gdino"):
-            out = self.gdino(tensor, text["input_ids"], text["text_mask"],
-                             text["text_self_mask"], text["position_ids"])
-        if trace is not None:
-            trace.update(pred_logits=out["pred_logits"][0],
-                         pred_boxes=out["pred_boxes"][0])
+            out = self.gdino(tensors, text["input_ids"].expand(b, -1),
+                             text["text_mask"].expand(b, -1),
+                             text["text_self_mask"].expand(b, -1, -1),
+                             text["position_ids"].expand(b, -1))
         with span("postprocess"):
             S = float(self.gdino_size)
-            boxes, scores, classes, valid = postprocess_grounding(
-                out["pred_logits"][0], out["pred_boxes"][0],
-                text["span_matrix"], text["span_valid"], (S, S),
-                topk=self.detect_topk)
-        return {"boxes": boxes, "scores": scores, "classes": classes,
-                "valid": valid}
+            det = dict(zip(("boxes", "scores", "classes", "valid"),
+                           postprocess_grounding(
+                               out["pred_logits"], out["pred_boxes"],
+                               text["span_matrix"], text["span_valid"],
+                               (S, S), topk=self.detect_topk)))
+        for i, trace in enumerate(traces or ()):
+            if trace is not None:
+                trace.update({k: out[k][i] for k in (
+                    "pred_logits", "pred_boxes", "query_index",
+                    "text_features", "memory", "hs")},
+                    slots={k: v[i] for k, v in det.items()})
+        return det
 
     def detect_2d(self, image, categories: list[str]) -> dict:
         """Open-vocabulary 2D detection; numpy boxes in original image
@@ -296,12 +313,21 @@ class OVMono3DLift:
               depth=None) -> Detections:
         """The cube model on `det2d`'s boxes times `box_scale` (canvas
         pixels): Detections with the batch axis dropped."""
-        det = self.rcnn(canvas[None], K, hw, ratio, depth,
-                        oracle_boxes=det2d["boxes"][None] * box_scale,
-                        oracle_classes=det2d["classes"][None],
-                        oracle_scores=det2d["scores"][None],
-                        oracle_valid=det2d["valid"][None])
+        det = self._lift_batch(canvas[None], hw, ratio, K,
+                               {k: v[None] for k, v in det2d.items()},
+                               box_scale, depth)
         return Detections(**{k: v[0] for k, v in det.items()})
+
+    def _lift_batch(self, canvases, hw, ratio, K, det2d: dict,
+                    box_scale: float, depth=None) -> Detections:
+        """The cube model on a batch: canvases [B, S, S, 3], hw [B, 2],
+        ratio [B], K [B, 3, 3] and `det2d`'s fields [B, k, ...], its boxes
+        times `box_scale` (canvas pixels)."""
+        return self.rcnn(canvases, K, hw, ratio, depth,
+                         oracle_boxes=det2d["boxes"] * box_scale,
+                         oracle_classes=det2d["classes"],
+                         oracle_scores=det2d["scores"],
+                         oracle_valid=det2d["valid"])
 
     def lift_3d(self, image, K, det2d: dict, depth=None) -> Detections:
         """The cube branch on given 2D detections (boxes, classes, scores,
@@ -357,7 +383,8 @@ class OVMono3DLift:
     def run(self, req: dict, trace: dict | None = None) -> Detections:
         """Detection, postprocess and lift of a prepared request (spans
         "gdino", "postprocess", "lift"), with no host synchronisation.
-        Given `trace`, keeps the detector's raw outputs there."""
+        Given `trace`, keeps the detector's raw outputs and 2D slots there
+        (`_detect`)."""
         with torch.inference_mode():
             if req["text"] is None:
                 det2d = self._empty_2d()
@@ -372,6 +399,19 @@ class OVMono3DLift:
                                  req["K"], det2d, req["box_scale"],
                                  req["depth"])
         return det
+
+    def run_batch(self, canvases, hw, ratio, K, text: dict, tensors,
+                  traces: list | None = None) -> Detections:
+        """`run` over a batch of fused requests that share a prompt, as one
+        batch through the detector and one through the cube model (spans
+        "gdino", "postprocess", "lift"), with no host synchronisation:
+        canvases [B, S, S, 3], hw [B, 2], ratio [B], K [B, 3, 3], the
+        detector's tensors [B, S, S, 3]; Detections with the batch axis.
+        `traces` as `_detect_batch` takes them."""
+        with torch.inference_mode():
+            det2d = self._detect_batch(tensors, text, traces)
+            with span("lift"):
+                return self._lift_batch(canvases, hw, ratio, K, det2d, 1.0)
 
     # -- streams --------------------------------------------------------------
 
@@ -417,9 +457,9 @@ class OVMono3DLift:
         `detect_2d`-shaped numpy dicts, boxes in original pixels. The
         prompt is tokenized once; each chunk's images are staged in
         page-locked memory, uploaded without waiting, resized on the card
-        into uint8 canvases of the detector's side, detected one by one and
-        read back behind an event (the canvases normalized together, then
-        detected one by one). Serves `build_2d_only` pipelines. With no
+        into uint8 canvases of the detector's side, normalized and detected
+        together as one batch (`_detect_batch`) and read back behind an
+        event. Serves `build_2d_only` pipelines. With no
         categories it is per-image `detect_2d`, as in the JAX package."""
         if not categories:
             for image in images:
@@ -439,10 +479,8 @@ class OVMono3DLift:
                 tensors = self._gdino_normalize(torch.stack([
                     self._stream_canvas(to_device_async(image, dev), side, hw)
                     for image, hw, _ in rows]).float(), hws)
-                outs = [self._detect(tensors[i:i + 1], text)
-                        for i in range(len(rows))]
-            return HostCopy([{k: torch.stack([o[k] for o in outs])
-                              for k in outs[0]}]), [r[2] for r in rows]
+                det = self._detect_batch(tensors, text)
+            return HostCopy([det]), [r[2] for r in rows]
 
         def emit(handle):
             copied, scales = handle
@@ -455,7 +493,7 @@ class OVMono3DLift:
         yield from self._stream_drive(images, prep, dispatch, emit, chunk)
 
     def predict_stream(self, items, categories: list[str], chunk: int = 8,
-                       devices=None):
+                       devices=None, capture=None):
         """Prompts -> 3D cuboids over a sequence of (image, K) pairs: yields
         one Detections in host memory per image (`detect_topk` slots, boxes
         in original pixels). The prompt is tokenized once; each chunk's
@@ -463,16 +501,27 @@ class OVMono3DLift:
         memory and uploaded without waiting; the card resizes each image
         into a uint8 canvas (as the JAX stream quantizes it, so the stream
         equals per-image `predict` only at resize scale 1), normalizes the
-        chunk's canvases for the detector together and runs `run` on each;
-        the chunk is read back behind an event. With
+        chunk's canvases for the detector together and runs the chunk as
+        one batch (`run_batch`: one detector, postprocess and cube-model
+        batch; per image the same as `run`), so the host
+        enqueues a chunk's operations once and not once an image; the chunk
+        is read back behind an event. With
         `devices` (a list; `chunk` a multiple of its length) device d takes
         the chunk's d-th share, on its own copy of the models
-        (`parallel.serve.make_lift_stream_fn`). Non-fusable configurations
-        and empty prompts are per-image `predict`, as in the JAX package;
-        depth prompts are not taken (use `predict`)."""
+        (`parallel.serve.make_lift_stream_fn`). `capture(i)`, when given,
+        is asked for each item's index i in the stream and may return a
+        dict, which that row's run fills on the device with its canvas,
+        content size, K and ratio and what `run`'s trace keeps
+        (`_detect_batch`:
+        the detector's raw outputs, query_index, text_features, memory, hs
+        and 2D slots), without changing what the stream computes. Non-fusable
+        configurations and empty prompts are per-image `predict`, as in the
+        JAX package (a capture there takes `predict`'s trace); depth prompts
+        are not taken (use `predict`)."""
         if not (categories and self._fusable()):
-            for image, K in items:
-                det = self.predict(image, K, categories)
+            for i, (image, K) in enumerate(items):
+                trace = None if capture is None else capture(i)
+                det = self.predict(image, K, categories, trace=trace)
                 yield Detections(**{k: v.cpu() for k, v in det.items()})
             return
         from ovmono3d_tpu_torch.parallel.serve import make_lift_stream_fn
@@ -486,19 +535,20 @@ class OVMono3DLift:
         side = self.cfg.model.backbone.square_pad
 
         def prep(item):
-            image, K = item
+            i, (image, K) = item
             nh, nw, scale = resize_shortest_edge(
                 image.shape[:2], self.cfg.input.min_size_test,
                 min(self.cfg.input.max_size_test, side))
             return (staged(image), np.asarray(K, np.float32), (nh, nw),
-                    np.float32(1.0 / scale))
+                    np.float32(1.0 / scale),
+                    None if capture is None else capture(i))
 
         def emit(copied):
             host = copied.wait()
             for i in range(next(iter(host.values())).shape[0]):
                 yield Detections(**{k: v[i] for k, v in host.items()})
 
-        yield from self._stream_drive(items, prep,
+        yield from self._stream_drive(enumerate(items), prep,
                                       lambda rows: run(rows, text), emit,
                                       chunk)
 

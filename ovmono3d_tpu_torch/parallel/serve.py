@@ -24,6 +24,7 @@ from ovmono3d_tpu_torch.models.gdino.inference import (BOX_THRESHOLD,
 from ovmono3d_tpu_torch.models.gdino.model import GroundingDINO
 from ovmono3d_tpu_torch.utils.device import (HostCopy, resolve_device,
                                              staged, to_device_async)
+from ovmono3d_tpu_torch.utils.trace import span
 
 TEXT_KEYS = ("input_ids", "text_mask", "text_self_mask", "position_ids",
              "span_matrix", "span_valid")
@@ -81,19 +82,29 @@ def make_lift_stream_fn(pipe, devices, per_device: int):
     order.
 
     rows: up to len(devices) * per_device of `predict_stream`'s prepared
-    rows (a staged uint8 image, K [3, 3], content (nh, nw), ratio); device d
+    rows (a staged uint8 image, K [3, 3], content (nh, nw), ratio, and a
+    capture dict or None); device d
     takes rows [d per_device, (d+1) per_device) on `pipe.replicas(devices)`'s
     pipeline there (the models copied once and kept against the source's
     weights, as the JAX package keeps its replicated parameters), uploads
     them without waiting, resizes them into uint8 canvases, normalizes those
-    for the detector together, and runs `OVMono3DLift.run` on each in turn
-    (the detector's tensor given, as for a canvas of its own). text:
+    for the detector together, and runs them as one batch
+    (`OVMono3DLift.run_batch`, the detector's tensors given). text:
     `_text_device_inputs`' dict, moved to each device. A partial chunk leaves
-    the later devices less or nothing to do."""
+    the later devices less or nothing to do. A row's capture dict receives,
+    on the device, its float canvas, hw [1, 2], K [1, 3, 3], ratio [1] and
+    its row of `OVMono3DLift._detect_batch`'s trace: references to what the
+    chunk
+    computes anyway. The chunk's dispatch is the unit span
+    `stream.chunk`."""
     replicas = pipe.replicas(devices)
     side = pipe.cfg.model.backbone.square_pad
 
     def run(rows: list, text: dict) -> HostCopy:
+        with span("stream.chunk", unit=True):
+            return HostCopy(dispatch(rows, text))
+
+    def dispatch(rows: list, text: dict) -> list:
         parts = []
         for d, rep in enumerate(replicas):
             share = rows[d * per_device:(d + 1) * per_device]
@@ -110,14 +121,14 @@ def make_lift_stream_fn(pipe, devices, per_device: int):
                     rep._stream_canvas(to_device_async(r[0], dev), side, r[2])
                     for r in share]).float()
                 tensors = rep._gdino_normalize(canvases, hw)
-            dets = [dict(rep.run({
-                "canvas": canvases[i], "hw": hw[i:i + 1],
-                "ratio": ratio[i:i + 1], "K": K[i:i + 1], "depth": None,
-                "text": t, "gdino_tensor": tensors[i:i + 1],
-                "box_scale": 1.0}).items()) for i in range(len(share))]
-            parts.append({k: torch.stack([x[k] for x in dets])
-                          for k in dets[0]})
-        return HostCopy(parts)
+            caps = [r[4] for r in share]
+            for i, cap in enumerate(caps):
+                if cap is not None:
+                    cap.update(canvas=canvases[i], hw=hw[i:i + 1],
+                               K=K[i:i + 1], ratio=ratio[i:i + 1])
+            parts.append(dict(rep.run_batch(canvases, hw, ratio, K, t,
+                                            tensors, caps).items()))
+        return parts
 
     return run
 

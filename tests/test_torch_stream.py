@@ -10,12 +10,15 @@ packages); images from numpy seeds.
 
 Tolerances. At resize scale 1 the stream's uint8 canvas holds the image's
 own pixels, so the stream is held to the port's per-image path to 1e-5, as
-the JAX tests hold theirs. Across the two packages the limits are
+the JAX tests hold theirs. The stream runs a chunk as one batch
+(`run_batch`); a row of it is held to `run` of the image alone to 1e-5 in
+the 2D fields and to one bf16 step of scale in the cube model's, whose bf16
+trunk rounds a batch otherwise than one image. Across the two packages the limits are
 tests/test_torch_ovmono3d.py's: the 2D fields to 1e-4, the cube model's
 fields and the fused scores to 2e-2 of their scale. At a resize scale other
 than 1 the stream rounds the resized canvas to uint8 and per-image serving
-does not (ADVICE.md item 2): the stream is held to per-image serving of the
-rounded canvas to 1e-5, and the rounding to at most 0.5 a pixel level.
+does not (ADVICE.md item 2): the stream is held to batched serving of the
+rounded canvases to 1e-5, and the rounding to at most 0.5 a pixel level.
 """
 import dataclasses
 
@@ -89,26 +92,69 @@ def test_predict_stream_matches_per_image(shared):
         _check_detections(g, j)
 
 
+def _batch(tp, reqs, canvases):
+    """`run_batch` of prepared requests on the given canvases, as the stream
+    runs a chunk: one detector batch and one cube-model batch."""
+    canvases = torch.stack(canvases)
+    hw = torch.cat([r["hw"] for r in reqs])
+    tensors = tp._gdino_normalize(canvases, hw)
+    return tp.run_batch(canvases, hw, torch.cat([r["ratio"] for r in reqs]),
+                        torch.cat([r["K"] for r in reqs]), reqs[0]["text"],
+                        tensors)
+
+
+def _row(det, i):
+    return tov.Detections(**{k: v[i] for k, v in det.items()})
+
+
 def test_predict_stream_at_scale_08_is_the_rounded_canvas(shared):
     """(100, 140) and (90, 120) resize by 0.8 and 0.93 onto the 112 canvas.
-    The stream is per-image serving of the resized canvas rounded to uint8:
-    `run` on `prepare`'s canvas rounded half to even equals it to 1e-5, and
-    that canvas lies within 0.5 of the unrounded one. (Against `predict` on
-    the unrounded canvas the tiny random detector's phrase scores tie to
-    ~1e-3, all near 0.11, so the half-level rounding reorders its top-16
-    query selection and NMS, and slots move wholesale: 5 of 13 kept a twin
-    within 1 px in one image when this was written. The card's run prints
-    the full-width detector's deviation at 640x480.)"""
+    The stream is batched serving of the resized canvases rounded to uint8:
+    `run_batch` on `prepare`'s canvases rounded half to even equals it to
+    1e-5, and each canvas lies within 0.5 of the unrounded one. (Against
+    `predict` on the unrounded canvas the tiny random detector's phrase
+    scores tie to ~1e-3, all near 0.11, so the half-level rounding reorders
+    its top-16 query selection and NMS, and slots move wholesale: 5 of 13
+    kept a twin within 1 px in one image when this was written. The card's
+    run prints the full-width detector's deviation at 640x480.)"""
     _, tp = shared
     items = _items([(100, 140), (90, 120)], 3)
     got = list(tp.predict_stream(iter(items), CATS, chunk=2))
     assert len(got) == 2
-    for g, (img, K) in zip(got, items):
-        req = tp.prepare(img, K, CATS)
-        rounded = req["canvas"].round().clamp(0, 255)
-        assert 0 < (rounded - req["canvas"]).abs().max() <= 0.5
+    reqs = [tp.prepare(img, K, CATS) for img, K in items]
+    rounded = [r["canvas"].round().clamp(0, 255) for r in reqs]
+    for req, canvas in zip(reqs, rounded):
+        assert 0 < (canvas - req["canvas"]).abs().max() <= 0.5
+    want = _batch(tp, reqs, rounded)
+    for i, g in enumerate(got):
         assert g.valid.any()
-        _same(g, tp.run({**req, "canvas": rounded}))
+        _same(g, _row(want, i))
+
+
+def test_run_batch_rows_match_run(shared):
+    """Each row of `run_batch` (the stream's chunk) against `run` of its
+    request alone, at resize scales 1, 0.8 and 0.93: the 2D fields, from
+    GroundingDINO in f32, to 1e-5; the cube model's fields, whose trunk runs
+    in bf16 and rounds a batch of three otherwise than one image, to one
+    bf16 step (2^-8) of each field's scale."""
+    _, tp = shared
+    items = _items([(112, 112), (100, 140), (90, 120)], 13)
+    reqs = [tp.prepare(img, K, CATS) for img, K in items]
+    batch = _batch(tp, reqs, [r["canvas"] for r in reqs])
+    for i, req in enumerate(reqs):
+        got, want = _row(batch, i), tp.run(req)
+        assert want.valid.any()
+        np.testing.assert_array_equal(got.valid.numpy(), want.valid.numpy())
+        np.testing.assert_array_equal(got.classes.numpy(),
+                                      want.classes.numpy())
+        np.testing.assert_allclose(got.boxes.numpy(), want.boxes.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        for k in ("scores", "center_cam", "center_2d", "dimensions", "pose",
+                  "corners3d"):
+            w = getattr(want, k).float().numpy()
+            np.testing.assert_allclose(
+                getattr(got, k).float().numpy(), w, rtol=2 ** -8,
+                atol=2 ** -8 * float(np.abs(w).max()), err_msg=k)
 
 
 def test_detect_stream_matches_detect_2d(own_canvas):
