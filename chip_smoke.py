@@ -215,8 +215,11 @@ profiles' tables):
           profile of 3 images, with --previous also with kernel 8's earlier
           design in every Swin block and then the shipped one again
   stream  on the ovlift phase's pipeline: predict_stream (chunk 8, each
-          chunk one batch) and per-image predict (results copied to the
-          host) over the same 16 640x480 images: img/s, the stream's
+          chunk one batch; the first chunk eager, the second captured into
+          CUDA graphs, the rest replayed) over the 16 640x480 images
+          STREAM_PASSES times and per-image predict (results copied to the
+          host) over them once: img/s, the stream's chunk counters (eager,
+          captured, replayed), the stream's
           per-image latency, 24 kernel-8 and 12 kernel-1 launches a chunk in
           the stream and an image in predict and no other attention kernel,
           finite [300, ...] detections, the boxes' deviation and the
@@ -696,6 +699,8 @@ OV_H, OV_W, OV_WARMUP, OV_TIMED = 480, 640, 2, 5
 # where the stream is held to batched serving of the same requests within
 # STREAM_TOL; the batch detection's N.
 STREAM_CHUNK, STREAM_IMAGES, STREAM_TOL = 8, 16, 1e-5
+# The timed stream's passes over its images: 8 chunks, 6 of them replayed.
+STREAM_PASSES = 4
 STREAM_SCALE1 = ((532, 709), (532, 896), (700, 532))
 DETECT_SIDE = 800
 DETECT_SCALE1 = ((600, 800), (800, 576), (800, 800))
@@ -2920,23 +2925,44 @@ def stream_phase(pipe: OVMono3DLift, names: list[str]) -> dict:
     t_in: list[float] = []
 
     def taken():
-        for item in items:
+        for item in items * STREAM_PASSES:
             t_in.append(time.perf_counter())
             yield item
 
     reset_path_counts()
-    stream, lat = [], []
+    counted = serve_batch.lift_stream_chunks
+    counted.eager = counted.captured = counted.replayed = 0
+    stream, lat, t_out = [], [], []
     t0 = time.perf_counter()
     for i, det in enumerate(pipe.predict_stream(taken(), names, chunk=chunk)):
-        lat.append(time.perf_counter() - t_in[i])
+        t_out.append(time.perf_counter())
+        lat.append(t_out[-1] - t_in[i])
         stream.append(det)
     stream_s = time.perf_counter() - t0
-    n = len(stream)
-    chunks = -(-n // chunk)
+    n = len(images)
+    chunks = -(-n // chunk)                  # a pass's
+    total = chunks * STREAM_PASSES
     add(check_path_counts("predict_stream", {
-        "window": 24 * chunks, "flash_attention_packed": 12 * chunks}))
+        "window": 24 * total, "flash_attention_packed": 12 * total}))
+    check((counted.eager, counted.captured, counted.replayed)
+          == (1, 1, total - 2),
+          f"predict_stream's chunks: {counted.eager} eager, "
+          f"{counted.captured} captured, {counted.replayed} replayed; 1, 1 "
+          f"and {total - 2} expected")
     for det in stream:
         check_ov_detections(det, len(names))
+    # The later passes replay graphs on the first pass's images (its first
+    # chunk eager, its second captured): the same Detections bit for bit.
+    replay_diff = max(max_field_diff(d, stream[i % n])
+                      for i, d in enumerate(stream))
+    check(replay_diff == 0, f"predict_stream's later passes against its "
+                            f"first: max |diff| {replay_diff}")
+    stream_rate = len(stream) / stream_s
+    # Images emitted after the second chunk's, over their time: every
+    # chunk among them is replayed.
+    replay_rate = ((len(stream) - 2 * chunk)
+                   / (t_out[-1] - t_out[2 * chunk - 1]))
+    stream = stream[:n]
     reset_path_counts()
     per_image, plats = [], []
     t0 = time.perf_counter()
@@ -2950,7 +2976,11 @@ def stream_phase(pipe: OVMono3DLift, names: list[str]) -> dict:
         "window": 24 * n, "flash_attention_packed": 12 * n})
     box_dev, changed = box_deviation(stream, per_image)
     say("stream", f"predict_stream (chunk {chunk}) over {n} images of "
-                  f"{OV_W}x{OV_H}: {n / stream_s:.3f} img/s, per-image "
+                  f"{OV_W}x{OV_H}, {STREAM_PASSES} times: {stream_rate:.3f} "
+                  f"img/s ({total} chunks: {counted.eager} eager, "
+                  f"{counted.captured} captured, {counted.replayed} "
+                  f"replayed), {replay_rate:.3f} img/s over the replayed "
+                  f"chunks, equal to the first pass bit for bit; per-image "
                   f"latency in the stream p50 "
                   f"{statistics.median(lat) * 1e3:.3f} ms (max "
                   f"{max(lat) * 1e3:.3f}); per-image predict over the same "
@@ -2968,7 +2998,7 @@ def stream_phase(pipe: OVMono3DLift, names: list[str]) -> dict:
     # stream): a profile of this run has once read every kernel 0.37x as
     # long as the others did.
     runs = {"stream": (lambda: list(pipe.predict_stream(
-                iter(items[:chunk]), names, chunk=chunk)), stream_s / n),
+                iter(items[:chunk]), names, chunk=chunk)), 1 / replay_rate),
             "predict": (lambda: [pipe.predict(image, K, names).valid.cpu()
                                  for image in images[:chunk]], predict_s / n)}
     busy: dict = {"stream": [], "predict": []}

@@ -416,12 +416,15 @@ class OVMono3DLift:
     # -- streams --------------------------------------------------------------
 
     def _stream_canvas(self, image: torch.Tensor, side: int,
-                       hw: tuple[int, int]) -> torch.Tensor:
+                       hw: tuple[int, int], out: torch.Tensor | None = None
+                       ) -> torch.Tensor:
         """A stream's uint8 canvas [side, side, 3]: `image` (on the device)
         resized to hw = (nh, nw), rounded half to even and clipped to 0..255
-        (the JAX streams' np.clip(np.rint(...))), top-left on zeros."""
-        canvas = torch.zeros(side, side, 3, dtype=torch.uint8,
-                             device=image.device)
+        (the JAX streams' np.clip(np.rint(...))), top-left on zeros; written
+        into `out` when given."""
+        canvas = (torch.zeros(side, side, 3, dtype=torch.uint8,
+                              device=image.device) if out is None
+                  else out.zero_())
         resized = resize_bilinear(image.float(), hw).round().clamp(0, 255)
         canvas[:hw[0], :hw[1]] = resized.to(torch.uint8)
         return canvas
@@ -504,8 +507,10 @@ class OVMono3DLift:
         chunk's canvases for the detector together and runs the chunk as
         one batch (`run_batch`: one detector, postprocess and cube-model
         batch; per image the same as `run`), so the host
-        enqueues a chunk's operations once and not once an image; the chunk
-        is read back behind an event. With
+        enqueues a chunk's operations once and not once an image; on a card
+        every full chunk after the first replays CUDA graphs of that work
+        (`make_lift_stream_fn`), freed when the stream ends or is closed;
+        the chunk is read back behind an event. With
         `devices` (a list; `chunk` a multiple of its length) device d takes
         the chunk's d-th share, on its own copy of the models
         (`parallel.serve.make_lift_stream_fn`). `capture(i)`, when given,
@@ -548,9 +553,12 @@ class OVMono3DLift:
             for i in range(next(iter(host.values())).shape[0]):
                 yield Detections(**{k: v[i] for k, v in host.items()})
 
-        yield from self._stream_drive(enumerate(items), prep,
-                                      lambda rows: run(rows, text), emit,
-                                      chunk)
+        try:
+            yield from self._stream_drive(enumerate(items), prep,
+                                          lambda rows: run(rows, text), emit,
+                                          chunk)
+        finally:
+            run.close()
 
     def predict(self, image, K, categories: list[str], depth=None,
                 trace: dict | None = None) -> Detections:

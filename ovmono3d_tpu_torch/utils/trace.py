@@ -24,10 +24,14 @@ handle is kept by its id.
 
 Spans record only while a torch profiler runs on the thread
 (`torch.autograd._profiler_enabled()`) or inside `recording()`. Off, `span`
-costs one check and allocates nothing. When the running profiler records
-CPU activity (the train CLI's --profile), a span also opens a record
-function of its name, so the Chrome trace shows the program's structure; a
-profiler of device activity alone records none. Recorded spans wait in a
+costs one check and allocates nothing. Inside `cutting(cut)`, where a CUDA
+graph captures work that nothing runs yet (`utils/graphs.py`), `span`
+records nothing and returns `cut(name, unit)` instead, which ends the
+graph's segment there; the replay opens the span between segments. When
+the running profiler records CPU activity (the train CLI's --profile), a
+span also opens a record function of its name, so the Chrome trace shows
+the program's structure; a profiler of device activity alone records
+none. Recorded spans wait in a
 bounded buffer (the oldest go past MAX_SPANS) until `clear`, after
 which their events are reused (a span kept elsewhere then reads no device
 time).
@@ -59,6 +63,7 @@ _RecordFunction = torch._C._profiler._RecordFunctionFast
 
 _buffer: collections.deque = collections.deque(maxlen=MAX_SPANS)
 _collectors: list[list] = []     # the open recording() scopes' lists
+_cut = None                      # cutting()'s cut while a capture runs
 _ids = itertools.count()
 _units = itertools.count()
 _local = threading.local()
@@ -153,7 +158,7 @@ def span(name: str, unit: bool = False):
     """A span of `name` while spans record, else a shared no-op context.
     `unit` makes it a unit of work: its spans share its ordinal."""
     if _collectors or _profiler_enabled():
-        return Span(name, unit)
+        return Span(name, unit) if _cut is None else _cut(name, unit)
     return _OFF
 
 
@@ -167,6 +172,21 @@ def recording():
         yield got
     finally:
         _collectors.remove(got)
+
+
+@contextlib.contextmanager
+def cutting(cut):
+    """Inside this scope `span(name, unit)` returns `cut(name, unit)`, a
+    context manager, whether or not spans record, and records nothing: the
+    scope of a graph capture, which cuts its segments at the spans."""
+    global _cut
+    _collectors.append([])
+    _cut = cut
+    try:
+        yield
+    finally:
+        _cut = None
+        _collectors.pop()
 
 
 def clear() -> None:
