@@ -11,9 +11,8 @@ BERT-base + deformable DETR on the 896^2 canvas, then the flagship cube
 model on its boxes); and the W8A8 int8 serving option of the ViT trunks
 (oracle LIFT, and GEO with the tanh-GELU epilogue too); open-vocabulary
 streams, batch detection and the dataset CLIs. Besides, GEO in the
-JAX GEO CLI's default configuration (Depth-Pro in f32), and LIFT serving and
-training under OVMONO3D_PACKED_ATTN=0 (the head-major attention family);
-the Omni3D evaluation of the flagship (oracle and learned 2D, AP2D / AP3D
+JAX GEO CLI's default configuration (Depth-Pro in f32); the Omni3D
+evaluation of the flagship (oracle and learned 2D, AP2D / AP3D
 with the exact 3D IoU on the card); and the entry points of the kernels no
 model path reaches: the differentiable fused LayerNorm and the counterparts
 of the JAX package's LayerNorm and attention-sweep probes; and the rest of
@@ -40,9 +39,9 @@ forward that also writes the row log-sum-exp, 4 = the attention backward,
 7 = the decomposed rel-pos attention forward of SAM's encoder, 8 = the Swin
 window attention forward of GroundingDINO's trunk, 10 = the int8 x int8 ->
 int32 product of the W8A8 serving option (the trunks' qkv, proj, fc1, fc2);
-1 f32 = kernel 1's f32 instance (f32 products on the FP32 pipes); 2, 5, 6 =
-the head-major counterparts of 1, 3, 4 (the same CUDA sources, launched on
-the same views through their own wrappers); 9 = the fused row LayerNorm
+1 f32 = kernel 1's f32 instance (f32 products on the FP32 pipes); the JAX
+package's head-major kernels 2, 5 and 6 are 1, 3 and 4 on head-major
+strides (the same wrappers); 9 = the fused row LayerNorm
 (layer_norm_fused), 12 = the LayerNorm probe's variants v2 / v3 / v4 (the
 same source's instances), 11 = the attention sweep's forward (8 instances:
 block_q and block_k in {64, 128}, softmax in f32 or bf16); 7 lse = kernel
@@ -76,21 +75,19 @@ profiles' tables):
   kernel  kernel 1 vs attention_ref, kernel 3 vs attention_lse_ref and
           kernel 4 vs attention_bwd_ref at the trunk, Depth-Pro's B=1 and
           35-crop shapes, a small ragged shape, the 128-row tile's edges
-          (N = 64, 128, 129) and N = 8192 (max / mean abs error, absolute
-          and relative to the output); kernels 1 and 3 at the probe's four
-          shapes (probes/flash_fwd.py: the trunk, an eval batch of 8,
-          Depth-Pro's patches, N = 8192): the wgmma design, the earlier
-          mma.sync design and SDPA in turns, each by CUDA events and by the
-          profiler's device time, the wgmma design's device time below the
-          mma.sync design's at the trunk and at B=8; kernel 4's stats pass
-          (delta, lse2) vs attention_bwd_stats_ref at every shape above;
-          kernel 4 at its probe's four shapes (probes/flash_bwd.py: the
-          trunk, the B=8 train step, N = 8192, a ragged one): both designs
-          held to attention_bwd_ref under the relative limits, then the
-          wgmma design, the mma.sync design and SDPA's backward in turns by
-          events and by the device time of every device op of a call, the
-          wgmma design's below the mma.sync design's at the trunk and at
-          B=8; then at the trunk
+          (N = 64, 128, 129), N = 8192, and on head-major views the JAX
+          tests' [2, 150, 3, 32] (the D = 32 instances) and the trunk (max
+          / mean abs error, absolute and relative to the output); kernels
+          1 and 3 at the probe's four shapes (probes/flash_fwd.py: the
+          trunk, an eval batch of 8,
+          Depth-Pro's patches, N = 8192): the kernel and SDPA in turns, each
+          by CUDA events and by the profiler's device time; kernel 4's stats
+          pass (delta, lse2) vs attention_bwd_stats_ref at every shape
+          above; kernel 4 at its probe's four shapes (probes/flash_bwd.py:
+          the trunk, the B=8 train step, N = 8192, a ragged one): held to
+          attention_bwd_ref under the relative limits, then the kernel and
+          SDPA's backward in turns by events and by the device time of
+          every device op of a call; then at the trunk
           shape each kernel's time, its plain version's,
           F.scaled_dot_product_attention's forward or backward on the same
           views (a yardstick the port never calls) and the card's bound for
@@ -129,18 +126,13 @@ profiles' tables):
           epilogue, and bf16 F.linear (yardsticks the port never calls) in
           turns, by events and by device time, with the plain version's
           time and the bounds; kernel 1's f32 instance vs f32 attention_ref at
-          Depth-Pro's shapes and a ragged one (within F32_MAX_REL of max
-          |ref|), then through probes/flash_fwd_f32.py at those shapes and
-          the f32 trunk: its time and SDPA f32's in turns, by events and by
-          the profiler's device time, and its error again; kernel 2 vs
-          attention_ref at the trunk (bf16, f32), at N = 8192 past the
-          packed gate and at the JAX tests' [2, 150, 3, 32] (bf16, f32),
-          kernels 5 and 6 vs the plain versions at the B=8 train shape
-          (the plain ones per image) and at [2, 150, 3, 32]; each one's
-          time, the plain version's, SDPA's and the bound (f32 on the FP32
-          pipes' 67 TFLOP/s); for kernels 2, 5 and 6 at the trunk also the
-          device times of both designs and of SDPA, for kernels 2 and 5 at
-          [2, 150, 3, 32] the device times of the call and of SDPA
+          Depth-Pro's shapes, a ragged one and [2, 150, 3, 32] on
+          head-major views (within F32_MAX_REL of max |ref|), its time at
+          the 35 crops beside the plain version's, SDPA f32's and the bound
+          (on the FP32 pipes' 67 TFLOP/s), then through
+          probes/flash_fwd_f32.py at those shapes (packed) and the f32
+          trunk: its time and SDPA f32's in turns, by events and by the
+          profiler's device time, and its error again
   slice   3 warm-up + 10 timed requests (B=1, 64 oracle boxes, as bench.py
           builds them): launches per forward, finite [1, 64, ...]
           detections, img/s, p50, peak memory; then the same model with
@@ -170,14 +162,6 @@ profiles' tables):
           within 5e-2 of the plain one's norm, each with its margin; the
           gradients from each run's own heads, and attention_ref in f32
           against bf16, printed beside
-  headmajor  OVMONO3D_PACKED_ATTN=0: bench.py's LIFT request, 1 warm-up + 3
-          timed (12 kernel-2 launches a request and no other attention
-          kernel; detections against the packed route's on the same image,
-          bit-identity printed, held to 2e-2 of each field's scale); one B=8
-          loss and trunk gradient of the unfrozen flagship with each route,
-          same weights and draws (bit-identity printed, held to
-          TRAIN_LOSS_REL / TRAIN_GRAD_REL); 2 train steps (12 kernel-5 and
-          12 kernel-6 launches a step and no other)
   geo     SAM ViT-H (bf16, rel-pos tables ~N(0, 0.1^2)), SAM's decoder
           (f32) and Depth-Pro (bf16, LayerScales 0.1, depth-head bias 0.5)
           from seed 0 serve 704x512 images with 8 oracle boxes each (2 under
@@ -434,10 +418,9 @@ profiles' tables):
           the process, 8 640x480 images through build_test_iterator on the
           native route and on the torch resize in turns (geometry equal,
           pixels within 2e-2), ms per batch of each
-Then a JSON line of the kernels (kernels 1, 2, 3 and 5 at the trunk shape
-also with previous_ms, device_ms, previous_device_ms and library_device_ms:
-the mma.sync design's event time and the device times of both designs and
-of SDPA; kernels 1, 3 and 4 also with shard_ms, shard_plain_ms and
+Then a JSON line of the kernels (kernels 1, 3 and 4 at the trunk shape also
+with device_ms and library_device_ms: the device times of the kernel and of
+SDPA, and with shard_ms, shard_plain_ms and
 shard_library_ms: their times, their plain versions' and SDPA's at the
 tensor-parallel shard shape; kernel 7 at SAM-H global, kernel
 7's lse instance at SAM-B's global blocks of the B=8 train step with
@@ -471,6 +454,7 @@ import sys
 import time
 import types
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -535,7 +519,7 @@ from ovmono3d_tpu_torch.probes import relpos_bwd as relpos_bwd_probe  # noqa
 from ovmono3d_tpu_torch.probes import window as window_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import card as card_name  # noqa: E402
 from ovmono3d_tpu_torch.probes import (  # noqa: E402
-    bf16_ulp_diff, device_ms, in_turns, time_ms)
+    bf16_ulp_diff, device_ms, time_ms)
 from ovmono3d_tpu_torch.probes import layernorm as ln_probe  # noqa: E402
 from ovmono3d_tpu_torch.probes import optim as optim_probe  # noqa: E402
 from ovmono3d_tpu_torch.parallel import mesh  # noqa: E402
@@ -579,8 +563,8 @@ from ovmono3d_tpu_torch.utils.cnn_convert import (  # noqa: E402
 )
 
 # The redesigned kernels: (source, kernel template, instances, SASS
-# instructions that show the design) of the bf16 D = 64 forward (kernels 1,
-# 2, 3, 5) and backward (4, 6: the dk/dv and dq instances), the attention
+# instructions that show the design) of the bf16 D = 64 forward (kernels 1
+# and 3) and backward (4: the dk/dv and dq instances), the attention
 # sweep (11, eight instances), the rel-pos forward (7, D 64 and 80, the
 # inference and the lse instance of each), the window forward (8) and the
 # rel-pos backward's dk/dv and dq kernels (D 64 and 80), on wgmma and TMA
@@ -599,11 +583,10 @@ DESIGNS = (("flash_attn_fwd.cu", "flash_fwd_sm90_kernel", 2, SASS_OPS),
             ("IGMMA", "UTMALDG")),
            ("flash_attn_fwd.cu", "flash_fwd_f32_kernel", 2, ()),
            ("int8_gemm.cu", "quantize_rows_kernel", 2, ()))
-# The JSON entries of kernels 1-6 carry, besides every kernel's keys, the
-# mma.sync design's event time and the device times of both designs and of
-# SDPA (fwd_probe.rows, bwd_probe.rows, design_times).
-DESIGN_KEYS = ("previous_ms", "device_ms", "previous_device_ms",
-               "library_device_ms")
+# The JSON entries of kernels 1, 3 and 4 carry, besides every kernel's
+# keys, the profiler's device times of the kernel and of SDPA
+# (fwd_probe.rows, bwd_probe.rows).
+DESIGN_KEYS = ("device_ms", "library_device_ms")
 FWD_KEYS = ("ms", "library_ms", "bound_ms", "bound_by") + DESIGN_KEYS
 # The JSON entries of kernel 1's f32 instance and of kernel 11 carry the
 # profiler's device times of the kernel and of SDPA (f32_probe.rows,
@@ -619,12 +602,18 @@ PREVIOUS_KEYS = ("device_ms", "previous_device_ms", "library_device_ms")
 # Kernels 1, 3 and 4: (B, N, H, D). The LIFT trunk; Depth-Pro's image and
 # FOV encoders (B=1) and its patch encoder (the 35 pyramid crops in one
 # batch); a small ragged case; the 128-row tile's edges: one partial tile,
-# one full tile, one row past a tile; a long sequence.
+# one full tile, one row past a tile; a long sequence; the JAX package's
+# test shape (3 heads of 32: the D = 32 instances); the trunk again.
 KERNEL_SHAPES = {"trunk": (1, 4097, 12, 64), "depth_pro": (1, 577, 16, 64),
                  "depth_pro_patches": (35, 577, 16, 64),
                  "ragged": (2, 77, 12, 64), "n64": (2, 64, 12, 64),
                  "n128": (2, 128, 12, 64), "n129": (2, 129, 12, 64),
-                 "n8192": (1, 8192, 12, 64)}
+                 "n8192": (1, 8192, 12, 64), "small": (2, 150, 3, 32),
+                 "trunk_head_major": (1, 4097, 12, 64)}
+# Shapes of KERNEL_SHAPES and F32_SHAPES whose q, k, v and do are views of
+# head-major storage ([B, H, N, D] a tensor), the layout the JAX package's
+# kernels 2, 5 and 6 take: the port runs those on kernels 1, 3 and 4.
+HEAD_MAJOR = ("small", "trunk_head_major")
 # Kernel 7: (B, grid, H, D). SAM ViT-H global and windowed blocks at 1024^2
 # (a 64x64 grid; 14x14 windows of the grid padded to 70, 25 per image), SAM
 # ViT-B's global blocks, a small ragged grid.
@@ -637,20 +626,11 @@ REL_POS_STD = 0.1     # about a trained SAM table's scale
 # --previous DIR, timed in turns: their device times agree within this.
 RELPOS_SAME_NOISE = 0.05
 # The f32 instance of kernel 1: Depth-Pro's B=1 encoders and 35-crop patch
-# encoder in f32 (the JAX GEO CLI's default), a small ragged case.
+# encoder in f32 (the JAX GEO CLI's default), a small ragged case, the JAX
+# package's test shape (the f32 instance at D = 32).
 F32_SHAPES = {"depth_pro": (1, 577, 16, 64),
               "depth_pro_patches": (35, 577, 16, 64),
-              "ragged": (2, 77, 12, 64)}
-# Kernel 2 ((B, N, H, D), dtype): the LIFT trunk in bf16 and f32, a sequence
-# past the packed gate's 6144, and the JAX package's own test shape (3 heads
-# of 32, which do not tile to 128 lanes) in bf16 and f32.
-K2_SHAPES = {"trunk": ((1, 4097, 12, 64), torch.bfloat16),
-             "trunk_f32": ((1, 4097, 12, 64), torch.float32),
-             "long": ((1, 8192, 12, 64), torch.bfloat16),
-             "small": ((2, 150, 3, 32), torch.bfloat16),
-             "small_f32": ((2, 150, 3, 32), torch.float32)}
-# Kernels 5 and 6: the B=8 train step's trunk shape and the small one.
-K56_SHAPES = {"train": (8, 4097, 12, 64), "small": (2, 150, 3, 32)}
+              "ragged": (2, 77, 12, 64), "small": (2, 150, 3, 32)}
 # f32 kernels against f32 attention_ref: exact products on both sides,
 # summed in another order.
 F32_MAX_REL = 2e-5
@@ -683,7 +663,6 @@ GEO_MAX_REL, GEO_MEAN_REL = 1e-1, 2e-2
 GEO_F32_WARMUP, GEO_F32_TIMED = 2, 3
 # f32 Depth-Pro's inverse depth, f32 kernel 1 against f32 attention_ref.
 GEO_F32_REL = 1e-4
-HEADMAJOR_TIMED, HEADMAJOR_STEPS = 3, 2
 GEO_DEPTH_BIAS = 0.5   # the depth head's output bias in the geo phase
 # Kernel 8: (BW, N, H) of Swin-B's four stages at 896^2 (patch grid 224,
 # window 12: 19^2, 10^2, 5^2 and 3^2 windows, D = 32); the windows of maps
@@ -931,8 +910,14 @@ def build_phase() -> None:
         check_design(built[source], design, instances, ops)
 
 
-def qkv_views(b, n, h, d, seed, dtype=torch.bfloat16):
+def qkv_views(b, n, h, d, seed, dtype=torch.bfloat16, head_major=False):
+    """q, k, v [B, N, H, D] ~ N(0, 1): views of the qkv projection's packed
+    [B, N, 3, H, D] output, or with `head_major` of [B, 3, H, N, D]."""
     g = torch.Generator(device="cuda").manual_seed(seed)
+    if head_major:
+        qkv = torch.randn(b, 3, h, n, d, device="cuda", generator=g,
+                          dtype=dtype)
+        return qkv.transpose(2, 3).unbind(1)
     qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=g,
                       dtype=dtype)
     return qkv.view(b, n, 3, h, d).unbind(2)
@@ -1012,22 +997,15 @@ def check_f32(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return mx
 
 
-def per_image(fn, *xs) -> tuple:
-    """`fn` over one batch element at a time, the results concatenated:
-    the plain versions' [B, H, N, N] f32 tensors of a B=8 trunk batch
-    (6.4 GB each) need not sit side by side."""
-    outs = [fn(*(x[i:i + 1] for x in xs)) for i in range(xs[0].shape[0])]
-    return tuple(torch.cat(parts) for parts in zip(*outs))
-
-
 def kernel_phase() -> dict:
-    """Kernels 1, 3 and 4 against their plain versions at KERNEL_SHAPES,
-    then their times at the trunk shape. Launches made here are not the
-    main path's: the paths reset the counts before they run."""
+    """Kernels 1, 3 and 4 against their plain versions at KERNEL_SHAPES
+    (on head-major views at HEAD_MAJOR), then their times at the trunk
+    shape. Launches made here are not the main path's: the paths reset the
+    counts before they run."""
     worst = {"fwd": 0.0, "lse": 0.0, "bwd": 0.0}
     for i, (name, shape) in enumerate(KERNEL_SHAPES.items()):
-        q, k, v = qkv_views(*shape, seed=i)
-        do = qkv_views(*shape, seed=100 + i)[0]
+        q, k, v = qkv_views(*shape, seed=i, head_major=name in HEAD_MAJOR)
+        do = qkv_views(*shape, seed=100 + i, head_major=name in HEAD_MAJOR)[0]
         with torch.no_grad():
             got = attention.flash_attention_packed(q, k, v)
             worst["fwd"] = max(worst["fwd"], check_close(
@@ -1054,33 +1032,21 @@ def kernel_phase() -> dict:
                                  atol=0), f"k4 {name}: lse2 and its +inf "
                                           f"padding equal the plain version")
             del grad, want, want_o, want_lse, stats, want_stats
-    # Kernels 1 and 3 at fwd_probe.SHAPES: the wgmma design, the mma.sync
-    # design and SDPA in turns, by events and by device time.
+    # Kernels 1 and 3 at fwd_probe.SHAPES: the kernel and SDPA in turns, by
+    # events and by device time.
     fwd_rows = fwd_probe.rows()
     for name, by_kind in fwd_rows.items():
         for kind, r in by_kind.items():
             say("kernel", fwd_probe.describe(name, kind, r))
         check(by_kind["fwd"]["max_abs_err"] <= MAX_ERR,
               f"k1/k3 {name}: out within {MAX_ERR} of the plain version")
-    for name in ("trunk", "eval_b8"):
-        r = fwd_rows[name]["fwd"]
-        check(r["device_ms"] < r["previous_device_ms"],
-              f"k1 {name}: the wgmma design's device time below the "
-              f"mma.sync design's")
     # Kernel 4 at bwd_probe.SHAPES: the same, against attention_bwd_ref.
     bwd_rows = bwd_probe.rows()
     for name, r in bwd_rows.items():
         say("kernel", bwd_probe.describe(name, r))
-        for prefix, design in (("", "wgmma"), ("previous_", "mma.sync")):
-            check(r[prefix + "max_rel"] <= MAX_REL
-                  and r[prefix + "mean_rel"] <= MEAN_REL,
-                  f"k4 {name}: the {design} design within {MAX_REL} of max "
-                  f"|ref| and {MEAN_REL} of mean |ref|")
-    for name in ("trunk", "train_b8"):
-        r = bwd_rows[name]
-        check(r["device_ms"] < r["previous_device_ms"],
-              f"k4 {name}: the wgmma design's device time below the "
-              f"mma.sync design's")
+        check(r["max_rel"] <= MAX_REL and r["mean_rel"] <= MEAN_REL,
+              f"k4 {name}: within {MAX_REL} of max |ref| and {MEAN_REL} of "
+              f"mean |ref|")
     b, n, h, d = KERNEL_SHAPES["trunk"]
     q, k, v = qkv_views(b, n, h, d, seed=0)
     do = qkv_views(b, n, h, d, seed=100)[0]
@@ -1112,31 +1078,13 @@ def kernel_phase() -> dict:
     return out
 
 
-def design_times(label: str, fwd, previous, library,
-                 matches=(fwd_probe.NEW_KERNEL, fwd_probe.OLD_KERNEL)
-                 ) -> dict:
-    """A bf16 D = 64 kernel's call beside the mma.sync design's on the same
-    views (fwd_probe.mma_fwd / mma_fwd_lse, bwd_probe.mma_bwd) and the
-    library call: events ms of the earlier design, and the profiler's
-    device ms of all three (of the kernels whose names hold `matches`; the
-    library's: every device op of its call), printed."""
-    out = {"previous_ms": time_ms(previous),
-           "device_ms": device_ms(fwd, matches[0]),
-           "previous_device_ms": device_ms(previous, matches[1]),
-           "library_device_ms": device_ms(library, "")}
-    say("kernel", f"{label}: device {out['device_ms']:.4f} ms, mma.sync "
-                  f"{out['previous_ms']:.4f} / {out['previous_device_ms']:.4f}"
-                  f" ms, SDPA device {out['library_device_ms']:.4f} ms")
-    return out
-
-
-def timing(name: str, fwd, plain, library, bound: tuple[float, str],
-           plain_reps: int = 20) -> dict:
+def timing(name: str, fwd, plain, library, bound: tuple[float, str]
+           ) -> dict:
     """ms of the kernel call, its plain version and the library yardstick,
     with the bound beside them, printed on one line."""
-    out = {"ms": time_ms(fwd), "plain_ms": time_ms(plain, reps=plain_reps),
-           "library_ms": library if isinstance(library, float)
-           else time_ms(library), "bound_ms": bound[0], "bound_by": bound[1]}
+    out = {"ms": time_ms(fwd), "plain_ms": time_ms(plain, reps=20),
+           "library_ms": time_ms(library), "bound_ms": bound[0],
+           "bound_by": bound[1]}
     say("kernel", f"{name}, median of timed calls: kernel {out['ms']:.4f} "
                   f"ms, plain {out['plain_ms']:.4f} ms, SDPA "
                   f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} "
@@ -1144,53 +1092,40 @@ def timing(name: str, fwd, plain, library, bound: tuple[float, str],
     return out
 
 
-def small_device_times(label: str, fwd, library) -> None:
-    """The profiler's device time of every device op of a call of the
-    kernel's wrapper and of the library call, in turns, printed: at the
-    JAX tests' [2, 150, 3, 32] the events time the ctypes wrapper's host
-    time, not the kernel's."""
-    t = in_turns({"kernel": (fwd, ""), "library": (library, "")})
-    say("kernel", f"{label}: device {t['kernel'][1]:.4f} ms (events "
-                  f"{t['kernel'][0]:.4f}), SDPA device {t['library'][1]:.4f} "
-                  f"ms (events {t['library'][0]:.4f})")
-
-
-def headmajor_kernel_phase() -> dict:
-    """The f32 instance of kernel 1 at F32_SHAPES against f32 attention_ref,
-    kernel 2 at K2_SHAPES against attention_ref, kernels 5 and 6 at
-    K56_SHAPES against attention_lse_ref / attention_bwd_ref (per image at
-    B=8); then each one's times at its shapes, beside the plain version's,
-    SDPA's on the same views (a yardstick the port never calls) and the
-    bound; the f32 instance also by the profiler's device time beside
-    SDPA's at F32_SHAPES and the f32 trunk (f32_probe.rows). Returns the
-    JSON entries' numbers: kernel 1 f32 timed at Depth-Pro's 35-crop
-    shape, kernels 2, 5 and 6 at the B=1 trunk."""
-    worst = {"fwd_f32": 0.0, "k2": 0.0, "k5": 0.0, "k6": 0.0}
-    out = {}
+def f32_kernel_phase() -> dict:
+    """Kernel 1's f32 instance at F32_SHAPES (on head-major views at
+    HEAD_MAJOR) against f32 attention_ref, its time at Depth-Pro's 35-crop
+    shape beside the plain version's, SDPA's on the same views (a yardstick
+    the port never calls) and the bound; then by the profiler's device time
+    beside SDPA's at F32_SHAPES and the f32 trunk (f32_probe.rows). Returns
+    the JSON entry's numbers."""
+    worst = 0.0
     with torch.no_grad():
         for i, (name, shape) in enumerate(F32_SHAPES.items()):
-            q, k, v = qkv_views(*shape, seed=200 + i, dtype=torch.float32)
-            worst["fwd_f32"] = max(worst["fwd_f32"], check_f32(
+            q, k, v = qkv_views(*shape, seed=200 + i, dtype=torch.float32,
+                                head_major=name in HEAD_MAJOR)
+            worst = max(worst, check_f32(
                 f"k1 f32 {name} {shape}",
                 attention.flash_attention_packed(q, k, v),
                 attention.attention_ref(q, k, v)))
         b, n, h, d = F32_SHAPES["depth_pro_patches"]
         q, k, v = qkv_views(b, n, h, d, seed=201, dtype=torch.float32)
-        out["fwd_f32"] = timing(
+        out = timing(
             f"k1 f32 depth_pro_patches {(b, n, h, d)}",
             lambda: attention.flash_attention_packed(q, k, v),
             lambda: attention.attention_ref(q, k, v),
             lambda: F.scaled_dot_product_attention(*sdpa_views(q, k, v)),
             bound_ms(b, n, h, d, "fwd", torch.float32))
         # By the profiler's device time, in turns with SDPA's f32 forward,
-        # at every f32 shape and the f32 trunk (kernel 2's f32 route).
+        # at every f32 shape and the f32 trunk.
         f32_rows = f32_probe.rows({**F32_SHAPES,
-                                   "trunk": K2_SHAPES["trunk_f32"][0]})
+                                   "trunk": KERNEL_SHAPES["trunk"]})
         for name, r in f32_rows.items():
             say("kernel", "k1 f32 " + f32_probe.describe(name, r))
             check(r["max_rel"] <= F32_MAX_REL,
                   f"k1 f32 {name}: within {F32_MAX_REL} of max |ref|")
-        out["fwd_f32"].update(
+        out.update(
+            max_abs_err=worst,
             device_ms=f32_rows["depth_pro_patches"]["device_ms"],
             library_device_ms=f32_rows["depth_pro_patches"][
                 "library_device_ms"],
@@ -1198,90 +1133,7 @@ def headmajor_kernel_phase() -> dict:
                 name: {key: r[key] for key in (
                     "shape", "device_ms", "library_device_ms", "bound_ms")}
                 for name, r in f32_rows.items()})
-        for i, (name, (shape, dtype)) in enumerate(K2_SHAPES.items()):
-            q, k, v = qkv_views(*shape, seed=300 + i, dtype=dtype)
-            got = attention.flash_attention(q, k, v)
-            want = attention.attention_ref(q, k, v)
-            label = f"k2 {name} {shape} {str(dtype)[6:]}"
-            err = (check_f32(label, got, want) if dtype == torch.float32
-                   else check_close(label, got, want, absolute=True))
-            worst["k2"] = max(worst["k2"], err)
-            timed = timing(
-                label, lambda: attention.flash_attention(q, k, v),
-                lambda: attention.attention_ref(q, k, v),
-                lambda: F.scaled_dot_product_attention(*sdpa_views(q, k, v)),
-                bound_ms(*shape, "fwd", dtype), plain_reps=5)
-            if name == "trunk":
-                timed.update(design_times(
-                    label, lambda: attention.flash_attention(q, k, v),
-                    lambda: fwd_probe.mma_fwd(q, k, v),
-                    lambda: F.scaled_dot_product_attention(
-                        *sdpa_views(q, k, v))))
-                out["k2"] = timed
-            elif name.startswith("small"):
-                small_device_times(
-                    label, lambda: attention.flash_attention(q, k, v),
-                    lambda: F.scaled_dot_product_attention(
-                        *sdpa_views(q, k, v)))
-            del got, want
-        for i, (name, shape) in enumerate(K56_SHAPES.items()):
-            q, k, v = qkv_views(*shape, seed=400 + i)
-            do = qkv_views(*shape, seed=500 + i)[0]
-            o, lse = attention.flash_attention_fwd_lse(q, k, v)
-            want_o, want_lse = per_image(attention.attention_lse_ref, q, k, v)
-            worst["k5"] = max(worst["k5"],
-                              check_close(f"k5 {name} {shape} out", o, want_o),
-                              check_close(f"k5 {name} lse", lse, want_lse))
-            grads = attention.flash_attention_bwd(q, k, v, o, lse, do)
-            torch.cuda.synchronize()
-            want = per_image(attention.attention_bwd_ref, q, k, v, o, lse, do)
-            for g, w, gname in zip(grads, want, ("dq", "dk", "dv")):
-                worst["k6"] = max(worst["k6"], check_close(
-                    f"k6 {name} {gname}", g, w))
-            del grads, want, want_o, want_lse
-        for name, shape in (("trunk", KERNEL_SHAPES["trunk"]),
-                            ("small", K56_SHAPES["small"])):
-            q, k, v = qkv_views(*shape, seed=600)
-            do = qkv_views(*shape, seed=601)[0]
-            o, lse = attention.flash_attention_fwd_lse(q, k, v)
-            k5 = timing(
-                f"k5 {name} {shape}",
-                lambda: attention.flash_attention_fwd_lse(q, k, v),
-                lambda: attention.attention_lse_ref(q, k, v),
-                lambda: F.scaled_dot_product_attention(*sdpa_views(q, k, v)),
-                bound_ms(*shape, "lse"), plain_reps=5)
-            k6 = timing(
-                f"k6 {name} {shape}",
-                lambda: attention.flash_attention_bwd(q, k, v, o, lse, do),
-                lambda: attention.attention_bwd_ref(q, k, v, o, lse, do),
-                sdpa_bwd_ms(q, k, v, do), bound_ms(*shape, "bwd"),
-                plain_reps=5)
-            if name == "small":
-                small_device_times(
-                    f"k5 {name} {shape}",
-                    lambda: attention.flash_attention_fwd_lse(q, k, v),
-                    lambda: F.scaled_dot_product_attention(
-                        *sdpa_views(q, k, v)))
-            if name == "trunk":
-                k5.update(design_times(
-                    f"k5 {name}",
-                    lambda: attention.flash_attention_fwd_lse(q, k, v),
-                    lambda: fwd_probe.mma_fwd_lse(q, k, v),
-                    lambda: F.scaled_dot_product_attention(
-                        *sdpa_views(q, k, v))))
-                # Every device op of each call: both designs' stats pass
-                # and SDPA's own.
-                k6.update(design_times(
-                    f"k6 {name}",
-                    lambda: attention.flash_attention_bwd(q, k, v, o, lse,
-                                                          do),
-                    lambda: bwd_probe.mma_bwd(q, k, v, o, lse, do,
-                                              packed=False),
-                    bwd_probe.sdpa_bwd(q, k, v, do), matches=("", "")))
-                out["k5"], out["k6"] = k5, k6
-    for kind, err in worst.items():
-        out[kind]["max_abs_err"] = err
-    return out
+    return {"fwd_f32": out}
 
 
 def kernel_sources(csrc: Path, source: str) -> dict:
@@ -2303,8 +2155,7 @@ def compare_geo(models, request) -> None:
 
 ATTENTION_WRAPPERS = (
     attention.flash_attention_packed, attention.flash_attention_packed_lse,
-    attention.flash_attention_packed_bwd, attention.flash_attention,
-    attention.flash_attention_fwd_lse, attention.flash_attention_bwd)
+    attention.flash_attention_packed_bwd)
 
 
 def attention_counts() -> dict:
@@ -2421,21 +2272,6 @@ def compare_geo_f32(models, request) -> None:
           f"f32 inverse depth within {GEO_F32_REL} of attention_ref's")
 
 
-@contextlib.contextmanager
-def switched(**env):
-    """Set environment switches for the duration of the block."""
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        yield
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
 def trunk_loss_and_grads(model, batch, draws):
     """compute_losses on `batch` with fixed draws: the total loss and the
     trunk parameters' gradients."""
@@ -2446,112 +2282,6 @@ def trunk_loss_and_grads(model, batch, draws):
     trunk = dict(model.backbone.vit.named_parameters())
     grads = torch.autograd.grad(total, list(trunk.values()))
     return total.detach(), dict(zip(trunk, grads))
-
-
-def headmajor_phase() -> dict:
-    """OVMONO3D_PACKED_ATTN=0, the JAX package's switch to the head-major
-    family: bench.py's LIFT request (kernel 2 in every block) and the
-    flagship's B=8 train step with the trunk unfrozen (kernels 5 and 6),
-    each held to the packed route's on the same weights. Returns the
-    launches of kernels 2, 5 and 6 in the timed runs."""
-    off = {"OVMONO3D_PACKED_ATTN": "0"}
-    model = lift_model(flagship_config(S))
-    n_blocks = len(model.backbone.vit.blocks())
-    inputs = bench_inputs()
-    g = torch.Generator(device="cuda").manual_seed(0)
-    images = torch.rand(1 + HEADMAJOR_TIMED, 1, S, S, 3, device="cuda",
-                        generator=g) * 255.0
-    with torch.inference_mode():
-        packed = model(images[1], **inputs)
-        with switched(**off):
-            serve(model, images[:1], inputs)
-            reset_attention_counts()
-            dets, lats = serve(model, images[1:], inputs)
-            counts = attention_counts()
-    k2 = counts["flash_attention"]
-    check(k2 == n_blocks * HEADMAJOR_TIMED and sum(counts.values()) == k2,
-          f"kernel-2 launches alone, {n_blocks} a request: {counts}")
-    for det in dets:
-        check_detections(det)
-    same = all(torch.equal(getattr(dets[0], f), getattr(packed, f))
-               for f in ("center_cam", "dimensions", "corners3d"))
-    devs = {f: ((getattr(dets[0], f) - getattr(packed, f)).abs().max().item(),
-                getattr(packed, f).abs().max().item())
-            for f in ("center_cam", "dimensions", "corners3d")}
-    say("headmajor", f"LIFT with OVMONO3D_PACKED_ATTN=0: {rate(lats)}; "
-                     f"{k2 // HEADMAJOR_TIMED} kernel-2 launches a request; "
-                     f"against the packed route, same image: bit-identical "
-                     f"{same}; max abs deviation " + ", ".join(
-                         f"{f} {d:.3e} (scale {sc:.3e})"
-                         for f, (d, sc) in devs.items()))
-    for f, (dev, scale) in devs.items():
-        check(dev <= 2e-2 * scale + 1e-4,
-              f"{f}: head-major vs packed within 2e-2 of scale {scale}")
-    del model, images, dets, packed
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    cfg, model = train_model()
-    batch = synthetic_batch(TRAIN_B, TRAIN_GT, seed=1)
-    draws = sampling_draws(model, batch, seed=3)
-    runs = {}
-    for route, env in (("packed", {}), ("headmajor", off)):
-        with switched(**env):
-            reset_attention_counts()
-            runs[route] = trunk_loss_and_grads(model, batch, draws)
-            torch.cuda.synchronize()
-            counts = attention_counts()
-        want = ("flash_attention_packed_lse", "flash_attention_packed_bwd")
-        if route == "headmajor":
-            want = ("flash_attention_fwd_lse", "flash_attention_bwd")
-        check(all(counts[w] == n_blocks for w in want)
-              and sum(counts.values()) == 2 * n_blocks,
-              f"{route} loss and gradient: {counts}")
-    (loss_p, grads_p), (loss_h, grads_h) = runs["packed"], runs["headmajor"]
-    loss_rel = abs(loss_h.item() - loss_p.item()) / abs(loss_p.item())
-    rels = {n: ((grads_h[n] - grads_p[n]).norm() / grads_p[n].norm()).item()
-            for n in grads_p}
-    n_equal = sum(torch.equal(grads_h[n], grads_p[n]) for n in grads_p)
-    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
-    say("headmajor", f"B={TRAIN_B} loss and trunk gradients, head-major vs "
-                     f"packed, same weights and draws: total loss "
-                     f"{loss_h.item():.6f} vs {loss_p.item():.6f} "
-                     f"(bit-identical {torch.equal(loss_h, loss_p)}, rel "
-                     f"{loss_rel:.3e}, limit {TRAIN_LOSS_REL}); "
-                     f"{n_equal} of {len(rels)} trunk gradients "
-                     f"bit-identical; ||g_h - g_p|| / ||g_p|| median "
-                     f"{statistics.median(rels.values()):.3e}, worst "
-                     + ", ".join(f"{n} {v:.3e}" for n, v in worst)
-                     + f" (limit {TRAIN_GRAD_REL})")
-    check(loss_rel <= TRAIN_LOSS_REL, "loss within the limit")
-    check(worst[0][1] <= TRAIN_GRAD_REL, "trunk gradients within the limit")
-    del runs, grads_p, grads_h
-
-    opt = Optimizer(SolverConfig(), model)
-    state = create_train_state(model, opt, seed=0)
-    step = make_train_step(model, opt, cfg.stabilize)
-    with switched(**off):
-        reset_attention_counts()
-        lats = []
-        for _ in range(HEADMAJOR_STEPS):
-            t1 = time.perf_counter()
-            state, metrics = step(state, batch)
-            torch.cuda.synchronize()
-            lats.append(time.perf_counter() - t1)
-            check_losses(metrics, "head-major step")
-        counts = attention_counts()
-    k5, k6 = counts["flash_attention_fwd_lse"], counts["flash_attention_bwd"]
-    check(k5 == k6 == n_blocks * HEADMAJOR_STEPS
-          and sum(counts.values()) == k5 + k6,
-          f"kernel 5/6 launches alone, {n_blocks} each a step: {counts}")
-    check(int(state.skipped) == 0, f"{int(state.skipped)} steps skipped")
-    say("headmajor", f"{HEADMAJOR_STEPS} train steps with "
-                     f"OVMONO3D_PACKED_ATTN=0 (B={TRAIN_B}): "
-                     + ", ".join(f"{t * 1e3:.3f}" for t in lats)
-                     + f" ms; per step {k5 // HEADMAJOR_STEPS} kernel-5 and "
-                       f"{k6 // HEADMAJOR_STEPS} kernel-6 launches; total "
-                       f"loss {float(metrics['total_loss']):.4f}")
-    return {"k2": k2, "k5": k5, "k6": k6}
 
 
 def category_tokenizer() -> tuple[list[str], BertTokenizer]:
@@ -4319,8 +4049,9 @@ def traincli_phase() -> dict:
     torch.backends.cudnn.deterministic = True
     try:
         run_cli([*plain, f"output_dir={out / 'alone'}"], "4 steps, no group")
-        with switched(MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0"):
+        with mock.patch.dict(os.environ, MASTER_ADDR="localhost",
+                             MASTER_PORT=str(port), RANK="0",
+                             WORLD_SIZE="1", LOCAL_RANK="0"):
             res, _ = run_cli([*plain, f"output_dir={out / 'group'}"],
                              "4 steps in a one-process NCCL group")
             check(res["world_size"] == 1
@@ -4828,7 +4559,7 @@ def trunk_kernel_rows(name: str, model, run) -> dict:
                 kind = "k7"
             else:
                 kernel, match = (lambda: attention.flash_attention_packed(
-                    q, k, v)), fwd_probe.NEW_KERNEL
+                    q, k, v)), fwd_probe.KERNEL
                 plain = lambda: attention.attention_ref(q, k, v)  # noqa: E731
                 library = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     *sdpa_views(q, k, v))
@@ -5642,7 +5373,7 @@ def main() -> None:
     k["window"] = window_kernel_phase(args.previous)
     k["int8"] = int8_kernel_phase(args.previous)
     k["quant"] = k["int8"].pop("quantize")
-    k.update(headmajor_kernel_phase())
+    k.update(f32_kernel_phase())
     k.update(ln_kernel_phase())
     ln = ln_paths()
     sweep = sweep_kernel_phase()
@@ -5653,9 +5384,6 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = train_phase()
-    gc.collect()
-    torch.cuda.empty_cache()
-    hm_launches = headmajor_phase()
     gc.collect()
     torch.cuda.empty_cache()
     geo_launches = geo_phase()
@@ -5716,7 +5444,6 @@ def main() -> None:
                 "int8": q_launches["int8"], "quant": q_launches["quant"],
                 "fwd_f32": f32_launches["fwd_f32"] + st_launches["fwd_f32"]
                 + rel_launches["fwd_f32"],
-                **hm_launches,
                 "k9": ln["k9_launches"]}
     src = "ovmono3d_tpu_torch/csrc/"
     meta = {
@@ -5745,13 +5472,6 @@ def main() -> None:
                   src + "int8_gemm.cu", "ovmono3d_tpu/ops/quant.py:55"),
         "fwd_f32": ("flash_attn_fwd_f32", src + "flash_attn_fwd.cu",
                     "ovmono3d_tpu/ops/attention.py:238"),
-        "k2": ("flash_attn_fwd_bf16 head-major (flash_attention)",
-               src + "flash_attn_fwd.cu", "ovmono3d_tpu/ops/attention.py:95/:60"),
-        "k5": ("flash_attn_fwd_bf16+lse head-major (flash_attention_fwd_lse)",
-               src + "flash_attn_fwd.cu", "ovmono3d_tpu/ops/attention.py:895"),
-        "k6": ("flash_attn_bwd_bf16 head-major (flash_attention_bwd)",
-               src + "flash_attn_bwd.cu",
-               "ovmono3d_tpu/ops/attention.py:992/:925/:957"),
     }
     meta["sgd"] = ("sgd_kernel (multi_tensor_sgd, Optimizer.step on the "
                    "card)", src + "multi_tensor_sgd.cu",
@@ -5766,7 +5486,6 @@ def main() -> None:
     kernels = []
     for kind, (name, source, replaces) in meta.items():
         design = (DESIGN_KEYS + SHARD_KEYS if kind in ("fwd", "lse", "bwd")
-                  else DESIGN_KEYS if kind in ("k2", "k5", "k6")
                   else F32_KEYS if kind == "fwd_f32"
                   else PREVIOUS_KEYS
                   if kind in ("relpos", "window", "int8", "relpos_bwd")

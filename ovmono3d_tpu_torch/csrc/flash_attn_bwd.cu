@@ -1,11 +1,11 @@
 // Flash-attention backward for Hopper (sm_90a): bf16 in and out, f32 math.
 //
 // Replaces two TPU kernels of ovmono3d_tpu/ops/attention.py, at head dims 32
-// and 64: _flash_bwd_packed_kernel, behind flash_attention_packed_bwd
-// (packed [B, N, H*D]), and the head-major _flash_bwd_fused_kernel or its
-// split pair _flash_bwd_dq_kernel / _flash_bwd_dkv_kernel, behind
-// flash_attention_bwd ([B*H, N, D]). The TPU's tiling needs both layouts;
-// these kernels take any batch/token/head strides, so one set serves both.
+// and 64, behind flash_attention_packed_bwd: _flash_bwd_packed_kernel
+// (packed [B, N, H*D]) and the head-major _flash_bwd_fused_kernel or its
+// split pair _flash_bwd_dq_kernel / _flash_bwd_dkv_kernel ([B*H, N, D]).
+// The TPU's tiling needs both layouts; these kernels take any
+// batch/token/head strides, so one set serves both.
 // From q, k, v (strided views, e.g. of the qkv projection's output
 // [B, N, 3, H, D]), the forward's output o and its gradient do, and the
 // forward's row log-sum-exp lse ([B, H, N] f32, natural log, written by
@@ -15,10 +15,9 @@
 //     dv = p^T do,   dp = do v^T,   ds = p * (dp - delta),
 //     dk = ds^T q / sqrt(D),   dq = ds k / sqrt(D),
 // with delta = rowsum(do * o). dq, dk and dv are written with their own
-// strides: the packed route lands them straight in the three slots of one
+// strides: the wrapper lands them straight in the three slots of one
 // [B, N, 3, H, D] gradient of the qkv output, which the qkv projection's
-// backward reads with no stack or copy; the head-major route writes three
-// [B, N, H, D] tensors.
+// backward reads with no stack or copy.
 //
 // What bounds it on this card: tensor-core work. The backward needs
 // 10*N^2*D flops per (batch, head) (p rebuilt once, four products); the
@@ -71,11 +70,9 @@
 // dv; in the dq kernel keys past N are masked to p = 0 on the last tile, so
 // a zero k row adds nothing to dq; rows past N are never stored.
 //
-// D = 32, and the D = 64 yardstick (flash_bwd_dkdv_kernel /
-// flash_bwd_dq_kernel, the earlier mma.sync design;
-// flash_attn_bwd_bf16_mma launches its D = 64 instances, after the same
-// stats pass, for timing beside the new design and nothing else): one block
-// of 4 warps per (64-row tile, head, batch); each warp owns 16 rows, keeps
+// D = 32 (flash_bwd_dkdv_kernel / flash_bwd_dq_kernel, the earlier
+// mma.sync design, which ran D = 64 too until the design above replaced
+// it): one block of 4 warps per (64-row tile, head, batch); each warp owns 16 rows, keeps
 // its fixed rows as A fragments and its accumulators in registers, and
 // streams 64-row tiles (double-buffered cp.async) through shared memory.
 // All products are mma.sync m16n8k16; the products that contract over rows
@@ -1004,8 +1001,7 @@ int launch_mma_path(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// The f32 scratch flash_attn_bwd_bf16, flash_attn_bwd_bf16_mma and
-// flash_attn_bwd_stats_bf16 take: delta then lse2, each [B, H, n_pad],
+// The f32 scratch flash_attn_bwd_bf16 and flash_attn_bwd_stats_bf16 take: delta then lse2, each [B, H, n_pad],
 // n_pad = N rounded up to 128.
 extern "C" long long flash_attn_bwd_scratch_floats(int batch, int n,
                                                    int heads) {
@@ -1065,26 +1061,4 @@ extern "C" int flash_attn_bwd_stats_bf16(const void* o, const void* dout,
                                            heads, os, dos, s)
                         : launch_stats<32>(o, dout, lse, stats, batch, n,
                                            heads, os, dos, s);
-}
-
-// The earlier mma.sync design's D = 64 instances, after the same stats
-// pass: flash_attn_bwd_bf16's arguments, head_dim 64 only. A yardstick that
-// the kernel probe times beside the design above; no route of the port
-// launches it.
-extern "C" int flash_attn_bwd_bf16_mma(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* scratch, void* dq, void* dk,
-    void* dv, int batch, int n, int heads, int head_dim,
-    const long long* strides, float scale, void* stream) {
-  if (!valid_shape(batch, n, heads) || strides == nullptr || head_dim != 64) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Strides st[8];
-  for (int i = 0; i < 8; ++i) {
-    st[i] = strides_at(strides, i);
-  }
-  return launch_mma_path<64>(q, k, v, o, dout, lse,
-                             static_cast<float*>(scratch), dq, dk, dv, batch,
-                             n, heads, st, scale,
-                             static_cast<cudaStream_t>(stream));
 }

@@ -5,16 +5,15 @@
 // Replaces five TPU kernels of ovmono3d_tpu/ops/attention.py. The TPU needs a
 // packed and a head-major variant of each because its (8, 128) tiling fixes
 // the layout a kernel can read; these kernels take any batch/token/head
-// strides, so one kernel serves both layouts:
-// - _flash_kernel_packed, behind flash_attention_packed (inference, packed
-//   [B, N, H*D]): the bf16 launch without an lse pointer, or the f32 launch;
-// - _flash_kernel_single / _flash_kernel, behind flash_attention (inference,
-//   head-major [B*H, N, D]): the same launches on the caller's [B, N, H, D]
-//   views, with no transposed copy;
+// strides, so one kernel serves both layouts, packed [B, N, H*D] and
+// head-major [B*H, N, D] alike, through the same wrappers:
+// - _flash_kernel_packed and _flash_kernel_single / _flash_kernel, behind
+//   flash_attention_packed (inference): the bf16 launch without an lse
+//   pointer, or the f32 launch;
 // - _flash_kernel_packed_lse and _flash_kernel_single_lse, behind
-//   flash_attention_packed_lse and flash_attention_fwd_lse (training): the
-//   bf16 launch with an lse pointer, a second instance of the kernel
-//   template, so the inference instance carries no lse code at all.
+//   flash_attention_packed_lse (training): the bf16 launch with an lse
+//   pointer, a second instance of the kernel template, so the inference
+//   instance carries no lse code at all.
 //
 // It computes
 //     out = softmax(q k^T / sqrt(D)) v        for every (batch, head),
@@ -63,10 +62,9 @@
 // the other's products on the SM's tensor cores. Rows are written straight
 // from the O registers, scaled by 1/l.
 //
-// bf16 design at D = 32, and the D = 64 yardstick (flash_fwd_kernel, the
-// earlier mma.sync design; flash_attn_fwd_bf16_mma launches its D = 64
-// instances for timing beside the new design and nothing else): one block
-// of 4 warps per (64-row q tile, head, batch); each warp owns 16 q rows and
+// bf16 design at D = 32 (flash_fwd_kernel, the earlier mma.sync design,
+// which ran D = 64 too until the design above replaced it): one block of 4
+// warps per (64-row q tile, head, batch); each warp owns 16 q rows and
 // keeps its 16 x 64 logit tile in registers, turns it into bf16
 // probabilities in place and feeds them back into the PV product without a
 // trip through shared memory. K and V stream through shared memory in
@@ -1080,23 +1078,6 @@ extern "C" int flash_attn_fwd_bf16(
                            scale, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The earlier mma.sync design's D = 64 instances, with flash_attn_fwd_bf16's
-// arguments and contract (head_dim must be 64): a yardstick that the kernel
-// probe times beside the design above. No route of the port launches it.
-extern "C" int flash_attn_fwd_bf16_mma(
-    const void* q, const void* k, const void* v, void* out, void* lse,
-    int batch, int n, int heads, int head_dim, long long q_sb, long long q_sn,
-    long long q_sh, long long k_sb, long long k_sn, long long k_sh,
-    long long v_sb, long long v_sn, long long v_sh, float scale,
-    void* stream) {
-  if (!valid_shape(batch, n, heads) || head_dim != 64) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh};
-  return launch_bf16<64>(q, k, v, out, lse, batch, n, heads, qs, ks, vs, scale,
-                         static_cast<cudaStream_t>(stream));
 }
 
 // The f32 instance: q, k, v [B, N, H, D] f32, D in {32, 64}, strides as

@@ -2,10 +2,10 @@
 // cp.async copies, mma.sync m16n8k16 bf16 products with f32 accumulators,
 // ldmatrix and fragment packing. Header-only, included by
 // flash_attn_bwd.cu, window_attn_fwd.cu and attn_sweep_fwd.cu, and by
-// flash_attn_fwd.cu for its D = 32 bf16 instances, the D = 64 mma.sync
-// yardstick and the f32 instance (its bf16 D = 64 instances, and
-// relpos_flash_fwd.cu, are built from sm90_common.cuh; they take
-// pack_bf16, kLog2e, kLn2, Strides and the cp.async groups from here). The
+// flash_attn_fwd.cu for its D = 32 bf16 instances and the f32 instance
+// (its bf16 D = 64 instances, and relpos_flash_fwd.cu, are built from
+// sm90_common.cuh; they take pack_bf16, kLog2e, kLn2, Strides and the
+// cp.async groups from here). The
 // tile helpers are templates over the head dim D (a multiple of 16), which
 // every caller names: 32 and 64 for the ViT attention, 32 for the window
 // kernel.

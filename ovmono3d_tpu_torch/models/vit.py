@@ -21,10 +21,9 @@ f32. Options ported:
 
 Attention goes through `dot_product_attention` and the rel-pos blocks
 through `rel_pos_attention` (kernel 7); on the CPU both run their plain
-versions. On the card `dot_product_attention` routes as the JAX
-package does: kernel 1 (its bf16 instance, or its f32 one for an f32 trunk
-such as the JAX GEO CLI's default Depth-Pro), or the head-major kernel 2
-for shapes the packed gate refuses and under OVMONO3D_PACKED_ATTN=0.
+versions. On the card `dot_product_attention` runs kernel 1 at every
+shape (its bf16 instance, or its f32 one for an f32 trunk such as the JAX
+GEO CLI's default Depth-Pro).
 
 Serving options of every trunk: `quant="int8"` runs each block's qkv, proj,
 fc1 and fc2 as W8A8 products (ops/quant.py `QDense`: CUDA kernel 10 on the
@@ -33,10 +32,8 @@ card; SERVING-only, it raises when autograd would need it), and
 the released models' ops.
 
 Training: when the trunk needs gradients, attention runs through
-ops/attention.py's `train_attention` operator: kernels 3 and 4 (packed), or
-the head-major 5 and 6 for shapes the packed gate refuses and under
-OVMONO3D_PACKED_ATTN=0 or OVMONO3D_PACKED_BWD=0; bf16 only (an f32 trunk
-with gradients raises on the card). Rel-pos blocks run the
+ops/attention.py's `train_attention` operator: kernels 3 and 4; bf16 only
+(an f32 trunk with gradients raises on the card). Rel-pos blocks run the
 `rel_pos_train_attention` operator: kernel 7's lse instance and the rel-pos
 backward (csrc/relpos_flash_bwd.cu), the bias factors' gradients taken back
 to q and the tables by autograd (an f32 SAM trunk trains through the plain
@@ -223,8 +220,7 @@ class Attention(nn.Module):
 
     `attn_fn` is the attention on the qkv output viewed as [B, N, 3, H, D],
     returning [B, N, H, D]: `dot_product_attention(qkv)` by default (on the
-    card kernel 1 in bf16 or f32, or the head-major kernel 2, and kernels
-    3 + 4 or 5 + 6 under autograd, as ops/attention.py routes them), and
+    card kernel 1 in bf16 or f32, and kernels 3 + 4 under autograd), and
     `rel_pos_attention(qkv, Rh, Rw, grid_hw)` with rel-pos. `quant` is the
     qkv and proj products' int8 serving option (ops/quant.py).
     """

@@ -7,56 +7,49 @@ Counterpart of ovmono3d_tpu/ops/attention.py for the ViT trunks:
   CPU tensors run it when no gradient is needed.
 - `attention_lse_ref` / `attention_bwd_ref`: the plain forward with its row
   log-sum-exp and the explicit backward formula, in f32: the plain versions
-  of kernels 3 and 5 and of kernels 4 and 6. `attention_bwd_delta_ref` /
+  of kernels 3 and 4. `attention_bwd_delta_ref` /
   `attention_bwd_stats_ref`: delta = rowsum(do * o) and the padded
-  (delta, lse * log2 e) scratch that kernels 4 and 6 write first, the plain
+  (delta, lse * log2 e) scratch that kernel 4 writes first, the plain
   version of their stats pass (`_bwd_stats` launches it alone, for the
   tests). No model path calls them.
 - Kernel wrappers, each launching a hand-written CUDA kernel (sm_90a) or
   raising, and counting its launches in `<wrapper>.launches` (the f32
-  instance's in `<wrapper>.launches_f32`). The JAX package has a packed
-  ([B, N, H*D]) and a head-major ([B*H, N, D]) family because the TPU's
-  tiling fixes the layout a kernel reads. The CUDA kernels take any
-  batch/token/head strides, so both families launch the same sources on the
-  caller's [B, N, H, D] views, with no transposed copy (the head-major
-  route's `to_bh` copies would only move bytes here), at head dims 32 and
-  64:
+  instance's in `<wrapper>.launches_f32`), at head dims 32 and 64. They
+  take q/k/v as [B, N, H, D] views with any batch/token/head strides, so
+  one set of wrappers serves both layouts of the JAX package, whose packed
+  ([B, N, H*D]) and head-major ([B*H, N, D]) families exist because the
+  TPU's tiling fixes the layout a kernel reads: its head-major kernels 2, 5
+  and 6 are these wrappers on head-major strides, with no transposed copy.
   - `flash_attention_packed` (kernel 1, `csrc/flash_attn_fwd.cu`, replacing
-    `_flash_kernel_packed`) and `flash_attention` (kernel 2, the same
-    source, replacing `_flash_kernel_single` / `_flash_kernel`): the
-    inference forward, bf16 or f32 (the f32 instance computes exact f32
+    `_flash_kernel_packed`, and `_flash_kernel_single` / `_flash_kernel`):
+    the inference forward, bf16 or f32 (the f32 instance computes exact f32
     products on the FP32 pipes, not TF32);
-  - `flash_attention_packed_lse` (kernel 3) and `flash_attention_fwd_lse`
-    (kernel 5, replacing `_flash_kernel_single_lse`), the same source's lse
-    instance: the training forward, which also writes the row
-    log-sum-exp; bf16;
-  - `flash_attention_packed_bwd` (kernel 4, `csrc/flash_attn_bwd.cu`): dq,
-    dk and dv into one packed gradient; `flash_attention_bwd` (kernel 6, the
-    same source, replacing `_flash_bwd_fused_kernel` and the split
-    `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel`): three separate
-    gradients; bf16. Each launch computes delta in the same source (a stats
-    pass before the dk/dv and dq kernels); bf16 D = 64 runs the wgmma + TMA
-    design.
-  The head-major wrappers (2, 5, 6) run their plain versions on CPU tensors;
-  the packed ones refuse them.
+  - `flash_attention_packed_lse` (kernel 3, the same source's lse instance,
+    replacing `_flash_kernel_packed_lse` and `_flash_kernel_single_lse`):
+    the training forward, which also writes the row log-sum-exp; bf16;
+  - `flash_attention_packed_bwd` (kernel 4, `csrc/flash_attn_bwd.cu`,
+    replacing `_flash_bwd_packed_kernel`, `_flash_bwd_fused_kernel` and
+    the split `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel`): dq, dk
+    and dv into one packed gradient; bf16. Each launch computes delta in
+    the same source (a stats pass before the dk/dv and dq kernels); bf16
+    D = 64 runs the wgmma + TMA design.
+  They refuse CPU tensors.
 - `train_attention` (`torch.ops.ovmono3d.train_attention`): the training
   forward over the packed qkv tensor as one operator with its autograd
-  formula, the JAX package's `_attn_fwd` / `_attn_bwd` with its packed and
-  head-major residuals: kernels 3 + 4 or 5 + 6 on CUDA,
-  `attention_ref` with its lse + `attention_bwd_ref` on the CPU. Being one
-  operator, a selective checkpoint policy can keep its out and lse (the JAX
-  package's `checkpoint_name` tags, models/vit.py's "dots_attn").
-- `dot_product_attention`: the dispatcher, routing as the JAX package's
-  `_attention_autoselect` does through copies of its gates `_use_packed`
-  and `_packed_bwd_wins` and their switches OVMONO3D_PACKED_ATTN and
-  OVMONO3D_PACKED_BWD. With a gradient: `train_attention` (on CUDA the
-  packed pair 3 + 4 where `_use_packed` and `_packed_bwd_wins` hold, else
-  the head-major 5 + 6). Without one: CPU tensors go to `attention_ref`; on
-  CUDA kernel 1 where `_use_packed` holds, else kernel 2. Two deliberate
-  differences: past N = 6144 the JAX package differentiates
-  `attention_xla`, and kernels 5 + 6 give the same gradient without its
-  [B, H, N, N] tensors; and the JAX kernels'
-  clamped softmax (OVMONO3D_ATTN_CLAMP) has no counterpart, since these
+  formula, the JAX package's `_attn_fwd` / `_attn_bwd`: kernels 3 + 4 on
+  CUDA, `attention_ref` with its lse + `attention_bwd_ref` on the CPU.
+  Being one operator, a selective checkpoint policy can keep its out and
+  lse (the JAX package's `checkpoint_name` tags, models/vit.py's
+  "dots_attn").
+- `dot_product_attention`: the dispatcher, routing on the device and on
+  whether a gradient is needed, and on nothing else. With a gradient:
+  `train_attention`. Without one: CPU tensors go to `attention_ref`, CUDA
+  tensors to kernel 1. Every N and head count the kernels take runs them;
+  the JAX package's gate and environment switches, which choose between
+  its two TPU families, have no counterpart here. Past N = 6144 the JAX
+  package differentiates `attention_xla`, and kernels 3 + 4 give the same
+  gradient without its [B, H, N, N] tensors; the JAX kernels' clamped
+  softmax (OVMONO3D_ATTN_CLAMP) has no counterpart either, since these
   kernels are exact for every logit. f32 with a gradient, and head dims
   other than 32 and 64, raise. Nothing falls back.
 
@@ -118,7 +111,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import os
 
 import torch
 
@@ -134,7 +126,7 @@ _WINDOW_HEAD_DIM = 32
 _WINDOW_MAX_TOKENS = 1024   # csrc/window_attn_fwd.cu kMaxTokens
 _WINDOW_SM90_TOKENS = 144   # csrc/window_attn_fwd.cu w90::kN
 _F32_NO_GRAD = ("f32 attention with a gradient on CUDA: the training "
-                "kernels (3-6) take bfloat16 only; their f32 instance is "
+                "kernels (3 and 4) take bfloat16 only; their f32 instance is "
                 "ROADMAP queue 2 item 7")
 
 
@@ -196,7 +188,7 @@ def attention_bwd_delta_ref(o: torch.Tensor,
 def attention_bwd_stats_ref(o: torch.Tensor, do: torch.Tensor,
                             lse: torch.Tensor,
                             n_pad: int | None = None) -> torch.Tensor:
-    """The plain version of kernels 4 and 6's stats pass: f32 [2, B, H,
+    """The plain version of kernel 4's stats pass: f32 [2, B, H,
     n_pad] holding delta = rowsum(do * o) and lse2 = lse * log2(e), and,
     past N, delta = 0 and lse2 = +inf (a padded query row gets p = 0).
     n_pad defaults to N; the kernel's is the last dim of `_bwd_stats`."""
@@ -212,31 +204,6 @@ def attention_bwd_stats_ref(o: torch.Tensor, do: torch.Tensor,
     return out
 
 
-def _use_packed(n: int, h: int, d: int) -> bool:
-    """The JAX package's packed-path gate (ops/attention.py `_use_packed`),
-    copied: a group of heads whose width tiles to 128 lanes, and N <= 6144
-    (its single-KV-block VMEM bound); OVMONO3D_PACKED_ATTN=0 turns it off.
-    The CUDA kernels have neither limit: the gate keeps the two packages'
-    routes equal, so a shape or a switch picks the same family in both."""
-    if os.environ.get("OVMONO3D_PACKED_ATTN", "1") == "0":
-        return False
-    g = 1
-    while (g * d) % 128 != 0 and g <= h:
-        g += 1
-    return h % g == 0 and n <= 6144
-
-
-def _packed_bwd_wins() -> bool:
-    """The JAX package's `_packed_bwd_wins`, copied: whether training
-    attention takes the packed pair (kernels 3 + 4) rather than the
-    head-major one (5 + 6). Packed unless OVMONO3D_PACKED_BWD says "0"
-    ("1" forces it)."""
-    env = os.environ.get("OVMONO3D_PACKED_BWD", "auto")
-    if env in ("0", "1"):
-        return env == "1"
-    return True
-
-
 @functools.cache
 def _kernels() -> dict:
     """The entries of the built libraries, by name."""
@@ -247,10 +214,6 @@ def _kernels() -> dict:
     fns = {
         "fwd": (libs["flash_attn_fwd.cu"].flash_attn_fwd_bf16,
                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + strided),
-        # The earlier mma.sync design of the bf16 D = 64 forward: a yardstick
-        # for probes.flash_fwd only; no route of this module launches it.
-        "fwd_mma": (libs["flash_attn_fwd.cu"].flash_attn_fwd_bf16_mma,
-                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + strided),
         "fwd_f32": (libs["flash_attn_fwd.cu"].flash_attn_fwd_f32,
                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + strided),
         "bwd": (libs["flash_attn_bwd.cu"].flash_attn_bwd_bf16,
@@ -259,12 +222,6 @@ def _kernels() -> dict:
         "bwd_stats": (libs["flash_attn_bwd.cu"].flash_attn_bwd_stats_bf16,
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                       + [ctypes.c_void_p] * 2),
-        # The earlier mma.sync design of the bf16 D = 64 backward: a
-        # yardstick for probes.flash_bwd only; no route of this module
-        # launches it.
-        "bwd_mma": (libs["flash_attn_bwd.cu"].flash_attn_bwd_bf16_mma,
-                    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]),
         "relpos": (libs["relpos_flash_fwd.cu"].relpos_flash_fwd_bf16,
                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + strided),
         "relpos_lse": (libs["relpos_flash_fwd.cu"].relpos_flash_fwd_lse_bf16,
@@ -394,41 +351,6 @@ flash_attention_packed.launches = 0
 flash_attention_packed.launches_f32 = 0
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Kernel 2, the head-major inference forward (the JAX package's
-    `flash_attention`): [B, N, H, D] -> same, bf16 or f32, head dim 32 or
-    64, any N.
-
-    On CUDA it launches csrc/flash_attn_fwd.cu on the given views: the JAX
-    wrapper's [B*H, N, D] copies (`to_bh`) serve the TPU's tiling, and the
-    CUDA kernel reads the head-major order through its head stride instead.
-    The result is contiguous. CPU tensors run `attention_ref`. Counts each
-    launch in `flash_attention.launches` (bf16) or
-    `flash_attention.launches_f32` (f32)."""
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v)
-    check_kernel_inputs(q, k, v, forward_only=True, dtypes=_FWD_DTYPES,
-                        wrapper="flash_attention")
-    out = _launch_fwd(q, k, v, None)
-    if q.dtype == torch.float32:
-        flash_attention.launches_f32 += 1
-    else:
-        flash_attention.launches += 1
-    return out
-
-
-flash_attention.launches = 0
-flash_attention.launches_f32 = 0
-
-
-def _fwd_lse(q, k, v, wrapper: str) -> tuple[torch.Tensor, torch.Tensor]:
-    check_kernel_inputs(q, k, v, wrapper=wrapper)
-    b, n, h, _ = q.shape
-    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    return _launch_fwd(q, k, v, lse), lse
-
-
 def flash_attention_packed_lse(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor
                                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -436,35 +358,15 @@ def flash_attention_packed_lse(q: torch.Tensor, k: torch.Tensor,
     training). Returns out [B, N, H, D] bf16 (contiguous) and lse
     [B, H, N] f32, natural log. Counts each launch in
     `flash_attention_packed_lse.launches`."""
-    out, lse = _fwd_lse(q, k, v, "flash_attention_packed_lse")
+    check_kernel_inputs(q, k, v, wrapper="flash_attention_packed_lse")
+    b, n, h, _ = q.shape
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    out = _launch_fwd(q, k, v, lse)
     flash_attention_packed_lse.launches += 1
     return out, lse
 
 
 flash_attention_packed_lse.launches = 0
-
-
-def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor
-                            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 5, the head-major training forward (the JAX package's
-    `flash_attention_fwd_lse`): out [B, N, H, D] (contiguous, q's dtype)
-    and lse [B, H, N] f32, natural log and unclamped (the module docstring
-    maps it to the JAX lse). Any N (the JAX kernel takes N <= 6144).
-
-    On CUDA it launches csrc/flash_attn_fwd.cu's lse instance on the given
-    views, bf16 only (no copies, as `flash_attention`). CPU tensors run
-    `attention_lse_ref`. Counts each launch in
-    `flash_attention_fwd_lse.launches`."""
-    if q.device.type == "cpu":
-        out, lse = attention_lse_ref(q, k, v)
-        return out.to(q.dtype), lse
-    out, lse = _fwd_lse(q, k, v, "flash_attention_fwd_lse")
-    flash_attention_fwd_lse.launches += 1
-    return out, lse
-
-
-flash_attention_fwd_lse.launches = 0
 
 
 def _check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
@@ -488,36 +390,12 @@ def _bwd_scratch(q: torch.Tensor) -> torch.Tensor:
     return torch.empty(floats, dtype=torch.float32, device=q.device)
 
 
-def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv) -> None:
-    """One launch of csrc/flash_attn_bwd.cu's flash_attn_bwd_bf16 (the
-    stats pass, then the dk/dv and the dq kernels) writing dq, dk and dv
-    through their own strides."""
-    b, n, h, d = q.shape
-    _check_lse(lse, q)
-    check_kernel_inputs(q, k, v, ("o", o), ("do", do))
-    _check_same_device(lse, "lse", q)
-    scratch = _bwd_scratch(q)
-    strides = [s for x in (q, k, v, o, do, dq, dk, dv) for s in x.stride()[:3]]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _kernels()["bwd"](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, n, h, d,
-            (ctypes.c_longlong * len(strides))(*strides),
-            1.0 / math.sqrt(d), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_attn_bwd_bf16 launch failed with CUDA error {rc} "
-            f"(B={b}, N={n}, H={h}, D={d})")
-
-
 def _bwd_stats(o: torch.Tensor, do: torch.Tensor,
                lse: torch.Tensor) -> torch.Tensor:
-    """The stats pass of kernels 4 and 6 alone (csrc/flash_attn_bwd.cu's
+    """The stats pass of kernel 4 alone (csrc/flash_attn_bwd.cu's
     flash_attn_bwd_stats_bf16): [2, B, H, n_pad] f32 as
     `attention_bwd_stats_ref` lays it out, n_pad the library's. A hook for
-    the tests; the backward wrappers run the pass inside their own launch.
+    the tests; the backward wrapper runs the pass inside its own launch.
     CPU tensors run `attention_bwd_stats_ref`."""
     if o.device.type == "cpu":
         return attention_bwd_stats_ref(o, do, lse)
@@ -551,14 +429,32 @@ def flash_attention_packed_bwd(q: torch.Tensor, k: torch.Tensor,
     """Launch the CUDA flash-attention backward (kernel 4).
 
     q/k/v/o/do: [B, N, H, D] bf16 (strided views welcome), lse: [B, H, N]
-    f32 from `flash_attention_packed_lse`. Returns the packed gradient
-    [B, N, 3, H, D] bf16, whose slots 0/1/2 are dq/dk/dv: the gradient of
-    the qkv projection's output. Counts each launch in
-    `flash_attention_packed_bwd.launches`.
+    f32 from `flash_attention_packed_lse`. One launch of
+    flash_attn_bwd_bf16: the stats pass, then the dk/dv and the dq kernels,
+    writing into the three slots of the packed gradient [B, N, 3, H, D]
+    bf16 that it returns, the gradient of the qkv projection's output (dq,
+    dk, dv). Counts each launch in `flash_attention_packed_bwd.launches`.
     """
     b, n, h, d = q.shape
+    _check_lse(lse, q)
+    check_kernel_inputs(q, k, v, ("o", o), ("do", do))
+    _check_same_device(lse, "lse", q)
+    scratch = _bwd_scratch(q)
     grad = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
-    _launch_bwd(q, k, v, o, lse, do, *grad.unbind(2))
+    dq, dk, dv = grad.unbind(2)
+    strides = [s for x in (q, k, v, o, do, dq, dk, dv) for s in x.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _kernels()["bwd"](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, n, h, d,
+            (ctypes.c_longlong * len(strides))(*strides),
+            1.0 / math.sqrt(d), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attn_bwd_bf16 launch failed with CUDA error {rc} "
+            f"(B={b}, N={n}, H={h}, D={d})")
     flash_attention_packed_bwd.launches += 1
     return grad
 
@@ -566,54 +462,27 @@ def flash_attention_packed_bwd(q: torch.Tensor, k: torch.Tensor,
 flash_attention_packed_bwd.launches = 0
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
-                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel 6, the head-major attention backward (the JAX package's
-    `flash_attention_bwd`): dq, dk and dv, three contiguous [B, N, H, D]
-    tensors in q's dtype, from q/k/v/o/do [B, N, H, D] and lse [B, H, N]
-    (natural log, from `flash_attention_fwd_lse`).
-
-    On CUDA it launches csrc/flash_attn_bwd.cu (FlashAttention-2's dk/dv +
-    dq split, the TPU's `fused=False` pair; bf16) on the given views. CPU
-    tensors run `attention_bwd_ref`. Counts each launch in
-    `flash_attention_bwd.launches`."""
-    if q.device.type == "cpu":
-        dq, dk, dv = attention_bwd_ref(q, k, v, o, lse, do)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-    grads = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
-                  for _ in range(3))
-    _launch_bwd(q, k, v, o, lse, do, *grads)
-    flash_attention_bwd.launches += 1
-    return grads
-
-
-flash_attention_bwd.launches = 0
-
-
 def _contiguous_do(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return dout.contiguous() if _layout_error("do", dout, out.shape) else dout
 
 
 @torch.library.custom_op("ovmono3d::train_attention", mutates_args=())
-def train_attention(qkv: torch.Tensor, packed: bool
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+def train_attention(qkv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The training forward over the packed qkv tensor [B, N, 3, H, D]:
     out [B, N, H, D] in qkv's dtype and lse [B, H, N] f32 (natural log).
 
     One operator (`torch.ops.ovmono3d.train_attention`), so a selective
     checkpoint policy can name it and keep its outputs (models/vit.py's
     "dots_attn", the JAX package's checkpoint_name tags on the flash
-    forward's out and lse). On CUDA it launches kernel 3 (`packed`) or the
-    head-major kernel 5; on the CPU it is `attention_ref` with the rows'
-    lse (`attention_lse_ref`'s), and `_train_attention_cpu.runs` counts its
-    runs. Its backward is kernel 4 (`packed`) or 6 on CUDA and
-    `attention_bwd_ref` on the CPU."""
+    forward's out and lse). On CUDA it launches kernel 3; on the CPU it is
+    `attention_ref` with the rows' lse (`attention_lse_ref`'s), and
+    `_train_attention_cpu.runs` counts its runs. Its backward is kernel 4
+    on CUDA and `attention_bwd_ref` on the CPU."""
     raise NotImplementedError(f"no training attention on {qkv.device}")
 
 
 @train_attention.register_kernel("cpu")
-def _train_attention_cpu(qkv: torch.Tensor, packed: bool):
+def _train_attention_cpu(qkv: torch.Tensor):
     # attention_ref's math (probabilities in v's dtype before PV, as the JAX
     # package's attention_xla that its CPU training differentiates), with
     # the row log-sum-exp of the same logits.
@@ -630,16 +499,13 @@ _train_attention_cpu.runs = 0
 
 
 @train_attention.register_kernel("cuda")
-def _train_attention_cuda(qkv: torch.Tensor, packed: bool):
-    if packed:
-        return flash_attention_packed_lse(*qkv.unbind(2))
-    return flash_attention_fwd_lse(*qkv.unbind(2))
+def _train_attention_cuda(qkv: torch.Tensor):
+    return flash_attention_packed_lse(*qkv.unbind(2))
 
 
 def _train_attention_setup(ctx, inputs, output) -> None:
-    qkv, packed = inputs
+    qkv, = inputs
     out, lse = output
-    ctx.packed = packed
     ctx.mark_non_differentiable(lse)
     ctx.save_for_backward(qkv, out, lse)
 
@@ -650,14 +516,9 @@ def _train_attention_bwd(ctx, dout: torch.Tensor, _dlse):
     q, k, v = qkv.unbind(2)
     if qkv.device.type == "cpu":
         grads = attention_bwd_ref(q, k, v, out, lse, dout)
-        return torch.stack(grads, dim=2).to(qkv.dtype), None
-    do = _contiguous_do(dout, out)
-    if ctx.packed:
-        return flash_attention_packed_bwd(q, k, v, out, lse, do), None
-    # The head-major pair's dq, dk and dv stacked into one gradient (a copy
-    # the packed pair does not make).
-    return torch.stack(flash_attention_bwd(q, k, v, out, lse, do),
-                       dim=2), None
+        return torch.stack(grads, dim=2).to(qkv.dtype)
+    return flash_attention_packed_bwd(q, k, v, out, lse,
+                                      _contiguous_do(dout, out))
 
 
 train_attention.register_autograd(_train_attention_bwd,
@@ -667,20 +528,15 @@ train_attention.register_autograd(_train_attention_bwd,
 def dot_product_attention(qkv: torch.Tensor) -> torch.Tensor:
     """Attention for the ViT trunks: the qkv projection's output viewed as
     [B, N, 3, H, D] -> [B, N, H, D], routed as the module docstring says."""
-    q, k, v = qkv.unbind(2)
     if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention path for device {qkv.device}")
-    _, n, h, d = q.shape
     if torch.is_grad_enabled() and qkv.requires_grad:
         if qkv.device.type == "cuda" and qkv.dtype == torch.float32:
             raise NotImplementedError(_F32_NO_GRAD)
-        return train_attention(qkv, _use_packed(n, h, d)
-                               and _packed_bwd_wins())[0]
+        return train_attention(qkv)[0]
     if qkv.device.type == "cpu":
-        return attention_ref(q, k, v)
-    if _use_packed(n, h, d):
-        return flash_attention_packed(q, k, v)
-    return flash_attention(q, k, v)
+        return attention_ref(*qkv.unbind(2))
+    return flash_attention_packed(*qkv.unbind(2))
 
 
 _REL_POS_FWD_ONLY = ("rel_pos_flash_attention is forward-only; "

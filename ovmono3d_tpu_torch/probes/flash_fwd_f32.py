@@ -1,5 +1,5 @@
-"""The f32 flash-attention forward on the card (kernel 1's f32 instance, and
-kernel 2's f32 route, which launches the same C entry on head-major views):
+"""The f32 flash-attention forward on the card (kernel 1's f32 instance,
+whose wrapper also serves the JAX package's head-major kernel 2 in f32):
 csrc/flash_attn_fwd.cu `flash_attn_fwd_f32` against f32
 F.scaled_dot_product_attention.
 
@@ -37,7 +37,7 @@ from ovmono3d_tpu_torch.probes import (PEAK_BYTES, PEAK_F32_FLOPS, card,
 
 # f32 Depth-Pro's image and FOV encoders (B = 1, 48 launches an image) and
 # its patch encoder (the 35 pyramid crops, 24 launches an image); the f32
-# LIFT trunk through kernel 2.
+# LIFT trunk.
 SHAPES = {"depth_pro": (1, 577, 16, 64),
           "depth_pro_patches": (35, 577, 16, 64),
           "trunk": (1, 4097, 12, 64)}

@@ -1,9 +1,9 @@
 """The port's training attention: the plain forward-with-lse and backward
 against autograd and against the JAX package's TPU kernels (Pallas interpret
 mode), the backward's stats pass (delta, lse2) against the JAX package's,
-the wrappers' checks on the CPU, and on the card (marker `cuda`) kernels 3,
-4 and 6, the stats pass, the mma.sync yardstick and the autograd Function
-against the plain versions.
+the wrappers' checks on the CPU, and on the card (marker `cuda`) kernels 3
+and 4 (also on the storage orders of the JAX package's head-major kernel
+6), the stats pass and the autograd Function against the plain versions.
 
 JAX is imported inside the fixture that needs it, so the `cuda` tests also
 run where JAX is not installed:
@@ -178,9 +178,6 @@ def test_probe_bound_is_the_backward_flops():
     bound, by = bwd_probe.bound_ms((1, 4097, 12, 64))
     assert by == "operations" and abs(bound - 0.13026) < 1e-4
     assert set(bwd_probe.SHAPES) == {"trunk", "train_b8", "long", "ragged"}
-    with pytest.raises(ValueError, match="CUDA"):
-        q, k, v = _packed(1, 40, 2, 64).unbind(2)
-        bwd_probe.mma_bwd(q, k, v, q, torch.zeros(1, 2, 40), q)
 
 
 @pytest.mark.parametrize("n_pad", [None, 40, 128])
@@ -317,8 +314,9 @@ def test_kernels_3_4_take_any_strides_on_cuda(cuda_device):
         _check_kernels(q, k, v, do)
 
 
-# Kernel 6 (and the stats pass, and the yardstick) at the wgmma design's
-# tile edges: 64-row stages, 128-row units; N = 4097 ends on a one-row tile.
+# Kernel 4 on kernel 6's storage orders (and the stats pass) at the wgmma
+# design's tile edges: 64-row stages, 128-row units; N = 4097 ends on a
+# one-row tile.
 EDGE_NS = [64, 128, 129, 77, 4097]
 
 
@@ -344,13 +342,13 @@ def _headmajor(b, n, h, d, device, seed, layout=(0, 1, 2, 3)):
 def test_kernel_6_matches_plain_on_contiguous_storage(cuda_device, n):
     b = 1 if n > 1000 else 2
     q, k, v, do = _headmajor(b, n, 12, 64, cuda_device, seed=n)
-    o, lse = tattn.flash_attention_fwd_lse(q, k, v)
-    launches = tattn.flash_attention_bwd.launches
-    grads = tattn.flash_attention_bwd(q, k, v, o, lse, do)
+    o, lse = tattn.flash_attention_packed_lse(q, k, v)
+    launches = tattn.flash_attention_packed_bwd.launches
+    grad = tattn.flash_attention_packed_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
-    assert tattn.flash_attention_bwd.launches == launches + 1
-    assert all(g.is_contiguous() for g in grads)
-    _check_grads(grads, q, k, v, o, lse, do)
+    assert tattn.flash_attention_packed_bwd.launches == launches + 1
+    assert grad.is_contiguous()
+    _check_grads(grad.unbind(2), q, k, v, o, lse, do)
 
 
 @pytest.mark.cuda
@@ -360,26 +358,9 @@ def test_kernel_6_takes_unsorted_strides(cuda_device, layout):
     stride is the largest: the tensor maps sort the dims by stride."""
     q, k, v, do = _headmajor(2, 129, 4, 64, cuda_device, seed=9,
                              layout=layout)
-    o, lse = tattn.flash_attention_fwd_lse(q, k, v)
-    _check_grads(tattn.flash_attention_bwd(q, k, v, o, lse, do),
-                 q, k, v, o, lse, do)
+    o, lse = tattn.flash_attention_packed_lse(q, k, v)
     _check_grads(tattn.flash_attention_packed_bwd(q, k, v, o, lse,
                                                   do).unbind(2),
-                 q, k, v, o, lse, do)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", EDGE_NS)
-def test_mma_yardstick_matches_plain_on_cuda(cuda_device, n):
-    q, k, v = _packed(1, n, 12, 64, device=cuda_device, seed=n).unbind(2)
-    do = _packed(1, n, 12, 64, device=cuda_device, seed=n + 1)[:, :, 0]
-    o, lse = tattn.flash_attention_packed_lse(q, k, v)
-    launches = tattn.flash_attention_packed_bwd.launches
-    grad = bwd_probe.mma_bwd(q, k, v, o, lse, do)
-    torch.cuda.synchronize()
-    assert tattn.flash_attention_packed_bwd.launches == launches
-    _check_grads(grad.unbind(2), q, k, v, o, lse, do)
-    _check_grads(bwd_probe.mma_bwd(q, k, v, o, lse, do, packed=False),
                  q, k, v, o, lse, do)
 
 
@@ -389,7 +370,7 @@ def test_mma_yardstick_matches_plain_on_cuda(cuda_device, n):
 def test_bwd_stats_kernel_matches_plain_on_cuda(cuda_device, n, d):
     q, k, v = _packed(2, n, 3, d, device=cuda_device, seed=n).unbind(2)
     do = _packed(2, n, 3, d, device=cuda_device, seed=n + 1)[:, :, 1]
-    o, lse = tattn.flash_attention_fwd_lse(q, k, v)
+    o, lse = tattn.flash_attention_packed_lse(q, k, v)
     got = tattn._bwd_stats(o, do, lse)
     assert got.shape[:3] == (2, 2, 3) and got.shape[-1] >= n
     want = tattn.attention_bwd_stats_ref(o, do, lse, n_pad=got.shape[-1])

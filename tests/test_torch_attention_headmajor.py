@@ -1,10 +1,14 @@
-"""The port's head-major attention family (kernels 2, 5 and 6), its f32
-forward instance and its routing: the wrappers' plain paths on the CPU
-against the JAX package's TPU kernels in Pallas interpret mode, the copied
-gates against the JAX ones under both switches, the dispatcher and an f32
-Depth-Pro GEO request on the CPU, and on the card (marker `cuda`) each
-kernel against its plain version, the head-major autograd Function, the
-dispatcher's routes and the entry points' TF32 setting.
+"""The JAX package's head-major attention family (kernels 2, 5 and 6) in
+the port, the f32 forward instance and the routing. The port has no
+wrappers of its own for 2, 5 and 6: kernels 1, 3 and 4's wrappers take
+head-major strides. On the CPU: the plain versions against the JAX
+package's head-major TPU kernels in Pallas interpret mode, the dispatcher's
+output and qkv gradient against jax.vjp of the JAX dispatcher at shapes its
+gate sends head-major, the dispatcher on CPU tensors and an f32 Depth-Pro
+GEO request; on the card (marker `cuda`) the wrappers on head-major views
+against the plain versions and against packed views, the dispatcher's
+route at every shape, a block's gradients through head-major views and the
+entry points' TF32 setting.
 
 JAX is imported inside the fixture that needs it, so the `cuda` tests also
 run where JAX is not installed:
@@ -35,8 +39,7 @@ ROOT = Path(__file__).resolve().parents[1]
 # (tests/test_attention.py): 3 heads of 32 do not tile to 128 lanes.
 B, N, H, D = 2, 150, 3, 32
 WRAPPERS = (tattn.flash_attention_packed, tattn.flash_attention_packed_lse,
-            tattn.flash_attention_packed_bwd, tattn.flash_attention,
-            tattn.flash_attention_fwd_lse, tattn.flash_attention_bwd)
+            tattn.flash_attention_packed_bwd)
 
 
 @pytest.fixture(scope="module")
@@ -114,12 +117,12 @@ def test_flash_attention_matches_tpu_kernel_interpret(jattn, dtype):
     (jq, jk, jv), (tq, tk, tv) = _both(dtype, _arrays(n=3, seed=1))
     before = _counts()
     with _one_torch_thread():
-        got = tattn.flash_attention(tq, tk, tv)
+        got = tattn.attention_ref(tq, tk, tv)
     want = jattn.flash_attention(jq, jk, jv, block_q=64, interpret=True)
     assert got.dtype == tq.dtype and got.shape == (B, N, H, D)
     np.testing.assert_allclose(_np(got), _np(want), atol=FWD_TOL[dtype],
                                rtol=FWD_TOL[dtype])
-    assert _counts() == before       # the plain path on CPU tensors
+    assert _counts() == before       # no kernel on CPU tensors
 
 
 def _jax_lse_natural(jlse, n, clamp=50.0):
@@ -133,7 +136,8 @@ def test_flash_attention_fwd_lse_matches_tpu_kernel_interpret(jattn, dtype):
     (jq, jk, jv), (tq, tk, tv) = _both(dtype, _arrays(n=3, seed=2))
     before = _counts()
     with _one_torch_thread():
-        out, lse = tattn.flash_attention_fwd_lse(tq, tk, tv)
+        out, lse = tattn.attention_lse_ref(tq, tk, tv)
+        out = out.to(tq.dtype)
     jo, jlse = jattn.flash_attention_fwd_lse(jq, jk, jv, block_q=64,
                                              interpret=True)
     assert out.dtype == tq.dtype and lse.dtype == torch.float32
@@ -150,14 +154,16 @@ def test_flash_attention_fwd_lse_matches_tpu_kernel_interpret(jattn, dtype):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_flash_attention_bwd_matches_tpu_kernels_interpret(jattn, dtype,
                                                            fused):
-    """The port's kernel-6 wrapper (its plain path here) against the JAX
-    fused kernel and the split dq / dk-dv pair, each on its own forward's
-    residuals."""
+    """The plain backward (kernel 4's plain version, which kernel 6's
+    head-major route shares) against the JAX fused kernel and the split
+    dq / dk-dv pair, each on its own forward's residuals."""
     (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _both(dtype, _arrays(seed=3))
     before = _counts()
     with _one_torch_thread():
-        o, lse = tattn.flash_attention_fwd_lse(tq, tk, tv)
-        got = tattn.flash_attention_bwd(tq, tk, tv, o, lse, tdo)
+        o, lse = tattn.attention_lse_ref(tq, tk, tv)
+        got = [g.to(x.dtype) for g, x in zip(
+            tattn.attention_bwd_ref(tq, tk, tv, o.to(tq.dtype), lse, tdo),
+            (tq, tk, tv))]
     jo, jlse = jattn.flash_attention_fwd_lse(jq, jk, jv, block_q=64,
                                              interpret=True)
     want = jattn.flash_attention_bwd(jq, jk, jv, jo, jlse, jdo, block_q=64,
@@ -178,7 +184,7 @@ def test_lse_has_no_clamp(jattn):
     q, k, v = _arrays(n=3, seed=4, scale=32.0)    # logits ~ N(0, 32^2)
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     with _one_torch_thread():
-        _, lse = tattn.flash_attention_fwd_lse(tq, tk, tv)
+        _, lse = tattn.attention_lse_ref(tq, tk, tv)
     logits = torch.einsum("bqhd,bkhd->bhqk", tq.double(),
                           tk.double()) / math.sqrt(D)
     exact = torch.logsumexp(logits, dim=-1)
@@ -193,35 +199,47 @@ def test_lse_has_no_clamp(jattn):
     assert np.all(clamped[beyond] <= 50.0 + math.log(N) + 1e-3)
 
 
-GRID = [(n, h, d) for n in (4097, 6144, 6145) for h in (3, 12, 16)
-        for d in (32, 64, 80)]
+@pytest.mark.parametrize("d,h", [(64, 3), (32, 2)])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 128, 129])
+def test_training_attention_matches_jax_vjp(jattn, n, d, h):
+    """The dispatcher with a gradient (the training operator's CPU pair)
+    against jax.vjp of the JAX package's dot_product_attention on the CPU
+    (its XLA path), in f32: the output and the gradient of every qkv slot
+    within 1e-5, across the 64- and 128-row tile edges, at head groups the
+    JAX gate sends head-major (3 x 64 and 2 x 32 do not tile to 128
+    lanes)."""
+    import jax
+    import jax.numpy as jnp
 
-
-@pytest.mark.parametrize("packed_attn", [None, "1", "0"])
-@pytest.mark.parametrize("packed_bwd", [None, "auto", "1", "0"])
-def test_gates_match_jax(jattn, monkeypatch, packed_attn, packed_bwd):
-    for var, val in (("OVMONO3D_PACKED_ATTN", packed_attn),
-                     ("OVMONO3D_PACKED_BWD", packed_bwd)):
-        if val is None:
-            monkeypatch.delenv(var, raising=False)
-        else:
-            monkeypatch.setenv(var, val)
-    assert tattn._packed_bwd_wins() == jattn._packed_bwd_wins()
-    for n, h, d in GRID:
-        assert tattn._use_packed(n, h, d) == jattn._use_packed(n, h, d), (
-            n, h, d)
+    rng = np.random.default_rng(100 + n + d)
+    qkv = rng.standard_normal((2, n, 3, h, d)).astype(np.float32)
+    do = rng.standard_normal((2, n, h, d)).astype(np.float32)
+    jout, vjp = jax.vjp(jattn.dot_product_attention,
+                        *(jnp.asarray(qkv[:, :, i]) for i in range(3)))
+    jgrads = vjp(jnp.asarray(do))
+    tqkv = torch.from_numpy(qkv).requires_grad_()
+    before = _counts()
+    with _one_torch_thread():
+        out = tattn.dot_product_attention(tqkv)
+        out.backward(torch.from_numpy(do))
+    assert _counts() == before
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               atol=1e-5, rtol=0)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        np.testing.assert_allclose(tqkv.grad[:, :, i].numpy(),
+                                   np.asarray(jgrads[i]), atol=1e-5, rtol=0,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("shape", [(1, 33, 2, 64), (B, N, H, D),
                                    (1, 40, 4, 32)])
 @pytest.mark.parametrize("grad", [False, True])
-def test_dispatcher_cpu_stays_plain(monkeypatch, shape, grad):
-    """CPU tensors run the plain versions under every switch, at packed and
-    head-major shapes alike, and no kernel count moves: the output equals
+def test_dispatcher_cpu_stays_plain(shape, grad):
+    """CPU tensors run the plain versions at the shapes the JAX gate sends
+    to either family alike, and no kernel count moves: the output equals
     attention_ref's, and with a gradient the training operator's plain
     backward, attention_bwd_ref's gradient (from attention_lse_ref's lse),
     exactly."""
-    monkeypatch.setenv("OVMONO3D_PACKED_ATTN", "0")
     rng = np.random.default_rng(5)
     b, n, h, d = shape
     qkv = torch.from_numpy(rng.standard_normal((b, n, 3, h, d)).astype(
@@ -258,7 +276,7 @@ def test_kernel_checks_refuse(bad, match):
     ROADMAP item where an instance is missing."""
     q, k, v = _views(1, 40, 2, 64)
     kw = dict(dtypes=tattn._FWD_DTYPES, forward_only=True,
-              wrapper="flash_attention")
+              wrapper="flash_attention_packed")
     if bad == "f32_training":
         q, k, v = _views(1, 40, 2, 64, dtype=torch.float32)
         kw = {}
@@ -353,19 +371,30 @@ F32_SHAPES = [(1, 577, 16, 64), (35, 577, 16, 64), (2, 77, 12, 64),
               (B, N, H, D), (1, 4097, 12, 64)]
 
 
+def _headmajor_views(b, n, h, d, dtype=torch.bfloat16, device="cpu",
+                     seed=0, count=3):
+    """[B, N, H, D] views of [B, H, N, D] storage: the JAX package's
+    head-major [B*H, N, D] layout, read through its head stride N*D."""
+    g = torch.Generator().manual_seed(seed)
+    store = torch.randn(count, b, h, n, d, generator=g).to(dtype).to(device)
+    return tuple(x.transpose(1, 2) for x in store.unbind(0))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
 @pytest.mark.parametrize("shape", FWD_SHAPES)
 def test_kernel2_matches_plain_on_cuda(cuda_device, shape, dtype):
+    """Kernel 2, the JAX package's head-major inference forward: kernel 1's
+    wrapper on head-major views, bf16 and f32, counted as kernel 1."""
     td = DTYPES[dtype][1]
-    q, k, v = _views(*shape, dtype=td, device=cuda_device)
-    before = (tattn.flash_attention.launches,
-              tattn.flash_attention.launches_f32)
-    got = tattn.flash_attention(q, k, v)
+    q, k, v = _headmajor_views(*shape, dtype=td, device=cuda_device)
+    before = (tattn.flash_attention_packed.launches,
+              tattn.flash_attention_packed.launches_f32)
+    got = tattn.flash_attention_packed(q, k, v)
     torch.cuda.synchronize()
     f32 = td == torch.float32
-    assert (tattn.flash_attention.launches,
-            tattn.flash_attention.launches_f32) == (
+    assert (tattn.flash_attention_packed.launches,
+            tattn.flash_attention_packed.launches_f32) == (
         before[0] + (not f32), before[1] + f32)
     _close(got, tattn.attention_ref(q, k, v), "out", f32)
 
@@ -388,8 +417,9 @@ def test_kernel1_f32_matches_plain_on_cuda(cuda_device, shape):
 def test_f32_instance_edges_on_cuda(cuda_device, n, d):
     """The f32 instance at the 64-key tile's and 8-row group's edges, on
     packed views (token stride 3 H D) and on head-major views of a
-    [B, H, N, D] tensor (kernel 2's route), against f32 attention_ref, at a
-    small and at Depth-Pro's patch-encoder batch and heads."""
+    [B, H, N, D] tensor (the JAX package's kernel 2 layout), against f32
+    attention_ref, at a small and at Depth-Pro's patch-encoder batch and
+    heads."""
     for b, h in ((2, 3), (35, 16)):
         q, k, v = _views(b, n, h, d, dtype=torch.float32,
                          device=cuda_device, seed=n + d)
@@ -398,7 +428,7 @@ def test_f32_instance_edges_on_cuda(cuda_device, n, d):
         qh, kh, vh = (x.transpose(1, 2).contiguous().transpose(1, 2)
                       for x in (q, k, v))
         assert qh.stride(2) == n * d
-        _close(tattn.flash_attention(qh, kh, vh),
+        _close(tattn.flash_attention_packed(qh, kh, vh),
                tattn.attention_ref(qh, kh, vh), f"head-major {b, n, h, d}",
                True)
     torch.cuda.synchronize()
@@ -412,7 +442,7 @@ def test_f32_kernel_is_not_tf32_on_cuda(cuda_device):
     q, k, v = _views(2, 300, 2, 64, dtype=torch.float32, device=cuda_device,
                      seed=7)
     q = q * 20.0
-    got = tattn.flash_attention(q, k, v).double()
+    got = tattn.flash_attention_packed(q, k, v).double()
     want = tattn.attention_ref(q.double(), k.double(), v.double())
     assert (got - want).abs().max().item() <= 2e-5 * want.abs().max().item()
 
@@ -421,74 +451,72 @@ def test_f32_kernel_is_not_tf32_on_cuda(cuda_device):
 @pytest.mark.parametrize("shape", [(1, 4097, 12, 64), (B, N, H, D),
                                    (3, 65, 4, 32)])
 def test_kernels_5_6_match_plain_on_cuda(cuda_device, shape):
-    q, k, v = _views(*shape, device=cuda_device)
-    do = _views(*shape, device=cuda_device, seed=1)[0]
-    before = (tattn.flash_attention_fwd_lse.launches,
-              tattn.flash_attention_bwd.launches)
-    o, lse = tattn.flash_attention_fwd_lse(q, k, v)
+    """Kernels 5 and 6, the JAX package's head-major training pair: kernels
+    3 and 4's wrappers on head-major views (do too), counted as 3 and 4."""
+    q, k, v, do = _headmajor_views(*shape, device=cuda_device, count=4)
+    before = (tattn.flash_attention_packed_lse.launches,
+              tattn.flash_attention_packed_bwd.launches)
+    o, lse = tattn.flash_attention_packed_lse(q, k, v)
     want_o, want_lse = tattn.attention_lse_ref(q, k, v)
     _close(o, want_o, "o", False)
     _close(lse, want_lse, "lse", False)
-    grads = tattn.flash_attention_bwd(q, k, v, o, lse, do)
+    grad = tattn.flash_attention_packed_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     want = tattn.attention_bwd_ref(q, k, v, o, lse, do)
-    for g, w, name in zip(grads, want, ("dq", "dk", "dv")):
-        assert g.is_contiguous() and g.dtype == torch.bfloat16
+    assert grad.shape == (*shape[:2], 3, *shape[2:])
+    assert grad.dtype == torch.bfloat16
+    for g, w, name in zip(grad.unbind(2), want, ("dq", "dk", "dv")):
         _close(g, w, name, False)
-    assert (tattn.flash_attention_fwd_lse.launches,
-            tattn.flash_attention_bwd.launches) == (before[0] + 1,
-                                                    before[1] + 1)
+    assert (tattn.flash_attention_packed_lse.launches,
+            tattn.flash_attention_packed_bwd.launches) == (before[0] + 1,
+                                                           before[1] + 1)
 
 
 @pytest.mark.cuda
 def test_head_major_equals_packed_on_cuda(cuda_device):
-    """The two families run the same kernels on the same views: kernel 2
-    equals kernel 1, and 5 + 6 equal 3 + 4, bit for bit."""
+    """The wrappers read through strides: on head-major copies of packed
+    views (kernels 2, 5 and 6's layout) kernels 1, 3 and 4 give the packed
+    views' results bit for bit."""
     q, k, v = _views(1, 577, 16, 64, device=cuda_device)
     do = _views(1, 577, 16, 64, device=cuda_device, seed=1)[0]
-    assert torch.equal(tattn.flash_attention(q, k, v),
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                       for x in (q, k, v, do))
+    assert qh.stride(2) == 577 * 64 and q.stride(2) == 64
+    assert torch.equal(tattn.flash_attention_packed(qh, kh, vh),
                        tattn.flash_attention_packed(q, k, v))
-    o, lse = tattn.flash_attention_fwd_lse(q, k, v)
+    o, lse = tattn.flash_attention_packed_lse(qh, kh, vh)
     o3, lse3 = tattn.flash_attention_packed_lse(q, k, v)
     assert torch.equal(o, o3) and torch.equal(lse, lse3)
-    grad = tattn.flash_attention_packed_bwd(q, k, v, o, lse, do)
-    for g, g4 in zip(tattn.flash_attention_bwd(q, k, v, o, lse, do),
-                     grad.unbind(2)):
-        assert torch.equal(g, g4)
+    assert torch.equal(
+        tattn.flash_attention_packed_bwd(qh, kh, vh, o, lse, doh),
+        tattn.flash_attention_packed_bwd(q, k, v, o3, lse3, do))
 
 
-ROUTES = {  # (switches, shape) -> the wrapper that must launch
-    "packed": ({}, (1, 577, 16, 64)),
-    "switch": ({"OVMONO3D_PACKED_ATTN": "0"}, (1, 577, 16, 64)),
-    "bwd_switch": ({"OVMONO3D_PACKED_BWD": "0"}, (1, 577, 16, 64)),
-    "unpackable": ({}, (B, N, H, D)),
-    "long": ({}, (1, 6145, 2, 64)),
-}
+# Shapes the JAX gate sends to either family: 16 heads of 64 (packed), 3 of
+# 32 (head-major: no head group tiles to 128 lanes), N past 6144
+# (head-major, and differentiated through XLA in training).
+ROUTE_SHAPES = [(1, 577, 16, 64), (B, N, H, D), (1, 6145, 2, 64)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", sorted(ROUTES))
-def test_dispatcher_routes_as_jax_on_cuda(cuda_device, monkeypatch, route):
-    env, shape = ROUTES[route]
-    for var, val in env.items():
-        monkeypatch.setenv(var, val)
+@pytest.mark.parametrize("shape", ROUTE_SHAPES)
+def test_dispatcher_takes_kernels_1_3_4_at_every_shape_on_cuda(cuda_device,
+                                                               shape):
+    """One route on the card: kernel 1 without a gradient, kernels 3 + 4
+    with one, at every shape, and no other attention wrapper."""
     b, n, h, d = shape
     qkv = torch.randn(b, n, 3, h, d, device=cuda_device).to(torch.bfloat16)
-    packed_fwd = route in ("packed", "bwd_switch")
-    packed_bwd = route == "packed"
     before = _counts()
     with torch.no_grad():
         tattn.dot_product_attention(qkv)
     after = _counts()
-    assert after[0][0] - before[0][0] == int(packed_fwd)
-    assert after[3][0] - before[3][0] == int(not packed_fwd)
+    assert [a[0] - c[0] for a, c in zip(after, before)] == [1, 0, 0]
     qkv.requires_grad_()
     tattn.dot_product_attention(qkv).float().square().sum().backward()
     torch.cuda.synchronize()
     done = _counts()
-    for i, want in ((1, packed_bwd), (2, packed_bwd), (4, not packed_bwd),
-                    (5, not packed_bwd)):
-        assert done[i][0] - after[i][0] == int(want), (route, i)
+    assert [a[0] - c[0] for a, c in zip(done, after)] == [0, 1, 1]
+    assert qkv.grad.shape == qkv.shape
 
 
 @pytest.mark.cuda
@@ -499,13 +527,17 @@ def test_f32_training_raises_on_cuda(cuda_device):
         tattn.dot_product_attention(qkv)
 
 
+def _headmajor_qkv(qkv: torch.Tensor) -> torch.Tensor:
+    """qkv [B, N, 3, H, D] as a view of [3, B, H, N, D] storage."""
+    return qkv.permute(2, 0, 3, 1, 4).contiguous().permute(1, 3, 0, 2, 4)
+
+
 @pytest.mark.cuda
-def test_head_major_function_matches_plain_through_a_block(cuda_device,
-                                                           monkeypatch):
-    """One ViT block (trunk width, H=12) forward and backward through
-    HeadMajorAttention (OVMONO3D_PACKED_BWD=0) against autograd of
-    attention_ref: every gradient within 5e-2 of the plain one's norm."""
-    monkeypatch.setenv("OVMONO3D_PACKED_BWD", "0")
+def test_head_major_function_matches_plain_through_a_block(cuda_device):
+    """One ViT block (trunk width, H=12) forward and backward with its qkv
+    handed to the training operator as head-major views (kernels 5 + 6's
+    layout, run by 3 + 4) against autograd of attention_ref: every gradient
+    within 5e-2 of the plain one's norm."""
     torch.manual_seed(0)
     blk = Block(768, 12, device=cuda_device)
     with torch.no_grad():
@@ -517,14 +549,15 @@ def test_head_major_function_matches_plain_through_a_block(cuda_device,
         blk.norm2.weight.fill_(1.0)
     x = torch.randn(2, 577, 768, device=cuda_device)
     grads = {}
-    for name, fn in (("kernel", tattn.dot_product_attention),
+    for name, fn in (("kernel", lambda qkv: tattn.dot_product_attention(
+                         _headmajor_qkv(qkv))),
                      ("plain", lambda qkv: tattn.attention_ref(*qkv.unbind(2)))):
         blk.attn.attn_fn = fn
         blk.zero_grad()
         xi = x.clone().requires_grad_()
-        launches = tattn.flash_attention_bwd.launches
+        launches = tattn.flash_attention_packed_bwd.launches
         blk(xi).float().square().mean().backward()
-        assert tattn.flash_attention_bwd.launches - launches == (
+        assert tattn.flash_attention_packed_bwd.launches - launches == (
             name == "kernel")
         grads[name] = {"x": xi.grad.clone(),
                        **{n: p.grad.clone() for n, p in blk.named_parameters()}}
